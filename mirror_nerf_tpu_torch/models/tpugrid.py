@@ -1,0 +1,47 @@
+"""CP-grid field: CP-factorized grid encoder + the NGP heads (torch
+counterpart of `mirror_nerf_tpu/models/tpugrid.py`; `--model_type
+nerf_tpu`)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..ops.cpgrid import CPGridSpec, cpgrid_encode, init_cpgrid
+from .ngp import NGPField
+
+
+@dataclass(frozen=True)
+class TPUGridField(NGPField):
+    # (resolution, rank) per scale
+    grid_levels: Tuple[Tuple[int, int], ...] = ((64, 64), (256, 64),
+                                                (512, 64))
+
+    @property
+    def cp_spec(self) -> CPGridSpec:
+        return CPGridSpec(levels=self.grid_levels, n_features=32)
+
+    @property
+    def supports_fused_cp(self) -> bool:
+        """The fused composite kernel (ops/fused_cp.py) hard-codes these
+        net dims; other dims take the unfused path."""
+        return (self.predict_normal and self.predict_mirror_mask
+                and self.geo_feat_dim == 15 and self.hidden_dim == 64
+                and self.num_layers == 2 and self.num_layers_color == 3
+                and self.hidden_dim_color == 64 and self.sh_degree == 4)
+
+    @property
+    def in_dim(self) -> int:
+        return self.cp_spec.output_dim  # 32
+
+    def _init_grid(self, generator, device) -> dict:
+        return init_cpgrid(generator, self.cp_spec, device)
+
+    def density(self, params: dict, xyz: torch.Tensor):
+        """Raw world coords in [-bound, bound] → (σ raw, geo_feat)."""
+        x01 = (xyz + self.bound) / (2.0 * self.bound)
+        return self._sigma_net(params,
+                               cpgrid_encode(params["grid"], x01,
+                                             self.cp_spec))

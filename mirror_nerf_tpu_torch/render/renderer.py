@@ -1,0 +1,216 @@
+"""Volume renderer (torch counterpart of `mirror_nerf_tpu/render/renderer.py`).
+
+Stratified coarse sampling, α-compositing, inverse-CDF fine resampling over
+the detached interior coarse weights, `test_time` / `fine_pass` semantics,
+mirror-mask and normal aggregation, surface points x = o + d·depth. The
+eval path runs the field through the fused CP kernel (`--fused_field`,
+ops/fused_cp.py); the unfused path composes the field modules. The
+σ-gradient normal (`compute_normal=True`) and the training-side detach
+variants come with the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..core.mathutil import l2_normalize
+from ..core.sampling import merge_fine_z_vals, stratified_z_vals
+
+_TRAINING_TODO = ("the σ-gradient normal (compute_normal=True) comes with "
+                  "the training slice: ROADMAP.md queue 1, item 1")
+
+
+@dataclass(frozen=True)
+class RenderSettings:
+    """Static knobs of one render_rays call."""
+
+    N_samples: int = 64
+    N_importance: int = 128
+    use_disp: bool = False
+    perturb: float = 1.0
+    noise_std: float = 1.0
+    white_back: bool = False
+    test_time: bool = False
+    # compute the σ-gradient (analytic) normal alongside density
+    compute_normal: bool = True
+    # "fine" | "coarse" (only_one_field past warm-up) | "none"
+    fine_pass: str = "fine"
+    # run the field through the fused CP kernel (eval path: engages when
+    # the σ-gradient normal is off)
+    fused_field: bool = False
+    # eval-only: no coarse proposal pass; one fine pass on
+    # N_samples + N_importance stratified samples
+    proposal_skip: bool = False
+    # σ -> density nonlinearity in compositing: "relu" | "softplus"
+    sigma_activation: str = "relu"
+
+    @property
+    def has_fine(self) -> bool:
+        return self.fine_pass != "none" and self.N_importance > 0
+
+
+def check_secondary_render(rs, rs_sec) -> None:
+    """A reduced secondary-bounce budget must keep the render's key
+    structure (has_fine) identical to the primary's."""
+    if rs_sec is None:
+        return
+    if rs_sec.has_fine != rs.has_fine:
+        raise ValueError(
+            f"secondary render budget (N_importance={rs_sec.N_importance}, "
+            f"fine_pass={rs_sec.fine_pass!r}) changes has_fine "
+            f"({rs_sec.has_fine}) vs the primary ({rs.has_fine}); use "
+            "secondary_N_importance >= 1 (or 0 only when the primary also "
+            "renders coarse-only)")
+
+
+def sigma_activation(sigmas: torch.Tensor, act: str) -> torch.Tensor:
+    """Raw σ -> nonnegative density: "relu" or a stable softplus
+    max(x, 0) + log1p(exp(−|x|))."""
+    if act == "softplus":
+        return torch.clamp_min(sigmas, 0.0) + torch.log1p(
+            torch.exp(-sigmas.abs()))
+    if act != "relu":
+        raise ValueError(f"unknown sigma activation {act!r}")
+    return torch.clamp_min(sigmas, 0.0)
+
+
+def _composite_weights(sigmas, z_vals, noise, act: str = "relu"):
+    """α-compositing weights from raw σ (δ_inf = 1e10 on the last sample,
+    transmittance a cumprod of 1 − α + 1e-10)."""
+    deltas = z_vals[:, 1:] - z_vals[:, :-1]
+    deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], -1)
+    alphas = 1.0 - torch.exp(-deltas * sigma_activation(sigmas + noise, act))
+    shifted = torch.cat(
+        [torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1)
+    return alphas * torch.cumprod(shifted[:, :-1], dim=-1)
+
+
+def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
+               rs: RenderSettings, results: dict, sigma_only: bool,
+               generator: Optional[torch.Generator] = None) -> dict:
+    n, s = z_vals.shape
+    if (rs.fused_field and not rs.compute_normal
+            and getattr(field, "supports_fused_cp", False)):
+        return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
+                                   results, sigma_only, rays_o, rays_d)
+    if rs.compute_normal:
+        raise NotImplementedError(_TRAINING_TODO)
+
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    sigma_flat, geo_flat = field.density(params, xyz.reshape(-1, 3))
+    sigmas = sigma_flat.reshape(n, s)
+
+    pred_normals = None
+    if field.predict_normal:
+        pred_normals = l2_normalize(
+            field.normal_head(params, geo_flat)).reshape(n, s, 3)
+    rgbs = is_mirrors = None
+    if not sigma_only:
+        dirs_flat = dirs.repeat_interleave(s, dim=0)
+        rgbs = field.color(params, geo_flat, dirs_flat).reshape(n, s, 3)
+        if field.predict_mirror_mask:
+            is_mirrors = field.mirror_head(params, geo_flat).reshape(n, s)
+
+    noise = (torch.randn(sigmas.shape, generator=generator,
+                         dtype=sigmas.dtype, device=sigmas.device)
+             * rs.noise_std if rs.noise_std > 0 else torch.zeros_like(sigmas))
+    weights = _composite_weights(sigmas, z_vals, noise, rs.sigma_activation)
+    weights_sum = weights.sum(-1)
+    results[f"weights_{typ}"] = weights
+    results[f"opacity_{typ}"] = weights_sum
+    results[f"z_vals_{typ}"] = z_vals
+    if sigma_only:
+        return results
+
+    rgb_map = (weights[..., None] * rgbs).sum(1)
+    if rs.white_back:
+        rgb_map = rgb_map + (1.0 - weights_sum[:, None])
+    results[f"rgb_{typ}"] = rgb_map
+    results[f"depth_{typ}"] = (weights * z_vals).sum(-1)
+    if is_mirrors is not None:
+        results[f"mirror_mask_{typ}"] = (weights * is_mirrors).sum(-1)
+    if pred_normals is not None:
+        results[f"pred_normal_{typ}"] = pred_normals
+        results[f"surface_normal_{typ}"] = (
+            pred_normals * weights[..., None]).sum(1)
+    return results
+
+
+def _inference_fused_cp(field, params, typ, z_vals, dirs, rs, results,
+                        sigma_only, ray_o, ray_d) -> dict:
+    """Eval-path inference for the CP-grid field through the fused kernel
+    with in-kernel compositing (weights + per-ray render). Forward-only;
+    eval semantics (noise_std == 0)."""
+    from ..ops.fused_cp import fused_cp_rays_composite
+
+    if rs.noise_std != 0:
+        raise NotImplementedError(
+            "the per-sample CP kernel for σ-noise passes (JAX "
+            "fused_cp.py:314 `_kernel`) is not ported yet: ROADMAP.md "
+            "queue 2, item 3")
+    res = fused_cp_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
+                                  sigma_only=sigma_only,
+                                  sigma_act=rs.sigma_activation)
+    weights = res["weights"]
+    results[f"weights_{typ}"] = weights
+    results[f"z_vals_{typ}"] = z_vals
+    if sigma_only:
+        results[f"opacity_{typ}"] = weights.sum(-1)
+        return results
+    results[f"opacity_{typ}"] = res["opacity"]
+    rgb_map = res["rgb"]
+    if rs.white_back:
+        rgb_map = rgb_map + (1.0 - res["opacity"][:, None])
+    results[f"rgb_{typ}"] = rgb_map
+    results[f"depth_{typ}"] = res["depth"]
+    if field.predict_mirror_mask:
+        results[f"mirror_mask_{typ}"] = res["mirror"]
+    if field.predict_normal:
+        results[f"surface_normal_{typ}"] = res["normal"]
+    return results
+
+
+def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
+                generator: Optional[torch.Generator] = None) -> dict:
+    """Render a (N, 8) = [o, d, near, far] ray batch through the
+    coarse(+fine) fields; result keys suffixed _coarse/_fine. `generator`
+    draws the perturbation and σ noise when `rs` asks for them."""
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    dirs = rays_d
+
+    if rs.proposal_skip and rs.has_fine:
+        z_all = stratified_z_vals(near, far, rs.N_samples + rs.N_importance,
+                                  rs.use_disp, rs.perturb, generator)
+        results: dict = {}
+        typ = "coarse" if rs.fine_pass == "coarse" else "fine"
+        _inference(field, params[typ], typ, rays_o, rays_d, z_all, dirs, rs,
+                   results, False, generator=generator)
+        results[f"x_surface_{typ}"] = (
+            rays_o + rays_d * results[f"depth_{typ}"][:, None])
+        return results
+
+    z_vals = stratified_z_vals(near, far, rs.N_samples, rs.use_disp,
+                               rs.perturb, generator)
+    results = {}
+    coarse_sigma_only = rs.test_time and rs.has_fine
+    _inference(field, params["coarse"], "coarse", rays_o, rays_d, z_vals,
+               dirs, rs, results, coarse_sigma_only, generator=generator)
+
+    if rs.has_fine:
+        z_fine = merge_fine_z_vals(z_vals, results["weights_coarse"],
+                                   rs.N_importance, rs.perturb, generator)
+        # fine_pass "coarse" (only_one_field past warm-up) overwrites the
+        # coarse results with a second pass of the coarse field
+        typ = "coarse" if rs.fine_pass == "coarse" else "fine"
+        _inference(field, params[typ], typ, rays_o, rays_d, z_fine, dirs,
+                   rs, results, False, generator=generator)
+
+    for typ in ("coarse", "fine"):
+        if f"depth_{typ}" in results:
+            results[f"x_surface_{typ}"] = (
+                rays_o + rays_d * results[f"depth_{typ}"][:, None])
+    return results

@@ -1,0 +1,150 @@
+#!/usr/bin/env python
+"""Profile one 800×800 level-2 view of the PyTorch + CUDA port.
+
+    python3 tools/profile_view_torch.py            # on a CUDA card
+    python3 tools/profile_view_torch.py --cpu 48   # CPU rehearsal, 48×48
+
+Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 nerf_tpu
+flags, seeded and all-mirror weights) through `run_view`: one warm view,
+three timed ones, then one under `torch.profiler`. From the exported trace
+it prints, per weight set:
+
+  * the trace span: first to last CPU-op or device event;
+  * device busy time: the union of the kernel, memcpy and memset intervals;
+  * the idle share, 1 − busy / span;
+  * device time and call count by kernel name.
+
+Imports only the port (`mirror_nerf_tpu_torch`), never JAX. The CPU
+rehearsal uses small CP levels and reports no device numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def busy_union(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile(run, activities):
+    """Run `run()` under torch.profiler; return its wall (s) and the trace's
+    complete ("X") events."""
+    import torch
+
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return wall, [e for e in events if e.get("ph") == "X"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", type=int, metavar="SIZE", default=0,
+                    help="rehearse on the CPU at SIZE×SIZE with small levels")
+    opt = ap.parse_args(argv)
+
+    import torch
+
+    import chip_smoke as cs
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import fused_cp
+
+    size = opt.cpu or 800
+    dev = "cpu" if opt.cpu else "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if opt.cpu:
+        card = "CPU rehearsal (no device numbers)"
+    else:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    print(card, flush=True)
+
+    flags = cs.EVAL_FLAGS + ["--img_wh", str(size), str(size)]
+    if opt.cpu:
+        flags += ["--grid_levels", "16:8,32:8", "--chunk", "1024"]
+    cfg, args = get_opt(flags)
+    field = make_field(cfg)
+    ctx = AppContext.build(cfg, args, field, init_params(field, cfg, dev),
+                           dev)
+    rays_np = cs._view_rays(size)
+    sample = {"rays": rays_np}
+    mirror_ctx = replace(ctx, params={k: cs._all_mirror(v)
+                                      for k, v in ctx.params.items()})
+
+    for label, c in (("seeded", ctx), ("all-mirror", mirror_ctx)):
+        run_view(c, sample)  # warm
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run_view(c, sample)
+            walls.append(time.perf_counter() - t0)
+        n0 = fused_cp.launches
+        wall_prof, events = profile(lambda: run_view(c, sample), acts)
+        launches = fused_cp.launches - n0
+        dev_ev = [e for e in events if e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")]
+        cpu_ev = [e for e in events if e.get("cat") in
+                  ("cpu_op", "user_annotation", "python_function",
+                   "cuda_runtime")]
+        span_lo = min(e["ts"] for e in cpu_ev + dev_ev)
+        span = max(e["ts"] + e["dur"] for e in cpu_ev + dev_ev) - span_lo
+        busy = busy_union([(e["ts"], e["ts"] + e["dur"]) for e in dev_ev])
+        by_name = collections.defaultdict(lambda: [0, 0.0])
+        for e in dev_ev:
+            by_name[e["name"][:70]][0] += 1
+            by_name[e["name"][:70]][1] += e["dur"]
+        device = ("device: not measured" if opt.cpu else
+                  f"device busy (union) {busy / 1e3:.1f} ms, idle share "
+                  f"{1 - busy / span:.4f}")
+        print(f"=== {label}: unprofiled walls "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms -> "
+              f"{len(rays_np) / min(walls):.1f} rays/s; profiled wall "
+              f"{wall_prof * 1e3:.1f} ms, trace span {span / 1e3:.1f} ms, "
+              f"{device}; kernel launches {launches}; device events "
+              f"{len(dev_ev)} ({card})", flush=True)
+        for name, (cnt, dur) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:14]:
+            print(f"  {dur / 1e3:9.2f} ms {100 * dur / max(span, 1):5.1f}% "
+                  f"x{cnt:5d}  {name}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
