@@ -23,3 +23,26 @@ def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     w = l2_normalize(-d)
     cos = torch.sum(w * n, dim=-1, keepdim=True)
     return 2.0 * cos * n - w
+
+
+def binary_cross_entropy(p: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE on probabilities (the caller clamps p away from
+    {0, 1})."""
+    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+
+
+def mse(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
+
+
+def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return -10.0 * torch.log10(mse(pred, gt))
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of `values` where `mask` (broadcastable) is true; 0, not NaN, on
+    an empty selection (a batch without a mirror pixel)."""
+    mask = mask.to(values.dtype)
+    num = torch.sum(values * mask)
+    den = torch.sum(mask * torch.ones_like(values))
+    return num / torch.clamp_min(den, 1.0)

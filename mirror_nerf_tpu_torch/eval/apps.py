@@ -185,9 +185,9 @@ class AppContext:
         )
         if rs.compute_normal:
             raise NotImplementedError(
-                "tracing without --predict_normal needs the σ-gradient "
-                "normal, which comes with the training slice (ROADMAP.md "
-                "queue 1, item 1)")
+                "the eval tracer reflects about the predicted normal: "
+                "tracing without --predict_normal is not ported yet "
+                "(ROADMAP.md queue 1, item 10)")
         rs_sec = None
         sec_ns = args.secondary_N_samples
         sec_ni = args.secondary_N_importance

@@ -7,6 +7,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..ops.cpgrid import CPGridSpec, cpgrid_encode, init_cpgrid
@@ -33,6 +34,14 @@ class TPUGridField(NGPField):
                 and self.hidden_dim_color == 64 and self.sh_degree == 4)
 
     @property
+    def supports_fused_train(self) -> bool:
+        """The fused density + ∇σ kernels (ops/fused_cp_train.py) hard-code
+        the 2-layer, 64-wide σ-net with 15 geo features; any grid levels
+        and bound work."""
+        return (self.num_layers == 2 and self.hidden_dim == 64
+                and self.geo_feat_dim == 15)
+
+    @property
     def in_dim(self) -> int:
         return self.cp_spec.output_dim  # 32
 
@@ -41,7 +50,13 @@ class TPUGridField(NGPField):
 
     def density(self, params: dict, xyz: torch.Tensor):
         """Raw world coords in [-bound, bound] → (σ raw, geo_feat)."""
-        x01 = (xyz + self.bound) / (2.0 * self.bound)
+        # × the fp32 reciprocal of 2·bound, which is how PyTorch divides a
+        # CUDA tensor by a scalar: written out, the CPU (which would divide)
+        # puts every sample in the same grid cell as the card and as the
+        # train kernel. ∇σ jumps across cell boundaries, so a sample within
+        # an ulp of a node must not switch cells between devices.
+        inv = float(np.float32(1.0) / np.float32(2.0 * self.bound))
+        x01 = (xyz + self.bound) * inv
         return self._sigma_net(params,
                                cpgrid_encode(params["grid"], x01,
                                              self.cp_spec))

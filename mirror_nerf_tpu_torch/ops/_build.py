@@ -23,7 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-build_seconds: dict = {}  # name -> seconds of the nvcc run (0.0 if cached)
+# name -> seconds of the nvcc run (0.0 when the first load found the library)
+build_seconds: dict = {}
 build_log: dict = {}  # name -> nvcc output (ptxas registers / spills)
 
 
@@ -49,7 +50,7 @@ def load_library(name: str) -> ctypes.CDLL:
     h.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if so.exists():
-        build_seconds[name] = 0.0
+        build_seconds.setdefault(name, 0.0)
     else:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,3 +64,13 @@ def load_library(name: str) -> ctypes.CDLL:
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = proc.stdout + proc.stderr
     return ctypes.CDLL(str(so))
+
+
+def build_libraries(names) -> dict:
+    """Build (if needed) and load several libraries at once, one nvcc
+    process each; returns name -> ctypes library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

@@ -72,3 +72,15 @@ def cpgrid_encode(params: dict, x01: torch.Tensor,
         per_level.append(prod)
     feats = torch.cat(per_level, dim=-1)
     return feats @ params["fold"]
+
+
+def cpgrid_tv_loss(params: dict) -> torch.Tensor:
+    """Mean squared difference of adjacent table rows over all axes and
+    levels (the 1-D analog of the hash grid's total-variation prior)."""
+    total, n = 0.0, 0
+    for tables in params["axes"]:
+        for t in tables:
+            d = t[1:] - t[:-1]
+            total = total + torch.sum(d * d)
+            n += d.numel()
+    return total / max(n, 1)

@@ -26,6 +26,7 @@ import torch
 
 from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
+from ..train.checkpoints import tree_leaves
 
 _LIB = "fused_cp_composite"
 _ACTS = ("relu", "softplus")
@@ -148,8 +149,12 @@ def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
                 f"got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (rays_o, rays_d, z_vals)):
-        raise ValueError("the fused CP kernel is forward-only")
+            t.requires_grad for t in (*ins.values(), *tree_leaves(params))):
+        raise ValueError(
+            "the fused CP composite kernel is forward-only, and an input or "
+            "a parameter requires grad: run it under torch.no_grad(), or "
+            "train through the differentiable kernels of "
+            "ops/fused_cp_train.py")
     levels = tuple(field.grid_levels)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev)
     per_ray = None if sigma_only else torch.empty(

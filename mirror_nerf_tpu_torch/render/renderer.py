@@ -1,12 +1,15 @@
 """Volume renderer (torch counterpart of `mirror_nerf_tpu/render/renderer.py`).
 
-Stratified coarse sampling, α-compositing, inverse-CDF fine resampling over
-the detached interior coarse weights, `test_time` / `fine_pass` semantics,
-mirror-mask and normal aggregation, surface points x = o + d·depth. The
-eval path runs the field through the fused CP kernel (`--fused_field`,
-ops/fused_cp.py); the unfused path composes the field modules. The
-σ-gradient normal (`compute_normal=True`) and the training-side detach
-variants come with the training slice.
+Stratified coarse sampling, α-compositing with σ-noise, inverse-CDF fine
+resampling over the detached interior coarse weights, `test_time` /
+`fine_pass` semantics, mirror-mask and normal aggregation with the
+reference's stop-gradient variants, surface points x = o + d·depth.
+
+The field runs one of three ways: the eval kernel with in-kernel
+compositing (`fused_field`, forward-only, ops/fused_cp.py); the training
+kernels for density + ∇σ or density alone (`fused_density`,
+ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
+normal by `torch.autograd.grad` (`density_with_grad_reference`).
 """
 
 from __future__ import annotations
@@ -18,10 +21,6 @@ import torch
 
 from ..core.mathutil import l2_normalize
 from ..core.sampling import merge_fine_z_vals, stratified_z_vals
-
-_TRAINING_TODO = ("the σ-gradient normal (compute_normal=True) comes with "
-                  "the training slice: ROADMAP.md queue 1, item 1")
-
 
 @dataclass(frozen=True)
 class RenderSettings:
@@ -38,9 +37,16 @@ class RenderSettings:
     compute_normal: bool = True
     # "fine" | "coarse" (only_one_field past warm-up) | "none"
     fine_pass: str = "fine"
+    # stop-gradient plumbing (reference opt.py:211-221)
+    detach_density_outside_mirror_for_mask_loss: bool = False
+    detach_density_for_mask_loss: bool = False
+    detach_density_for_normal_loss: bool = False
     # run the field through the fused CP kernel (eval path: engages when
     # the σ-gradient normal is off)
     fused_field: bool = False
+    # the training kernels for density + ∇σ (compute_normal) or density
+    # alone, differentiable incl. grad-of-grad (ops/fused_cp_train.py)
+    fused_density: bool = False
     # eval-only: no coarse proposal pass; one fine pass on
     # N_samples + N_importance stratified samples
     proposal_skip: bool = False
@@ -88,31 +94,71 @@ def _composite_weights(sigmas, z_vals, noise, act: str = "relu"):
     return alphas * torch.cumprod(shifted[:, :-1], dim=-1)
 
 
+def _gated_detach(x, keep_grad):
+    """x where keep_grad, else x with its gradient stopped (same values)."""
+    return torch.where(keep_grad, x, x.detach())
+
+
 def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                rs: RenderSettings, results: dict, sigma_only: bool,
+               mirror_mask_per_ray=None, gt_mask_valid=None,
                generator: Optional[torch.Generator] = None) -> dict:
     n, s = z_vals.shape
     if (rs.fused_field and not rs.compute_normal
             and getattr(field, "supports_fused_cp", False)):
         return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
                                    results, sigma_only, rays_o, rays_d)
-    if rs.compute_normal:
-        raise NotImplementedError(_TRAINING_TODO)
 
-    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    sigma_flat, geo_flat = field.density(params, xyz.reshape(-1, 3))
+    xyz_flat = (rays_o[:, None, :]
+                + rays_d[:, None, :] * z_vals[..., None]).reshape(-1, 3)
+    fused = rs.fused_density and getattr(field, "supports_fused_train",
+                                         False)
+    normals = None
+    if rs.compute_normal:
+        from ..ops.fused_cp_train import (density_with_grad_fused,
+                                          density_with_grad_reference)
+
+        # the plain version is the JAX package's _density_with_grad: ∇σ by
+        # autograd, differentiable (grad-of-grad) for the normal losses
+        sigma_flat, geo_flat, grad_flat = (
+            density_with_grad_fused if fused else
+            density_with_grad_reference)(field, params, xyz_flat)
+        normals = l2_normalize(-grad_flat).reshape(n, s, 3)
+    elif fused:
+        from ..ops.fused_cp_train import density_fused
+
+        sigma_flat, geo_flat = density_fused(field, params, xyz_flat)
+    else:
+        sigma_flat, geo_flat = field.density(params, xyz_flat)
     sigmas = sigma_flat.reshape(n, s)
+
+    keep_grad = None
+    if (rs.detach_density_outside_mirror_for_mask_loss
+            and mirror_mask_per_ray is not None):
+        # detach the samples outside the GT mirror, but only when the GT
+        # mask is valid: values are identical, only gradients are gated
+        keep_grad = ((mirror_mask_per_ray > 0.5)
+                     | ~gt_mask_valid)[:, None]  # (N, 1)
 
     pred_normals = None
     if field.predict_normal:
+        geo_n = (geo_flat.detach() if rs.detach_density_for_normal_loss
+                 else geo_flat)
         pred_normals = l2_normalize(
-            field.normal_head(params, geo_flat)).reshape(n, s, 3)
+            field.normal_head(params, geo_n)).reshape(n, s, 3)
     rgbs = is_mirrors = None
     if not sigma_only:
         dirs_flat = dirs.repeat_interleave(s, dim=0)
         rgbs = field.color(params, geo_flat, dirs_flat).reshape(n, s, 3)
         if field.predict_mirror_mask:
-            is_mirrors = field.mirror_head(params, geo_flat).reshape(n, s)
+            if rs.detach_density_for_mask_loss:
+                geo_m = geo_flat.detach()
+            elif keep_grad is not None:
+                geo_m = _gated_detach(
+                    geo_flat, keep_grad.expand(n, s).reshape(-1, 1))
+            else:
+                geo_m = geo_flat
+            is_mirrors = field.mirror_head(params, geo_m).reshape(n, s)
 
     noise = (torch.randn(sigmas.shape, generator=generator,
                          dtype=sigmas.dtype, device=sigmas.device)
@@ -131,11 +177,27 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
     results[f"rgb_{typ}"] = rgb_map
     results[f"depth_{typ}"] = (weights * z_vals).sum(-1)
     if is_mirrors is not None:
-        results[f"mirror_mask_{typ}"] = (weights * is_mirrors).sum(-1)
+        if rs.detach_density_for_mask_loss:
+            w_mask = weights.detach()
+        elif keep_grad is not None:
+            w_mask = _gated_detach(weights, keep_grad)
+        else:
+            w_mask = weights
+        results[f"mirror_mask_{typ}"] = (w_mask * is_mirrors).sum(-1)
+
+    w_normal = (weights.detach() if rs.detach_density_for_normal_loss
+                else weights)
+    if normals is not None:
+        results[f"normal_{typ}"] = normals
+        results[f"surface_normal_grad_{typ}"] = (
+            normals * w_normal[..., None]).sum(1)
     if pred_normals is not None:
         results[f"pred_normal_{typ}"] = pred_normals
         results[f"surface_normal_{typ}"] = (
-            pred_normals * weights[..., None]).sum(1)
+            pred_normals * w_normal[..., None]).sum(1)
+    if normals is not None and pred_normals is not None:
+        dif = ((normals - pred_normals) ** 2).sum(-1)
+        results[f"normal_dif_{typ}"] = (w_normal * dif).sum(-1)
     return results
 
 
@@ -174,31 +236,39 @@ def _inference_fused_cp(field, params, typ, z_vals, dirs, rs, results,
 
 
 def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                mirror_mask_gt: Optional[torch.Tensor] = None,
+                view_dirs: Optional[torch.Tensor] = None) -> dict:
     """Render a (N, 8) = [o, d, near, far] ray batch through the
     coarse(+fine) fields; result keys suffixed _coarse/_fine. `generator`
-    draws the perturbation and σ noise when `rs` asks for them."""
+    draws the perturbation and σ noise when `rs` asks for them;
+    `mirror_mask_gt` (N,) (−1 = no GT mask) gates the outside-mirror detach;
+    `view_dirs` overrides the color head's view direction."""
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
-    dirs = rays_d
+    dirs = rays_d if view_dirs is None else view_dirs
+    gt_valid = None
+    if mirror_mask_gt is not None:
+        gt_valid = (mirror_mask_gt >= 0).all()
 
+    def infer(typ, z, sigma_only):
+        _inference(field, params[typ], typ, rays_o, rays_d, z, dirs, rs,
+                   results, sigma_only, mirror_mask_gt, gt_valid,
+                   generator=generator)
+
+    results: dict = {}
     if rs.proposal_skip and rs.has_fine:
         z_all = stratified_z_vals(near, far, rs.N_samples + rs.N_importance,
                                   rs.use_disp, rs.perturb, generator)
-        results: dict = {}
         typ = "coarse" if rs.fine_pass == "coarse" else "fine"
-        _inference(field, params[typ], typ, rays_o, rays_d, z_all, dirs, rs,
-                   results, False, generator=generator)
+        infer(typ, z_all, False)
         results[f"x_surface_{typ}"] = (
             rays_o + rays_d * results[f"depth_{typ}"][:, None])
         return results
 
     z_vals = stratified_z_vals(near, far, rs.N_samples, rs.use_disp,
                                rs.perturb, generator)
-    results = {}
-    coarse_sigma_only = rs.test_time and rs.has_fine
-    _inference(field, params["coarse"], "coarse", rays_o, rays_d, z_vals,
-               dirs, rs, results, coarse_sigma_only, generator=generator)
+    infer("coarse", z_vals, rs.test_time and rs.has_fine)
 
     if rs.has_fine:
         z_fine = merge_fine_z_vals(z_vals, results["weights_coarse"],
@@ -206,8 +276,7 @@ def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
         # fine_pass "coarse" (only_one_field past warm-up) overwrites the
         # coarse results with a second pass of the coarse field
         typ = "coarse" if rs.fine_pass == "coarse" else "fine"
-        _inference(field, params[typ], typ, rays_o, rays_d, z_fine, dirs,
-                   rs, results, False, generator=generator)
+        infer(typ, z_fine, False)
 
     for typ in ("coarse", "fine"):
         if f"depth_{typ}" in results:
