@@ -9,8 +9,8 @@ each fatal on failure:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether nvcc and triton are present; TF32 off for the plain versions;
-  2. build both kernel libraries at once (one nvcc each), print the build
-     seconds and the compiler's register/spill report;
+  2. build the three kernel libraries at once (one nvcc each), print the
+     build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
      rays: S=128 full and S=64 σ-only, relu and softplus, plus a saturating
@@ -37,9 +37,28 @@ each fatal on failure:
      its last.ckpt.npz rendered through the eval CLI;
   8. one reflection-stage loss and backward on the card against the plain
      version on the CPU, from the same parameters: the loss and every
-     gradient leaf.
+     gradient leaf;
+  9. the flagship PE-MLP kernel vs its plain PyTorch version on the card,
+     default field (8×256, skip at 4, posenc 10/4, both heads; seeded
+     weights with the σ column |w|·5, and a saturating field, ×2000),
+     16384 strided rays of the 400×300 bench camera: S=128 full and S=64
+     σ-only, relu and softplus; S=80 and 192 on 2048 + 37 rays, both
+     variants; the instances for fields without the normal head, the
+     mirror head or both and with 6/2 posenc frequencies, and a render of
+     the head-less field with --fused_field (it must launch the kernel);
+     max abs error per output (scaled above 1), per-ray Σw ≤ 1 + 1e-5,
+     kernel and plain times beside the fp32 bound;
+ 10. the flagship eval path: the eval CLI (run.sh mode-1 nerf flags,
+     --fused_field) on a generated 64×64 scene from an npz and from a
+     reference-layout Lightning .ckpt of the same weights (equal PSNRs),
+     then one 400×300 level-2 view (the livingroom preset's size) through
+     run_view, seeded and all-mirror weights; the launch counter is reset
+     before the CLI and read right after the timed views; the card against
+     the plain version on the CPU on 256 rays.
 
-It prints one JSON line with the three kernels' numbers, the nvidia-smi name
+Each phase prints its wall time. The script prints one JSON line with the
+four kernels' numbers (each with the least time the card could take for the
+same work, `bound_ms`, counted from this run's shapes), the nvidia-smi name
 and power limit, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -88,6 +107,21 @@ EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far", "8",
               "--predict_mirror_mask", "--trace_secondary_rays",
               "--bound", "6", "--N_importance", "64", "--chunk", "16384",
               "--fused_field", "--max_recursive_level", "2"]
+# run.sh mode 1 with MODEL_TYPE=nerf (livingroom preset's near/far/bound;
+# --scale_factor only rescales real captures), plus --fused_field
+NERF_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
+                   "8", "--scale_factor", "6", "--model_type", "nerf",
+                   "--predict_normal", "--predict_mirror_mask",
+                   "--trace_secondary_rays", "--bound", "6",
+                   "--N_importance", "64", "--chunk", "16384",
+                   "--fused_field", "--max_recursive_level", "2"]
+# the least time the card could take (`bound_ms`): operations over the fp32
+# peak of the CUDA cores, bytes over the memory rate (NVIDIA H100 SXM data
+# sheet, dense, at 700 W). Operations count multiply-adds as 2 and leave out
+# transcendentals and compares; bytes count each input read once and each
+# output written once.
+PEAK_FP32 = 67e12  # FLOP/s
+PEAK_HBM = 3.35e12  # bytes/s
 
 
 def log(msg: str) -> None:
@@ -117,14 +151,17 @@ def phase_environment(torch):
 
 
 def phase_build():
-    from mirror_nerf_tpu_torch.ops import _build, fused_cp, fused_cp_train
+    from mirror_nerf_tpu_torch.ops import (_build, fused_cp, fused_cp_train,
+                                           fused_mlp_t)
 
-    names = (fused_cp._LIB, fused_cp_train._LIB)
+    mods = (fused_cp, fused_cp_train, fused_mlp_t)
+    names = [m._LIB for m in mods]
     t0 = time.perf_counter()
     _build.build_libraries(names)
-    fused_cp._library()
-    fused_cp_train._library()
-    log(f"[build] both libraries in {time.perf_counter() - t0:.1f} s wall")
+    for m in mods:
+        m._library()
+    log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} "
+        "s wall")
     for name in names:
         secs = _build.build_seconds[name]
         log(f"[build] {name}: {secs:.1f} s"
@@ -148,16 +185,63 @@ def _time_ms(torch, fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _view_rays(size: int):
-    """The bench camera (first pose of the procedural ring, 0.9 rad fov)."""
+def _bound(flop: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of operations over the fp32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = flop / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _cp_flop(sum_r: int, full: bool) -> int:
+    """Operations per sample of the CP composite kernel: per rank three
+    lerps (3 each), the three-axis product (2) and the fold into 32 features
+    (32 multiply-adds); the σ-net 32→64→16; the full variant adds color
+    31→64→64→3, normal 15→64→3 and mirror 15→32→1."""
+    f = sum_r * (9 + 2 + 2 * 32) + 2 * (32 * 64 + 64 * 16)
+    if full:
+        f += 2 * (31 * 64 + 64 * 64 + 64 * 3 + 15 * 64 + 64 * 3 + 15 * 32
+                  + 32)
+    return f
+
+
+def _cp_train_flop(sum_r: int) -> tuple:
+    """Operations per sample of the CP train kernels, tangent variant:
+    forward = the fold of e and of the three tangent streams (4 × 32
+    multiply-adds a rank), lerps, slopes and products (26 a rank), the σ-net
+    and its three tangent products 32→64 plus ∇σ; backward = that forward
+    (recomputed: the function takes no stash) plus its own products
+    (d_s1, d_s2, z̄1, ē, v, s1ᵀu: 12352 multiply-adds; u, pb, qv and the two
+    d_fold outer products: 5 × 32 a rank; 30 scalar ops a rank)."""
+    fwd = (sum_r * (4 * 2 * 32 + 26) + 2 * (32 * 64 + 64 * 16)
+           + 2 * (3 * 32 * 64 + 3 * 64))
+    bwd = fwd + 2 * (12352 + 5 * 32 * sum_r) + 30 * sum_r
+    return fwd, bwd
+
+
+# multiply-adds per sample of the flagship: trunk 63·256 + 6·256² + 319·256
+# and σ 256 (σ-only); + xyz_final 256², dir_enc 283·128, rgb 128·3, normal
+# 256·128 + 128·3, mirror 256·128 + 128 (full)
+MLP_MACS = {True: 491_264, False: 659_456}
+
+
+def _view_rays(w: int, h: int = None):
+    """The bench camera (first pose of the procedural ring, 0.9 rad fov
+    across the width), w×h rays."""
     import numpy as np
 
     from mirror_nerf_tpu_torch.core.rays import (get_ray_directions,
                                                  get_rays, make_ray_buffer)
     from mirror_nerf_tpu_torch.data.synthetic import camera_ring
 
-    focal = 0.5 * size / np.tan(0.5 * 0.9)
-    o, d = get_rays(get_ray_directions(size, size, focal), camera_ring(1)[0])
+    h = h or w
+    focal = 0.5 * w / np.tan(0.5 * 0.9)
+    o, d = get_rays(get_ray_directions(h, w, focal), camera_ring(1)[0])
     return make_ray_buffer(o, d, 0.05, 8.0)
 
 
@@ -222,11 +306,23 @@ def phase_kernel(torch, card: str) -> dict:
                 worst = max(worst, max(errs.values()))
                 if (pname, act, sigma_only) == ("seeded", "relu", False):
                     entry_ms, entry_plain = ms, plain_ms
+                    sum_r = sum(r for _, r in field.grid_levels)
+                    tables, _ = fused_cp._pack_tables(params,
+                                                      field.grid_levels)
+                    bound_ms, bound_by = _bound(
+                        n * z.shape[1] * _cp_flop(sum_r, True),
+                        _nbytes(o, d, d, z, tables,
+                                fused_cp._pack_nets(params),
+                                *got.values()))
+                    log(f"[kernel] bound at {tag}: {bound_ms:.3f} ms "
+                        f"({bound_by}); the kernel reaches "
+                        f"{bound_ms / ms * 100:.1f} %")
     return {"name": "fused_cp_composite", "route": "cuda",
             "source": "mirror_nerf_tpu_torch/csrc/fused_cp_composite.cu",
             "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp.py:363",
             "launches": 0, "max_abs_err": worst, "ms": entry_ms,
-            "plain_ms": entry_plain}
+            "plain_ms": entry_plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _rel(a, b) -> float:
@@ -362,6 +458,14 @@ def phase_train_kernels(torch, card: str):
             f"{times[(vname, 'plain', 'fwd')]:.3f} ms; forward+backward "
             f"kernels {times[(vname, 'kernel', 'fwd+bwd')]:.3f} ms, plain "
             f"{times[(vname, 'plain', 'fwd+bwd')]:.3f} ms")
+    sum_r = sum(r for _, r in field.grid_levels)
+    flop_f, flop_b = _cp_train_flop(sum_r)
+    p_bytes = _nbytes(*fct._param_args(seeded))
+    b_fwd = _bound(t * flop_f, _nbytes(x) + p_bytes + t * (1 + 15 + 3) * 4)
+    # in: x, the cotangents, the params; out: their grads and d_x
+    b_bwd = _bound(t * flop_b, 2 * _nbytes(x) + _nbytes(*cots) + 2 * p_bytes)
+    log(f"[train-kernels] bounds at T={t}: forward {b_fwd[0]:.3f} ms, "
+        f"backward {b_bwd[0]:.3f} ms ({b_fwd[1]}, {b_bwd[1]})")
     k_bwd = (times[("tangents", "kernel", "fwd+bwd")]
              - times[("tangents", "kernel", "fwd")])
     p_bwd = (times[("tangents", "plain", "fwd+bwd")]
@@ -372,12 +476,15 @@ def phase_train_kernels(torch, card: str):
                  "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp_train.py:248",
                  "launches": 0, "max_abs_err": abs_fwd,
                  "ms": times[("tangents", "kernel", "fwd")],
-                 "plain_ms": times[("tangents", "plain", "fwd")]}
+                 "plain_ms": times[("tangents", "plain", "fwd")],
+                 "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                 "library_ms": None}
     bwd_entry = {"name": "fused_cp_train_bwd", "route": "cuda",
                  "source": src,
                  "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp_train.py:257",
                  "launches": 0, "max_abs_err": abs_bwd,
-                 "ms": k_bwd, "plain_ms": p_bwd}
+                 "ms": k_bwd, "plain_ms": p_bwd, "bound_ms": b_bwd[0],
+                 "bound_by": b_bwd[1], "library_ms": None}
     return fwd_entry, bwd_entry
 
 
@@ -409,8 +516,8 @@ def phase_grad_guard(torch) -> None:
         fused_cp.fused_cp_rays_composite(field, params, o, d, d, z)
 
 
-def _check_against_plain(torch, ctx, rays_np):
-    """The main path on the card vs the plain version on the CPU, 1024 rays."""
+def _check_against_plain(torch, ctx, rays_np, n: int = 1024):
+    """The main path on the card vs the plain version on the CPU, n rays."""
     import numpy as np
 
     from mirror_nerf_tpu_torch.eval.apps import eval_trace
@@ -419,7 +526,7 @@ def _check_against_plain(torch, ctx, rays_np):
                                                          params_to_numpy)
 
     cpu_params = params_from_numpy(params_to_numpy(ctx.params))
-    sub = rays_np[::len(rays_np) // 1024][:1024]
+    sub = rays_np[::len(rays_np) // n][:n]
     with torch.no_grad():
         g = render_rays(ctx.field, ctx.params,
                         torch.from_numpy(sub).cuda(), ctx.rs)
@@ -427,7 +534,7 @@ def _check_against_plain(torch, ctx, rays_np):
         errs = {k: float((g[k].cpu() - c[k]).abs().max())
                 for k in ("rgb_fine", "depth_fine", "opacity_fine",
                           "mirror_mask_fine", "surface_normal_fine")}
-        log("[main] render_rays card vs plain CPU, 1024 rays, all-mirror "
+        log(f"[main] render_rays card vs plain CPU, {n} rays, all-mirror "
             f"weights (mean opacity {float(c['opacity_fine'].mean()):.3f}, "
             f"mean depth {float(c['depth_fine'].mean()):.3f}): max abs err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
@@ -451,13 +558,25 @@ def _check_against_plain(torch, ctx, rays_np):
         assert same.mean() >= 0.99 and err <= RENDER_ATOL, (same.mean(), err)
 
 
-def _all_mirror(params: dict) -> dict:
-    """Seeded weights with σ ≥ 0 everywhere and the mirror head biased on:
-    every ray is an opaque mirror at every level, the heaviest trace."""
+def _sigma_scaled(params: dict, scale: float) -> dict:
+    """The flagship's weights with the σ column made positive and scaled."""
     out = dict(params)
-    s2 = params["sigma_net"][1]["w"].clone()
-    s2[:, 0] = s2[:, 0].abs() * 5.0
-    out["sigma_net"] = [params["sigma_net"][0], {"w": s2}]
+    out["sigma"] = {"w": params["sigma"]["w"].abs() * scale,
+                    "b": params["sigma"]["b"]}
+    return out
+
+
+def _all_mirror(params: dict) -> dict:
+    """Seeded weights with σ ≥ 0 everywhere (the σ column |w|·5) and the
+    mirror head biased on (+5): every ray is an opaque mirror at every
+    level, the heaviest trace. CP-grid or flagship parameters."""
+    if "sigma" in params:
+        out = _sigma_scaled(params, 5.0)
+    else:
+        out = dict(params)
+        s2 = params["sigma_net"][1]["w"].clone()
+        s2[:, 0] = s2[:, 0].abs() * 5.0
+        out["sigma_net"] = [params["sigma_net"][0], {"w": s2}]
     m2 = dict(params["is_mirror"][1])
     m2["b"] = m2["b"] + 5.0
     out["is_mirror"] = [params["is_mirror"][0], m2]
@@ -465,8 +584,8 @@ def _all_mirror(params: dict) -> dict:
 
 
 def _time_view(ctx, rays_np):
-    """Time one 800×800 view through run_view (after one warm view).
-    Returns the last result and the walls in seconds."""
+    """Time one view through run_view (after one warm view). Returns the
+    last result and the walls in seconds."""
     from mirror_nerf_tpu_torch.eval.apps import run_view
 
     sample = {"rays": rays_np}
@@ -480,7 +599,7 @@ def _time_view(ctx, rays_np):
 
 
 def _report_view(torch, ctx, rays_np, res, times, label: str,
-                 card: str) -> None:
+                 card: str, size: str = "800x800") -> None:
     """Check a timed view's outputs and print its rate and mirror fractions
     (these diagnostics launch the kernel too: call after reading the
     main path's launch count)."""
@@ -496,7 +615,7 @@ def _report_view(torch, ctx, rays_np, res, times, label: str,
     est = estimate_mirror_fraction(ctx, rays)
     f0, f1 = _mirror_fractions(torch, ctx, rays[::16])
     dropped = float(res.get("compact_dropped", np.zeros(1)).sum())
-    log(f"[main] 800x800 level-2 view, {label}: {min(times):.3f} s best of "
+    log(f"[main] {size} level-2 view, {label}: {min(times):.3f} s best of "
         f"{len(times)} ({', '.join(f'{t:.3f}' for t in times)}) -> "
         f"{n / min(times):.1f} rays/s ({card}); mirror fraction level 0 "
         f"{f0:.4f}, levels 0+1 {f1:.4f} (1/16 of the rays), prepass "
@@ -713,6 +832,244 @@ def phase_step_vs_cpu(torch) -> None:
     assert max(errs) <= TRAIN_GRAD_RTOL, errs
 
 
+def _mlp_case(torch, fm, field, params, o, d, z, sigma_only, act, tag,
+              card, time_it=True):
+    """One flagship kernel case against its plain version: errors (scaled
+    above 1), Σw, and optionally the two times. Returns (worst error,
+    kernel ms, plain ms, the kernel's outputs)."""
+    def kern():
+        return fm.fused_t_rays_composite(field, params, o, d, d, z,
+                                         sigma_only=sigma_only,
+                                         sigma_act=act)
+
+    def plain():
+        return fm.mlp_rays_composite_reference(field, params, o, d, d, z,
+                                               sigma_only=sigma_only,
+                                               sigma_act=act)
+
+    with torch.no_grad():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        errs = {k: float((got[k] - ref[k]).abs().max())
+                / max(1.0, float(ref[k].abs().max())) for k in ref}
+        wsum = float(got["weights"].sum(-1).max())
+        for k, v in got.items():
+            assert v.is_cuda and bool(torch.isfinite(v).all()), k
+        ms = _time_ms(torch, kern, reps=5, warmup=1) if time_it else None
+        plain_ms = _time_ms(torch, plain, reps=3, warmup=1) if time_it \
+            else None
+    n, s = z.shape
+    times = (f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+             if time_it else "")
+    log(f"[mlp-kernel] {tag}: {times}{n} rays × S={s} ({card}); max w "
+        f"{float(got['weights'].max()):.4f}, max Σw {wsum:.6f}; max abs err "
+        "(scaled above 1) " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in errs.items()))
+    assert max(errs.values()) <= KERNEL_ATOL, (tag, errs)
+    assert wsum <= 1.0 + 1e-5, (tag, wsum)
+    return max(errs.values()), ms, plain_ms, got
+
+
+def phase_mlp_kernel(torch, card: str) -> dict:
+    """The flagship kernel vs its plain version at the main path's shapes.
+    Returns the JSON entry without the launch count."""
+    from mirror_nerf_tpu_torch.core.sampling import (merge_fine_z_vals,
+                                                     stratified_z_vals)
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.ops import fused_mlp_t as fm
+
+    dev = torch.device("cuda")
+    field = MirrorNeRFField()
+    base = field.init(torch.Generator().manual_seed(0), dev)
+    seeded = _sigma_scaled(base, 5.0)
+    saturating = _sigma_scaled(base, 2000.0)
+
+    rays_np = _view_rays(400, 300)
+    n = 16384
+    rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).to(dev)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    z64 = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 64).contiguous()
+    worst, entry = 0.0, None
+    for pname, params in (("seeded", seeded), ("saturating", saturating)):
+        for act in (("relu", "softplus") if pname == "seeded" else ("relu",)):
+            with torch.no_grad():
+                coarse = fm.mlp_rays_composite_reference(
+                    field, params, o, d, d, z64, sigma_only=True,
+                    sigma_act=act)
+            z128 = merge_fine_z_vals(z64, coarse["weights"], 64,
+                                     0.0).contiguous()
+            for sigma_only, z in ((False, z128), (True, z64)):
+                tag = (f"{pname} {act} S={z.shape[1]} "
+                       f"{'sigma-only' if sigma_only else 'full'}")
+                err, ms, plain_ms, got = _mlp_case(
+                    torch, fm, field, params, o, d, z, sigma_only, act, tag,
+                    card)
+                worst = max(worst, err)
+                s = z.shape[1]
+                bound_ms, bound_by = _bound(
+                    2 * n * s * MLP_MACS[sigma_only],
+                    _nbytes(o, d, None if sigma_only else d, z,
+                            fm._pack(params), *got.values()))
+                log(f"[mlp-kernel] {tag}: bound {bound_ms:.3f} ms "
+                    f"({bound_by}); kernel at {bound_ms / ms * 100:.1f} % "
+                    f"of it, {2 * n * s * MLP_MACS[sigma_only] / ms / 1e9:.2f}"
+                    f" TFLOP/s; plain at {bound_ms / plain_ms * 100:.1f} %")
+                if (pname, act, sigma_only) == ("seeded", "relu", False):
+                    entry = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by}
+                    flop = 2 * n * s * MLP_MACS[False]
+                    log(f"[mlp-kernel] {tag}: packed weights "
+                        f"{_nbytes(fm._pack(params)) / 1e6:.2f} MB; the "
+                        f"same work on the tensor cores would be bound at "
+                        f"{flop / 495e12 * 1e3:.2f} ms (TF32) and "
+                        f"{flop / 989e12 * 1e3:.2f} ms (bf16, dense peaks "
+                        "of the data sheet)")
+    # S that do not tile the 256-sample block, on a ragged ray count
+    n2 = 2048 + 37
+    sub = rays[:n2]
+    for s in (80, 192):
+        z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], s).contiguous()
+        for sigma_only in (False, True):
+            err, *_ = _mlp_case(
+                torch, fm, field, seeded, o[:n2].contiguous(),
+                d[:n2].contiguous(), z, sigma_only, "relu",
+                f"seeded relu S={s} {'sigma-only' if sigma_only else 'full'}",
+                card, time_it=False)
+            worst = max(worst, err)
+    worst = max(worst, _mlp_variants(torch, fm, rays, card))
+    return {"name": "fused_mlp_t", "route": "cuda",
+            "source": "mirror_nerf_tpu_torch/csrc/fused_mlp_t.cu",
+            "replaces": "mirror_nerf_tpu/ops/pallas/fused_mlp_t.py:276",
+            "launches": 0, "max_abs_err": worst, **entry,
+            "library_ms": None}
+
+
+def _mlp_variants(torch, fm, rays, card: str) -> float:
+    """The kernel's other instances — a field without the normal head,
+    without the mirror head, without both, and with 6/2 posenc frequencies
+    — against the plain version, timed at the microbench's shapes; and a
+    render of the head-less field with fused_field on, which must launch
+    the kernel and match the plain modules. Returns the worst error."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.render.renderer import (RenderSettings,
+                                                       render_rays)
+
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    worst = 0.0
+    for name, kw in (("no normal", dict(predict_normal=False)),
+                     ("no mirror", dict(predict_mirror_mask=False)),
+                     ("no heads", dict(predict_normal=False,
+                                       predict_mirror_mask=False)),
+                     ("posenc 6/2", dict(N_emb_xyz=6, N_emb_dir=2))):
+        field = MirrorNeRFField(**kw)
+        params = _sigma_scaled(field.init(torch.Generator().manual_seed(2),
+                                          rays.device), 5.0)
+        for s, sigma_only in ((128, False), (64, True)):
+            if sigma_only and "posenc" not in name:
+                continue  # the σ-only instance reads no head
+            z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], s).contiguous()
+            err, *_ = _mlp_case(
+                torch, fm, field, params, o, d, z, sigma_only, "relu",
+                f"{name} S={s} {'sigma-only' if sigma_only else 'full'}",
+                card)
+            worst = max(worst, err)
+    field = MirrorNeRFField(predict_normal=False, predict_mirror_mask=False)
+    params = {side: _sigma_scaled(field.init(
+        torch.Generator().manual_seed(seed), rays.device), 5.0)
+        for seed, side in enumerate(("coarse", "fine"))}
+    out = {}
+    for fused in (True, False):
+        rs = RenderSettings(N_samples=64, N_importance=64, perturb=0.0,
+                            noise_std=0.0, test_time=True,
+                            compute_normal=False, fused_field=fused)
+        before = fm.launches
+        with torch.no_grad():
+            out[fused] = render_rays(field, params, rays[:256], rs)
+        assert (fm.launches > before) == fused, "fused_field routing"
+    errs = {k: float((out[True][k] - v).abs().max())
+            / max(1.0, float(v.abs().max())) for k, v in out[False].items()
+            if k in out[True] and k.endswith(("_coarse", "_fine"))}
+    log(f"[mlp-kernel] no-heads field, render_rays with fused_field on vs "
+        f"off, 256 rays: the kernel launched; max abs err (scaled above 1) "
+        f"{max(errs.values()):.3e} over {len(errs)} outputs")
+    assert max(errs.values()) <= RENDER_ATOL, errs
+    return worst
+
+
+def phase_mlp_main_path(torch, card: str) -> int:
+    """The flagship's eval path on the card. Returns its kernel launches."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.data.synthetic import generate_scene
+    from mirror_nerf_tpu_torch.eval import get_opt, main
+    from mirror_nerf_tpu_torch.eval.apps import AppContext
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import fused_mlp_t
+    from mirror_nerf_tpu_torch.train.checkpoints import (save_pytree,
+                                                         save_torch_ckpt)
+
+    work = WORK / "mlp"
+    work.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        generate_scene("scene", n_train=1, n_val=1, n_test=2,
+                       img_wh=(64, 64))
+        cfg, _ = get_opt(NERF_EVAL_FLAGS)
+        field = make_field(cfg)
+        weights = {k: _sigma_scaled(v, 5.0) for k, v in
+                   init_params(field, cfg, "cpu").items()}
+        save_pytree("w.npz", weights)
+        save_torch_ckpt("w.ckpt", weights)
+        fused_mlp_t.launches = 0
+        psnrs = {}
+        for tag in ("npz", "ckpt"):
+            t0 = time.perf_counter()
+            out = main(NERF_EVAL_FLAGS + [
+                "--root_dir", "scene", "--img_wh", "64", "64", "--split",
+                "test", "--ckpt_path", f"w.{tag}", "--exp_name",
+                f"smoke_nerf_{tag}"])
+            files = os.listdir(out)
+            for name in ("rgb_fine_000.png", "rgb_fine_001.png", "psnr.json",
+                         f"smoke_nerf_{tag}_rgb_fine.gif"):
+                assert name in files, (tag, name, files)
+            with open(os.path.join(out, "psnr.json")) as f:
+                psnrs[tag] = json.load(f)["psnrs"]
+            assert np.isfinite(psnrs[tag]).all(), psnrs
+            log(f"[mlp-main] eval CLI (nerf, --fused_field, from w.{tag}) "
+                f"wrote {out}: {len(files)} entries, PSNRs {psnrs[tag]} "
+                f"(seeded weights, σ column |w|·5), "
+                f"{time.perf_counter() - t0:.1f} s")
+        assert psnrs["npz"] == psnrs["ckpt"], psnrs
+        cli_launches = fused_mlp_t.launches
+        assert cli_launches > 0, "the flagship eval CLI never launched"
+
+        cfg, args = get_opt(NERF_EVAL_FLAGS + ["--img_wh", "400", "300"])
+        ctx = AppContext.build(cfg, args, field,
+                               init_params(field, cfg, "cuda"), "cuda")
+        rays_np = _view_rays(400, 300)
+        mirror_ctx = replace(ctx, params={k: _all_mirror(v)
+                                          for k, v in ctx.params.items()})
+        views = [(label, c, *_time_view(c, rays_np))
+                 for label, c in (("seeded weights", ctx),
+                                  ("all-mirror weights", mirror_ctx))]
+        # the main path's count ends here: the diagnostics below launch too
+        launches = fused_mlp_t.launches
+        assert launches > cli_launches, "run_view never launched the kernel"
+        log(f"[mlp-main] kernel launches on the flagship's main path: "
+            f"{launches} ({cli_launches} in the eval CLI, "
+            f"{launches - cli_launches} in the timed run_view calls)")
+        for label, c, res, times in views:
+            _report_view(torch, c, rays_np, res, times, label, card,
+                         size="400x300 flagship")
+        _check_against_plain(torch, mirror_ctx, rays_np, n=256)
+        return launches
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     import torch
 
@@ -727,19 +1084,32 @@ def main() -> int:
         print("chip_smoke: mirror_nerf_tpu_torch is not this checkout's",
               file=sys.stderr)
         return 1
-    card = phase_environment(torch)
-    phase_build()
-    entry = phase_kernel(torch, card)
-    fwd_entry, bwd_entry = phase_train_kernels(torch, card)
-    phase_grad_guard(torch)
-    entry["launches"] = phase_main_path(torch, card)
-    (fwd_entry["launches"], bwd_entry["launches"]), rate = \
-        phase_train_path(torch, card)
-    phase_step_vs_cpu(torch)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    card = timed("environment", phase_environment, torch)
+    timed("build", phase_build)
+    entry = timed("cp kernel", phase_kernel, torch, card)
+    fwd_entry, bwd_entry = timed("train kernels", phase_train_kernels,
+                                 torch, card)
+    timed("grad guard", phase_grad_guard, torch)
+    entry["launches"] = timed("cp main path", phase_main_path, torch, card)
+    (fwd_entry["launches"], bwd_entry["launches"]), rate = timed(
+        "train path", phase_train_path, torch, card)
+    timed("train step vs cpu", phase_step_vs_cpu, torch)
     log(f"[train] reflection-stage train-step rate at batch 1024: "
         f"{rate:.1f} rays/s ({card})")
+    mlp_entry = timed("flagship kernel", phase_mlp_kernel, torch, card)
+    mlp_entry["launches"] = timed("flagship main path", phase_mlp_main_path,
+                                  torch, card)
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
-    print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry]}))
+    print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,15 @@ normal / depth-reflect / x_surface PNGs, GIFs, a globally normalized depth
 pass, and `psnr.json` with per-view and mean PSNR/SSIM. It prints the
 steady-state render rate (views after the first) in rays/s.
 
+Two models render: the CP grid (`--model_type nerf_tpu`) and the flagship
+PE-MLP (`nerf`, the default). `--fused_field` runs either through its eval
+kernel with in-kernel compositing. `--ckpt_path` takes an npz (either
+package's) or a reference torch Lightning `.ckpt` of the PE-MLP layout.
 `--device` (default `cuda`) picks where parameters and rays live; a CUDA
 run goes through the port's kernels, a CPU run through their plain
 versions. Not ported yet: the four applications, `--megabatch` and
-`--proposal_drop_levels` (TPU workarounds), LPIPS (weights absent) and
-torch Lightning checkpoints.
+`--proposal_drop_levels` (TPU workarounds), LPIPS (weights absent) and the
+hash-grid model's checkpoints.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ def get_opt(argv=None):
     parser.add_argument("--depth_format", type=str, nargs="+", default=["png"])
     parser.add_argument("--render_coarse_rgb", default=False,
                         action="store_true")
-    # the fused CP kernel on the eval path (nerf_tpu)
+    # the fused eval kernel with in-kernel compositing (nerf_tpu: the CP
+    # composite kernel; nerf: the PE-MLP kernel)
     parser.add_argument("--fused_field", default=False, action="store_true")
     # drop the coarse proposal pass; one fine pass on
     # N_samples + N_importance stratified samples
@@ -83,8 +88,9 @@ def _save_gif(path: str, frames, fps: int = 15) -> None:
 
 
 def init_params(field, cfg, device) -> dict:
-    """Seeded initial weights (coarse seed 0, fine seed 1), or the npz
-    checkpoint at `cfg.ckpt_path` loaded into that structure."""
+    """Seeded initial weights (coarse seed 0, fine seed 1), or the
+    checkpoint at `cfg.ckpt_path` (npz or a reference Lightning .ckpt)
+    loaded into that structure."""
     import torch
 
     from ..train.checkpoints import load_params_any

@@ -100,6 +100,37 @@ def _pack_tables(params: dict, levels):
     return torch.cat(parts).to(torch.float32), offsets
 
 
+def check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only: bool):
+    """A composite kernel's ray inputs: contiguous float32 on z's device,
+    rays_o/rays_d/view_dirs (N, 3) (view_dirs unread when σ-only), z (N, S).
+    Returns the tensors the kernel reads."""
+    dev = z_vals.device
+    n, s = z_vals.shape
+    ins = {"rays_o": rays_o, "rays_d": rays_d, "z_vals": z_vals}
+    if not sigma_only:
+        ins["view_dirs"] = view_dirs
+    for name, t in ins.items():
+        want = (n, s) if name == "z_vals" else (n, 3)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != want or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: need a contiguous float32 {want} tensor on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    return list(ins.values())
+
+
+def split_per_ray(weights, per_ray) -> dict:
+    """A composite kernel's outputs as the adapter's dict: weights, and
+    per_ray's columns [opacity, rgb, normal, mirror, depth] unless None."""
+    res = {"weights": weights}
+    if per_ray is not None:
+        res.update(opacity=per_ray[:, 0], rgb=per_ray[:, 1:4],
+                   normal=per_ray[:, 4:7], mirror=per_ray[:, 7],
+                   depth=per_ray[:, 8])
+    return res
+
+
 _lib = None
 
 
@@ -137,19 +168,9 @@ def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
         raise ValueError("the fused CP kernel needs the default net dims "
                          "(TPUGridField.supports_fused_cp)")
     n, s = z_vals.shape
-    ins = {"rays_o": rays_o, "rays_d": rays_d, "z_vals": z_vals}
-    if not sigma_only:
-        ins["view_dirs"] = view_dirs
-    for name, t in ins.items():
-        want = (n, s) if name == "z_vals" else (n, 3)
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != want or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous float32 {want} tensor on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
+    ins = check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*ins.values(), *tree_leaves(params))):
+            t.requires_grad for t in (*ins, *tree_leaves(params))):
         raise ValueError(
             "the fused CP composite kernel is forward-only, and an input or "
             "a parameter requires grad: run it under torch.no_grad(), or "
@@ -205,13 +226,7 @@ def fused_cp_rays_composite(field, params: dict, rays_o, rays_d, view_dirs,
     def prep(t):
         return t.to(torch.float32).contiguous()
 
-    weights, per_ray = fused_cp_composite_cuda(
+    return split_per_ray(*fused_cp_composite_cuda(
         field, params, prep(rays_o), prep(rays_d),
         None if sigma_only else prep(view_dirs), prep(z_vals), sigma_only,
-        sigma_act)
-    res = {"weights": weights}
-    if not sigma_only:
-        res.update(opacity=per_ray[:, 0], rgb=per_ray[:, 1:4],
-                   normal=per_ray[:, 4:7], mirror=per_ray[:, 7],
-                   depth=per_ray[:, 8])
-    return res
+        sigma_act))

@@ -1,0 +1,195 @@
+"""Fused flagship PE-MLP field + per-ray compositing (the flagship's eval
+kernel).
+
+Torch counterpart of `fused_t_rays_eval` in
+`mirror_nerf_tpu/ops/pallas/fused_mlp_t.py`, same contract: per-ray inputs
+(o, d, view dir) and sorted depths z (N, S) in; a dict out with `weights`
+(N, S) and, unless σ-only, per-ray `opacity`, `rgb` (N, 3), `depth`, and
+`normal` (N, 3) and `mirror` for a field with those heads. The view dirs go
+to the posenc as given (the color head of `MirrorNeRFField` does not
+normalize them either).
+
+  * `mlp_rays_composite_reference` is the plain PyTorch version: the field
+    modules of models/fields.py + the exclusive-prefix transmittance.
+  * `fused_t_composite_cuda` launches the hand-written kernel
+    `csrc/fused_mlp_t.cu` (sm_90a; see its source note) and counts its
+    launches in the module-level `launches`.
+  * `fused_t_rays_composite` dispatches on the device of the inputs: the
+    plain version for CPU tensors, the kernel for CUDA tensors. There is no
+    fallback: a kernel that fails to build or launch raises.
+
+Forward-only, eval semantics (no σ noise).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.mathutil import l2_normalize
+from ..render.renderer import sigma_activation
+from ..train.checkpoints import tree_leaves
+from .fused_cp import check_ray_inputs, prefix_weights, split_per_ray
+
+_LIB = "fused_mlp_t"
+_ACTS = ("relu", "softplus")
+MAX_SAMPLES = 256
+# the kernel entry's negative return codes (see mnerf_fused_mlp_t)
+_REFUSALS = {-2: f"S is outside [1, {MAX_SAMPLES}] samples per ray",
+             -3: "a posenc frequency count is outside [0, 20]",
+             -4: "the packed weights disagree with the kernel's layout",
+             -6: "no rays"}
+
+# kernel launches since import (or since a caller last reset it to 0)
+launches = 0
+
+
+def mlp_rays_composite_reference(field, params: dict, rays_o, rays_d,
+                                 view_dirs, z_vals, sigma_only: bool = False,
+                                 sigma_act: str = "relu") -> dict:
+    """The plain PyTorch version of the kernel (any device)."""
+    n, s = z_vals.shape
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    sigma, geo = field.density(params, xyz.reshape(-1, 3))
+    deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                        torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
+    w = prefix_weights(
+        deltas * sigma_activation(sigma.reshape(n, s), sigma_act))
+    if sigma_only:
+        return {"weights": w}
+    rgb = field.color(params, geo,
+                      view_dirs.repeat_interleave(s, dim=0)).reshape(n, s, 3)
+    res = {"weights": w, "opacity": w.sum(-1),
+           "rgb": (w[..., None] * rgb).sum(1), "depth": (w * z_vals).sum(-1)}
+    if field.predict_normal:
+        nrm = l2_normalize(field.normal_head(params, geo)).reshape(n, s, 3)
+        res["normal"] = (w[..., None] * nrm).sum(1)
+    if field.predict_mirror_mask:
+        mir = field.mirror_head(params, geo).reshape(n, s)
+        res["mirror"] = (w * mir).sum(-1)
+    return res
+
+
+def _pack(params: dict) -> torch.Tensor:
+    """All weights in the kernel's order (`net_offsets` in the .cu; the
+    normal and mirror heads where the field has them), each leaf flattened
+    in its (in, out) layout and zero-padded to a multiple of 4 floats."""
+    leaves = []
+    for layer in params["trunk"]:
+        leaves += [layer["w"], layer["b"]]
+    for lin in (params["sigma"], params["xyz_final"], params["dir_enc"],
+                params["rgb"], *params.get("normal", ()),
+                *params.get("is_mirror", ())):
+        leaves += [lin["w"], lin["b"]]
+    parts = []
+    for leaf in leaves:
+        flat = leaf.reshape(-1).to(torch.float32)
+        parts.append(flat)
+        if flat.numel() % 4:
+            parts.append(flat.new_zeros(4 - flat.numel() % 4))
+    return torch.cat(parts)
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from ._build import load_library
+
+        lib = load_library(_LIB)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mnerf_fused_mlp_t.argtypes = [p, p, p, p, p, ctypes.c_longlong,
+                                          i, i, i, i, i, i, i, i, p, p, p]
+        lib.mnerf_fused_mlp_t.restype = i
+        lib.mnerf_cuda_error_string.argtypes = [i]
+        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
+                           z_vals, sigma_only: bool, sigma_act: str):
+    """Launch the CUDA kernel on the current stream. Inputs must be float32,
+    contiguous, on one CUDA device: rays_o/rays_d/view_dirs (N, 3), z (N, S).
+    Returns (weights (N, S), per_ray (N, 9) or None), per_ray's columns
+    [opacity, rgb, normal, mirror, depth] (0 for a head the field lacks)."""
+    global launches
+    # first, so that it holds whatever else is wrong with the call
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (rays_o, rays_d, view_dirs, z_vals,
+                      *tree_leaves(params))):
+        raise ValueError(
+            "the fused PE-MLP composite kernel is forward-only, and an input "
+            "or a parameter requires grad: run it under torch.no_grad(), or "
+            "render through the plain field modules (fused_field off)")
+    dev = z_vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_t_composite_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    if sigma_act not in _ACTS:
+        raise ValueError(f"sigma_act must be one of {_ACTS}")
+    if not field.supports_fused:
+        raise ValueError("the fused PE-MLP kernel does not take this "
+                         "architecture (MirrorNeRFField.supports_fused)")
+    n, s = z_vals.shape
+    check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
+    weights = torch.empty((n, s), dtype=torch.float32, device=dev)
+    per_ray = None if sigma_only else torch.empty(
+        (n, 9), dtype=torch.float32, device=dev)
+    if n == 0:
+        return weights, per_ray
+    lib = _library()
+    nets = _pack(params)
+    if nets.device != dev:
+        raise ValueError(f"params must lie on {dev}")
+    with torch.cuda.device(dev):  # the runtime launches on the current one
+        rc = lib.mnerf_fused_mlp_t(
+            rays_o.data_ptr(), rays_d.data_ptr(),
+            None if sigma_only else view_dirs.data_ptr(), z_vals.data_ptr(),
+            nets.data_ptr(), nets.numel(), n, s, field.N_emb_xyz,
+            field.N_emb_dir, int(field.predict_normal),
+            int(field.predict_mirror_mask), int(sigma_only),
+            int(sigma_act == "softplus"), weights.data_ptr(),
+            None if sigma_only else per_ray.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
+        raise ValueError(f"fused PE-MLP kernel refused its arguments: "
+                         f"{_REFUSALS.get(rc, rc)}")
+    if rc > 0:
+        raise RuntimeError("fused PE-MLP kernel launch failed: "
+                           + lib.mnerf_cuda_error_string(rc).decode())
+    launches += 1
+    return weights, per_ray
+
+
+def fused_t_rays_composite(field, params: dict, rays_o, rays_d, view_dirs,
+                           z_vals, sigma_only: bool = False,
+                           sigma_act: str = "relu") -> dict:
+    """Composite-mode adapter: weights (N, S) always; plus per-ray
+    opacity/rgb/depth, and normal/mirror for the heads the field has, unless
+    sigma_only. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    dev = z_vals.device
+    if dev.type == "cpu":
+        return mlp_rays_composite_reference(field, params, rays_o, rays_d,
+                                            view_dirs, z_vals, sigma_only,
+                                            sigma_act)
+    if dev.type != "cuda":
+        raise ValueError(f"no fused PE-MLP path for device {dev}")
+
+    def prep(t):
+        return t.to(torch.float32).contiguous()
+
+    res = split_per_ray(*fused_t_composite_cuda(
+        field, params, prep(rays_o), prep(rays_d),
+        None if sigma_only else prep(view_dirs), prep(z_vals), sigma_only,
+        sigma_act))
+    if not field.predict_normal:
+        res.pop("normal", None)
+    if not field.predict_mirror_mask:
+        res.pop("mirror", None)
+    return res

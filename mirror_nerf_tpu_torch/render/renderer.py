@@ -5,8 +5,9 @@ resampling over the detached interior coarse weights, `test_time` /
 `fine_pass` semantics, mirror-mask and normal aggregation with the
 reference's stop-gradient variants, surface points x = o + d·depth.
 
-The field runs one of three ways: the eval kernel with in-kernel
-compositing (`fused_field`, forward-only, ops/fused_cp.py); the training
+The field runs one of three ways: an eval kernel with in-kernel
+compositing (`fused_field`, forward-only: ops/fused_cp.py for the CP grid,
+ops/fused_mlp_t.py for the flagship PE-MLP); the training
 kernels for density + ∇σ or density alone (`fused_density`,
 ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
 normal by `torch.autograd.grad` (`density_with_grad_reference`).
@@ -41,8 +42,8 @@ class RenderSettings:
     detach_density_outside_mirror_for_mask_loss: bool = False
     detach_density_for_mask_loss: bool = False
     detach_density_for_normal_loss: bool = False
-    # run the field through the fused CP kernel (eval path: engages when
-    # the σ-gradient normal is off)
+    # run the field through its fused eval kernel (CP grid or PE-MLP;
+    # engages when the σ-gradient normal is off)
     fused_field: bool = False
     # the training kernels for density + ∇σ (compute_normal) or density
     # alone, differentiable incl. grad-of-grad (ops/fused_cp_train.py)
@@ -104,10 +105,19 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                mirror_mask_per_ray=None, gt_mask_valid=None,
                generator: Optional[torch.Generator] = None) -> dict:
     n, s = z_vals.shape
-    if (rs.fused_field and not rs.compute_normal
-            and getattr(field, "supports_fused_cp", False)):
-        return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
-                                   results, sigma_only, rays_o, rays_d)
+    if rs.fused_field and not rs.compute_normal:
+        if getattr(field, "supports_fused_cp", False):
+            return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
+                                       results, sigma_only, rays_o, rays_d)
+        if getattr(field, "supports_fused", False):
+            return _inference_fused_t(field, params, typ, z_vals, dirs, rs,
+                                      results, sigma_only, rays_o, rays_d)
+        if hasattr(field, "supports_fused") and z_vals.device.type != "cpu":
+            raise NotImplementedError(
+                "--fused_field: the PE-MLP kernel takes width 256, depth 8, "
+                "the skip at layer 4 and at most 20 posenc frequencies; "
+                f"{field} has no kernel yet (ROADMAP.md queue 2, item 8). "
+                "Render it without --fused_field")
 
     xyz_flat = (rays_o[:, None, :]
                 + rays_d[:, None, :] * z_vals[..., None]).reshape(-1, 3)
@@ -216,6 +226,31 @@ def _inference_fused_cp(field, params, typ, z_vals, dirs, rs, results,
     res = fused_cp_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
                                   sigma_only=sigma_only,
                                   sigma_act=rs.sigma_activation)
+    return _composited(field, typ, z_vals, rs, results, sigma_only, res)
+
+
+def _inference_fused_t(field, params, typ, z_vals, dirs, rs, results,
+                       sigma_only, ray_o, ray_d) -> dict:
+    """Eval-path inference for the flagship PE-MLP through its fused kernel
+    with in-kernel compositing (ops/fused_mlp_t.py). Forward-only; eval
+    semantics (noise_std == 0)."""
+    from ..ops.fused_mlp_t import fused_t_rays_composite
+
+    if rs.noise_std != 0:
+        raise NotImplementedError(
+            "the per-sample PE-MLP kernel for σ-noise passes (JAX "
+            "fused_mlp.py:238 `_kernel_rays`) is not ported yet: ROADMAP.md "
+            "queue 2, item 6")
+    res = fused_t_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
+                                 sigma_only=sigma_only,
+                                 sigma_act=rs.sigma_activation)
+    return _composited(field, typ, z_vals, rs, results, sigma_only, res)
+
+
+def _composited(field, typ, z_vals, rs, results, sigma_only,
+                res: dict) -> dict:
+    """The results of a pass whose kernel composited in-kernel: weights
+    (N, S) and, unless σ-only, the per-ray opacity/rgb/depth/mirror/normal."""
     weights = res["weights"]
     results[f"weights_{typ}"] = weights
     results[f"z_vals_{typ}"] = z_vals

@@ -10,7 +10,9 @@ A parameter tree is nested dicts/lists of tensors. Each leaf is stored under
 its path — dict keys and list indices joined by "/" (`coarse/grid/axes/0/1`,
 `fine/sigma_net/0/w`, ...) — the names the JAX package writes, with matrices
 kept in its (in, out) layout. So an npz written by either package loads in
-the other, bit for bit.
+the other, bit for bit. The reference's torch Lightning checkpoints of the
+PE-MLP layout load too (`load_torch_ckpt`; `save_torch_ckpt` writes
+one).
 """
 
 from __future__ import annotations
@@ -71,11 +73,9 @@ def save_pytree(path: str, tree) -> None:
     np.savez(path, **arrays)
 
 
-def load_pytree(path: str, like):
-    """Load leaves saved by either package's save_pytree into the structure
-    of `like` (dtype and device of each `like` leaf)."""
-    data = np.load(path, allow_pickle=False)
-
+def _load_leaves(data, path: str, like):
+    """`like`'s structure with each leaf taken from `data` (leaf path ->
+    array), in the dtype and on the device of the `like` leaf."""
     def take(key, v):
         if key not in data:
             raise KeyError(f"checkpoint {path} missing leaf {key}")
@@ -87,6 +87,12 @@ def load_pytree(path: str, like):
             dtype=v.dtype, device=v.device)
 
     return _map(like, take)
+
+
+def load_pytree(path: str, like):
+    """Load leaves saved by either package's save_pytree into the structure
+    of `like` (dtype and device of each `like` leaf)."""
+    return _load_leaves(np.load(path, allow_pickle=False), path, like)
 
 
 def load_pytree_nonstrict(path: str, like, prefixes_to_ignore=()):
@@ -115,14 +121,103 @@ def load_pytree_nonstrict(path: str, like, prefixes_to_ignore=()):
     return _map(like, take)
 
 
-def load_params_any(path: str, params_like: dict) -> dict:
-    """Load params from an npz checkpoint: a raw parameter tree, or a full
-    train checkpoint whose parameter leaves live under "params/"."""
-    if not path.endswith(".npz"):
+# ---- the reference's torch Lightning checkpoints ----
+
+
+def _torch_linear(sd: dict, prefix: str) -> dict:
+    """One torch nn.Linear -> {"w": (in, out), "b": (out,)} (torch keeps
+    the weight as (out, in))."""
+    out = {"w": np.asarray(sd[f"{prefix}.weight"], np.float32).T}
+    if f"{prefix}.bias" in sd:
+        out["b"] = np.asarray(sd[f"{prefix}.bias"], np.float32)
+    return out
+
+
+def torch_mirror_nerf_to_params(sd: dict, model_prefix: str,
+                                depth: int = 8) -> dict:
+    """One reference MirrorNeRF module's state dict (keys like
+    `nerf_fine.xyz_encoding_1.0.weight`) -> the MirrorNeRFField parameter
+    tree, as numpy arrays. The mirror head's second linear is
+    `is_mirror_net.2` (index 1 is its LeakyReLU)."""
+    sub = {k[len(model_prefix) + 1:]: v for k, v in sd.items()
+           if k.startswith(model_prefix + ".")}
+    params = {
+        "trunk": [_torch_linear(sub, f"xyz_encoding_{i + 1}.0")
+                  for i in range(depth)],
+        "sigma": _torch_linear(sub, "sigma"),
+        "xyz_final": _torch_linear(sub, "xyz_encoding_final"),
+        "dir_enc": _torch_linear(sub, "dir_encoding.0"),
+        "rgb": _torch_linear(sub, "rgb.0"),
+    }
+    if any(k.startswith("normal_net") for k in sub):
+        params["normal"] = [_torch_linear(sub, "normal_net.0"),
+                            _torch_linear(sub, "normal_net.1")]
+    if any(k.startswith("is_mirror_net") for k in sub):
+        params["is_mirror"] = [_torch_linear(sub, "is_mirror_net.0"),
+                               _torch_linear(sub, "is_mirror_net.2")]
+    return params
+
+
+def save_torch_ckpt(path: str, params: dict) -> None:
+    """Write PE-MLP parameters ({"coarse": ..., "fine": ...}, tensors or
+    arrays) as the reference's Lightning checkpoint (`nerf_<side>.` +
+    `xyz_encoding_<i+1>.0`, `sigma`, `xyz_encoding_final`, `dir_encoding.0`,
+    `rgb.0`, `normal_net.{0,1}`, `is_mirror_net.{0,2}`; torch's (out, in)
+    weights) — the inverse of `load_torch_ckpt`."""
+    sd = {}
+
+    def lin(prefix, p):
+        for key, name in (("w", "weight"), ("b", "bias")):
+            a = np.asarray(torch.as_tensor(p[key]).detach().cpu(), np.float32)
+            sd[f"{prefix}.{name}"] = torch.from_numpy(
+                np.ascontiguousarray(a.T if key == "w" else a))
+
+    for side, p in params.items():
+        m = f"nerf_{side}"
+        for i, layer in enumerate(p["trunk"]):
+            lin(f"{m}.xyz_encoding_{i + 1}.0", layer)
+        for name, key in (("sigma", "sigma"),
+                          ("xyz_encoding_final", "xyz_final"),
+                          ("dir_encoding.0", "dir_enc"), ("rgb.0", "rgb")):
+            lin(f"{m}.{name}", p[key])
+        for name, key, idx in (("normal_net", "normal", (0, 1)),
+                               ("is_mirror_net", "is_mirror", (0, 2))):
+            for j, lp in zip(idx, p.get(key, ())):
+                lin(f"{m}.{name}.{j}", lp)
+    torch.save({"epoch": 0, "state_dict": sd}, path)
+
+
+def load_torch_ckpt(path: str, params_like: dict) -> dict:
+    """A reference Lightning .ckpt of the MirrorNeRF MLP layout
+    (`nerf_coarse.*` / `nerf_fine.*`) -> the parameters, in the structure,
+    dtype and device of `params_like` ({"coarse": ..., "fine": ...})."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
+    sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+          for k, v in sd.items()}
+    if any(k.endswith("encoder.params") for k in sd):
         raise NotImplementedError(
-            "reference torch Lightning checkpoints are not bridged yet "
-            "(ROADMAP.md queue 1, item 2); convert to npz with the JAX "
-            "package's load_params_any + save_pytree")
+            f"{path} is a hash-grid (MirrorNeRFTcnn) checkpoint; the "
+            "hash-grid model is not ported yet: ROADMAP.md queue 1, item 4")
+    data = {}
+    for side, like in params_like.items():
+        if "trunk" not in like:
+            raise ValueError(f"{path} holds the reference's PE-MLP layout, "
+                             "which loads into --model_type nerf only")
+        if not any(k.startswith(f"nerf_{side}.") for k in sd):
+            raise KeyError(f"checkpoint {path} has no nerf_{side} module")
+        tree = torch_mirror_nerf_to_params(sd, f"nerf_{side}",
+                                           depth=len(like["trunk"]))
+        data.update({f"{side}/{p}": v for p, v in _leaves(tree)})
+    return _load_leaves(data, path, params_like)
+
+
+def load_params_any(path: str, params_like: dict) -> dict:
+    """Load params from an npz checkpoint (a raw parameter tree, or a full
+    train checkpoint whose parameter leaves live under "params/") or, for
+    any other path, from a reference torch Lightning .ckpt."""
+    if not path.endswith(".npz"):
+        return load_torch_ckpt(path, params_like)
     with np.load(path) as data:
         is_train = any(k.startswith("params/") for k in data.files)
     if is_train:

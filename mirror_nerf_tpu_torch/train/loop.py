@@ -161,6 +161,11 @@ class Trainer:
             raise NotImplementedError(
                 "multi-device training is not ported yet: ROADMAP.md queue "
                 "1, item 9 (torch.distributed data parallel)")
+        if cfg.model_type == "nerf":
+            raise NotImplementedError(
+                "training the flagship PE-MLP (--model_type nerf) is not "
+                "ported yet, only rendering it: ROADMAP.md queue 1, item 2 "
+                "(flagship training)")
         if cfg.use_remat:
             raise NotImplementedError(
                 "--use_remat is not ported yet: ROADMAP.md queue 1, item 8 "

@@ -148,7 +148,7 @@ def test_unported_paths_raise():
                          "--app_place_new_mirror"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    cfg, _ = get_opt(["--model_type", "nerf"])
+    cfg, _ = get_opt(["--model_type", "nerf_tcnn"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_field(cfg)
 

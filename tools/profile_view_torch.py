@@ -1,21 +1,26 @@
 #!/usr/bin/env python
-"""Profile one 800×800 level-2 view of the PyTorch + CUDA port.
+"""Profile one level-2 view of the PyTorch + CUDA port.
 
-    python3 tools/profile_view_torch.py            # on a CUDA card
-    python3 tools/profile_view_torch.py --cpu 48   # CPU rehearsal, 48×48
+    python3 tools/profile_view_torch.py                     # CP grid, 800×800
+    python3 tools/profile_view_torch.py --model_type nerf   # flagship, 400×300
+    python3 tools/profile_view_torch.py --cpu 48            # CPU rehearsal
 
-Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 nerf_tpu
-flags, seeded and all-mirror weights) through `run_view`: one warm view,
-three timed ones, then one under `torch.profiler`. From the exported trace
-it prints, per weight set:
+Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 flags of the
+model, seeded and all-mirror weights) through `run_view`: one warm view,
+three timed ones, then one under `torch.profiler`. The CP grid (nerf_tpu)
+renders 800×800, the flagship PE-MLP (nerf) the livingroom preset's
+400×300. From the exported trace it prints, per weight set:
 
   * the trace span: first to last CPU-op or device event;
   * device busy time: the union of the kernel, memcpy and memset intervals;
   * the idle share, 1 − busy / span;
-  * device time and call count by kernel name.
+  * device time and call count by kernel name;
+  * the port kernel's launches in the profiled view and its share of the
+    span.
 
 Imports only the port (`mirror_nerf_tpu_torch`), never JAX. The CPU
-rehearsal uses small CP levels and reports no device numbers.
+rehearsal (SIZE×SIZE; small CP levels for nerf_tpu) reports no device
+numbers.
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", type=int, metavar="SIZE", default=0,
                     help="rehearse on the CPU at SIZE×SIZE with small levels")
+    ap.add_argument("--model_type", default="nerf_tpu",
+                    choices=["nerf_tpu", "nerf"])
     opt = ap.parse_args(argv)
 
     import torch
@@ -80,9 +87,13 @@ def main(argv=None) -> int:
     from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
     from mirror_nerf_tpu_torch.eval.cli import init_params
     from mirror_nerf_tpu_torch.models.fields import make_field
-    from mirror_nerf_tpu_torch.ops import fused_cp
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp_t
 
-    size = opt.cpu or 800
+    nerf = opt.model_type == "nerf"
+    kernel_mod, kernel_name = ((fused_mlp_t, "mlp_composite_kernel") if nerf
+                               else (fused_cp, "composite_rays_kernel"))
+    w, h = (opt.cpu, opt.cpu) if opt.cpu else ((400, 300) if nerf
+                                               else (800, 800))
     dev = "cpu" if opt.cpu else "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if opt.cpu:
@@ -96,14 +107,16 @@ def main(argv=None) -> int:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     print(card, flush=True)
 
-    flags = cs.EVAL_FLAGS + ["--img_wh", str(size), str(size)]
+    flags = ((cs.NERF_EVAL_FLAGS if nerf else cs.EVAL_FLAGS)
+             + ["--img_wh", str(w), str(h)])
     if opt.cpu:
-        flags += ["--grid_levels", "16:8,32:8", "--chunk", "1024"]
+        flags += ["--chunk", "1024"] + (
+            [] if nerf else ["--grid_levels", "16:8,32:8"])
     cfg, args = get_opt(flags)
     field = make_field(cfg)
     ctx = AppContext.build(cfg, args, field, init_params(field, cfg, dev),
                            dev)
-    rays_np = cs._view_rays(size)
+    rays_np = cs._view_rays(w, h)
     sample = {"rays": rays_np}
     mirror_ctx = replace(ctx, params={k: cs._all_mirror(v)
                                       for k, v in ctx.params.items()})
@@ -115,9 +128,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             run_view(c, sample)
             walls.append(time.perf_counter() - t0)
-        n0 = fused_cp.launches
+        n0 = kernel_mod.launches
         wall_prof, events = profile(lambda: run_view(c, sample), acts)
-        launches = fused_cp.launches - n0
+        launches = kernel_mod.launches - n0
         dev_ev = [e for e in events if e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset")]
         cpu_ev = [e for e in events if e.get("cat") in
@@ -130,10 +143,12 @@ def main(argv=None) -> int:
         for e in dev_ev:
             by_name[e["name"][:70]][0] += 1
             by_name[e["name"][:70]][1] += e["dur"]
+        k_dur = sum(e["dur"] for e in dev_ev if kernel_name in e["name"])
         device = ("device: not measured" if opt.cpu else
                   f"device busy (union) {busy / 1e3:.1f} ms, idle share "
-                  f"{1 - busy / span:.4f}")
-        print(f"=== {label}: unprofiled walls "
+                  f"{1 - busy / span:.4f}, {kernel_name} "
+                  f"{k_dur / 1e3:.1f} ms = {k_dur / span:.4f} of the span")
+        print(f"=== {opt.model_type} {w}x{h} {label}: unprofiled walls "
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms -> "
               f"{len(rays_np) / min(walls):.1f} rays/s; profiled wall "
               f"{wall_prof * 1e3:.1f} ms, trace span {span / 1e3:.1f} ms, "
