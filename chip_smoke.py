@@ -54,10 +54,25 @@ each fatal on failure:
      then one 400×300 level-2 view (the livingroom preset's size) through
      run_view, seeded and all-mirror weights; the launch counter is reset
      before the CLI and read right after the timed views; the card against
-     the plain version on the CPU on 256 rays.
+     the plain version on the CPU on 256 rays;
+ 11. the per-sample kernels vs their plain versions: CP rows (16384 strided
+     rays of the 800×800 camera, S=128 full and S=64 σ-only) and the CP
+     composite from per-sample inputs (relu and softplus, Σw ≤ 1 + 1e-5);
+     flagship rows (16384 rays of the 400×300 camera, the same S, plus
+     S=80 and 192 on 2048 + 37 rays) and points (16384·128 and 100003);
+     a saturating field for each; errors scaled above 1, kernel and plain
+     times beside the bound. The per-sample composite's and the points'
+     launches are counted here (no render path runs them);
+ 12. the σ-noise path: one level-2 view per model through trace_rays in
+     16384-ray chunks (CP 800×800, flagship 400×300; fused_field,
+     noise_std 1, perturb 0, test_time, a seeded CUDA generator), launch
+     counters reset before the view and read after (rows modes launched,
+     composite kernels not), rays/s; on 1024 rays the fused route against
+     the plain modules on the card from the same generator seed, and the
+     flagship's fused_t=False route at noise 0 against its composite route.
 
 Each phase prints its wall time. The script prints one JSON line with the
-four kernels' numbers (each with the least time the card could take for the
+eight kernels' numbers (each with the least time the card could take for the
 same work, `bound_ms`, counted from this run's shapes), the nvidia-smi name
 and power limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -1070,6 +1085,340 @@ def phase_mlp_main_path(torch, card: str) -> int:
         os.chdir(cwd)
 
 
+def _scaled_errs(got: dict, ref: dict) -> dict:
+    """max |kernel − plain| per output, over max(1, max |plain|)."""
+    return {k: float((got[k] - ref[k]).abs().max())
+            / max(1.0, float(ref[k].abs().max())) for k in ref}
+
+
+def _row_groups(rows) -> dict:
+    """(B, 8) rows (or (B, 1) σ-only) -> σ, rgb, normal, mirror."""
+    if rows.shape[-1] == 1:
+        return {"sigma": rows[..., 0]}
+    return {"sigma": rows[..., 0], "rgb": rows[..., 1:4],
+            "normal": rows[..., 4:7], "mirror": rows[..., 7]}
+
+
+def _rows_case(torch, tag: str, kern, plain, card: str, time_it=True,
+               composite=False):
+    """One per-sample kernel case against its plain version: errors (scaled
+    above 1), Σw ≤ 1 + 1e-5 for a composite, and optionally the two times.
+    Returns (worst error, kernel ms, plain ms, the kernel's outputs)."""
+    with torch.no_grad():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        errs = _scaled_errs(got, ref)
+        for k, v in got.items():
+            assert v.is_cuda and bool(torch.isfinite(v).all()), (tag, k)
+        ms = _time_ms(torch, kern, reps=5, warmup=1) if time_it else None
+        plain_ms = (_time_ms(torch, plain, reps=3, warmup=1) if time_it
+                    else None)
+    extra = ""
+    if composite:
+        wsum = float(got["weights"].sum(-1).max())
+        assert wsum <= 1.0 + 1e-5, (tag, wsum)
+        extra = f"max Σw {wsum:.6f}; "
+    times = (f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, " if time_it
+             else "")
+    log(f"[rows-kernel] {tag}: {times}({card}); {extra}max abs err (scaled "
+        "above 1) " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert max(errs.values()) <= KERNEL_ATOL, (tag, errs)
+    return max(errs.values()), ms, plain_ms, got
+
+
+def _entry(name: str, source: str, replaces: str, worst: float, timed: dict,
+           flop: float, nbytes: int, tag: str) -> dict:
+    """A JSON entry (launches filled in later) and its bound's log line."""
+    bound_ms, bound_by = _bound(flop, nbytes)
+    log(f"[rows-kernel] {name} at {tag}: bound {bound_ms:.3f} ms "
+        f"({bound_by}); kernel at {bound_ms / timed['ms'] * 100:.1f} % of it, "
+        f"plain at {bound_ms / timed['plain_ms'] * 100:.1f} %")
+    return {"name": name, "route": "cuda",
+            "source": f"mirror_nerf_tpu_torch/csrc/{source}",
+            "replaces": f"mirror_nerf_tpu/ops/pallas/{replaces}",
+            "launches": 0, "max_abs_err": worst, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _ray_inputs(torch, rays_np, n: int, coarse_weights):
+    """n strided rays of a view: o, d, z64 (stratified) and z128 (64 + 64
+    merged on `coarse_weights(o, d, z64)`, as the fine pass gets them)."""
+    from mirror_nerf_tpu_torch.core.sampling import (merge_fine_z_vals,
+                                                     stratified_z_vals)
+
+    rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).cuda()
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    z64 = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 64).contiguous()
+    with torch.no_grad():
+        z128 = merge_fine_z_vals(z64, coarse_weights(o, d, z64), 64,
+                                 0.0).contiguous()
+    return o, d, z64, z128
+
+
+def phase_rows_kernels(torch, card: str) -> list:
+    """(11) The per-sample kernels of the σ-noise passes and point queries
+    against their plain versions at the main paths' shapes. Returns the
+    four JSON entries; the per-sample composite's and the points' launches
+    are this phase's (no render path runs them), the rows modes' are set
+    from phase 12."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp
+    from mirror_nerf_tpu_torch.ops import fused_mlp_t as fm
+
+    fused_cp.launches_samples = fused_mlp.launches_points = 0
+    n = 16384
+    worst = {}
+
+    # -- CP grid: rows (JAX fused_cp.py:314) and per-sample composite (:335)
+    field = TPUGridField(bound=6.0, predict_normal=True,
+                         predict_mirror_mask=True)
+    seeded = field.init(torch.Generator().manual_seed(0), "cuda")
+    saturating = dict(seeded)
+    s2 = seeded["sigma_net"][1]["w"].clone()
+    s2[:, 0] = s2[:, 0].abs() * 2000.0
+    saturating["sigma_net"] = [seeded["sigma_net"][0], {"w": s2}]
+    o, d, z64, z128 = _ray_inputs(
+        torch, _view_rays(800), n, lambda o, d, z: fused_cp.
+        cp_rays_composite_reference(field, seeded, o, d, d, z, True)[
+            "weights"])
+    sum_r = sum(r for _, r in field.grid_levels)
+    tables, _ = fused_cp._pack_tables(seeded, field.grid_levels)
+    nets = fused_cp._pack_nets(seeded)
+    timed = {}
+    for pname, params in (("seeded", seeded), ("saturating", saturating)):
+        for sigma_only, z in ((False, z128), (True, z64)):
+            if pname == "saturating" and sigma_only:
+                continue
+            tag = (f"cp rows {pname} S={z.shape[1]} "
+                   f"{'sigma-only' if sigma_only else 'full'}, {n} rays")
+            err, ms, plain_ms, got = _rows_case(
+                torch, tag,
+                lambda: fused_cp.fused_cp_rays_eval(
+                    field, params, o, d, d, z, sigma_only),
+                lambda: fused_cp.cp_rays_rows_reference(
+                    field, params, o, d, d, z, sigma_only),
+                card, time_it=pname == "seeded")
+            worst["cp_rows"] = max(worst.get("cp_rows", 0.0), err)
+            if (pname, sigma_only) == ("seeded", False):
+                timed["cp_rows"] = {"ms": ms, "plain_ms": plain_ms}
+                rows_bytes = _nbytes(o, d, d, z, tables, nets) + n * 128 * 32
+    for pname, params, act, sigma_only, z in (
+            ("seeded", seeded, "relu", False, z128),
+            ("seeded", seeded, "softplus", False, z128),
+            ("seeded", seeded, "relu", True, z64),
+            ("saturating", saturating, "relu", False, z128)):
+        xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+        v = d[:, None, :].expand_as(xyz).contiguous()
+        dl = torch.cat([z[:, 1:] - z[:, :-1],
+                        torch.full_like(z[:, :1], 1e10)], -1).contiguous()
+        tag = (f"cp per-sample composite {pname} {act} S={z.shape[1]} "
+               f"{'sigma-only' if sigma_only else 'full'}, {n} rays")
+        err, ms, plain_ms, got = _rows_case(
+            torch, tag,
+            lambda: fused_cp.fused_cp_forward_composite(
+                field, params, xyz, v, z, dl, sigma_only, act),
+            lambda: fused_cp.cp_samples_composite_reference(
+                field, params, xyz, v, z, dl, sigma_only, act),
+            card, time_it=act == "relu" and pname == "seeded",
+            composite=True)
+        worst["cp_samples"] = max(worst.get("cp_samples", 0.0), err)
+        if (pname, act, sigma_only) == ("seeded", "relu", False):
+            timed["cp_samples"] = {"ms": ms, "plain_ms": plain_ms}
+            samples_bytes = _nbytes(xyz, v, z, dl, tables, nets,
+                                    *got.values())
+    flop_cp = n * 128 * _cp_flop(sum_r, True)
+    entries = [
+        _entry("fused_cp_rows", "fused_cp_composite.cu", "fused_cp.py:314",
+               worst["cp_rows"], timed["cp_rows"], flop_cp, rows_bytes,
+               "S=128 full"),
+        _entry("fused_cp_samples_composite", "fused_cp_composite.cu",
+               "fused_cp.py:335", worst["cp_samples"], timed["cp_samples"],
+               flop_cp, samples_bytes, "S=128 full")]
+    del o, d, z64, z128, xyz, v, dl, got
+
+    # -- flagship: rows (JAX fused_mlp.py:238) and points (:223)
+    field = MirrorNeRFField()
+    base = field.init(torch.Generator().manual_seed(0), "cuda")
+    seeded = _sigma_scaled(base, 5.0)
+    saturating = _sigma_scaled(base, 2000.0)
+    o, d, z64, z128 = _ray_inputs(
+        torch, _view_rays(400, 300), n, lambda o, d, z: fm.
+        mlp_rays_composite_reference(field, seeded, o, d, d, z, True)[
+            "weights"])
+    packed = fm._pack(seeded)
+    for pname, params, sigma_only, z in (
+            ("seeded", seeded, False, z128), ("seeded", seeded, True, z64),
+            ("saturating", saturating, False, z128)):
+        tag = (f"flagship rows {pname} S={z.shape[1]} "
+               f"{'sigma-only' if sigma_only else 'full'}, {n} rays")
+        err, ms, plain_ms, got = _rows_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_rays_eval(
+                field, params, o, d, d, z, sigma_only)),
+            lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
+                field, params, o, d, d, z, sigma_only)),
+            card, time_it=pname == "seeded")
+        worst["mlp_rows"] = max(worst.get("mlp_rows", 0.0), err)
+        if (pname, sigma_only) == ("seeded", False):
+            timed["mlp_rows"] = {"ms": ms, "plain_ms": plain_ms}
+            mlp_rows_bytes = _nbytes(o, d, d, z, packed) + n * 128 * 32
+    # S that do not tile the 256-sample block, on a ragged ray count
+    n2 = 2048 + 37
+    o2, d2 = o[:n2].contiguous(), d[:n2].contiguous()
+    for s in (80, 192):
+        z = stratified_z_vals(torch.full((n2, 1), 0.05, device="cuda"),
+                              torch.full((n2, 1), 8.0, device="cuda"), s)
+        for sigma_only in (False, True):
+            err, *_ = _rows_case(
+                torch, f"flagship rows seeded S={s} "
+                f"{'sigma-only' if sigma_only else 'full'}, {n2} rays",
+                lambda: _row_groups(fused_mlp.fused_rays_eval(
+                    field, seeded, o2, d2, d2, z, sigma_only)),
+                lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
+                    field, seeded, o2, d2, d2, z, sigma_only)),
+                card, time_it=False)
+            worst["mlp_rows"] = max(worst["mlp_rows"], err)
+    # points: the fine pass's sample positions, 16384·128, and an odd count
+    pts = (o[:, None, :] + d[:, None, :] * z128[..., None]).reshape(-1, 3)
+    dirs = d.repeat_interleave(128, 0)
+    b_odd = 100_003
+    for pname, params, sigma_only, b in (
+            ("seeded", seeded, False, pts.shape[0]),
+            ("seeded", seeded, True, pts.shape[0]),
+            ("seeded", seeded, False, b_odd),
+            ("saturating", saturating, False, b_odd)):
+        x, v = pts[:b], dirs[:b]
+        tag = (f"flagship points {pname} "
+               f"{'sigma-only' if sigma_only else 'full'}, {b} points")
+        err, ms, plain_ms, got = _rows_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_packed_eval(
+                field, params, x, v, sigma_only)),
+            lambda: _row_groups(fused_mlp.mlp_rows_reference(
+                field, params, x, v, sigma_only)),
+            card, time_it=b != b_odd)
+        worst["mlp_points"] = max(worst.get("mlp_points", 0.0), err)
+        if (pname, sigma_only, b) == ("seeded", False, pts.shape[0]):
+            timed["mlp_points"] = {"ms": ms, "plain_ms": plain_ms}
+            points_bytes = _nbytes(x, v, packed) + b * 32
+    flop_mlp = 2 * n * 128 * MLP_MACS[False]
+    entries += [
+        _entry("fused_mlp_rows", "fused_mlp_t.cu", "fused_mlp.py:238",
+               worst["mlp_rows"], timed["mlp_rows"], flop_mlp,
+               mlp_rows_bytes, "S=128 full"),
+        _entry("fused_mlp_points", "fused_mlp_t.cu", "fused_mlp.py:223",
+               worst["mlp_points"], timed["mlp_points"], flop_mlp,
+               points_bytes, f"{pts.shape[0]} points full")]
+    entries[1]["launches"] = fused_cp.launches_samples
+    entries[3]["launches"] = fused_mlp.launches_points
+    log(f"[rows-kernel] launches in this phase: per-sample composite "
+        f"{fused_cp.launches_samples}, points {fused_mlp.launches_points}")
+    return entries
+
+
+def _noise_view(torch, field, params, rays, ts, generator, chunk=16384):
+    """One traced view through `trace_rays`, in chunks; rgb_fine, depth_fine
+    and the resolved mirror mask of level 0, and the wall in seconds."""
+    from mirror_nerf_tpu_torch.render.tracer import trace_rays
+
+    keys = ("rgb_fine", "depth_fine", "mirror_mask_resolved")
+    out = {k: [] for k in keys}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(0, rays.shape[0], chunk):
+            sub = rays[i:i + chunk]
+            res = trace_rays(field, params, sub,
+                             torch.full_like(sub[:, 0], -1.0), ts, generator)
+            for k in keys:
+                out[k].append(res[k])
+    torch.cuda.synchronize()
+    return {k: torch.cat(v) for k, v in out.items()}, time.perf_counter() - t0
+
+
+def phase_noise_path(torch, card: str) -> tuple:
+    """(12) The σ-noise path: one level-2 traced view per model through
+    `trace_rays` in 16384-ray chunks (CP grid 800×800, flagship 400×300;
+    fused_field, noise_std 1, perturb 0, test_time, a seeded CUDA generator,
+    all-mirror weights so every level blends in). The launch counters are
+    reset before the timed view and read right after: the rows modes must
+    launch, the composite kernels must not. Then, on 1024 rays, the fused
+    route against the plain modules on the card from the same generator
+    seed, and the flagship's fused_t=False route at noise 0 against its
+    composite route. Returns the rows modes' launches (CP, flagship)."""
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp, fused_mlp_t
+    from mirror_nerf_tpu_torch.render.renderer import (RenderSettings,
+                                                       render_rays)
+    from mirror_nerf_tpu_torch.render.tracer import TraceSettings
+
+    rs = RenderSettings(N_samples=64, N_importance=64, perturb=0.0,
+                        noise_std=1.0, test_time=True, compute_normal=False,
+                        fused_field=True)
+    ts = TraceSettings(render=rs, max_recursive_level=2,
+                       only_trace_mode="eval", is_eval=True)
+    launches = []
+    for model, flags, (w, h) in (("cp grid", EVAL_FLAGS, (800, 800)),
+                                 ("flagship", NERF_EVAL_FLAGS, (400, 300))):
+        cfg, _ = get_opt(flags + ["--img_wh", str(w), str(h)])
+        field = make_field(cfg)
+        params = {k: _all_mirror(v)
+                  for k, v in init_params(field, cfg, "cuda").items()}
+        rays = torch.from_numpy(_view_rays(w, h)).cuda()
+        _noise_view(torch, field, params, rays[:1024], ts,
+                    torch.Generator(device="cuda").manual_seed(0))  # warm
+        fused_cp.launches = fused_cp.launches_rows = 0
+        fused_mlp.launches_rays = fused_mlp_t.launches = 0
+        out, wall = _noise_view(torch, field, params, rays, ts,
+                                torch.Generator(device="cuda").manual_seed(1))
+        rows = (fused_cp.launches_rows if model == "cp grid"
+                else fused_mlp.launches_rays)
+        composite = fused_cp.launches + fused_mlp_t.launches
+        assert rows > 0, f"{model}: the rows mode never launched"
+        assert composite == 0, f"{model}: a composite kernel launched"
+        for k, v in out.items():
+            assert v.shape[0] == rays.shape[0] and v.is_cuda, k
+            assert bool(torch.isfinite(v).all()), k
+        launches.append(rows)
+        log(f"[noise] {model} {w}x{h} level-2 σ-noise view through "
+            f"trace_rays: {wall:.3f} s -> {rays.shape[0] / wall:.1f} rays/s "
+            f"({card}); rows-mode launches {rows}, composite launches "
+            f"{composite}; mirror fraction "
+            f"{float(out['mirror_mask_resolved'].mean()):.4f}, mean "
+            f"opacity-weighted depth {float(out['depth_fine'].mean()):.3f}")
+
+        sub = rays[::rays.shape[0] // 1024][:1024]
+        got, want = (_noise_view(
+            torch, field, params, sub, replace(ts, render=replace(
+                rs, fused_field=fused)),
+            torch.Generator(device="cuda").manual_seed(2))[0]
+            for fused in (True, False))
+        errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
+        log(f"[noise] {model}: fused route vs plain modules on the card, "
+            f"1024 rays, same generator seed: max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        assert max(errs.values()) <= RENDER_ATOL, errs
+        if model == "flagship":
+            quiet = replace(rs, noise_std=0.0)
+            with torch.no_grad():
+                t_on, t_off = (render_rays(field, params, sub, replace(
+                    quiet, fused_t=ft)) for ft in (True, False))
+            errs = {k: float((t_on[k] - t_off[k]).abs().max())
+                    for k in ("rgb_fine", "depth_fine", "opacity_fine",
+                              "mirror_mask_fine", "surface_normal_fine",
+                              "weights_coarse")}
+            log(f"[noise] flagship at noise 0, fused_t=False (rows) vs "
+                f"fused_t=True (composite), 1024 rays: max abs err "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            assert max(errs.values()) <= RENDER_ATOL, errs
+    return tuple(launches)
+
+
 def main() -> int:
     import torch
 
@@ -1107,9 +1456,13 @@ def main() -> int:
     mlp_entry = timed("flagship kernel", phase_mlp_kernel, torch, card)
     mlp_entry["launches"] = timed("flagship main path", phase_mlp_main_path,
                                   torch, card)
+    rows_entries = timed("rows kernels", phase_rows_kernels, torch, card)
+    rows_entries[0]["launches"], rows_entries[2]["launches"] = timed(
+        "noise path", phase_noise_path, torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
-    print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry]}))
+    print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,
+                                  *rows_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

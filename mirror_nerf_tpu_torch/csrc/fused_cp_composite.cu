@@ -1,11 +1,23 @@
-// Fused CP-grid field + per-ray alpha compositing, one kernel (sm_90a).
+// Fused CP-grid field + per-ray alpha compositing, one kernel (sm_90a), in
+// three modes (the MODE template argument):
 //
-// Replaces the Pallas TPU kernel `_kernel_composite_rays`
-// (mirror_nerf_tpu/ops/pallas/fused_cp.py:363, driven by
-// fused_cp_forward_composite_rays:427 and the adapter
-// fused_cp_rays_composite:554). It computes the same function, not the same
-// layout: the TPU kernel's hat-basis table matmuls, one-hot ray expand,
-// lane-roll scan and hi/lo bf16 split answered TPU limits and are gone.
+//   COMPOSITE replaces the Pallas TPU kernel `_kernel_composite_rays`
+//     (mirror_nerf_tpu/ops/pallas/fused_cp.py:363, driven by
+//     fused_cp_forward_composite_rays:427 and the adapter
+//     fused_cp_rays_composite:554): per-ray o, d, view dir and depths z in.
+//   ROWS replaces `_kernel` (fused_cp.py:314; fused_cp_forward:481 → :494,
+//     adapter fused_cp_rays_eval:657): the same per-ray inputs, and per
+//     sample 8 floats out [raw σ, rgb (3), unit normal (3), mirror] (raw σ
+//     alone when σ-only), no compositing: the σ-noise passes add the noise
+//     to raw σ and composite outside.
+//   SAMPLES replaces `_kernel_composite` (fused_cp.py:335;
+//     fused_cp_forward_composite:507 → :538 σ-only, :543; reached from
+//     fused_cp_rays_composite:612-623): the composite from per-sample
+//     inputs, world position x, view dir, z and δ (δ_inf = 1e10 given by
+//     the caller), in place of per-ray o, d and z.
+// It computes the same functions, not the same layout: the TPU kernels'
+// hat-basis table matmuls, one-hot ray expand, lane-roll scan and hi/lo
+// bf16 split answered TPU limits and are gone.
 //
 // Per ray (o, d, view dir) and its S sorted depths z, each sample is one
 // thread:
@@ -20,6 +32,8 @@
 //   w_i = exp(−Σ_{j<i} sd_j)·(1 − exp(−sd_i)), the prefix an EXCLUSIVE scan
 //     (never inclusive-minus-self: that cancels against δ_inf = 1e10)
 //   per ray: Σw, Σw·rgb, Σw·n, Σw·mirror, Σw·z; the σ-only variant stops at w.
+// (SAMPLES reads x and δ where the list computes them from o + d·z; ROWS
+// stops after the mirror and writes the sample's row.)
 //
 // What bounds it on the H100: arithmetic. A sample costs ~17k fp32 FMAs
 // (6k in the CP fold at the default 3×64 ranks, 11k in the nets) against
@@ -46,6 +60,9 @@
 // S = 64 (σ-only), ~8 %. So the FMAs are not yet the limit: the scalar table
 // loads of the CP encode (6 per rank) and one shared-memory operand per FMA
 // are, which is what vectorized rank loads and tensor-core nets would cut.
+// ROWS writes 32 B a sample (67 MB at 16384 × 128, ~0.02 ms of the memory
+// rate) and SAMPLES reads 32 B a sample (x, v, z, δ): both stay bound by
+// the same encode and nets.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +79,9 @@ constexpr int MAX_LEVELS = 8;
 constexpr int BLOCK = 256;
 constexpr int WARPS = BLOCK / 32;
 constexpr int NOUT = 9;          // opacity, rgb(3), normal(3), mirror, depth
+constexpr int NROW = 8;          // ROWS: σ, rgb(3), normal(3), mirror
+
+enum Mode { COMPOSITE = 0, ROWS = 1, SAMPLES = 2 };
 constexpr int SMEM_LIMIT = 232448 - WARPS * NOUT * 4;  // 227 KB minus static
 
 struct Levels {
@@ -137,14 +157,18 @@ __device__ __forceinline__ void cp_features(
   }
 }
 
-template <bool SIGMA_ONLY, bool SOFTPLUS>
-__global__ void __launch_bounds__(BLOCK) composite_rays_kernel(
-    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-    const float* __restrict__ view_dirs, const float* __restrict__ z_vals,
-    const float* __restrict__ tables, const float* __restrict__ nets,
-    const Levels lv, const Nets no, const int n_rays, const int n_samples,
-    const int lanes_per_ray, const float bound, float* __restrict__ weights,
-    float* __restrict__ per_ray) {
+// pos: ray origins (N, 3), or world positions (N, S, 3) in SAMPLES mode;
+// vdir: view dirs (N, 3), or (N, S, 3) in SAMPLES mode; rays_d is read in
+// COMPOSITE and ROWS, deltas (N, S) in SAMPLES only.
+template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
+__global__ void __launch_bounds__(BLOCK) cp_field_kernel(
+    const float* __restrict__ pos, const float* __restrict__ rays_d,
+    const float* __restrict__ vdir, const float* __restrict__ z_vals,
+    const float* __restrict__ deltas, const float* __restrict__ tables,
+    const float* __restrict__ nets, const Levels lv, const Nets no,
+    const int n_rays, const int n_samples, const int lanes_per_ray,
+    const float bound, float* __restrict__ weights,
+    float* __restrict__ per_ray, float* __restrict__ rows) {
   extern __shared__ float smem[];
   __shared__ float s_part[WARPS][NOUT];
 
@@ -165,16 +189,20 @@ __global__ void __launch_bounds__(BLOCK) composite_rays_kernel(
 
   float sd = 0.f, z = 0.f;
   float rgb[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 0.f}, mir = 0.f;
+  const long long zi = ray * n_samples + i;
   if (active) {
-    const long long zi = ray * n_samples + i;
     z = z_vals[zi];
-    const float delta = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
+    float delta = 0.f;
+    if (MODE == SAMPLES) delta = deltas[zi];
+    if (MODE == COMPOSITE)
+      delta = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
     float x[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       // unfused mul/add: the same roundings as the plain version
-      const float p = __fadd_rn(rays_o[ray * 3 + a],
-                                __fmul_rn(rays_d[ray * 3 + a], z));
+      const float p = MODE == SAMPLES
+          ? pos[zi * 3 + a]
+          : __fadd_rn(pos[ray * 3 + a], __fmul_rn(rays_d[ray * 3 + a], z));
       x[a] = (p + bound) / (2.f * bound);
     }
     float feat[F];
@@ -202,11 +230,12 @@ __global__ void __launch_bounds__(BLOCK) composite_rays_kernel(
         ? fmaxf(sigma, 0.f) + log1pf(expf(-fabsf(sigma)))
         : fmaxf(sigma, 0.f);
     sd = delta * act;
+    if (MODE == ROWS && SIGMA_ONLY) rows[zi] = sigma;
 
     if (!SIGMA_ONLY) {
       // SH degree 4 of the normalized view direction
-      float dx = view_dirs[ray * 3 + 0], dy = view_dirs[ray * 3 + 1],
-            dz = view_dirs[ray * 3 + 2];
+      const long long vi = (MODE == SAMPLES ? zi : ray) * 3;
+      float dx = vdir[vi + 0], dy = vdir[vi + 1], dz = vdir[vi + 2];
       const float inv = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-12f));
       dx *= inv; dy *= inv; dz *= inv;
       const float xx = dx * dx, yy = dy * dy, zz = dz * dz;
@@ -295,8 +324,16 @@ __global__ void __launch_bounds__(BLOCK) composite_rays_kernel(
         }
         mir = sigmoidf(m + smem[no.m2b]);
       }
+      if (MODE == ROWS) {
+        const float row[NROW] = {sigma, rgb[0], rgb[1], rgb[2],
+                                 nrm[0], nrm[1], nrm[2], mir};
+        float4* out = reinterpret_cast<float4*>(rows + zi * NROW);
+        out[0] = make_float4(row[0], row[1], row[2], row[3]);
+        out[1] = make_float4(row[4], row[5], row[6], row[7]);
+      }
     }
   }
+  if (MODE == ROWS) return;  // every thread of the block: no barrier below
 
   // Segmented EXCLUSIVE prefix of sd over the ray's lanes: warp scan, then
   // the totals of the ray's earlier warps. A lane's prefix never contains
@@ -344,25 +381,41 @@ __global__ void __launch_bounds__(BLOCK) composite_rays_kernel(
   }
 }
 
-template <bool SIGMA_ONLY, bool SOFTPLUS>
-int launch(const float* rays_o, const float* rays_d, const float* view_dirs,
-           const float* z_vals, const float* tables, const float* nets,
-           const Levels& lv, const Nets& no, int n_rays, int n_samples,
-           float bound, float* weights, float* per_ray,
-           cudaStream_t stream) {
-  const int lanes = (n_samples + 31) / 32 * 32;
+struct Args {
+  const float *pos, *rays_d, *vdir, *z_vals, *deltas, *tables, *nets;
+  Levels lv;
+  Nets no;
+  int n_rays, n_samples;
+  float bound;
+  float *weights, *per_ray, *rows;
+};
+
+template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
+int launch(const Args& a, cudaStream_t stream) {
+  const int lanes = (a.n_samples + 31) / 32 * 32;
   const int rays_per_block = BLOCK / lanes;
-  const int grid = (n_rays + rays_per_block - 1) / rays_per_block;
+  const int grid = (a.n_rays + rays_per_block - 1) / rays_per_block;
   const size_t smem =
-      (size_t)(SIGMA_ONLY ? no.sigma_total : no.total) * sizeof(float);
-  auto kern = composite_rays_kernel<SIGMA_ONLY, SOFTPLUS>;
+      (size_t)(SIGMA_ONLY ? a.no.sigma_total : a.no.total) * sizeof(float);
+  auto kern = cp_field_kernel<MODE, SIGMA_ONLY, SOFTPLUS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, BLOCK, smem, stream>>>(rays_o, rays_d, view_dirs, z_vals,
-                                      tables, nets, lv, no, n_rays, n_samples,
-                                      lanes, bound, weights, per_ray);
+  kern<<<grid, BLOCK, smem, stream>>>(
+      a.pos, a.rays_d, a.vdir, a.z_vals, a.deltas, a.tables, a.nets, a.lv,
+      a.no, a.n_rays, a.n_samples, lanes, a.bound, a.weights, a.per_ray,
+      a.rows);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_variant(const Args& a, bool sigma_only, bool softplus,
+                   cudaStream_t s) {
+  if (sigma_only)
+    return softplus ? launch<MODE, true, true>(a, s)
+                    : launch<MODE, true, false>(a, s);
+  return softplus ? launch<MODE, false, true>(a, s)
+                  : launch<MODE, false, false>(a, s);
 }
 
 }  // namespace
@@ -378,50 +431,54 @@ const char* mnerf_cuda_error_string(int e) {
 //   -1 level count outside [1, MAX_LEVELS]   -2 S outside [1, BLOCK]
 //   -3 a level with G < 2 or R < 1           -4 n_nets is not the layout's
 //   -5 the nets exceed the shared memory     -6 n_rays < 1
+//   -7 mode outside {0, 1, 2}
+// mode 0 (COMPOSITE): pos = rays_o (N, 3), rays_d (N, 3), vdir (N, 3);
+// writes weights (N, S) and, unless σ-only, per_ray (N, 9). mode 1 (ROWS):
+// the same inputs; writes rows (N, S, 8), or (N, S) raw σ when σ-only, and
+// ignores softplus. mode 2 (SAMPLES): pos (N, S, 3), vdir (N, S, 3),
+// deltas (N, S); writes what mode 0 writes. vdir is unread when σ-only.
 // All pointers are device pointers except level_g, level_r and table_off,
 // which are host arrays of n_levels entries (table_off: 3 per level,
 // axis-minor).
 int mnerf_fused_cp_composite(
-    const float* rays_o, const float* rays_d, const float* view_dirs,
-    const float* z_vals, const float* tables, const float* nets,
-    long long n_nets, const int* level_g, const int* level_r,
-    const long long* table_off, int n_levels, int n_rays, int n_samples,
-    float bound, int sigma_only, int softplus, float* weights, float* per_ray,
-    void* stream) {
+    const float* pos, const float* rays_d, const float* vdir,
+    const float* z_vals, const float* deltas, const float* tables,
+    const float* nets, long long n_nets, const int* level_g,
+    const int* level_r, const long long* table_off, int n_levels, int n_rays,
+    int n_samples, float bound, int mode, int sigma_only, int softplus,
+    float* weights, float* per_ray, float* rows, void* stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS) return -1;
   if (n_samples < 1 || n_samples > BLOCK) return -2;
-  Levels lv;
-  lv.n = n_levels;
+  if (mode < COMPOSITE || mode > SAMPLES) return -7;
+  Args a{pos, rays_d, vdir, z_vals, deltas, tables, nets};
+  a.lv.n = n_levels;
   int sum_r = 0;
   for (int l = 0; l < n_levels; ++l) {
     if (level_g[l] < 2 || level_r[l] < 1) return -3;
-    lv.G[l] = level_g[l];
-    lv.R[l] = level_r[l];
-    for (int a = 0; a < 3; ++a) lv.off[l][a] = table_off[l * 3 + a];
+    a.lv.G[l] = level_g[l];
+    a.lv.R[l] = level_r[l];
+    for (int k = 0; k < 3; ++k) a.lv.off[l][k] = table_off[l * 3 + k];
     sum_r += level_r[l];
   }
-  const Nets no = net_offsets(sum_r);
-  if (n_nets != no.total) return -4;
-  if ((long long)(sigma_only ? no.sigma_total : no.total) * 4 > SMEM_LIMIT)
+  a.no = net_offsets(sum_r);
+  if (n_nets != a.no.total) return -4;
+  if ((long long)(sigma_only ? a.no.sigma_total : a.no.total) * 4 >
+      SMEM_LIMIT)
     return -5;
   if (n_rays < 1) return -6;
+  a.n_rays = n_rays;
+  a.n_samples = n_samples;
+  a.bound = bound;
+  a.weights = weights;
+  a.per_ray = per_ray;
+  a.rows = rows;
   cudaStream_t s = (cudaStream_t)stream;
-  if (sigma_only) {
-    return softplus
-        ? launch<true, true>(rays_o, rays_d, view_dirs, z_vals, tables, nets,
-                             lv, no, n_rays, n_samples, bound, weights,
-                             per_ray, s)
-        : launch<true, false>(rays_o, rays_d, view_dirs, z_vals, tables, nets,
-                              lv, no, n_rays, n_samples, bound, weights,
-                              per_ray, s);
-  }
-  return softplus
-      ? launch<false, true>(rays_o, rays_d, view_dirs, z_vals, tables, nets,
-                            lv, no, n_rays, n_samples, bound, weights,
-                            per_ray, s)
-      : launch<false, false>(rays_o, rays_d, view_dirs, z_vals, tables, nets,
-                             lv, no, n_rays, n_samples, bound, weights,
-                             per_ray, s);
+  if (mode == ROWS)  // raw σ out: no activation, one instance per variant
+    return sigma_only ? launch<ROWS, true, false>(a, s)
+                      : launch<ROWS, false, false>(a, s);
+  if (mode == SAMPLES)
+    return launch_variant<SAMPLES>(a, sigma_only, softplus, s);
+  return launch_variant<COMPOSITE>(a, sigma_only, softplus, s);
 }
 
 }  // extern "C"

@@ -1,13 +1,24 @@
 // Fused flagship PE-MLP field + per-ray alpha compositing, one kernel
-// (sm_90a).
+// (sm_90a), with a per-sample rows output mode.
 //
-// Replaces the Pallas TPU kernel `_kernel` of
+// Composite mode replaces the Pallas TPU kernel `_kernel` of
 // mirror_nerf_tpu/ops/pallas/fused_mlp_t.py:276 (driven by fused_t_forward:352,
 // σ-only at :384, full at :393; adapter fused_t_rays_eval:418), in both its
 // variants. It computes the same function, not the same layout: the TPU
 // kernel's transposed lanes, its `E @ x3` posenc matmul with the hi/lo bf16
 // split, the roll scan, the SUM-matrix composite and the packed 8-row output
 // answered TPU limits and are gone.
+//
+// Rows mode (the ROWS template flag) replaces the two per-sample kernels of
+// mirror_nerf_tpu/ops/pallas/fused_mlp.py: `_kernel_rays:238` (rays;
+// fused_forward_rays:310 → :348, adapter fused_rays_eval:367) and `_kernel:223`
+// (points; fused_forward:266 → :290, adapters fused_packed_eval:416,
+// fused_field_eval:448). It runs the same trunk and heads and writes, per
+// sample, 8 floats [raw σ, rgb (3), unit normal (3), mirror] (0 where the
+// field lacks the head; raw σ alone in the σ-only variant) instead of
+// compositing: σ-noise passes add the noise to the raw σ and composite
+// outside. Points are one-sample rays (o = x, d = 0, z = 0: x + 0·0 is x
+// exactly), so a block takes 256 of them.
 //
 // For each sample i of each ray (o, d, view dir v, sorted depths z):
 //   x = o + d·z (a rounded multiply, then a rounded add: no FMA contraction)
@@ -48,7 +59,11 @@
 //   * the 1- and 3-wide heads are dot products split over 4 lanes;
 //   * per-sample sd, rgb, n, m of the block's rays collect in shared memory;
 //     one thread per ray then runs the exclusive prefix and the sums in
-//     sample order.
+//     sample order. Rows mode keeps raw σ there instead of sd and the whole
+//     block writes its rows out at the end, 32 bytes a sample, coalesced:
+//     at 16384 rays × 128 samples that is 67 MB, ~0.02 ms of the memory
+//     rate against tens of ms of FMAs, so rows mode is bound by the same
+//     arithmetic as the composite.
 // Everything is fp32 on the CUDA cores: no TF32, no bf16, no tensor cores.
 // Those (wgmma) are the redesign's work.
 
@@ -66,6 +81,7 @@ constexpr int DEPTH = 8;
 constexpr int SKIP = 4;
 constexpr int MAX_NF = 20;                 // posenc frequencies, x or v
 constexpr int NOUT = 9;  // opacity, rgb(3), normal(3), mirror, depth
+constexpr int NROW = 8;  // rows mode: σ, rgb(3), normal(3), mirror
 constexpr float HALF_PI = 1.57079637f;     // fp32(π/2), as the JAX phase
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2 };
@@ -284,14 +300,14 @@ __device__ __forceinline__ float posenc_row(const float* v3, const int r) {
   return sinf(within < 3 ? fx : __fadd_rn(fx, HALF_PI));
 }
 
-template <bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
-__global__ void __launch_bounds__(BLOCK, 1) mlp_composite_kernel(
+template <bool ROWS, bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
+__global__ void __launch_bounds__(BLOCK, 1) mlp_field_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ view_dirs, const float* __restrict__ z_vals,
     const float* __restrict__ nets, const Nets no, const int pe,
     const int dpe, const int n_rays, const int n_samples,
     const int rays_per_block, float* __restrict__ weights,
-    float* __restrict__ per_ray) {
+    float* __restrict__ per_ray, float* __restrict__ rows) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Smem L = smem_layout(pe, dpe, SIGMA_ONLY);
@@ -299,7 +315,7 @@ __global__ void __launch_bounds__(BLOCK, 1) mlp_composite_kernel(
   float* hid = smem + L.hid;
   float* wst = smem + L.wst;
   float* io = smem + L.io;  // x [3][TILE], v [3][TILE], δ, z
-  float* s_sd = smem + L.sd;
+  float* s_sd = smem + L.sd;  // sd, or raw σ in rows mode
   float* s_rgb = smem + L.rgb;
   float* s_nrm = smem + L.nrm;
   float* s_mir = smem + L.mir;
@@ -320,7 +336,7 @@ __global__ void __launch_bounds__(BLOCK, 1) mlp_composite_kernel(
         const int i = t % n_samples;
         const long long zi = ray * n_samples + i;
         z = z_vals[zi];
-        delta = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
+        if (!ROWS) delta = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           x[a] = __fadd_rn(rays_o[ray * 3 + a],
@@ -368,7 +384,7 @@ __global__ void __launch_bounds__(BLOCK, 1) mlp_composite_kernel(
       const float a = SOFTPLUS
           ? fmaxf(sig[0], 0.f) + log1pf(expf(-fabsf(sig[0])))
           : fmaxf(sig[0], 0.f);
-      if (writer) s_sd[t0 + s] = io[6 * TILE + s] * a;
+      if (writer) s_sd[t0 + s] = ROWS ? sig[0] : io[6 * TILE + s] * a;
     }
     if (SIGMA_ONLY) continue;
 
@@ -398,6 +414,21 @@ __global__ void __launch_bounds__(BLOCK, 1) mlp_composite_kernel(
     }
   }
   __syncthreads();
+
+  if (ROWS) {  // the block's rows, ray-major, coalesced
+    constexpr int NR = SIGMA_ONLY ? 1 : NROW;
+    float* out = rows + ray0 * n_samples * NR;
+    for (int idx = tid; idx < nt * NR; idx += BLOCK) {
+      const int t = idx / NR, c = idx - t * NR;
+      float v;
+      if (c == 0) v = s_sd[t];
+      else if (c < 4) v = s_rgb[(c - 1) * MAXS + t];
+      else if (c < 7) v = HAS_N ? s_nrm[(c - 4) * MAXS + t] : 0.f;
+      else v = HAS_M ? s_mir[t] : 0.f;
+      out[idx] = v;
+    }
+    return;
+  }
 
   // one thread per ray: the exclusive prefix and the per-ray sums, in
   // sample order. The prefix never holds a sample's own sd, so the 1e10
@@ -434,34 +465,37 @@ struct Args {
   const float *rays_o, *rays_d, *view_dirs, *z_vals, *nets;
   Nets no;
   int pe, dpe, n_rays, n_samples;
-  float *weights, *per_ray;
+  float *weights, *per_ray, *rows;
 };
 
-template <bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
+template <bool ROWS, bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
 int launch(const Args& a, cudaStream_t stream) {
   const int rays_per_block = MAXS / a.n_samples;
   const int grid = (a.n_rays + rays_per_block - 1) / rays_per_block;
   const int smem =
       (int)sizeof(float) * smem_layout(a.pe, a.dpe, SIGMA_ONLY).total;
-  auto kern = mlp_composite_kernel<SIGMA_ONLY, SOFTPLUS, HAS_N, HAS_M>;
+  auto kern = mlp_field_kernel<ROWS, SIGMA_ONLY, SOFTPLUS, HAS_N, HAS_M>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, BLOCK, smem, stream>>>(
       a.rays_o, a.rays_d, a.view_dirs, a.z_vals, a.nets, a.no, a.pe, a.dpe,
-      a.n_rays, a.n_samples, rays_per_block, a.weights, a.per_ray);
+      a.n_rays, a.n_samples, rays_per_block, a.weights, a.per_ray, a.rows);
   return (int)cudaGetLastError();
 }
 
-// the σ-only variant reads no head; the full one one instance per head set
-template <bool SOFTPLUS>
+// the σ-only variant reads no head; the full one one instance per head set.
+// Rows mode emits raw σ, so it has no activation (one instance per set).
+template <bool ROWS, bool SOFTPLUS>
 int launch_variant(const Args& a, bool sigma_only, bool has_n, bool has_m,
                    cudaStream_t stream) {
-  if (sigma_only) return launch<true, SOFTPLUS, false, false>(a, stream);
-  if (has_n && has_m) return launch<false, SOFTPLUS, true, true>(a, stream);
-  if (has_n) return launch<false, SOFTPLUS, true, false>(a, stream);
-  if (has_m) return launch<false, SOFTPLUS, false, true>(a, stream);
-  return launch<false, SOFTPLUS, false, false>(a, stream);
+  if (sigma_only)
+    return launch<ROWS, true, SOFTPLUS, false, false>(a, stream);
+  if (has_n && has_m)
+    return launch<ROWS, false, SOFTPLUS, true, true>(a, stream);
+  if (has_n) return launch<ROWS, false, SOFTPLUS, true, false>(a, stream);
+  if (has_m) return launch<ROWS, false, SOFTPLUS, false, true>(a, stream);
+  return launch<ROWS, false, SOFTPLUS, false, false>(a, stream);
 }
 
 }  // namespace
@@ -476,16 +510,18 @@ const char* mnerf_cuda_error_string(int e) {
 // kernel does not take, which ops/fused_mlp_t.py turns into a message:
 //   -2 S outside [1, MAXS]   -3 a posenc frequency count outside
 //   [0, MAX_NF]   -4 n_nets is not the layout's   -6 n_rays < 1
-// All pointers are device pointers; view_dirs and per_ray may be null for
-// the σ-only variant. nets holds every leaf of the field, heads included,
-// whichever the variant.
+// All pointers are device pointers; view_dirs may be null for the σ-only
+// variant. Composite mode (rows_mode 0) writes weights (N, S) and, unless
+// σ-only, per_ray (N, 9); rows mode (1) writes rows (N·S, 8), or (N·S,)
+// raw σ when σ-only, and ignores softplus. nets holds every leaf of the
+// field, heads included, whichever the variant.
 int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
                       const float* view_dirs, const float* z_vals,
                       const float* nets, long long n_nets, int n_rays,
                       int n_samples, int n_emb_xyz, int n_emb_dir,
                       int has_normal, int has_mirror, int sigma_only,
-                      int softplus, float* weights, float* per_ray,
-                      void* stream) {
+                      int softplus, int rows_mode, float* weights,
+                      float* per_ray, float* rows, void* stream) {
   if (n_samples < 1 || n_samples > MAXS) return -2;
   if (n_emb_xyz < 0 || n_emb_xyz > MAX_NF || n_emb_dir < 0 ||
       n_emb_dir > MAX_NF)
@@ -493,13 +529,16 @@ int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
   const int pe = posenc_rows(n_emb_xyz), dpe = posenc_rows(n_emb_dir);
   const Args a{rays_o, rays_d, view_dirs, z_vals, nets,
                net_offsets(pe, dpe, has_normal, has_mirror), pe, dpe,
-               n_rays, n_samples, weights, per_ray};
+               n_rays, n_samples, weights, per_ray, rows};
   if (n_nets != a.no.total) return -4;
   if (n_rays < 1) return -6;
   cudaStream_t s = (cudaStream_t)stream;
+  if (rows_mode)
+    return launch_variant<true, false>(a, sigma_only, has_normal, has_mirror,
+                                       s);
   return softplus
-      ? launch_variant<true>(a, sigma_only, has_normal, has_mirror, s)
-      : launch_variant<false>(a, sigma_only, has_normal, has_mirror, s);
+      ? launch_variant<false, true>(a, sigma_only, has_normal, has_mirror, s)
+      : launch_variant<false, false>(a, sigma_only, has_normal, has_mirror, s);
 }
 
 }  // extern "C"

@@ -1,21 +1,30 @@
-"""Fused CP-grid field + per-ray compositing (the eval path's kernel).
+"""Fused CP-grid field kernels: the eval composite, and the per-sample rows
+and per-sample-input composite of the σ-noise passes.
 
-Torch counterpart of `fused_cp_rays_composite` in
-`mirror_nerf_tpu/ops/pallas/fused_cp.py`, same contract: per-ray inputs
-(o, d, view dir) and sorted depths z (N, S) in; a dict out with `weights`
-(N, S) and, unless σ-only, per-ray `opacity`, `rgb` (N, 3), `normal` (N, 3),
-`mirror` and `depth`.
+Torch counterparts of three adapters in `mirror_nerf_tpu/ops/pallas/
+fused_cp.py`, one hand-written kernel `csrc/fused_cp_composite.cu` (sm_90a;
+see its source note) in three modes:
 
-  * `cp_rays_composite_reference` is the plain PyTorch version: the field
-    modules of models/ + the exclusive-prefix transmittance.
-  * `fused_cp_composite_cuda` launches the hand-written kernel
-    `csrc/fused_cp_composite.cu` (sm_90a; see its source note) and counts
-    its launches in the module-level `launches`.
-  * `fused_cp_rays_composite` dispatches on the device of the inputs: the
-    plain version for CPU tensors, the kernel for CUDA tensors. There is no
-    fallback: a kernel that fails to build or launch raises.
+  * `fused_cp_rays_composite` (composite mode): per-ray inputs (o, d, view
+    dir) and sorted depths z (N, S) in; `weights` (N, S) and, unless
+    σ-only, per-ray `opacity`, `rgb` (N, 3), `normal` (N, 3), `mirror` and
+    `depth` out. Eval semantics (no σ noise).
+  * `fused_cp_rays_eval` (rows mode): the same inputs; per sample `sigma`
+    (raw, (N, S)) and, unless σ-only, `rgb3`, `normal3` (N, S, 3, unit) and
+    `mirror` (N, S), the JAX keys in the port's sample-major layout. No
+    compositing: the renderer's σ-noise passes add noise to raw σ first.
+  * `fused_cp_forward_composite` (per-sample-input mode): world positions
+    and view dirs (N, S, 3), z and δ (N, S) per sample in (δ_inf = 1e10 on
+    each ray's last sample is the caller's); what `fused_cp_rays_composite`
+    returns out.
 
-Forward-only, eval semantics (no σ noise).
+Each has its plain PyTorch version beside it (`cp_rays_composite_reference`,
+`cp_rays_rows_reference`, `cp_samples_composite_reference`: the field
+modules of models/ + the exclusive-prefix transmittance) and dispatches on
+the device of its inputs: the plain version for CPU tensors, the kernel for
+CUDA tensors, with no fallback (a kernel that fails to build or launch
+raises). The kernel's launches are counted per mode in `launches`,
+`launches_rows` and `launches_samples`. Forward-only.
 """
 
 from __future__ import annotations
@@ -36,10 +45,16 @@ _REFUSALS = {-1: "the level count is outside [1, 8]",
              -3: "a level has G < 2 or R < 1",
              -4: "the packed nets disagree with the kernel's layout",
              -5: "the nets exceed the kernel's shared memory",
-             -6: "no rays"}
+             -6: "no rays",
+             -7: "an unknown mode"}
+# the kernel's modes (`Mode` in the .cu)
+COMPOSITE, ROWS, SAMPLES = 0, 1, 2
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches since import (or since a caller last reset them to 0), per
+# mode: composite, rows, per-sample-input composite
 launches = 0
+launches_rows = 0
+launches_samples = 0
 
 
 def prefix_weights(sd: torch.Tensor) -> torch.Tensor:
@@ -53,27 +68,77 @@ def prefix_weights(sd: torch.Tensor) -> torch.Tensor:
     return torch.exp(-excl) * (1.0 - torch.exp(-sd))
 
 
+def cp_rows_reference(field, params: dict, xyz, dirs,
+                      sigma_only: bool = False) -> dict:
+    """Per-sample field outputs from world positions xyz and view dirs
+    (N, S, 3; dirs unread when σ-only): `sigma` (raw) and, unless σ-only,
+    `rgb3`, `normal3` (unit) and `mirror` (any device)."""
+    n, s = xyz.shape[:2]
+    sigma, geo = field.density(params, xyz.reshape(-1, 3))
+    res = {"sigma": sigma.reshape(n, s)}
+    if sigma_only:
+        return res
+    dirs = l2_normalize(dirs.reshape(-1, 3), eps=1e-12)
+    res["rgb3"] = field.color(params, geo, dirs).reshape(n, s, 3)
+    res["normal3"] = l2_normalize(field.normal_head(params, geo)
+                                  ).reshape(n, s, 3)
+    res["mirror"] = field.mirror_head(params, geo).reshape(n, s)
+    return res
+
+
+def _ray_samples(rays_o, rays_d, view_dirs, z_vals):
+    """Per-ray inputs -> per-sample positions o + d·z and view dirs."""
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    dirs = None if view_dirs is None else view_dirs[:, None, :].expand(
+        *z_vals.shape, 3)
+    return xyz, dirs
+
+
+def ray_sums(w, rows: dict, z_vals) -> dict:
+    """Weights (N, S) and per-sample rows -> the composite's dict: w and
+    the per-ray opacity, rgb, normal, mirror and depth."""
+    return {"weights": w, "opacity": w.sum(-1),
+            "rgb": (w[..., None] * rows["rgb3"]).sum(1),
+            "normal": (w[..., None] * rows["normal3"]).sum(1),
+            "mirror": (w * rows["mirror"]).sum(-1),
+            "depth": (w * z_vals).sum(-1)}
+
+
+def composite_rows(rows: dict, z_vals, deltas, sigma_only: bool,
+                   sigma_act: str) -> dict:
+    """Per-sample rows -> the composite's dict: weights from δ·act(σ) by
+    the exclusive prefix and, unless σ-only, the per-ray sums."""
+    w = prefix_weights(deltas * sigma_activation(rows["sigma"], sigma_act))
+    return {"weights": w} if sigma_only else ray_sums(w, rows, z_vals)
+
+
 def cp_rays_composite_reference(field, params: dict, rays_o, rays_d,
                                 view_dirs, z_vals, sigma_only: bool = False,
                                 sigma_act: str = "relu") -> dict:
-    """The plain PyTorch version of the kernel (any device)."""
-    n, s = z_vals.shape
-    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    sigma, geo = field.density(params, xyz.reshape(-1, 3))
+    """The plain PyTorch version of the composite mode (any device)."""
+    rows = cp_rows_reference(field, params,
+                             *_ray_samples(rays_o, rays_d, view_dirs, z_vals),
+                             sigma_only)
     deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                         torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
-    w = prefix_weights(
-        deltas * sigma_activation(sigma.reshape(n, s), sigma_act))
-    if sigma_only:
-        return {"weights": w}
-    dirs = l2_normalize(view_dirs, eps=1e-12).repeat_interleave(s, dim=0)
-    rgb = field.color(params, geo, dirs).reshape(n, s, 3)
-    nrm = l2_normalize(field.normal_head(params, geo)).reshape(n, s, 3)
-    mir = field.mirror_head(params, geo).reshape(n, s)
-    return {"weights": w, "opacity": w.sum(-1),
-            "rgb": (w[..., None] * rgb).sum(1),
-            "normal": (w[..., None] * nrm).sum(1),
-            "mirror": (w * mir).sum(-1), "depth": (w * z_vals).sum(-1)}
+    return composite_rows(rows, z_vals, deltas, sigma_only, sigma_act)
+
+
+def cp_rays_rows_reference(field, params: dict, rays_o, rays_d, view_dirs,
+                           z_vals, sigma_only: bool = False) -> dict:
+    """The plain PyTorch version of the rows mode (any device)."""
+    return cp_rows_reference(field, params,
+                             *_ray_samples(rays_o, rays_d, view_dirs, z_vals),
+                             sigma_only)
+
+
+def cp_samples_composite_reference(field, params: dict, xyz, view_dirs,
+                                   z_vals, deltas, sigma_only: bool = False,
+                                   sigma_act: str = "relu") -> dict:
+    """The plain PyTorch version of the per-sample-input mode (any
+    device)."""
+    rows = cp_rows_reference(field, params, xyz, view_dirs, sigma_only)
+    return composite_rows(rows, z_vals, deltas, sigma_only, sigma_act)
 
 
 def _pack_nets(params: dict) -> torch.Tensor:
@@ -100,24 +165,44 @@ def _pack_tables(params: dict, levels):
     return torch.cat(parts).to(torch.float32), offsets
 
 
-def check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only: bool):
-    """A composite kernel's ray inputs: contiguous float32 on z's device,
-    rays_o/rays_d/view_dirs (N, 3) (view_dirs unread when σ-only), z (N, S).
-    Returns the tensors the kernel reads."""
-    dev = z_vals.device
-    n, s = z_vals.shape
-    ins = {"rays_o": rays_o, "rays_d": rays_d, "z_vals": z_vals}
-    if not sigma_only:
-        ins["view_dirs"] = view_dirs
-    for name, t in ins.items():
-        want = (n, s) if name == "z_vals" else (n, 3)
+def check_inputs(dev, ins: dict) -> None:
+    """A kernel's inputs: each name -> (tensor, wanted shape), a contiguous
+    float32 tensor of that shape on `dev`."""
+    for name, (t, want) in ins.items():
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != want or not t.is_contiguous()):
             raise ValueError(
                 f"{name}: need a contiguous float32 {want} tensor on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
-    return list(ins.values())
+
+
+def check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only: bool):
+    """A kernel's ray inputs: contiguous float32 on z's device,
+    rays_o/rays_d/view_dirs (N, 3) (view_dirs unread when σ-only), z (N, S).
+    Returns the tensors the kernel reads."""
+    n, s = z_vals.shape
+    ins = {"rays_o": (rays_o, (n, 3)), "rays_d": (rays_d, (n, 3)),
+           "z_vals": (z_vals, (n, s))}
+    if not sigma_only:
+        ins["view_dirs"] = (view_dirs, (n, 3))
+    check_inputs(z_vals.device, ins)
+    return [t for t, _ in ins.values()]
+
+
+def on_cpu(dev, what: str) -> bool:
+    """Dispatch of the fused adapters: True for the CPU (the plain
+    version), False for CUDA (the kernel); any other device raises."""
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no {what} path for device {dev}")
+    return False
+
+
+def prep(t):
+    """An adapter's input as the kernels take it (None stays None)."""
+    return None if t is None else t.to(torch.float32).contiguous()
 
 
 def split_per_ray(weights, per_ray) -> dict:
@@ -142,8 +227,8 @@ def _library():
         lib = load_library(_LIB)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mnerf_fused_cp_composite.argtypes = [
-            p, p, p, p, p, p, ctypes.c_longlong, p, p, p, i, i, i,
-            ctypes.c_float, i, i, p, p, p]
+            p, p, p, p, p, p, p, ctypes.c_longlong, p, p, p, i, i, i,
+            ctypes.c_float, i, i, i, p, p, p, p]
         lib.mnerf_fused_cp_composite.restype = i
         lib.mnerf_cuda_error_string.argtypes = [i]
         lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
@@ -151,38 +236,38 @@ def _library():
     return _lib
 
 
-def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
-                            z_vals, sigma_only: bool, sigma_act: str):
-    """Launch the CUDA kernel on the current stream. Inputs must be float32,
-    contiguous, on one CUDA device: rays_o/rays_d/view_dirs (N, 3), z (N, S).
-    Returns (weights (N, S), per_ray (N, 9) or None), per_ray's columns
-    [opacity, rgb, normal, mirror, depth]."""
-    global launches
-    dev = z_vals.device
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(field, params: dict, mode: int, ins: dict, n: int, s: int,
+            sigma_only: bool, sigma_act: str, outs: dict) -> None:
+    """Checks shared by the three modes, then one launch on the current
+    stream. `ins` maps the kernel's inputs (pos, rays_d, vdir, z, deltas;
+    None where the mode does not read it) to checked tensors, `outs` its
+    outputs (weights, per_ray, rows) to allocated ones."""
+    global launches, launches_rows, launches_samples
+    # the guard first, so that it holds whatever else is wrong with the call
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*ins.values(), *tree_leaves(params))):
+        raise ValueError(
+            "the fused CP kernels are forward-only, and an input or a "
+            "parameter requires grad: run them under torch.no_grad(), or "
+            "train through the differentiable kernels of "
+            "ops/fused_cp_train.py")
+    dev = ins["z"].device
     if dev.type != "cuda":
-        raise ValueError(f"fused_cp_composite_cuda needs CUDA tensors, got "
-                         f"{dev}")
+        raise ValueError(f"the fused CP kernel needs CUDA tensors, got {dev}")
     if sigma_act not in _ACTS:
         raise ValueError(f"sigma_act must be one of {_ACTS}")
     if not field.supports_fused_cp:
         raise ValueError("the fused CP kernel needs the default net dims "
                          "(TPUGridField.supports_fused_cp)")
-    n, s = z_vals.shape
-    ins = check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*ins, *tree_leaves(params))):
-        raise ValueError(
-            "the fused CP composite kernel is forward-only, and an input or "
-            "a parameter requires grad: run it under torch.no_grad(), or "
-            "train through the differentiable kernels of "
-            "ops/fused_cp_train.py")
-    levels = tuple(field.grid_levels)
-    weights = torch.empty((n, s), dtype=torch.float32, device=dev)
-    per_ray = None if sigma_only else torch.empty(
-        (n, 9), dtype=torch.float32, device=dev)
     if n == 0:
-        return weights, per_ray
+        return
     lib = _library()
+    levels = tuple(field.grid_levels)
     nets = _pack_nets(params)
     tables, offsets = _pack_tables(params, levels)
     if nets.device != dev or tables.device != dev:
@@ -192,12 +277,12 @@ def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
     off_arr = (ctypes.c_longlong * len(offsets))(*offsets)
     with torch.cuda.device(dev):  # the runtime launches on the current one
         rc = lib.mnerf_fused_cp_composite(
-            rays_o.data_ptr(), rays_d.data_ptr(),
-            None if sigma_only else view_dirs.data_ptr(), z_vals.data_ptr(),
-            tables.data_ptr(), nets.data_ptr(), nets.numel(), g_arr, r_arr,
-            off_arr, len(levels), n, s, float(field.bound), int(sigma_only),
-            int(sigma_act == "softplus"), weights.data_ptr(),
-            None if sigma_only else per_ray.data_ptr(),
+            _ptr(ins["pos"]), _ptr(ins["rays_d"]), _ptr(ins["vdir"]),
+            _ptr(ins["z"]), _ptr(ins["deltas"]), tables.data_ptr(),
+            nets.data_ptr(), nets.numel(), g_arr, r_arr, off_arr,
+            len(levels), n, s, float(field.bound), mode, int(sigma_only),
+            int(sigma_act == "softplus"), _ptr(outs.get("weights")),
+            _ptr(outs.get("per_ray")), _ptr(outs.get("rows")),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc < 0:
         raise ValueError(f"fused CP kernel refused its arguments: "
@@ -205,8 +290,71 @@ def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
     if rc > 0:
         raise RuntimeError("fused CP kernel launch failed: "
                            + lib.mnerf_cuda_error_string(rc).decode())
-    launches += 1
-    return weights, per_ray
+    if mode == COMPOSITE:
+        launches += 1
+    elif mode == ROWS:
+        launches_rows += 1
+    else:
+        launches_samples += 1
+
+
+def _composite_outputs(n: int, s: int, sigma_only: bool, dev) -> dict:
+    weights = torch.empty((n, s), dtype=torch.float32, device=dev)
+    per_ray = None if sigma_only else torch.empty(
+        (n, 9), dtype=torch.float32, device=dev)
+    return {"weights": weights, "per_ray": per_ray}
+
+
+def fused_cp_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
+                            z_vals, sigma_only: bool, sigma_act: str):
+    """Launch the composite mode on the current stream. Inputs must be
+    float32, contiguous, on one CUDA device: rays_o/rays_d/view_dirs (N, 3),
+    z (N, S). Returns (weights (N, S), per_ray (N, 9) or None), per_ray's
+    columns [opacity, rgb, normal, mirror, depth]."""
+    n, s = z_vals.shape
+    o, d, z, *v = check_ray_inputs(rays_o, rays_d, view_dirs, z_vals,
+                                   sigma_only)
+    outs = _composite_outputs(n, s, sigma_only, z.device)
+    _launch(field, params, COMPOSITE,
+            {"pos": o, "rays_d": d, "vdir": v[0] if v else None, "z": z,
+             "deltas": None}, n, s, sigma_only, sigma_act, outs)
+    return outs["weights"], outs["per_ray"]
+
+
+def fused_cp_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs,
+                       z_vals, sigma_only: bool):
+    """Launch the rows mode on the current stream (inputs as
+    `fused_cp_composite_cuda`). Returns rows (N, S, 8) [raw σ, rgb, unit
+    normal, mirror], or (N, S) raw σ when σ-only."""
+    n, s = z_vals.shape
+    o, d, z, *v = check_ray_inputs(rays_o, rays_d, view_dirs, z_vals,
+                                   sigma_only)
+    rows = torch.empty((n, s) if sigma_only else (n, s, 8),
+                       dtype=torch.float32, device=z.device)
+    _launch(field, params, ROWS,
+            {"pos": o, "rays_d": d, "vdir": v[0] if v else None, "z": z,
+             "deltas": None}, n, s, sigma_only, "relu", {"rows": rows})
+    return rows
+
+
+def fused_cp_samples_composite_cuda(field, params: dict, xyz, view_dirs,
+                                    z_vals, deltas, sigma_only: bool,
+                                    sigma_act: str):
+    """Launch the per-sample-input mode on the current stream. Inputs:
+    float32, contiguous, on one CUDA device; xyz/view_dirs (N, S, 3),
+    z/δ (N, S). Returns (weights (N, S), per_ray (N, 9) or None)."""
+    n, s = z_vals.shape
+    ins = {"xyz": (xyz, (n, s, 3)), "z_vals": (z_vals, (n, s)),
+           "deltas": (deltas, (n, s))}
+    if not sigma_only:
+        ins["view_dirs"] = (view_dirs, (n, s, 3))
+    check_inputs(z_vals.device, ins)
+    outs = _composite_outputs(n, s, sigma_only, z_vals.device)
+    _launch(field, params, SAMPLES,
+            {"pos": xyz, "rays_d": None,
+             "vdir": None if sigma_only else view_dirs, "z": z_vals,
+             "deltas": deltas}, n, s, sigma_only, sigma_act, outs)
+    return outs["weights"], outs["per_ray"]
 
 
 def fused_cp_rays_composite(field, params: dict, rays_o, rays_d, view_dirs,
@@ -215,18 +363,45 @@ def fused_cp_rays_composite(field, params: dict, rays_o, rays_d, view_dirs,
     """Composite-mode adapter: weights (N, S) always; plus per-ray
     opacity/rgb/normal/mirror/depth unless sigma_only. CPU tensors take the
     plain version; CUDA tensors the kernel."""
-    dev = z_vals.device
-    if dev.type == "cpu":
+    if on_cpu(z_vals.device, "fused CP"):
         return cp_rays_composite_reference(field, params, rays_o, rays_d,
                                            view_dirs, z_vals, sigma_only,
                                            sigma_act)
-    if dev.type != "cuda":
-        raise ValueError(f"no fused CP path for device {dev}")
-
-    def prep(t):
-        return t.to(torch.float32).contiguous()
-
     return split_per_ray(*fused_cp_composite_cuda(
         field, params, prep(rays_o), prep(rays_d),
         None if sigma_only else prep(view_dirs), prep(z_vals), sigma_only,
         sigma_act))
+
+
+def fused_cp_rays_eval(field, params: dict, rays_o, rays_d, view_dirs,
+                       z_vals, sigma_only: bool = False) -> dict:
+    """Rows-mode adapter: (N, 3) o/d/view dirs + (N, S) depths -> per
+    sample `sigma` (N, S) raw, plus `rgb3`, `normal3` (N, S, 3) and `mirror`
+    (N, S) unless sigma_only. CPU tensors take the plain version; CUDA
+    tensors the kernel (the values are views of its (N, S, 8) rows)."""
+    if on_cpu(z_vals.device, "fused CP"):
+        return cp_rays_rows_reference(field, params, rays_o, rays_d,
+                                      view_dirs, z_vals, sigma_only)
+    rows = fused_cp_rows_cuda(field, params, prep(rays_o), prep(rays_d),
+                              None if sigma_only else prep(view_dirs),
+                              prep(z_vals), sigma_only)
+    if sigma_only:
+        return {"sigma": rows}
+    return {"sigma": rows[..., 0], "rgb3": rows[..., 1:4],
+            "normal3": rows[..., 4:7], "mirror": rows[..., 7]}
+
+
+def fused_cp_forward_composite(field, params: dict, xyz, view_dirs, z_vals,
+                               deltas, sigma_only: bool = False,
+                               sigma_act: str = "relu") -> dict:
+    """Per-sample-input composite: world positions xyz and view dirs
+    (N, S, 3), depths z and intervals δ (N, S) (δ_inf = 1e10 on each ray's
+    last sample) -> what `fused_cp_rays_composite` returns. CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    if on_cpu(z_vals.device, "fused CP"):
+        return cp_samples_composite_reference(field, params, xyz, view_dirs,
+                                              z_vals, deltas, sigma_only,
+                                              sigma_act)
+    return split_per_ray(*fused_cp_samples_composite_cuda(
+        field, params, prep(xyz), None if sigma_only else prep(view_dirs),
+        prep(z_vals), prep(deltas), sigma_only, sigma_act))

@@ -30,7 +30,8 @@ import torch
 from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
 from ..train.checkpoints import tree_leaves
-from .fused_cp import check_ray_inputs, prefix_weights, split_per_ray
+from .fused_cp import (check_ray_inputs, on_cpu, prefix_weights, prep,
+                       split_per_ray)
 
 _LIB = "fused_mlp_t"
 _ACTS = ("relu", "softplus")
@@ -102,12 +103,69 @@ def _library():
         lib = load_library(_LIB)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mnerf_fused_mlp_t.argtypes = [p, p, p, p, p, ctypes.c_longlong,
-                                          i, i, i, i, i, i, i, i, p, p, p]
+                                          i, i, i, i, i, i, i, i, i, p, p, p,
+                                          p]
         lib.mnerf_fused_mlp_t.restype = i
         lib.mnerf_cuda_error_string.argtypes = [i]
         lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_kernel_call(field, params: dict, inputs, sigma_act: str,
+                      what: str) -> None:
+    """The checks every launch of `csrc/fused_mlp_t.cu` makes, the gradient
+    guard first (so that it holds whatever else is wrong with the call):
+    forward-only, CUDA tensors, a known activation, a trunk the kernel
+    takes."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*inputs, *tree_leaves(params))):
+        raise ValueError(
+            f"the fused PE-MLP {what} kernel is forward-only, and an input "
+            "or a parameter requires grad: run it under torch.no_grad(), or "
+            "render through the plain field modules (fused_field off)")
+    dev = inputs[-1].device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused PE-MLP {what} kernel needs CUDA "
+                         f"tensors, got {dev}")
+    if sigma_act not in _ACTS:
+        raise ValueError(f"sigma_act must be one of {_ACTS}")
+    if not field.supports_fused:
+        raise ValueError("the fused PE-MLP kernel does not take this "
+                         "architecture (MirrorNeRFField.supports_fused)")
+
+
+def launch_kernel(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
+                  sigma_only: bool, softplus: bool, rows_mode: bool,
+                  weights=None, per_ray=None, rows=None) -> None:
+    """One launch of `csrc/fused_mlp_t.cu` on the current stream, on checked
+    inputs and allocated outputs: composite mode writes weights and per_ray,
+    rows mode rows. Raises on a refusal or a failed launch."""
+    n, s = z_vals.shape
+    dev = z_vals.device
+    lib = _library()
+    nets = _pack(params)
+    if nets.device != dev:
+        raise ValueError(f"params must lie on {dev}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):  # the runtime launches on the current one
+        rc = lib.mnerf_fused_mlp_t(
+            rays_o.data_ptr(), rays_d.data_ptr(), ptr(view_dirs),
+            z_vals.data_ptr(), nets.data_ptr(), nets.numel(), n, s,
+            field.N_emb_xyz, field.N_emb_dir, int(field.predict_normal),
+            int(field.predict_mirror_mask), int(sigma_only), int(softplus),
+            int(rows_mode), ptr(weights), ptr(per_ray), ptr(rows),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
+        raise ValueError(f"fused PE-MLP kernel refused its arguments: "
+                         f"{_REFUSALS.get(rc, rc)}")
+    if rc > 0:
+        raise RuntimeError("fused PE-MLP kernel launch failed: "
+                           + lib.mnerf_cuda_error_string(rc).decode())
 
 
 def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
@@ -117,24 +175,9 @@ def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
     Returns (weights (N, S), per_ray (N, 9) or None), per_ray's columns
     [opacity, rgb, normal, mirror, depth] (0 for a head the field lacks)."""
     global launches
-    # first, so that it holds whatever else is wrong with the call
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (rays_o, rays_d, view_dirs, z_vals,
-                      *tree_leaves(params))):
-        raise ValueError(
-            "the fused PE-MLP composite kernel is forward-only, and an input "
-            "or a parameter requires grad: run it under torch.no_grad(), or "
-            "render through the plain field modules (fused_field off)")
+    check_kernel_call(field, params, (rays_o, rays_d, view_dirs, z_vals),
+                      sigma_act, "composite")
     dev = z_vals.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_t_composite_cuda needs CUDA tensors, got "
-                         f"{dev}")
-    if sigma_act not in _ACTS:
-        raise ValueError(f"sigma_act must be one of {_ACTS}")
-    if not field.supports_fused:
-        raise ValueError("the fused PE-MLP kernel does not take this "
-                         "architecture (MirrorNeRFField.supports_fused)")
     n, s = z_vals.shape
     check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev)
@@ -142,26 +185,9 @@ def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
         (n, 9), dtype=torch.float32, device=dev)
     if n == 0:
         return weights, per_ray
-    lib = _library()
-    nets = _pack(params)
-    if nets.device != dev:
-        raise ValueError(f"params must lie on {dev}")
-    with torch.cuda.device(dev):  # the runtime launches on the current one
-        rc = lib.mnerf_fused_mlp_t(
-            rays_o.data_ptr(), rays_d.data_ptr(),
-            None if sigma_only else view_dirs.data_ptr(), z_vals.data_ptr(),
-            nets.data_ptr(), nets.numel(), n, s, field.N_emb_xyz,
-            field.N_emb_dir, int(field.predict_normal),
-            int(field.predict_mirror_mask), int(sigma_only),
-            int(sigma_act == "softplus"), weights.data_ptr(),
-            None if sigma_only else per_ray.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc < 0:
-        raise ValueError(f"fused PE-MLP kernel refused its arguments: "
-                         f"{_REFUSALS.get(rc, rc)}")
-    if rc > 0:
-        raise RuntimeError("fused PE-MLP kernel launch failed: "
-                           + lib.mnerf_cuda_error_string(rc).decode())
+    launch_kernel(field, params, rays_o, rays_d, view_dirs, z_vals,
+                  sigma_only, sigma_act == "softplus", False, weights=weights,
+                  per_ray=per_ray)
     launches += 1
     return weights, per_ray
 
@@ -173,17 +199,10 @@ def fused_t_rays_composite(field, params: dict, rays_o, rays_d, view_dirs,
     opacity/rgb/depth, and normal/mirror for the heads the field has, unless
     sigma_only. CPU tensors take the plain version; CUDA tensors the
     kernel."""
-    dev = z_vals.device
-    if dev.type == "cpu":
+    if on_cpu(z_vals.device, "fused PE-MLP"):
         return mlp_rays_composite_reference(field, params, rays_o, rays_d,
                                             view_dirs, z_vals, sigma_only,
                                             sigma_act)
-    if dev.type != "cuda":
-        raise ValueError(f"no fused PE-MLP path for device {dev}")
-
-    def prep(t):
-        return t.to(torch.float32).contiguous()
-
     res = split_per_ray(*fused_t_composite_cuda(
         field, params, prep(rays_o), prep(rays_d),
         None if sigma_only else prep(view_dirs), prep(z_vals), sigma_only,

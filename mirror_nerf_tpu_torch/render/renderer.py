@@ -5,12 +5,19 @@ resampling over the detached interior coarse weights, `test_time` /
 `fine_pass` semantics, mirror-mask and normal aggregation with the
 reference's stop-gradient variants, surface points x = o + d·depth.
 
-The field runs one of three ways: an eval kernel with in-kernel
-compositing (`fused_field`, forward-only: ops/fused_cp.py for the CP grid,
-ops/fused_mlp_t.py for the flagship PE-MLP); the training
+The field runs one of three ways: a fused eval kernel (`fused_field`,
+forward-only), which composites in-kernel on noise-free passes
+(ops/fused_cp.py for the CP grid, ops/fused_mlp_t.py for the flagship
+PE-MLP) and emits per-sample rows that are composited here on σ-noise
+passes, and on the flagship's passes with `fused_t` off (ops/fused_cp.py
+`fused_cp_rays_eval`, ops/fused_mlp.py `fused_rays_eval`); the training
 kernels for density + ∇σ or density alone (`fused_density`,
 ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
 normal by `torch.autograd.grad` (`density_with_grad_reference`).
+
+σ noise is drawn from `generator` once per pass, after the pass's field and
+before the next draw (the fine pass's pdf samples), on every route alike;
+`render_rays(sigma_noise=...)` takes pre-drawn noise instead.
 """
 
 from __future__ import annotations
@@ -45,6 +52,10 @@ class RenderSettings:
     # run the field through its fused eval kernel (CP grid or PE-MLP;
     # engages when the σ-gradient normal is off)
     fused_field: bool = False
+    # the flagship's noise-free fused passes composite in-kernel
+    # (ops/fused_mlp_t.py); off, they take the per-sample rows kernel
+    # (ops/fused_mlp.py) and composite here, as σ-noise passes always do
+    fused_t: bool = True
     # the training kernels for density + ∇σ (compute_normal) or density
     # alone, differentiable incl. grad-of-grad (ops/fused_cp_train.py)
     fused_density: bool = False
@@ -95,6 +106,17 @@ def _composite_weights(sigmas, z_vals, noise, act: str = "relu"):
     return alphas * torch.cumprod(shifted[:, :-1], dim=-1)
 
 
+def _sigma_noise(rs: RenderSettings, sigmas, generator, drawn=None):
+    """A pass's σ noise, (N, S): `drawn` (standard normal, pre-drawn) or
+    one draw from `generator`, × noise_std; zeros when noise_std is 0."""
+    if rs.noise_std <= 0:
+        return torch.zeros_like(sigmas)
+    if drawn is None:
+        drawn = torch.randn(sigmas.shape, generator=generator,
+                            dtype=sigmas.dtype, device=sigmas.device)
+    return drawn.to(sigmas) * rs.noise_std
+
+
 def _gated_detach(x, keep_grad):
     """x where keep_grad, else x with its gradient stopped (same values)."""
     return torch.where(keep_grad, x, x.detach())
@@ -103,15 +125,27 @@ def _gated_detach(x, keep_grad):
 def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                rs: RenderSettings, results: dict, sigma_only: bool,
                mirror_mask_per_ray=None, gt_mask_valid=None,
-               generator: Optional[torch.Generator] = None) -> dict:
+               generator: Optional[torch.Generator] = None,
+               noise=None) -> dict:
+    """One pass; `noise` (N, S) pre-drawn standard-normal σ noise, or None
+    to draw it from `generator` (see `_sigma_noise`)."""
     n, s = z_vals.shape
     if rs.fused_field and not rs.compute_normal:
+        def pass_noise(sigmas):
+            return _sigma_noise(rs, sigmas, generator, noise)
+
         if getattr(field, "supports_fused_cp", False):
             return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
-                                       results, sigma_only, rays_o, rays_d)
+                                       results, sigma_only, rays_o, rays_d,
+                                       pass_noise)
         if getattr(field, "supports_fused", False):
-            return _inference_fused_t(field, params, typ, z_vals, dirs, rs,
-                                      results, sigma_only, rays_o, rays_d)
+            if rs.fused_t and rs.noise_std == 0:
+                return _inference_fused_t(field, params, typ, z_vals, dirs,
+                                          rs, results, sigma_only, rays_o,
+                                          rays_d)
+            return _inference_fused(field, params, typ, z_vals, dirs, rs,
+                                    results, sigma_only, rays_o, rays_d,
+                                    pass_noise)
         if hasattr(field, "supports_fused") and z_vals.device.type != "cpu":
             raise NotImplementedError(
                 "--fused_field: the PE-MLP kernel takes width 256, depth 8, "
@@ -170,10 +204,9 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                 geo_m = geo_flat
             is_mirrors = field.mirror_head(params, geo_m).reshape(n, s)
 
-    noise = (torch.randn(sigmas.shape, generator=generator,
-                         dtype=sigmas.dtype, device=sigmas.device)
-             * rs.noise_std if rs.noise_std > 0 else torch.zeros_like(sigmas))
-    weights = _composite_weights(sigmas, z_vals, noise, rs.sigma_activation)
+    weights = _composite_weights(
+        sigmas, z_vals, _sigma_noise(rs, sigmas, generator, noise),
+        rs.sigma_activation)
     weights_sum = weights.sum(-1)
     results[f"weights_{typ}"] = weights
     results[f"opacity_{typ}"] = weights_sum
@@ -212,20 +245,25 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
 
 
 def _inference_fused_cp(field, params, typ, z_vals, dirs, rs, results,
-                        sigma_only, ray_o, ray_d) -> dict:
-    """Eval-path inference for the CP-grid field through the fused kernel
-    with in-kernel compositing (weights + per-ray render). Forward-only;
-    eval semantics (noise_std == 0)."""
-    from ..ops.fused_cp import fused_cp_rays_composite
+                        sigma_only, ray_o, ray_d, pass_noise) -> dict:
+    """Inference for the CP-grid field through its fused kernel: with
+    noise_std 0 the composite mode (weights + per-ray render in-kernel),
+    else the rows mode, whose raw σ takes the noise before the cumprod
+    compositing of `_composite_weights`. Forward-only."""
+    from ..ops.fused_cp import (fused_cp_rays_composite, fused_cp_rays_eval,
+                                ray_sums)
 
-    if rs.noise_std != 0:
-        raise NotImplementedError(
-            "the per-sample CP kernel for σ-noise passes (JAX "
-            "fused_cp.py:314 `_kernel`) is not ported yet: ROADMAP.md "
-            "queue 2, item 3")
-    res = fused_cp_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
-                                  sigma_only=sigma_only,
-                                  sigma_act=rs.sigma_activation)
+    if rs.noise_std == 0:
+        res = fused_cp_rays_composite(field, params, ray_o, ray_d, dirs,
+                                      z_vals, sigma_only=sigma_only,
+                                      sigma_act=rs.sigma_activation)
+        return _composited(field, typ, z_vals, rs, results, sigma_only, res)
+    rows = fused_cp_rays_eval(field, params, ray_o, ray_d, dirs, z_vals,
+                              sigma_only=sigma_only)
+    sigmas = rows["sigma"]
+    w = _composite_weights(sigmas, z_vals, pass_noise(sigmas),
+                           rs.sigma_activation)
+    res = {"weights": w} if sigma_only else ray_sums(w, rows, z_vals)
     return _composited(field, typ, z_vals, rs, results, sigma_only, res)
 
 
@@ -236,21 +274,39 @@ def _inference_fused_t(field, params, typ, z_vals, dirs, rs, results,
     semantics (noise_std == 0)."""
     from ..ops.fused_mlp_t import fused_t_rays_composite
 
-    if rs.noise_std != 0:
-        raise NotImplementedError(
-            "the per-sample PE-MLP kernel for σ-noise passes (JAX "
-            "fused_mlp.py:238 `_kernel_rays`) is not ported yet: ROADMAP.md "
-            "queue 2, item 6")
     res = fused_t_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
                                  sigma_only=sigma_only,
                                  sigma_act=rs.sigma_activation)
     return _composited(field, typ, z_vals, rs, results, sigma_only, res)
 
 
+def _inference_fused(field, params, typ, z_vals, dirs, rs, results,
+                     sigma_only, ray_o, ray_d, pass_noise) -> dict:
+    """Inference for the flagship PE-MLP through the rows mode of its
+    kernel (ops/fused_mlp.py): one (N·S, 8) row per sample [raw σ, rgb,
+    unit normal, mirror]; the noise goes on raw σ, `_composite_weights`
+    composites, and the per-ray values come from one weighted sum over the
+    sample axis of the (N, S, 8) rows. Forward-only."""
+    from ..ops.fused_mlp import fused_rays_eval
+
+    n, s = z_vals.shape
+    rows = fused_rays_eval(field, params, ray_o, ray_d, dirs, z_vals,
+                           sigma_only=sigma_only).reshape(n, s, -1)
+    sigmas = rows[..., 0]
+    w = _composite_weights(sigmas, z_vals, pass_noise(sigmas),
+                           rs.sigma_activation)
+    res = {"weights": w}
+    if not sigma_only:
+        pmap = (w[..., None] * rows).sum(1)
+        res.update(opacity=w.sum(-1), depth=(w * z_vals).sum(-1),
+                   rgb=pmap[:, 1:4], normal=pmap[:, 4:7], mirror=pmap[:, 7])
+    return _composited(field, typ, z_vals, rs, results, sigma_only, res)
+
+
 def _composited(field, typ, z_vals, rs, results, sigma_only,
                 res: dict) -> dict:
-    """The results of a pass whose kernel composited in-kernel: weights
-    (N, S) and, unless σ-only, the per-ray opacity/rgb/depth/mirror/normal."""
+    """The results of a fused pass from its composite: weights (N, S) and,
+    unless σ-only, the per-ray opacity/rgb/depth/mirror/normal."""
     weights = res["weights"]
     results[f"weights_{typ}"] = weights
     results[f"z_vals_{typ}"] = z_vals
@@ -273,12 +329,17 @@ def _composited(field, typ, z_vals, rs, results, sigma_only,
 def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
                 generator: Optional[torch.Generator] = None,
                 mirror_mask_gt: Optional[torch.Tensor] = None,
-                view_dirs: Optional[torch.Tensor] = None) -> dict:
+                view_dirs: Optional[torch.Tensor] = None,
+                sigma_noise: Optional[dict] = None) -> dict:
     """Render a (N, 8) = [o, d, near, far] ray batch through the
     coarse(+fine) fields; result keys suffixed _coarse/_fine. `generator`
     draws the perturbation and σ noise when `rs` asks for them;
     `mirror_mask_gt` (N,) (−1 = no GT mask) gates the outside-mirror detach;
-    `view_dirs` overrides the color head's view direction."""
+    `view_dirs` overrides the color head's view direction. `sigma_noise`
+    replaces the generator's σ-noise draws with pre-drawn standard-normal
+    ones (× noise_std): "coarse" (N, N_samples) for the proposal pass,
+    "fine" for the pass on the merged samples (or the one proposal-skip
+    pass) — the JAX package's k_noise_c and k_noise_f."""
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     dirs = rays_d if view_dirs is None else view_dirs
@@ -286,24 +347,25 @@ def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
     if mirror_mask_gt is not None:
         gt_valid = (mirror_mask_gt >= 0).all()
 
-    def infer(typ, z, sigma_only):
+    def infer(typ, z, sigma_only, pass_name):
         _inference(field, params[typ], typ, rays_o, rays_d, z, dirs, rs,
                    results, sigma_only, mirror_mask_gt, gt_valid,
-                   generator=generator)
+                   generator=generator,
+                   noise=(sigma_noise or {}).get(pass_name))
 
     results: dict = {}
     if rs.proposal_skip and rs.has_fine:
         z_all = stratified_z_vals(near, far, rs.N_samples + rs.N_importance,
                                   rs.use_disp, rs.perturb, generator)
         typ = "coarse" if rs.fine_pass == "coarse" else "fine"
-        infer(typ, z_all, False)
+        infer(typ, z_all, False, "fine")
         results[f"x_surface_{typ}"] = (
             rays_o + rays_d * results[f"depth_{typ}"][:, None])
         return results
 
     z_vals = stratified_z_vals(near, far, rs.N_samples, rs.use_disp,
                                rs.perturb, generator)
-    infer("coarse", z_vals, rs.test_time and rs.has_fine)
+    infer("coarse", z_vals, rs.test_time and rs.has_fine, "coarse")
 
     if rs.has_fine:
         z_fine = merge_fine_z_vals(z_vals, results["weights_coarse"],
@@ -311,7 +373,7 @@ def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
         # fine_pass "coarse" (only_one_field past warm-up) overwrites the
         # coarse results with a second pass of the coarse field
         typ = "coarse" if rs.fine_pass == "coarse" else "fine"
-        infer(typ, z_fine, False)
+        infer(typ, z_fine, False, "fine")
 
     for typ in ("coarse", "fine"):
         if f"depth_{typ}" in results:

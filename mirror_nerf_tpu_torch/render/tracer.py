@@ -131,11 +131,16 @@ def next_level_settings(field, ts: TraceSettings) -> TraceSettings:
 def trace_rays(field, params: dict, rays: torch.Tensor,
                mirror_mask_gt: torch.Tensor, ts: TraceSettings,
                generator: Optional[torch.Generator] = None, level: int = 0,
-               mirror_mask_prev: Optional[torch.Tensor] = None) -> dict:
+               mirror_mask_prev: Optional[torch.Tensor] = None,
+               sigma_noise: Optional[list] = None) -> dict:
     """Render `rays` (N, 8) with GT masks (N,) (−1 = none) and trace their
-    reflections; `generator` draws the perturbation and σ noise."""
+    reflections; `generator` draws the perturbation and σ noise, or
+    `sigma_noise` holds pre-drawn noise, one `render_rays` dict per level
+    (shaped for the rays that level renders)."""
     results = render_rays(field, params, rays, ts.render, generator,
-                          mirror_mask_gt=mirror_mask_gt)
+                          mirror_mask_gt=mirror_mask_gt,
+                          sigma_noise=None if sigma_noise is None
+                          else sigma_noise[level])
     sel = ts.select_type
     mirror_mask = _resolve_mirror_mask(results, mirror_mask_gt, level)
     if (not ts.only_in_mirrors(level) and level > 0
@@ -185,7 +190,7 @@ def trace_rays(field, params: dict, rays: torch.Tensor,
 
         sec_sub = trace_rays(field, params, _compact(secondary),
                              _compact(mirror_mask_gt), ts_next, generator,
-                             level + 1, _compact(mirror_mask))
+                             level + 1, _compact(mirror_mask), sigma_noise)
         pos_c = torch.clamp(pos, 0, cap - 1)
 
         def _expand(v):
@@ -202,7 +207,7 @@ def trace_rays(field, params: dict, rays: torch.Tensor,
         results["compact_dropped"] = dropped
     else:
         sec = trace_rays(field, params, secondary, mirror_mask_gt, ts_next,
-                         generator, level + 1, mirror_mask)
+                         generator, level + 1, mirror_mask, sigma_noise)
         if "compact_dropped" in sec:
             results["compact_dropped"] = sec["compact_dropped"]
 

@@ -111,12 +111,23 @@ def test_eval_trace_level2_matches_jax(scene):
 
 
 def test_noisy_fused_pass_raises(scene):
-    """σ-noise on the fused branch needs the per-sample kernel, which is
-    not ported: it raises instead of rendering another way."""
+    """σ-noise on the fused branch takes the per-sample rows path (no
+    longer a NotImplementedError): on the CPU it renders what the plain
+    field modules render from the same generator seed, and on a device with
+    neither a plain version nor a kernel it raises instead of rendering
+    another way."""
     _, tf, p, rays = scene
+    pt = params_from_numpy(p)
+    got, want = (render_rays(tf, pt, torch.from_numpy(rays), RenderSettings(
+        **{**RS, "fused_field": fused, "noise_std": 1.0}),
+        torch.Generator().manual_seed(7)) for fused in (True, False))
+    assert float(got["opacity_fine"].max()) > 0.1  # not vacuous
+    for k in KEYS:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=ATOL, rtol=0, err_msg=k)
     rs = RenderSettings(**{**RS, "fused_field": True, "noise_std": 1.0})
-    with pytest.raises(NotImplementedError, match="_kernel_rays"):
-        render_rays(tf, params_from_numpy(p), torch.from_numpy(rays), rs)
+    with pytest.raises(ValueError, match="no fused PE-MLP rows path"):
+        render_rays(tf, pt, torch.from_numpy(rays).to("meta"), rs)
 
 
 @pytest.fixture(scope="module")

@@ -185,6 +185,32 @@ def test_port_runs_with_jax_blocked():
                             compute_normal=False, fused_field=True)
         r = eval_trace(f, p, rays, rs, EvalAppFlags(), 2, True)
         assert torch.isfinite(r["rgb_fine"]).all()
+        # the σ-noise fused render of both models through level 2, the
+        # per-sample composite and the flagship's point queries
+        from dataclasses import replace
+        from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+        from mirror_nerf_tpu_torch.ops.fused_cp import \\
+            fused_cp_forward_composite
+        from mirror_nerf_tpu_torch.ops.fused_mlp import fused_field_eval
+        from mirror_nerf_tpu_torch.render.tracer import (TraceSettings,
+                                                         trace_rays)
+        noisy = replace(rs, noise_std=1.0)
+        mf = MirrorNeRFField()
+        mp = {"coarse": mf.init(g), "fine": mf.init(g)}
+        for field, params in ((f, p), (mf, mp)):
+            t = trace_rays(field, params, rays[:4], torch.full((4,), -1.0),
+                           TraceSettings(render=noisy,
+                                         max_recursive_level=2), g)
+            assert torch.isfinite(t["rgb_fine"]).all()
+        x = rays[:4, None, :3] + rays[:4, None, 3:6] * torch.linspace(
+            0.1, 1.0, 8)[:, None]
+        c = fused_cp_forward_composite(
+            f, p["fine"], x, rays[:4, None, 3:6].expand_as(x),
+            torch.linspace(0.1, 1.0, 8).expand(4, 8), torch.full((4, 8), 0.1))
+        assert torch.isfinite(c["rgb"]).all()
+        sigma, rgb, normal, mirror = fused_field_eval(
+            mf, mp["fine"], rays[:, :3], rays[:, 3:6])
+        assert torch.isfinite(rgb).all() and normal.shape == (8, 3)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "mirror_nerf_tpu")]
         assert not bad, bad

@@ -3,6 +3,7 @@
 
     python3 tools/profile_view_torch.py                     # CP grid, 800×800
     python3 tools/profile_view_torch.py --model_type nerf   # flagship, 400×300
+    python3 tools/profile_view_torch.py --model_type nerf --noise_std 1
     python3 tools/profile_view_torch.py --cpu 48            # CPU rehearsal
 
 Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 flags of the
@@ -16,7 +17,12 @@ renders 800×800, the flagship PE-MLP (nerf) the livingroom preset's
   * the idle share, 1 − busy / span;
   * device time and call count by kernel name;
   * the port kernel's launches in the profiled view and its share of the
-    span.
+    span, and the share of every other device event (the PyTorch
+    compositing, sampling and copies).
+
+With `--noise_std` > 0 every pass draws σ noise, so the fused passes run
+the per-sample rows mode of the kernel and composite in PyTorch (the eval
+CLI pins noise 0; no CLI reaches this path).
 
 Imports only the port (`mirror_nerf_tpu_torch`), never JAX. The CPU
 rehearsal (SIZE×SIZE; small CP levels for nerf_tpu) reports no device
@@ -78,6 +84,8 @@ def main(argv=None) -> int:
                     help="rehearse on the CPU at SIZE×SIZE with small levels")
     ap.add_argument("--model_type", default="nerf_tpu",
                     choices=["nerf_tpu", "nerf"])
+    ap.add_argument("--noise_std", type=float, default=0.0,
+                    help="σ noise of every pass (> 0: the rows kernels)")
     opt = ap.parse_args(argv)
 
     import torch
@@ -87,11 +95,16 @@ def main(argv=None) -> int:
     from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
     from mirror_nerf_tpu_torch.eval.cli import init_params
     from mirror_nerf_tpu_torch.models.fields import make_field
-    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp_t
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp, fused_mlp_t
 
     nerf = opt.model_type == "nerf"
-    kernel_mod, kernel_name = ((fused_mlp_t, "mlp_composite_kernel") if nerf
-                               else (fused_cp, "composite_rays_kernel"))
+    noisy = opt.noise_std > 0
+    kernel_name = "mlp_field_kernel" if nerf else "cp_field_kernel"
+
+    def launches() -> int:
+        if nerf:
+            return fused_mlp.launches_rays if noisy else fused_mlp_t.launches
+        return fused_cp.launches_rows if noisy else fused_cp.launches
     w, h = (opt.cpu, opt.cpu) if opt.cpu else ((400, 300) if nerf
                                                else (800, 800))
     dev = "cpu" if opt.cpu else "cuda"
@@ -116,6 +129,10 @@ def main(argv=None) -> int:
     field = make_field(cfg)
     ctx = AppContext.build(cfg, args, field, init_params(field, cfg, dev),
                            dev)
+    if noisy:
+        ctx = replace(ctx, rs=replace(ctx.rs, noise_std=opt.noise_std),
+                      rs_sec=None if ctx.rs_sec is None else replace(
+                          ctx.rs_sec, noise_std=opt.noise_std))
     rays_np = cs._view_rays(w, h)
     sample = {"rays": rays_np}
     mirror_ctx = replace(ctx, params={k: cs._all_mirror(v)
@@ -128,9 +145,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             run_view(c, sample)
             walls.append(time.perf_counter() - t0)
-        n0 = kernel_mod.launches
+        n0 = launches()
         wall_prof, events = profile(lambda: run_view(c, sample), acts)
-        launches = kernel_mod.launches - n0
+        n_launches = launches() - n0
         dev_ev = [e for e in events if e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset")]
         cpu_ev = [e for e in events if e.get("cat") in
@@ -144,15 +161,19 @@ def main(argv=None) -> int:
             by_name[e["name"][:70]][0] += 1
             by_name[e["name"][:70]][1] += e["dur"]
         k_dur = sum(e["dur"] for e in dev_ev if kernel_name in e["name"])
+        o_dur = sum(e["dur"] for e in dev_ev) - k_dur
         device = ("device: not measured" if opt.cpu else
                   f"device busy (union) {busy / 1e3:.1f} ms, idle share "
                   f"{1 - busy / span:.4f}, {kernel_name} "
-                  f"{k_dur / 1e3:.1f} ms = {k_dur / span:.4f} of the span")
-        print(f"=== {opt.model_type} {w}x{h} {label}: unprofiled walls "
+                  f"{k_dur / 1e3:.1f} ms = {k_dur / span:.4f} of the span, "
+                  f"other device events {o_dur / 1e3:.1f} ms = "
+                  f"{o_dur / span:.4f}")
+        print(f"=== {opt.model_type} {w}x{h} {label}, noise_std "
+              f"{opt.noise_std}: unprofiled walls "
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms -> "
               f"{len(rays_np) / min(walls):.1f} rays/s; profiled wall "
               f"{wall_prof * 1e3:.1f} ms, trace span {span / 1e3:.1f} ms, "
-              f"{device}; kernel launches {launches}; device events "
+              f"{device}; kernel launches {n_launches}; device events "
               f"{len(dev_ev)} ({card})", flush=True)
         for name, (cnt, dur) in sorted(by_name.items(),
                                        key=lambda kv: -kv[1][1])[:14]:
