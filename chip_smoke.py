@@ -9,7 +9,7 @@ each fatal on failure:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether nvcc and triton are present; TF32 off for the plain versions;
-  2. build the three kernel libraries at once (one nvcc each), print the
+  2. build the four kernel libraries at once (one nvcc each), print the
      build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
@@ -69,12 +69,28 @@ each fatal on failure:
      counters reset before the view and read after (rows modes launched,
      composite kernels not), rays/s; on 1024 rays the fused route against
      the plain modules on the card from the same generator seed, and the
-     flagship's fused_t=False route at noise 0 against its composite route.
+     flagship's fused_t=False route at noise 0 against its composite route;
+ 13. the hash-grid kernel's three modes vs their plain versions: ENCODE at
+     2,097,152 points of the full bound-6 spec (16 levels × 2, 6,616,280
+     rows, ×1e4 table, ~2 % out of bound) and at the 800×800 view's sample
+     positions (16384 strided rays × 128); GATHER at the probe's (64, 4096)
+     on a 2¹⁹ × 2 table, fp32 and bf16, bit for bit; DENSE on level 3 (side
+     62); errors scaled above 1, kernel / plain / library times beside the
+     bound. Then the probe's entry point (`python -m mirror_nerf_tpu_torch.
+     tools.exp_hash_inkernel`, timing part) with the GATHER and DENSE
+     counters reset before it and read after: their path;
+ 14. the hash-grid model's (`nerf_tcnn`) eval path: the eval CLI (run.sh
+     mode-1 nerf_tcnn flags) on a generated 64×64 scene from an npz and
+     from a MirrorNeRFTcnn-layout Lightning .ckpt of the same weights
+     (equal PSNRs), then one 800×800 level-2 view through run_view, seeded
+     and all-mirror weights; the ENCODE counter is reset before the CLI and
+     read right after the timed views; the card against the plain version
+     on the CPU on 256 rays.
 
 Each phase prints its wall time. The script prints one JSON line with the
-eight kernels' numbers (each with the least time the card could take for the
-same work, `bound_ms`, counted from this run's shapes), the nvidia-smi name
-and power limit, and last `{"ok": true, "device": {...}}`.
+eleven kernels' numbers (each with the least time the card could take for
+the same work, `bound_ms`, counted from this run's shapes), the nvidia-smi
+name and power limit, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -130,6 +146,13 @@ NERF_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
                    "--trace_secondary_rays", "--bound", "6",
                    "--N_importance", "64", "--chunk", "16384",
                    "--fused_field", "--max_recursive_level", "2"]
+# run.sh mode 1 with MODEL_TYPE=nerf_tcnn (no --fused_field there)
+NGP_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
+                  "8", "--scale_factor", "1", "--model_type", "nerf_tcnn",
+                  "--predict_normal", "--predict_mirror_mask",
+                  "--trace_secondary_rays", "--bound", "6",
+                  "--N_importance", "64", "--chunk", "16384",
+                  "--max_recursive_level", "2"]
 # the least time the card could take (`bound_ms`): operations over the fp32
 # peak of the CUDA cores, bytes over the memory rate (NVIDIA H100 SXM data
 # sheet, dense, at 700 W). Operations count multiply-adds as 2 and leave out
@@ -167,9 +190,9 @@ def phase_environment(torch):
 
 def phase_build():
     from mirror_nerf_tpu_torch.ops import (_build, fused_cp, fused_cp_train,
-                                           fused_mlp_t)
+                                           fused_mlp_t, hashgrid)
 
-    mods = (fused_cp, fused_cp_train, fused_mlp_t)
+    mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid)
     names = [m._LIB for m in mods]
     t0 = time.perf_counter()
     _build.build_libraries(names)
@@ -584,7 +607,8 @@ def _sigma_scaled(params: dict, scale: float) -> dict:
 def _all_mirror(params: dict) -> dict:
     """Seeded weights with σ ≥ 0 everywhere (the σ column |w|·5) and the
     mirror head biased on (+5): every ray is an opaque mirror at every
-    level, the heaviest trace. CP-grid or flagship parameters."""
+    level, the heaviest trace. CP-grid, flagship or hash-grid parameters
+    (the hash grid also needs `_dense_scaled` for σ to be more than ~0)."""
     if "sigma" in params:
         out = _sigma_scaled(params, 5.0)
     else:
@@ -1419,6 +1443,205 @@ def phase_noise_path(torch, card: str) -> tuple:
     return tuple(launches)
 
 
+def _dense_scaled(field, params: dict, scale: float = 1e4) -> dict:
+    """Hash-grid weights with the table's dense levels (0–3 at bound 6)
+    ×`scale`: at the ±1e-4 init σ is ~0 everywhere, no sample is opaque and
+    no ray a mirror. The hashed levels keep the init."""
+    n = sum(lv.size for lv in field.grid_spec.levels() if not lv.use_hash)
+    grid = params["grid"].clone()
+    grid[:n] *= scale
+    return {**params, "grid": grid}
+
+
+# operations per (point, level) of the hash-grid lookup, counted as fp32
+# operations (a multiply-add as 2): pos 3 FMAs, floor and fraction (6),
+# 1 − t (3), eight corner weights of two multiplies, eight corner rows of C
+# multiply-adds; the integer index work is not counted
+def _hash_flop(c: int = 2) -> int:
+    return 6 + 6 + 3 + 8 * 2 + 8 * c * 2
+
+
+def phase_hash_kernels(torch, card: str) -> list:
+    """(13) The hash-grid kernel's modes vs their plain versions, then the
+    probe's timing entry point as the GATHER/DENSE path. Returns the three
+    JSON entries (ENCODE's launches set from phase 14)."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+    from mirror_nerf_tpu_torch.tools import exp_hash_inkernel as probe
+
+    src = "mirror_nerf_tpu_torch/csrc/hashgrid.cu"
+    # kernel vs plain: the probe's parity part at the path's point count
+    par = probe.parity("cuda", probe.PATH_POINTS)
+    torch.cuda.synchronize()
+    log(f"[hash-kernel] parity ({card}): GATHER fp32 / bf16 max abs err "
+        f"{par['gather_fp32']:.1e} / {par['gather_bf16']:.1e} (bit for bit "
+        f"on {probe.IDX_SHAPE} indices); DENSE level 3 {par['dense']:.3e}, "
+        f"vs ENCODE's level-3 slice {par['dense_vs_encode_level3']:.3e}; "
+        f"ENCODE at {probe.PATH_POINTS} points "
+        f"({par['encode_oob_share'] * 100:.2f} % out of bound, ×1e4 table) "
+        f"{par['encode']:.3e} (scaled above 1)")
+    for k in ("dense", "dense_vs_encode_level3", "encode"):
+        assert par[k] <= 1e-5, (k, par)
+    assert par["gather_fp32"] == 0.0 and par["gather_bf16"] == 0.0, par
+
+    # ENCODE at the view's sample positions: 16384 strided rays × 128
+    spec, table, _ = probe.encode_case(8, 3, "cuda")
+    n = 16384
+    rays_np = _view_rays(800)
+    rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).cuda()
+    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 128)
+    xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(
+        -1, 3)
+    x01 = ((xyz + 6.0) * (1.0 / 12.0)).contiguous()
+    oob = float(((x01 < 0) | (x01 > 1)).any(-1).float().mean())
+    with torch.no_grad():
+        got = hg.hashgrid_encode(table, x01, spec)
+        ref = hg.hashgrid_encode_reference(table, x01, spec)
+        err = float((got - ref).abs().max()) / max(1.0, float(
+            ref.abs().max()))
+        assert err <= 1e-5, err
+        enc_ms = _time_ms(torch, lambda: hg.hashgrid_encode(table, x01, spec),
+                          reps=20, warmup=2)
+        enc_plain = _time_ms(torch, lambda: hg.hashgrid_encode_reference(
+            table, x01, spec), reps=3, warmup=1)
+    npts = x01.shape[0]
+    enc_bound = _bound(npts * spec.num_levels * _hash_flop(),
+                       _nbytes(x01, table, got))
+    log(f"[hash-kernel] ENCODE at the 800x800 view's samples ({n} rays × 128 "
+        f"= {npts} points, {oob * 100:.2f} % out of bound): kernel "
+        f"{enc_ms:.3f} ms, plain {enc_plain:.3f} ms ({card}); max abs err "
+        f"(scaled above 1) {err:.3e}; bound {enc_bound[0]:.3f} ms "
+        f"({enc_bound[1]}): the kernel at {enc_bound[0] / enc_ms * 100:.1f} %"
+        f", {npts / enc_ms / 1e3:.1f} M points/s, "
+        f"{npts * 16 * 8 / enc_ms / 1e6:.2f} G corner rows/s")
+    worst_enc = max(err, par["encode"])
+    del got, ref, xyz, x01
+
+    # the probe's entry point (its timing part) is the GATHER/DENSE path:
+    # kernel, plain and library times at the JAX probe's shapes
+    hg.launches_gather = hg.launches_dense = 0
+    b = probe.main(["--skip_parity"])["bench"]
+    launches = (hg.launches_gather, hg.launches_dense)
+    assert min(launches) > 0, f"the probe never launched: {launches}"
+    n_idx = probe.IDX_SHAPE[0] * probe.IDX_SHAPE[1]
+    # table, idx and out once; level rows, x and out once
+    g_bound = _bound(0, probe.TABLE_ROWS * 8 + n_idx * (4 + 8))
+    d_bound = _bound(probe.DENSE_SAMPLES * _hash_flop(),
+                     probe.DENSE_SIDE ** 3 * 8 + probe.DENSE_SAMPLES * (12 + 8))
+    dev_ms = ", ".join(f"{k} {v['device_ms']:.4f}" for k, v in b.items()
+                       if "device_ms" in v)
+    log(f"[hash-kernel] probe (python -m mirror_nerf_tpu_torch.tools."
+        f"exp_hash_inkernel, {card}), ms per call (CUDA events): GATHER "
+        f"fp32 {b['B_gather_fp32']['ms']:.4f} / bf16 "
+        f"{b['B_gather_bf16']['ms']:.4f}, plain "
+        f"{b['B_gather_plain_fp32']['ms']:.4f}, torch indexing "
+        f"{b['A_torch_index_fp32']['ms']:.4f} / "
+        f"{b['A_torch_index_bf16']['ms']:.4f} (bound "
+        f"{g_bound[0]:.4f}, {g_bound[1]}); DENSE {b['C_dense']['ms']:.4f}, "
+        f"plain {b['C_dense_plain']['ms']:.4f}, grid_sample "
+        f"{b['C_dense_grid_sample']['ms']:.4f} (max |Δ| "
+        f"{b['C_dense_grid_sample']['max_abs_diff']:.1e}, its own "
+        f"coordinate rounding; bound {d_bound[0]:.4f}, {d_bound[1]}); "
+        f"ENCODE at uniform points {b['D_encode']['ms']:.3f}, plain "
+        f"{b['D_encode_plain']['ms']:.3f}. Device ms per call (profiler): "
+        f"{dev_ms}. Launches GATHER {launches[0]}, DENSE {launches[1]}")
+
+    def entry(name, replaces, worst, ms, plain, bound, lib):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": f"tools/exp_hash_inkernel.py:{replaces}",
+                "launches": 0, "max_abs_err": worst, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": lib}
+
+    enc = entry("hashgrid_encode", 59, worst_enc, enc_ms, enc_plain,
+                enc_bound, None)
+    gat = entry("hashgrid_gather", 59, 0.0, b["B_gather_fp32"]["ms"],
+                b["B_gather_plain_fp32"]["ms"], g_bound,
+                b["A_torch_index_fp32"]["ms"])
+    den = entry("hashgrid_dense", 137, max(par["dense"],
+                                          par["dense_vs_encode_level3"]),
+                b["C_dense"]["ms"], b["C_dense_plain"]["ms"], d_bound,
+                b["C_dense_grid_sample"]["ms"])
+    gat["launches"], den["launches"] = launches
+    return [enc, gat, den]
+
+
+def phase_ngp_main_path(torch, card: str) -> int:
+    """(14) The hash-grid model's eval path on the card. Returns ENCODE's
+    launches."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.data.synthetic import generate_scene
+    from mirror_nerf_tpu_torch.eval import get_opt, main
+    from mirror_nerf_tpu_torch.eval.apps import AppContext
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import hashgrid
+    from mirror_nerf_tpu_torch.train.checkpoints import (save_pytree,
+                                                         save_torch_ckpt)
+
+    work = WORK / "ngp"
+    work.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        generate_scene("scene", n_train=1, n_val=1, n_test=2,
+                       img_wh=(64, 64))
+        cfg, _ = get_opt(NGP_EVAL_FLAGS)
+        field = make_field(cfg)
+        weights = {k: _dense_scaled(field, _all_mirror(v)) for k, v in
+                   init_params(field, cfg, "cpu").items()}
+        save_pytree("w.npz", weights)
+        save_torch_ckpt("w.ckpt", weights)
+        hashgrid.launches_encode = 0
+        psnrs = {}
+        for tag in ("npz", "ckpt"):
+            t0 = time.perf_counter()
+            out = main(NGP_EVAL_FLAGS + [
+                "--root_dir", "scene", "--img_wh", "64", "64", "--split",
+                "test", "--ckpt_path", f"w.{tag}", "--exp_name",
+                f"smoke_ngp_{tag}"])
+            files = os.listdir(out)
+            for name in ("rgb_fine_000.png", "rgb_fine_001.png", "psnr.json",
+                         f"smoke_ngp_{tag}_rgb_fine.gif"):
+                assert name in files, (tag, name, files)
+            with open(os.path.join(out, "psnr.json")) as f:
+                psnrs[tag] = json.load(f)["psnrs"]
+            assert np.isfinite(psnrs[tag]).all(), psnrs
+            log(f"[ngp-main] eval CLI (nerf_tcnn, from w.{tag}) wrote {out}: "
+                f"{len(files)} entries, PSNRs {psnrs[tag]} (all-mirror "
+                f"weights, dense levels ×1e4), "
+                f"{time.perf_counter() - t0:.1f} s")
+        assert psnrs["npz"] == psnrs["ckpt"], psnrs
+        cli_launches = hashgrid.launches_encode
+        assert cli_launches > 0, "the hash-grid eval CLI never launched"
+
+        cfg, args = get_opt(NGP_EVAL_FLAGS + ["--img_wh", "800", "800"])
+        ctx = AppContext.build(cfg, args, field,
+                               init_params(field, cfg, "cuda"), "cuda")
+        assert ctx.params["fine"]["grid"].is_cuda
+        rays_np = _view_rays(800)
+        mirror_ctx = replace(ctx, params={
+            k: _dense_scaled(field, _all_mirror(v))
+            for k, v in ctx.params.items()})
+        views = [(label, c, *_time_view(c, rays_np))
+                 for label, c in (("seeded weights", ctx),
+                                  ("all-mirror weights", mirror_ctx))]
+        # the main path's count ends here: the diagnostics below launch too
+        launches = hashgrid.launches_encode
+        assert launches > cli_launches, "run_view never launched ENCODE"
+        log(f"[ngp-main] ENCODE launches on the hash-grid model's main path: "
+            f"{launches} ({cli_launches} in the eval CLI, "
+            f"{launches - cli_launches} in the timed run_view calls)")
+        for label, c, res, times in views:
+            _report_view(torch, c, rays_np, res, times, label, card,
+                         size="800x800 hash-grid")
+        _check_against_plain(torch, mirror_ctx, rays_np, n=256)
+        return launches
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     import torch
 
@@ -1459,10 +1682,13 @@ def main() -> int:
     rows_entries = timed("rows kernels", phase_rows_kernels, torch, card)
     rows_entries[0]["launches"], rows_entries[2]["launches"] = timed(
         "noise path", phase_noise_path, torch, card)
+    hash_entries = timed("hash kernels", phase_hash_kernels, torch, card)
+    hash_entries[0]["launches"] = timed("hash-grid main path",
+                                        phase_ngp_main_path, torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,
-                                  *rows_entries]}))
+                                  *rows_entries, *hash_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,268 @@
+// Multiresolution hash-grid lookups, one kernel library (sm_90a), three modes
+// built from shared device functions:
+//
+//   GATHER replaces the Pallas TPU probe kernel `_scalar_loop_kernel`
+//     (tools/exp_hash_inkernel.py:59, driven by scalar_loop_gather:97 →
+//     :104): rows of an (R, C) table, fp32 or bf16, at int32 indices of any
+//     shape, copied bit for bit. Device function: `copy_row`.
+//   DENSE replaces `_dense_matmul_kernel` (tools/exp_hash_inkernel.py:137;
+//     dense_matmul_lookup:168 → :171): the trilinear lookup of one dense
+//     level from its flat rows (row x + y·side + z·side², modulo the row
+//     count) at pos = x·scale + 0.5, fp32. Device function: `interp_level`.
+//   ENCODE is the encoder the probe was written for: the hash-grid model's
+//     `hashgrid_encode` (mirror_nerf_tpu/ops/hashgrid.py:139, XLA gathers
+//     in the JAX package) for every level of a point, (N, 3) x01 →
+//     (N, L·C), zero for a point outside [0, 1]³. Each level is
+//     `interp_level`, whose corner loads are `copy_row`; a hashed level's
+//     row is the uint32 xor of coordinate·prime (gridencoder.cu:51-66)
+//     modulo its size, a dense level's the strided sum.
+// The TPU kernels' design is gone: no hat basis, no T2 reorder, no (8, 128)
+// block loads with iota-mask selects, no bf16 hat weights. Those answered
+// Mosaic's lack of a scalar gather; a GPU thread loads any address.
+//
+// pos = x·scale + 0.5 is one fused multiply-add (__fmaf_rn) with the fp32
+// scale: XLA contracts the JAX package's expression the same way, as nvcc
+// does the reference's CUDA encoder. Two roundings would move pos by one
+// ulp (5e-4 of a cell at the finest level) for a few % of the points. The
+// plain PyTorch version rounds once too (ops/hashgrid.py `_grid_pos`).
+//
+// What bounds it on the H100: the gathers. A point costs L·8 row loads of
+// C·4 bytes at data-dependent addresses (16 × 8 × 8 B = 1 KB at the model's
+// spec) against 12 B in and L·C·4 = 128 B out; the compulsory traffic is
+// those bytes and the table once (52.9 MB at bound 6), ~0.1 ms for 2M
+// points at 3.35 TB/s. The design, simple first:
+//   * one thread per (point, level), level fastest: the 16 threads of a
+//     point write its 128 B of features contiguously, a warp 256 B;
+//   * the level table (8 words a level) is read from a small device array
+//     (uniform within a level, cached); a dense level's rows (≤ 1.9 MB at
+//     bound 6) stay in L2, a hashed level's 4 MB of rows mostly do too
+//     (the whole table is 52.9 MB against 50 MB of L2);
+//   * corner rows are read-only loads (__ldg) of one 8-byte access for C = 2;
+//   * nothing is staged in shared memory, no tensor-core work: gathers and
+//     the FMAs of the interpolation on the CUDA cores.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+constexpr int MAX_LEVELS = 32;
+constexpr int BLOCK = 256;
+
+// One level as the wrapper packs it: 8 int32 words (ops/hashgrid.py
+// `_level_table`).
+struct Level {
+  unsigned offset;     // first row of the level in the table
+  unsigned size;       // rows of the level
+  float scale;         // fp32 2^(l·S)·H − 1
+  unsigned stride[3];  // dense strides (0 past the level size)
+  int use_hash;
+  int pad;
+};
+static_assert(sizeof(Level) == 32, "Level is 8 words");
+
+// The widest load unit for a row of BYTES bytes (rows start at multiples of
+// min(BYTES, 16) bytes; the wrapper checks the table's base).
+template <int BYTES> struct Unit { using T = uint4; };
+template <> struct Unit<2> { using T = unsigned short; };
+template <> struct Unit<4> { using T = unsigned; };
+template <> struct Unit<8> { using T = uint2; };
+
+// GATHER's device function: one row of BYTES bytes through the read-only
+// path, into registers.
+template <int BYTES>
+__device__ __forceinline__ void copy_row(const unsigned char* __restrict__ base,
+                                         size_t row, void* dst) {
+  using U = typename Unit<BYTES>::T;
+  constexpr int K = BYTES / sizeof(U);
+  const U* src = reinterpret_cast<const U*>(base + row * BYTES);
+  U u[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) u[k] = __ldg(src + k);
+  memcpy(dst, u, BYTES);
+}
+
+template <int BYTES>
+__device__ __forceinline__ void store_row(unsigned char* __restrict__ base,
+                                          size_t row, const void* src) {
+  using U = typename Unit<BYTES>::T;
+  constexpr int K = BYTES / sizeof(U);
+  U u[K];
+  memcpy(u, src, BYTES);
+  U* dst = reinterpret_cast<U*>(base + row * BYTES);
+#pragma unroll
+  for (int k = 0; k < K; ++k) dst[k] = u[k];
+}
+
+__device__ __forceinline__ unsigned corner_row(const Level& L, unsigned x,
+                                               unsigned y, unsigned z) {
+  const unsigned h =
+      L.use_hash ? (x ^ (y * 2654435761u) ^ (z * 805459861u))
+                 : (x * L.stride[0] + y * L.stride[1] + z * L.stride[2]);
+  return h % L.size;
+}
+
+// DENSE's device function: the trilinear interpolation of one level at
+// x ∈ [0, 1]³ from the level's rows (size × C floats). Corner c has bit d
+// set for +1 along axis d; weights ((w_x·w_y)·w_z), corners summed 0..7, as
+// the JAX package orders them.
+template <int C>
+__device__ __forceinline__ void interp_level(const float* __restrict__ rows,
+                                             const Level& L, float x0,
+                                             float x1, float x2,
+                                             float (&acc)[C]) {
+  const float p0 = __fmaf_rn(x0, L.scale, 0.5f);
+  const float p1 = __fmaf_rn(x1, L.scale, 0.5f);
+  const float p2 = __fmaf_rn(x2, L.scale, 0.5f);
+  const float f0 = floorf(p0), f1 = floorf(p1), f2 = floorf(p2);
+  const float t0 = p0 - f0, t1 = p1 - f1, t2 = p2 - f2;
+  const unsigned g0 = (unsigned)(int)f0, g1 = (unsigned)(int)f1,
+                 g2 = (unsigned)(int)f2;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(rows);
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wx = (c & 1) ? t0 : 1.f - t0;
+    const float wy = (c & 2) ? t1 : 1.f - t1;
+    const float wz = (c & 4) ? t2 : 1.f - t2;
+    const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+    float v[C];
+    copy_row<C * 4>(base,
+                    corner_row(L, g0 + (c & 1), g1 + ((c >> 1) & 1),
+                               g2 + ((c >> 2) & 1)),
+                    v);
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] = fmaf(w, v[k], acc[k]);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(BLOCK)
+    hash_encode_kernel(const float* __restrict__ x,
+                       const float* __restrict__ table,
+                       const Level* __restrict__ levels, int n_levels,
+                       long long n, float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (t >= n * n_levels) return;
+  const long long p = t / n_levels;
+  const int l = (int)(t - p * n_levels);
+  const float x0 = __ldg(x + 3 * p), x1 = __ldg(x + 3 * p + 1),
+              x2 = __ldg(x + 3 * p + 2);
+  float acc[C];
+  if (x0 < 0.f || x0 > 1.f || x1 < 0.f || x1 > 1.f || x2 < 0.f || x2 > 1.f) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] = 0.f;
+  } else {
+    Level L;
+    const uint4* w = reinterpret_cast<const uint4*>(levels + l);
+    const uint4 a = __ldg(w), b = __ldg(w + 1);
+    memcpy(&L, &a, 16);
+    memcpy(reinterpret_cast<unsigned char*>(&L) + 16, &b, 16);
+    interp_level<C>(table + (size_t)L.offset * C, L, x0, x1, x2, acc);
+  }
+  // out[p, l·C + k] = out[t·C + k]: level-fastest threads write contiguously
+  store_row<C * 4>(reinterpret_cast<unsigned char*>(out), (size_t)t, acc);
+}
+
+template <int BYTES>
+__global__ void __launch_bounds__(BLOCK)
+    hash_gather_kernel(const unsigned char* __restrict__ table, long long rows,
+                       const int* __restrict__ idx, long long n,
+                       unsigned char* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  long long r = __ldg(idx + i);
+  r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);  // clamp, as JAX's gather
+  unsigned char v[BYTES];
+  copy_row<BYTES>(table, (size_t)r, v);
+  store_row<BYTES>(out, (size_t)i, v);
+}
+
+template <int C>
+__global__ void __launch_bounds__(BLOCK)
+    hash_dense_kernel(const float* __restrict__ rows, Level L,
+                      const float* __restrict__ x, long long n,
+                      float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  float acc[C];
+  interp_level<C>(rows, L, __ldg(x + 3 * i), __ldg(x + 3 * i + 1),
+                  __ldg(x + 3 * i + 2), acc);
+  store_row<C * 4>(reinterpret_cast<unsigned char*>(out), (size_t)i, acc);
+}
+
+unsigned blocks(long long threads) {
+  return (unsigned)((threads + BLOCK - 1) / BLOCK);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* mnerf_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+// Each entry returns 0, a cudaError_t (> 0) from the launch, or a negative
+// code for arguments the kernel does not take (ops/hashgrid.py maps each to
+// a message):
+//   -1 level count outside [1, MAX_LEVELS]
+//   -2 C not 2 (ENCODE, DENSE: the model's level_dim) or not 1, 2, 4, 8
+//      (GATHER)
+//   -3 element size not 2 or 4 bytes         -4 no rows, or side < 2
+// Pointers are device pointers; `levels` holds n_levels × 8 int32 words.
+int mnerf_hash_encode(const float* x, const float* table, const int* levels,
+                      int n_levels, int c, long long n, float* out,
+                      void* stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS) return -1;
+  const Level* lv = reinterpret_cast<const Level*>(levels);
+  if (c != 2) return -2;
+  hash_encode_kernel<2><<<blocks(n * n_levels), BLOCK, 0,
+                          (cudaStream_t)stream>>>(x, table, lv, n_levels, n,
+                                                  out);
+  return (int)cudaGetLastError();
+}
+
+int mnerf_hash_gather(const void* table, long long rows, int c,
+                      int elem_bytes, const int* idx, long long n, void* out,
+                      void* stream) {
+  if (rows < 1) return -4;
+  if (elem_bytes != 2 && elem_bytes != 4) return -3;
+  if (c != 1 && c != 2 && c != 4 && c != 8) return -2;
+  const unsigned char* t = static_cast<const unsigned char*>(table);
+  unsigned char* o = static_cast<unsigned char*>(out);
+  const unsigned g = blocks(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (c * elem_bytes) {
+    case 2: hash_gather_kernel<2><<<g, BLOCK, 0, s>>>(t, rows, idx, n, o); break;
+    case 4: hash_gather_kernel<4><<<g, BLOCK, 0, s>>>(t, rows, idx, n, o); break;
+    case 8: hash_gather_kernel<8><<<g, BLOCK, 0, s>>>(t, rows, idx, n, o); break;
+    case 16: hash_gather_kernel<16><<<g, BLOCK, 0, s>>>(t, rows, idx, n, o); break;
+    case 32: hash_gather_kernel<32><<<g, BLOCK, 0, s>>>(t, rows, idx, n, o); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+int mnerf_hash_dense(const float* rows, long long n_rows, int c,
+                     const float* x, long long n, float scale, int side,
+                     float* out, void* stream) {
+  if (n_rows < 1 || n_rows > 0xFFFFFFFFll || side < 2) return -4;
+  if (c != 2) return -2;
+  Level L;
+  L.offset = 0;
+  L.size = (unsigned)n_rows;
+  L.scale = scale;
+  L.stride[0] = 1;
+  L.stride[1] = (unsigned)side;
+  L.stride[2] = (unsigned)side * (unsigned)side;
+  L.use_hash = 0;
+  L.pad = 0;
+  hash_dense_kernel<2><<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
+      rows, L, x, n, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -6,15 +6,18 @@ normal / depth-reflect / x_surface PNGs, GIFs, a globally normalized depth
 pass, and `psnr.json` with per-view and mean PSNR/SSIM. It prints the
 steady-state render rate (views after the first) in rays/s.
 
-Two models render: the CP grid (`--model_type nerf_tpu`) and the flagship
-PE-MLP (`nerf`, the default). `--fused_field` runs either through its eval
-kernel with in-kernel compositing. `--ckpt_path` takes an npz (either
-package's) or a reference torch Lightning `.ckpt` of the PE-MLP layout.
-`--device` (default `cuda`) picks where parameters and rays live; a CUDA
-run goes through the port's kernels, a CPU run through their plain
-versions. Not ported yet: the four applications, `--megabatch` and
-`--proposal_drop_levels` (TPU workarounds), LPIPS (weights absent) and the
-hash-grid model's checkpoints.
+All three models render: the CP grid (`--model_type nerf_tpu`), the
+flagship PE-MLP (`nerf`, the default) and the hash-grid model
+(`nerf_tcnn`). `--fused_field` runs the first two through their eval
+kernels with in-kernel compositing; the hash-grid model always encodes
+through its ENCODE kernel (csrc/hashgrid.cu) and runs its small nets in
+PyTorch, and ignores the flag, as the JAX package does. `--ckpt_path` takes
+an npz (either package's) or a reference torch Lightning `.ckpt` of the
+PE-MLP or the hash-grid (MirrorNeRFTcnn) layout. `--device` (default
+`cuda`) picks where parameters and rays live; a CUDA run goes through the
+port's kernels, a CPU run through their plain versions. Not ported yet: the
+four applications, `--megabatch` and `--proposal_drop_levels` (TPU
+workarounds) and LPIPS (weights absent).
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ def init_params(field, cfg, device) -> dict:
     if cfg.N_importance > 0 and not cfg.only_one_field:
         params["fine"] = field.init(torch.Generator().manual_seed(1), device)
     if cfg.ckpt_path:
-        params = load_params_any(cfg.ckpt_path, params)
+        params = load_params_any(cfg.ckpt_path, params, field)
     return params
 
 

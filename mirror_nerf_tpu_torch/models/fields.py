@@ -9,9 +9,8 @@ mirror head (linear, LeakyReLU(0.01), linear, sigmoid). Its parameters are
 a dict of tensors with the JAX package's leaf names and (in, out) layout, so
 an npz written by either package loads in the other.
 
-`make_field` builds it or the CP-grid model (`nerf_tpu`, models/tpugrid.py);
-the hash-grid model (`nerf_tcnn`) raises until its slice lands (ROADMAP.md
-queue 1, item 4).
+`make_field` builds it, the hash-grid model (`nerf_tcnn`, models/ngp.py)
+or the CP-grid model (`nerf_tpu`, models/tpugrid.py).
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from .embedding import posenc, posenc_dim
+from .ngp import NGPField
 from .nn import init_linear, leaky_relu, linear, relu, sigmoid
 from .tpugrid import TPUGridField
 
@@ -115,10 +115,8 @@ def parse_grid_levels(spec: str):
 
 def make_field(cfg):
     """Build the field described by a Config (model_type dispatch)."""
-    if cfg.model_type not in ("nerf", "nerf_tpu"):
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet (ROADMAP.md "
-            "queue 1, item 4); 'nerf' and 'nerf_tpu' are")
+    if cfg.model_type not in ("nerf", "nerf_tcnn", "nerf_tpu"):
+        raise ValueError(f"unknown model_type {cfg.model_type!r}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the port computes in float32 only; bf16 comes with the faster "
@@ -129,6 +127,14 @@ def make_field(cfg):
             N_emb_dir=cfg.N_emb_dir,
             predict_normal=cfg.predict_normal,
             predict_mirror_mask=cfg.predict_mirror_mask,
+        )
+    if cfg.model_type == "nerf_tcnn":
+        return NGPField(
+            bound=cfg.bound,
+            predict_normal=cfg.predict_normal,
+            predict_mirror_mask=cfg.predict_mirror_mask,
+            compute_dtype=cfg.compute_dtype,
+            log2_hashmap_size=cfg.log2_hashmap_size,
         )
     return TPUGridField(
         bound=cfg.bound,

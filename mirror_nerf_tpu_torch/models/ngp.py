@@ -1,14 +1,21 @@
-"""NGP-style field heads (torch counterpart of `mirror_nerf_tpu/models/ngp.py`).
+"""NGP-style field: hash-grid encoder + small MLPs + SH direction encoding
+(torch counterpart of `mirror_nerf_tpu/models/ngp.py`; `--model_type
+nerf_tcnn`).
 
+  * 16-level ×2-feature hash grid, log2_hashmap 19, base 16, per-level scale
+    exp2(log2(2048·bound/16)/15) (ops/hashgrid.py; the ENCODE mode of
+    csrc/hashgrid.cu on the card)
   * 2×64 bias-free σ-net → (raw σ, 15-d geo_feat); σ has no activation here
   * SH(degree 4) direction encoding + 3×64 bias-free color net + sigmoid
   * normal net: 2×64 bias-free MLP with interior ReLU (unnormalized output)
   * mirror net: Linear(15,32) + LeakyReLU(0.01) + Linear(32,1) + sigmoid
+  * world coords scaled (x + bound)·fp32(1/(2·bound)) before encoding
 
 The field is a static description; its parameters are a dict of tensors
-with the JAX package's leaf names and (in, out) layout. The hash-grid
-encoder itself is not ported yet, so `NGPField.density` raises;
-`TPUGridField` (models/tpugrid.py) supplies the CP-grid encoder.
+with the JAX package's leaf names and (in, out) layout (`grid` the flat
+(rows, 2) table). `TPUGridField` (models/tpugrid.py) swaps the encoder for
+the CP grid. The nets are plain `torch.matmul`, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -16,13 +23,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
 from ..ops.sh import sh_encode
 from .nn import _uniform, init_linear, leaky_relu, linear, relu, sigmoid
-
-_HASHGRID_TODO = ("the hash-grid encoder (nerf_tcnn) is not ported yet: "
-                  "ROADMAP.md queue 1, item 4 (hash-grid model)")
 
 
 def _init_linear_nobias(generator, in_dim, out_dim, device) -> dict:
@@ -47,15 +53,26 @@ class NGPField:
     compute_dtype: str = "float32"
 
     @property
+    def grid_spec(self) -> HashGridSpec:
+        n_levels = self.n_levels
+        per_level_scale = float(
+            np.exp2(np.log2(2048 * self.bound / n_levels) / (n_levels - 1)))
+        return HashGridSpec(
+            input_dim=3, num_levels=n_levels, level_dim=2,
+            base_resolution=16, log2_hashmap_size=self.log2_hashmap_size,
+            per_level_scale=per_level_scale,
+        )
+
+    @property
     def in_dim(self) -> int:
-        return 32
+        return self.grid_spec.output_dim  # 32
 
     @property
     def in_dim_dir(self) -> int:
         return self.sh_degree ** 2  # 16
 
-    def _init_grid(self, generator, device) -> dict:
-        raise NotImplementedError(_HASHGRID_TODO)
+    def _init_grid(self, generator, device) -> torch.Tensor:
+        return init_hashgrid(generator, self.grid_spec, device)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> dict:
@@ -99,7 +116,15 @@ class NGPField:
 
     def density(self, params: dict, xyz: torch.Tensor):
         """Raw world coords in [-bound, bound] → (σ raw, geo_feat)."""
-        raise NotImplementedError(_HASHGRID_TODO)
+        # × the fp32 reciprocal of 2·bound, as PyTorch divides a CUDA tensor
+        # by a scalar and XLA a traced one by a constant: written out, every
+        # device puts a point in the same cell. At bound 6 a point on the
+        # +bound face lands at 1.0000001: out of bound, zero features
+        # (ROADMAP.md §3).
+        inv = float(np.float32(1.0) / np.float32(2.0 * self.bound))
+        x01 = (xyz + self.bound) * inv
+        return self._sigma_net(params, hashgrid_encode(params["grid"], x01,
+                                                       self.grid_spec))
 
     def color(self, params: dict, geo_feat: torch.Tensor,
               dirs: torch.Tensor) -> torch.Tensor:

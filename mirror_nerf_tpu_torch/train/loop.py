@@ -166,6 +166,11 @@ class Trainer:
                 "training the flagship PE-MLP (--model_type nerf) is not "
                 "ported yet, only rendering it: ROADMAP.md queue 1, item 2 "
                 "(flagship training)")
+        if cfg.model_type == "nerf_tcnn":
+            raise NotImplementedError(
+                "training the hash-grid model (--model_type nerf_tcnn) is "
+                "not ported yet, only rendering it: ROADMAP.md queue 1, "
+                "item 11 (hash-grid training)")
         if cfg.use_remat:
             raise NotImplementedError(
                 "--use_remat is not ported yet: ROADMAP.md queue 1, item 8 "

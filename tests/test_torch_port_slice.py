@@ -148,7 +148,10 @@ def test_unported_paths_raise():
                          "--app_place_new_mirror"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    cfg, _ = get_opt(["--model_type", "nerf_tcnn"])
+    # the port computes in float32 only (bf16 is ROADMAP queue 2), for
+    # every model, the hash-grid one included
+    cfg, _ = get_opt(["--model_type", "nerf_tcnn", "--compute_dtype",
+                      "bfloat16"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_field(cfg)
 
@@ -211,6 +214,13 @@ def test_port_runs_with_jax_blocked():
         sigma, rgb, normal, mirror = fused_field_eval(
             mf, mp["fine"], rays[:, :3], rays[:, 3:6])
         assert torch.isfinite(rgb).all() and normal.shape == (8, 3)
+        # the hash-grid model through level 2 (plain encoder on the CPU)
+        from mirror_nerf_tpu_torch.models.ngp import NGPField
+        nf = NGPField(bound=2.0, n_levels=4, log2_hashmap_size=12)
+        np_ = {"coarse": nf.init(g), "fine": nf.init(g)}
+        r = eval_trace(nf, np_, rays, replace(rs, fused_field=False),
+                       EvalAppFlags(), 2, True)
+        assert torch.isfinite(r["rgb_fine"]).all()
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "mirror_nerf_tpu")]
         assert not bad, bad

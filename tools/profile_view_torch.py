@@ -4,13 +4,16 @@
     python3 tools/profile_view_torch.py                     # CP grid, 800×800
     python3 tools/profile_view_torch.py --model_type nerf   # flagship, 400×300
     python3 tools/profile_view_torch.py --model_type nerf --noise_std 1
+    python3 tools/profile_view_torch.py --model_type nerf_tcnn  # 800×800
     python3 tools/profile_view_torch.py --cpu 48            # CPU rehearsal
 
 Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 flags of the
 model, seeded and all-mirror weights) through `run_view`: one warm view,
 three timed ones, then one under `torch.profiler`. The CP grid (nerf_tpu)
-renders 800×800, the flagship PE-MLP (nerf) the livingroom preset's
-400×300. From the exported trace it prints, per weight set:
+and the hash-grid model (nerf_tcnn; its all-mirror weights also scale the
+table's dense levels ×1e4, chip_smoke's `_dense_scaled`) render 800×800,
+the flagship PE-MLP (nerf) the livingroom preset's 400×300. From the
+exported trace it prints, per weight set:
 
   * the trace span: first to last CPU-op or device event;
   * device busy time: the union of the kernel, memcpy and memset intervals;
@@ -18,7 +21,9 @@ renders 800×800, the flagship PE-MLP (nerf) the livingroom preset's
   * device time and call count by kernel name;
   * the port kernel's launches in the profiled view and its share of the
     span, and the share of every other device event (the PyTorch
-    compositing, sampling and copies).
+    compositing, sampling and copies); for nerf_tcnn also the share of the
+    PyTorch nets (cuBLAS/CUTLASS GEMM kernels), since its kernel is the
+    encoder alone.
 
 With `--noise_std` > 0 every pass draws σ noise, so the fused passes run
 the per-sample rows mode of the kernel and composite in PyTorch (the eval
@@ -83,7 +88,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", type=int, metavar="SIZE", default=0,
                     help="rehearse on the CPU at SIZE×SIZE with small levels")
     ap.add_argument("--model_type", default="nerf_tpu",
-                    choices=["nerf_tpu", "nerf"])
+                    choices=["nerf_tpu", "nerf", "nerf_tcnn"])
     ap.add_argument("--noise_std", type=float, default=0.0,
                     help="σ noise of every pass (> 0: the rows kernels)")
     opt = ap.parse_args(argv)
@@ -95,13 +100,18 @@ def main(argv=None) -> int:
     from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
     from mirror_nerf_tpu_torch.eval.cli import init_params
     from mirror_nerf_tpu_torch.models.fields import make_field
-    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp, fused_mlp_t
+    from mirror_nerf_tpu_torch.ops import (fused_cp, fused_mlp, fused_mlp_t,
+                                           hashgrid)
 
     nerf = opt.model_type == "nerf"
+    ngp = opt.model_type == "nerf_tcnn"
     noisy = opt.noise_std > 0
-    kernel_name = "mlp_field_kernel" if nerf else "cp_field_kernel"
+    kernel_name = {"nerf": "mlp_field_kernel", "nerf_tcnn":
+                   "hash_encode_kernel"}.get(opt.model_type, "cp_field_kernel")
 
     def launches() -> int:
+        if ngp:
+            return hashgrid.launches_encode
         if nerf:
             return fused_mlp.launches_rays if noisy else fused_mlp_t.launches
         return fused_cp.launches_rows if noisy else fused_cp.launches
@@ -120,11 +130,13 @@ def main(argv=None) -> int:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     print(card, flush=True)
 
-    flags = ((cs.NERF_EVAL_FLAGS if nerf else cs.EVAL_FLAGS)
+    flags = ({"nerf": cs.NERF_EVAL_FLAGS, "nerf_tcnn": cs.NGP_EVAL_FLAGS}
+             .get(opt.model_type, cs.EVAL_FLAGS)
              + ["--img_wh", str(w), str(h)])
     if opt.cpu:
         flags += ["--chunk", "1024"] + (
-            [] if nerf else ["--grid_levels", "16:8,32:8"])
+            ["--grid_levels", "16:8,32:8"] if opt.model_type == "nerf_tpu"
+            else [])
     cfg, args = get_opt(flags)
     field = make_field(cfg)
     ctx = AppContext.build(cfg, args, field, init_params(field, cfg, dev),
@@ -135,7 +147,11 @@ def main(argv=None) -> int:
                           ctx.rs_sec, noise_std=opt.noise_std))
     rays_np = cs._view_rays(w, h)
     sample = {"rays": rays_np}
-    mirror_ctx = replace(ctx, params={k: cs._all_mirror(v)
+    def all_mirror(p):
+        return cs._dense_scaled(field, cs._all_mirror(p)) if ngp \
+            else cs._all_mirror(p)
+
+    mirror_ctx = replace(ctx, params={k: all_mirror(v)
                                       for k, v in ctx.params.items()})
 
     for label, c in (("seeded", ctx), ("all-mirror", mirror_ctx)):
@@ -161,12 +177,16 @@ def main(argv=None) -> int:
             by_name[e["name"][:70]][0] += 1
             by_name[e["name"][:70]][1] += e["dur"]
         k_dur = sum(e["dur"] for e in dev_ev if kernel_name in e["name"])
-        o_dur = sum(e["dur"] for e in dev_ev) - k_dur
+        nets = sum(e["dur"] for e in dev_ev if any(
+            t in e["name"].lower() for t in ("gemm", "cutlass", "xmma")))
+        o_dur = sum(e["dur"] for e in dev_ev) - k_dur - (nets if ngp else 0)
         device = ("device: not measured" if opt.cpu else
                   f"device busy (union) {busy / 1e3:.1f} ms, idle share "
                   f"{1 - busy / span:.4f}, {kernel_name} "
                   f"{k_dur / 1e3:.1f} ms = {k_dur / span:.4f} of the span, "
-                  f"other device events {o_dur / 1e3:.1f} ms = "
+                  + (f"PyTorch nets (GEMM kernels) {nets / 1e3:.1f} ms = "
+                     f"{nets / span:.4f}, " if ngp else "")
+                  + f"other device events {o_dur / 1e3:.1f} ms = "
                   f"{o_dur / span:.4f}")
         print(f"=== {opt.model_type} {w}x{h} {label}, noise_std "
               f"{opt.noise_std}: unprofiled walls "
