@@ -9,7 +9,7 @@ each fatal on failure:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether nvcc and triton are present; TF32 off for the plain versions;
-  2. build the four kernel libraries at once (one nvcc each), print the
+  2. build the seven kernel libraries at once (one nvcc each), print the
      build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
@@ -85,12 +85,26 @@ each fatal on failure:
      (equal PSNRs), then one 800×800 level-2 view through run_view, seeded
      and all-mirror weights; the ENCODE counter is reset before the CLI and
      read right after the timed views; the card against the plain version
-     on the CPU on 256 rays.
+     on the CPU on 256 rays;
+ 15. the last three probes' kernels vs their plain versions: the launch
+     floor (SMALL (8, 128), GRID (128, 1, 4096)) bit for bit, alone and as
+     a chain looped in C; the segmented exclusive prefix, SCAN and TRI, at
+     the composite's 2,097,152 values, S = 128, 64 and 16, uniform and
+     δ_inf sentinel input, against float64 (≤ 2e-6 scaled above 1, each
+     sentinel's own value equal to its segment's other values' sum), and
+     WEIGHTS (S = 128) against its plain version (atol 1e-5, Σw ≤ 1 + 1e-5);
+     the table products at the JAX probe's defaults, int8 bit for bit and
+     bf16 ≤ 1e-5 scaled. Then each probe's entry point (`python -m
+     mirror_nerf_tpu_torch.tools.exp_{invoke_floor,reshape_probe,
+     int8_probe}`, timing part) with its counters reset before and read
+     after: their path. It prints the floor table (mode × way, µs per rep).
 
 Each phase prints its wall time. The script prints one JSON line with the
-eleven kernels' numbers (each with the least time the card could take for
-the same work, `bound_ms`, counted from this run's shapes), the nvidia-smi
-name and power limit, and last `{"ok": true, "device": {...}}`.
+eighteen kernels' numbers (each with the least time the card could take for
+the same work, `bound_ms`, counted from this run's shapes; the probe
+kernels' also with their profiler `device_ms`, and the segmented
+prefix's with `cold_device_ms` after an L2 flush), the nvidia-smi name and
+power limit, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -190,9 +204,12 @@ def phase_environment(torch):
 
 def phase_build():
     from mirror_nerf_tpu_torch.ops import (_build, fused_cp, fused_cp_train,
-                                           fused_mlp_t, hashgrid)
+                                           fused_mlp_t, hashgrid,
+                                           invoke_floor, segment_scan,
+                                           table_mma)
 
-    mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid)
+    mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid, invoke_floor,
+            segment_scan, table_mma)
     names = [m._LIB for m in mods]
     t0 = time.perf_counter()
     _build.build_libraries(names)
@@ -1642,6 +1659,155 @@ def phase_ngp_main_path(torch, card: str) -> int:
         os.chdir(cwd)
 
 
+# the tensor cores' dense peaks (NVIDIA H100 SXM data sheet, at 700 W)
+PEAK_BF16 = 989e12  # FLOP/s
+PEAK_INT8 = 1979e12  # OP/s
+
+
+def phase_probe_kernels(torch, card: str) -> list:
+    """(15) The last three probes' kernels vs their plain versions on the
+    card, then each probe's entry point (its timing part) with its counters
+    reset before and read after: their path. Returns seven JSON entries."""
+    from mirror_nerf_tpu_torch.ops import invoke_floor as fl
+    from mirror_nerf_tpu_torch.ops import segment_scan as ss
+    from mirror_nerf_tpu_torch.ops import table_mma as tm
+    from mirror_nerf_tpu_torch.tools import exp_int8_probe as p8
+    from mirror_nerf_tpu_torch.tools import exp_invoke_floor as pf
+    from mirror_nerf_tpu_torch.tools import exp_reshape_probe as pr
+
+    # 10c: SMALL and GRID bit for bit, and a chain looped in C
+    par_f = pf.parity("cuda")
+    log(f"[probe-kernel] floor ({card}): values that differ from the plain "
+        "version " + ", ".join(f"{k} {v}" for k, v in par_f.items()))
+    # 10a at the composite's 2,097,152 values: both modes, S = 128, 64, 16,
+    # uniform and sentinel input, against float64 (the sentinels' own
+    # values equal to their segment's other values' sum)
+    with torch.no_grad():
+        x = pr.path_input("cuda")
+        worst = {"scan": 0.0, "tri": 0.0}
+        for s in (128, 64, 16):
+            for xi in (x, pr.with_sentinel(x, s)):
+                for mode in worst:
+                    err, last = pr.prefix_errors(
+                        ss.segment_prefix(xi, s, mode), xi, s)
+                    assert err <= pr.PREFIX_BAR and last <= pr.PREFIX_BAR, \
+                        (s, mode, err, last)
+                    worst[mode] = max(worst[mode], err, last)
+        torch.cuda.synchronize()
+        # WEIGHTS at S = 128 against its plain version, the sentinel input
+        sd = pr.with_sentinel(pr.path_input("cuda", seed=1, high=1.5), 128)
+        w = ss.prefix_weights(sd, 128)
+        w_err = float((w - ss.prefix_weights_reference(sd, 128)).abs().max())
+        w_sum = float(w.reshape(-1, 128).sum(-1).max())
+        assert w_err <= 1e-5 and w_sum <= 1.0 + 1e-5, (w_err, w_sum)
+    log(f"[probe-kernel] segmented prefix at {x.numel()} values ({card}), "
+        f"S = 128, 64, 16, uniform and sentinel: max error vs float64 "
+        f"(scaled above 1) SCAN {worst['scan']:.3e}, TRI {worst['tri']:.3e};"
+        f" WEIGHTS (S = 128) max abs err {w_err:.3e}, max Σw {w_sum:.7f}")
+    # 10b at the JAX probe's defaults: int8 bit for bit, bf16 ≤ 1e-5 scaled
+    size = dict(g=512, r=64, lanes=1024, blocks=64, tables=9)
+    par_8 = p8.parity("cuda", size)
+    log(f"[probe-kernel] table products at {size} ({card}): int8 "
+        f"{par_8['int8_values_that_differ']} values differ, bf16 max err "
+        f"{par_8['bf16']:.3e} (scaled above 1)")
+
+    # the entry points' timing parts are the kernels' path
+    fl.launches_small = fl.launches_grid = 0
+    bf = pf.main(["--skip_parity"])["bench"]
+    floor_launches = (fl.launches_small, fl.launches_grid)
+    ss.launches_scan = ss.launches_tri = ss.launches_weights = 0
+    br = pr.main(["--skip_parity"])["bench"]
+    scan_launches = (ss.launches_scan, ss.launches_tri, ss.launches_weights)
+    tm.launches_int8 = tm.launches_bf16 = 0
+    b8 = p8.main(["--skip_parity"])["bench"]
+    mma_launches = (tm.launches_int8, tm.launches_bf16)
+    for name, n in (("floor", floor_launches), ("segment scan", scan_launches),
+                    ("table mma", mma_launches)):
+        assert min(n) > 0, f"the {name} probe never launched: {n}"
+    log(f"[probe-kernel] the launch floor ({card}), µs per rep, best of "
+        f"{pf.BEST_OF} chains of {pf.REPS}:\n{pf.format_table(bf['floor_us'])}")
+    fu = bf["floor_us"]
+    log(f"[probe-kernel] floor: device µs per launch (profiler) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bf["device_us"].items())
+        + f"; graph replays launched {fu['one']['graph_launches']} SMALL "
+        f"kernels past the counter (counted {fu['one']['counted_at_capture']}"
+        f" at capture); launches SMALL {floor_launches[0]}, GRID "
+        f"{floor_launches[1]}")
+
+    def entry(name, source, replaces, worst, ms, plain, bound, lib, n,
+              dev=None):
+        e = {"name": name, "route": "cuda",
+             "source": f"mirror_nerf_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": n, "max_abs_err": worst,
+             "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": lib}
+        if dev is not None:
+            e["device_ms"] = dev
+        return e
+
+    fsrc, rep_f = "invoke_floor.cu", "tools/exp_invoke_floor.py"
+    small_b = _bound(0, 2 * 8 * 128 * 4)
+    grid_b = _bound(0, 2 * 128 * 4096 * 4)
+    entries = [
+        entry("floor_small", fsrc, f"{rep_f}:43", 0.0,
+              fu["one"]["bare"] / 1e3, bf["plain_ms"]["small"], small_b,
+              fu["none"]["wrapper"] / 1e3, floor_launches[0],
+              bf["device_us"]["small"] / 1e3),
+        entry("floor_grid", fsrc, f"{rep_f}:55", 0.0,
+              fu["grid"]["bare"] / 1e3, bf["plain_ms"]["grid"], grid_b,
+              fu["none_grid"]["wrapper"] / 1e3, floor_launches[1],
+              bf["device_us"]["grid"] / 1e3)]
+    n_vals = pr.PATH_SHAPE[0] * pr.PATH_SHAPE[1]
+    scan_b = _bound(0, 2 * n_vals * 4)
+    for i, mode in enumerate(("scan", "tri")):
+        r = br[f"path_S128_{mode}"]
+        entries.append(entry(
+            f"segment_{mode}", "segment_scan.cu",
+            "tools/exp_reshape_probe.py:35", worst[mode], r["ms"],
+            br["path_S128_plain"]["ms"], scan_b,
+            br["path_S128_cumsum"]["ms"], scan_launches[i], r["device_ms"]))
+        entries[-1]["cold_device_ms"] = r["cold_device_ms"]
+    r = br["path_S128_weights"]
+    entries.append(entry(
+        "prefix_weights", "segment_scan.cu", "tests/test_fused_cp.py:204",
+        w_err, r["ms"], br["path_S128_weights_plain"]["ms"], scan_b, None,
+        scan_launches[2], r["device_ms"]))
+    entries[-1]["cold_device_ms"] = r["cold_device_ms"]
+    c = br["path_S128_cumsum"]
+    log(f"[probe-kernel] torch.cumsum on the (16384, 128) segment view "
+        f"({card}): device {c['device_ms']:.4f} ms, cold L2 "
+        f"{c['cold_device_ms']:.4f} ms")
+    ops = b8["operations"]
+    n_basis = size["blocks"] * size["tables"] * size["g"] * size["lanes"]
+    out_bytes = size["blocks"] * size["r"] * size["lanes"] * 4
+    for i, (kind, peak) in enumerate((("int8", PEAK_INT8),
+                                      ("bf16", PEAK_BF16))):
+        # the products on the tensor cores, the basis build (three fp32
+        # operations an element) on the CUDA cores, x and out once
+        t_ops = max(ops / peak, 3 * n_basis / PEAK_FP32) * 1e3
+        t_bytes = (out_bytes + size["blocks"] * size["lanes"] * 4) \
+            / PEAK_HBM * 1e3
+        bound = (max(t_ops, t_bytes),
+                 "operations" if t_ops >= t_bytes else "bytes")
+        v = b8[kind]
+        entries.append(entry(
+            f"table_mma_{kind}", "table_mma.cu", "tools/exp_int8_probe.py:49",
+            0.0 if kind == "int8" else par_8["bf16"], v["ms"], v["plain_ms"],
+            bound, v["library_ms"], mma_launches[i], v["device_ms"]))
+    for e in entries:
+        dev = (f", device {e['device_ms']:.4f} ms"
+               + (f" (cold L2 {e['cold_device_ms']:.4f} ms)"
+                  if "cold_device_ms" in e else "")
+               if "device_ms" in e else "")
+        lib = (f", library {e['library_ms']:.4f} ms"
+               if e["library_ms"] is not None else "")
+        log(f"[probe-kernel] {e['name']} ({card}): kernel {e['ms']:.4f} ms"
+            f"{dev}, plain {e['plain_ms']:.4f} ms{lib}; bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}); launches "
+            f"{e['launches']}")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1685,10 +1851,12 @@ def main() -> int:
     hash_entries = timed("hash kernels", phase_hash_kernels, torch, card)
     hash_entries[0]["launches"] = timed("hash-grid main path",
                                         phase_ngp_main_path, torch, card)
+    probe_entries = timed("probe kernels", phase_probe_kernels, torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,
-                                  *rows_entries, *hash_entries]}))
+                                  *rows_entries, *hash_entries,
+                                  *probe_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,8 +174,12 @@ __global__ void __launch_bounds__(BLOCK)
                        unsigned char* __restrict__ out) {
   const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
+  // JAX's table[idx]: a negative index counts from the end, then the row is
+  // clamped into [0, rows): −1 reads rows − 1, −rows − 1 row 0, rows row
+  // rows − 1
   long long r = __ldg(idx + i);
-  r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);  // clamp, as JAX's gather
+  if (r < 0) r += rows;
+  r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
   unsigned char v[BYTES];
   copy_row<BYTES>(table, (size_t)r, v);
   store_row<BYTES>(out, (size_t)i, v);

@@ -118,9 +118,9 @@ class NGPField:
         """Raw world coords in [-bound, bound] → (σ raw, geo_feat)."""
         # × the fp32 reciprocal of 2·bound, as PyTorch divides a CUDA tensor
         # by a scalar and XLA a traced one by a constant: written out, every
-        # device puts a point in the same cell. At bound 6 a point on the
-        # +bound face lands at 1.0000001: out of bound, zero features
-        # (ROADMAP.md §3).
+        # device puts a point in the same cell. A point on the +bound face
+        # lands at exactly 1.0, in bound: (b + b)·fp32(1/2b) rounds to 1.0
+        # for every integer bound 1–32 (ROADMAP.md §3).
         inv = float(np.float32(1.0) / np.float32(2.0 * self.bound))
         x01 = (xyz + self.bound) * inv
         return self._sigma_net(params, hashgrid_encode(params["grid"], x01,

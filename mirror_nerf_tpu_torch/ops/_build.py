@@ -66,6 +66,30 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
+def on_card(what: str, *tensors) -> bool:
+    """Dispatch of a wrapper: True for CUDA tensors (all on one card), False
+    for CPU tensors; raises for another device or a mix."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} path for device {dev}")
+    return dev.type == "cuda"
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, what: str, refusals: dict) -> None:
+    """A kernel entry's return code: 0 is a launch, a negative code an
+    argument the kernel refused (`refusals` maps it to a message), a
+    positive one the cudaError_t of the launch."""
+    if rc < 0:
+        raise ValueError(f"{what} kernel refused its arguments: "
+                         f"{refusals.get(rc, rc)}")
+    if rc > 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.mnerf_cuda_error_string(rc).decode())
+
+
 def build_libraries(names) -> dict:
     """Build (if needed) and load several libraries at once, one nvcc
     process each; returns name -> ctypes library."""

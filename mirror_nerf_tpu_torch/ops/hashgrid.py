@@ -46,6 +46,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ._build import check_rc, on_card
+
 # the reference's spatial-hash primes (gridencoder.cu:55-56); the identity
 # prime on dim 0 keeps close x-coords in close buckets
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -226,8 +228,12 @@ def hashgrid_encode_reference(table: torch.Tensor, x01: torch.Tensor,
 
 def gather_rows_reference(table: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
-    """The plain version of GATHER: table[idx], (*idx.shape, C)."""
-    return table[idx.long()]
+    """The plain version of GATHER: table[idx], (*idx.shape, C), with JAX's
+    index semantics: r < 0 reads row R + r, and the result is clamped into
+    [0, R), so every int32 index reads a row."""
+    r = idx.long()
+    r = torch.where(r < 0, r + table.shape[0], r)
+    return table[r.clamp(0, table.shape[0] - 1)]
 
 
 def _dense_spec(scale: float, side: int, rows: int) -> Tuple:
@@ -273,24 +279,7 @@ def _library():
 
 
 def _check(rc: int, mode: str) -> None:
-    if rc < 0:
-        raise ValueError(f"hash-grid {mode} kernel refused its arguments: "
-                         f"{_REFUSALS.get(rc, rc)}")
-    if rc > 0:
-        raise RuntimeError(f"hash-grid {mode} kernel launch failed: "
-                           + _library().mnerf_cuda_error_string(rc).decode())
-
-
-def _on_card(what: str, *tensors) -> bool:
-    """True for CUDA tensors (all on one card), False for CPU tensors;
-    raises for another device or a mix."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{what}: inputs on several devices {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no {what} path for device {dev}")
-    return dev.type == "cuda"
+    check_rc(_library(), rc, f"hash-grid {mode}", _REFUSALS)
 
 
 def _need(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -375,9 +364,9 @@ def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
 
 
 def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """GATHER: launch the kernel. Rows are copied bit for bit; an index
-    outside [0, R) reads the nearest row (as JAX's gather clamps), where
-    the plain version's indexing raises."""
+    """GATHER: launch the kernel. Rows are copied bit for bit, with JAX's
+    `table[idx]` semantics as in the plain version: r < 0 reads row R + r,
+    then the row is clamped into [0, R)."""
     global launches_gather
     _forward_only("GATHER", table)
     if table.device.type != "cuda":
@@ -435,7 +424,7 @@ def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
                     spec: HashGridSpec) -> torch.Tensor:
     """(N, D) positions in [0,1] → (N, L·C). CPU tensors take the plain
     version, CUDA tensors the ENCODE kernel."""
-    if _on_card("hash-grid encode", table, x01):
+    if on_card("hash-grid encode", table, x01):
         return hashgrid_encode_cuda(table, x01, spec)
     return hashgrid_encode_reference(table, x01, spec)
 
@@ -443,7 +432,7 @@ def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx]. CPU tensors take the plain version, CUDA tensors the
     GATHER kernel."""
-    if _on_card("hash-grid gather", table, idx):
+    if on_card("hash-grid gather", table, idx):
         return gather_rows_cuda(table, idx)
     return gather_rows_reference(table, idx)
 
@@ -452,6 +441,6 @@ def dense_level_lookup(level_rows: torch.Tensor, x01: torch.Tensor,
                        scale: float, side: int) -> torch.Tensor:
     """One dense level's trilinear lookup. CPU tensors take the plain
     version, CUDA tensors the DENSE kernel."""
-    if _on_card("dense level lookup", level_rows, x01):
+    if on_card("dense level lookup", level_rows, x01):
         return dense_level_lookup_cuda(level_rows, x01, scale, side)
     return dense_level_lookup_reference(level_rows, x01, scale, side)

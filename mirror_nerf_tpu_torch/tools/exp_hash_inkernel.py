@@ -37,13 +37,13 @@ It imports only torch and the port, and builds the kernels at first use.
 from __future__ import annotations
 
 import argparse
-import json
 
 import numpy as np
 import torch
 
 from ..models.ngp import NGPField
 from ..ops import hashgrid as hg
+from .timing import device_ms, time_ms
 
 TABLE_ROWS = 2 ** 19
 IDX_SHAPE = (64, 4096)
@@ -117,45 +117,6 @@ def parity(device, n_encode: int = PATH_POINTS, seed: int = 0) -> dict:
     return out
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    fn()  # warm
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _device_ms(fn, reps: int = 20) -> float:
-    """Device time per call: the summed kernel durations of a
-    torch.profiler trace of `reps` calls. (Back-to-back calls timed with
-    CUDA events measure the host's launch rate once a kernel takes a few
-    µs.)"""
-    import os
-    import tempfile
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dur = sum(e["dur"] for e in events
-              if e.get("ph") == "X" and e.get("cat") == "kernel")
-    return dur / reps / 1e3
-
-
 def _grid_sample_args(rows: torch.Tensor, x: torch.Tensor, scale: float,
                       side: int):
     """DENSE as one PyTorch call: trilinear `grid_sample` on the level's
@@ -181,10 +142,10 @@ def bench(seed: int = 1) -> dict:
     res = {}
 
     def run(tag, fn, n, unit, reps=20, device=False):
-        ms = _time_ms(fn, reps)
+        ms = time_ms(fn, reps)
         res[tag] = {"ms": ms, unit: n / ms / 1e3}
         if device:
-            res[tag]["device_ms"] = _device_ms(fn)
+            res[tag]["device_ms"] = device_ms(fn)
 
     with torch.no_grad():
         t16 = torch.from_numpy(rng.standard_normal(

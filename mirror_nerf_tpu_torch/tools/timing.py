@@ -1,0 +1,67 @@
+"""Timing on the card for the probes: CUDA events over back-to-back calls,
+and each call's device time from a torch.profiler trace."""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+
+import torch
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """ms per call: CUDA events around `reps` back-to-back calls after a warm
+    one. Once a kernel takes a few µs this is the host's launch rate."""
+    fn()  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
+    """Device time per call: the summed kernel durations of a torch.profiler
+    trace of `reps` calls, over reps. With `exclude`, kernels named like it
+    (a cache flush before each call) are left out, `fn` must launch one
+    kernel, and the time is that kernel's mean duration in the trace."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if exclude is None:
+        return sum(e["dur"] for e in kernels) / reps / 1e3
+    kept = [e for e in kernels if exclude not in e.get("name", "")]
+    names = {e.get("name", "") for e in kept}
+    assert len(kept) < len(kernels) and len(names) == 1, (
+        f"want one kernel besides those named like {exclude!r}, got "
+        f"{sorted(n[:80] for n in names)} and {len(kernels) - len(kept)} "
+        "left out")
+    return sum(e["dur"] for e in kept) / len(kept) / 1e3
+
+
+def l2_flush(device):
+    """A call that evicts the 50 MB L2 cache: one fill of 64 MiB (its kernel
+    is named like `FLUSH_KERNEL`; a fill with 0 may be a memset instead),
+    for timing a kernel on cold inputs."""
+    buf = torch.empty(2 ** 24, dtype=torch.float32, device=device)
+    return lambda: buf.fill_(1.0)
+
+
+FLUSH_KERNEL = "FillFunctor"

@@ -218,6 +218,33 @@ def test_dense_matches_probe_kernel(probe):
     np.testing.assert_allclose(got, enc, atol=ENC_ATOL, rtol=0)
 
 
+def _edge_indices(r, n, seed):
+    """n int32 indices uniform in [−2R, 2R), then the edges −1, −R, −R − 1,
+    0, R − 1, R and ±2³¹."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-2 * r, 2 * r, n).astype(np.int32)
+    edges = [-1, -r, -r - 1, 0, r - 1, r, -2 ** 31, 2 ** 31 - 1]
+    idx[:len(edges)] = edges
+    return idx
+
+
+@pytest.mark.parametrize("r", [1, 10, 4096])
+def test_gather_out_of_range_matches_jax(r):
+    """Every int32 index reads JAX's row: `jnp` `table[idx]` counts a
+    negative index from the end and clamps the rest into [0, R)."""
+    rng = np.random.default_rng(r)
+    table = rng.standard_normal((r, 2)).astype(np.float32)
+    idx = _edge_indices(r, 4096, seed=r + 1)
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(idx)])
+    got = thg.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if r == 10:  # the rows the satellite names
+        small = np.array([-1, -10, -11, -25, 9, 10, 37], np.int32)
+        rows = thg.gather_rows_reference(torch.arange(10.0)[:, None],
+                                         torch.from_numpy(small))
+        assert rows[:, 0].tolist() == [9, 0, 0, 0, 9, 9, 9]
+
+
 def _dense_oracle(rows, x, scale, side):
     """numpy restatement of DENSE: pos = x·scale + 0.5 rounded once (the
     float64 product), trilinear over the 8 corners, row (x + y·side +
@@ -342,6 +369,23 @@ def test_cuda_gather_exact(dtype, c):
     torch.cuda.synchronize()
     assert thg.launches_gather == before + 1
     assert got.dtype == dtype and torch.equal(got, table[idx.long()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_out_of_range(dtype):
+    """Indices in [−2R, 2R) with −1, −R, R − 1, R and ±2³¹: the kernel reads
+    the plain version's rows (JAX's `table[idx]`), bit for bit."""
+    _needs_card()
+    r = 4096
+    table = torch.randn((r, 2), generator=torch.Generator().manual_seed(3)
+                        ).to(dtype).cuda()
+    idx = torch.from_numpy(_edge_indices(r, 100_003, seed=4)).cuda()
+    got = thg.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    want = thg.gather_rows_reference(table, idx)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:3], table[[r - 1, 0, 0]])
 
 
 @pytest.mark.gpu
