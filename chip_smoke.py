@@ -78,7 +78,9 @@ each fatal on failure:
      62); errors scaled above 1, kernel / plain / library times beside the
      bound. Then the probe's entry point (`python -m mirror_nerf_tpu_torch.
      tools.exp_hash_inkernel`, timing part) with the GATHER and DENSE
-     counters reset before it and read after: their path;
+     counters reset before it and read after: their path; GATHER per call
+     through the wrapper, through bare ctypes and as torch indexing, timed
+     in turns;
  14. the hash-grid model's (`nerf_tcnn`) eval path: the eval CLI (run.sh
      mode-1 nerf_tcnn flags) on a generated 64×64 scene from an npz and
      from a MirrorNeRFTcnn-layout Lightning .ckpt of the same weights
@@ -89,15 +91,19 @@ each fatal on failure:
  15. the last three probes' kernels vs their plain versions: the launch
      floor (SMALL (8, 128), GRID (128, 1, 4096)) bit for bit, alone and as
      a chain looped in C; the segmented exclusive prefix, SCAN and TRI, at
-     the composite's 2,097,152 values, S = 128, 64 and 16, uniform and
-     δ_inf sentinel input, against float64 (≤ 2e-6 scaled above 1, each
-     sentinel's own value equal to its segment's other values' sum), and
-     WEIGHTS (S = 128) against its plain version (atol 1e-5, Σw ≤ 1 + 1e-5);
-     the table products at the JAX probe's defaults, int8 bit for bit and
-     bf16 ≤ 1e-5 scaled. Then each probe's entry point (`python -m
+     the composite's 2,097,152 values, S = 128, 64 and 16, uniform, δ_inf
+     sentinel and wide-range (1e-6 … 1e10) input, against float64 (≤ 2e-6
+     scaled above 1, each sentinel's own value equal to its segment's other
+     values' sum), TRI's SASS holding HMMA in each of its eight instances,
+     and WEIGHTS (S = 128) against its plain version (atol 1e-5, Σw ≤ 1 +
+     1e-5); the table products at the JAX probe's defaults, int8 bit for
+     bit and bf16 ≤ 1e-5 scaled. Then each probe's entry point (`python -m
      mirror_nerf_tpu_torch.tools.exp_{invoke_floor,reshape_probe,
      int8_probe}`, timing part) with its counters reset before and read
-     after: their path. It prints the floor table (mode × way, µs per rep).
+     after: their path. It prints the floor table (mode × way, µs per rep),
+     the wrapper's cost step by step, TRI's device time warm and cold beside
+     torch.cumsum's, and SCAN per call through the wrapper, bare ctypes and
+     torch.cumsum, timed in turns.
 
 Each phase prints its wall time. The script prints one JSON line with the
 eighteen kernels' numbers (each with the least time the card could take for
@@ -111,6 +117,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1562,6 +1569,13 @@ def phase_hash_kernels(torch, card: str) -> list:
         f"ENCODE at uniform points {b['D_encode']['ms']:.3f}, plain "
         f"{b['D_encode_plain']['ms']:.3f}. Device ms per call (profiler): "
         f"{dev_ms}. Launches GATHER {launches[0]}, DENSE {launches[1]}")
+    log(f"[hash-kernel] GATHER per call in turns ({card}), µs: fp32 through "
+        f"the wrapper {b['B_gather_fp32']['ms'] * 1e3:.2f}, bare ctypes "
+        f"{b['B_gather_bare_fp32']['ms'] * 1e3:.2f}, torch indexing "
+        f"{b['A_torch_index_fp32']['ms'] * 1e3:.2f}; bf16 "
+        f"{b['B_gather_bf16']['ms'] * 1e3:.2f} / "
+        f"{b['B_gather_bare_bf16']['ms'] * 1e3:.2f} / "
+        f"{b['A_torch_index_bf16']['ms'] * 1e3:.2f}")
 
     def entry(name, replaces, worst, ms, plain, bound, lib):
         return {"name": name, "route": "cuda", "source": src,
@@ -1668,6 +1682,7 @@ def phase_probe_kernels(torch, card: str) -> list:
     """(15) The last three probes' kernels vs their plain versions on the
     card, then each probe's entry point (its timing part) with its counters
     reset before and read after: their path. Returns seven JSON entries."""
+    from mirror_nerf_tpu_torch.ops import _build
     from mirror_nerf_tpu_torch.ops import invoke_floor as fl
     from mirror_nerf_tpu_torch.ops import segment_scan as ss
     from mirror_nerf_tpu_torch.ops import table_mma as tm
@@ -1685,14 +1700,18 @@ def phase_probe_kernels(torch, card: str) -> list:
     with torch.no_grad():
         x = pr.path_input("cuda")
         worst = {"scan": 0.0, "tri": 0.0}
+        by_kind = {}
         for s in (128, 64, 16):
-            for xi in (x, pr.with_sentinel(x, s)):
+            for kind in pr.KINDS:
+                xi = pr.kind_input(x, s, kind)
                 for mode in worst:
                     err, last = pr.prefix_errors(
                         ss.segment_prefix(xi, s, mode), xi, s)
                     assert err <= pr.PREFIX_BAR and last <= pr.PREFIX_BAR, \
-                        (s, mode, err, last)
+                        (s, kind, mode, err, last)
                     worst[mode] = max(worst[mode], err, last)
+                    by_kind[mode, kind] = max(by_kind.get((mode, kind), 0.0),
+                                              err, last)
         torch.cuda.synchronize()
         # WEIGHTS at S = 128 against its plain version, the sentinel input
         sd = pr.with_sentinel(pr.path_input("cuda", seed=1, high=1.5), 128)
@@ -1701,9 +1720,25 @@ def phase_probe_kernels(torch, card: str) -> list:
         w_sum = float(w.reshape(-1, 128).sum(-1).max())
         assert w_err <= 1e-5 and w_sum <= 1.0 + 1e-5, (w_err, w_sum)
     log(f"[probe-kernel] segmented prefix at {x.numel()} values ({card}), "
-        f"S = 128, 64, 16, uniform and sentinel: max error vs float64 "
-        f"(scaled above 1) SCAN {worst['scan']:.3e}, TRI {worst['tri']:.3e};"
-        f" WEIGHTS (S = 128) max abs err {w_err:.3e}, max Σw {w_sum:.7f}")
+        f"S = 128, 64, 16, uniform, sentinel and wide (1e-6 … 1e10): max "
+        f"error vs float64 (scaled above 1) SCAN {worst['scan']:.3e}, TRI "
+        f"{worst['tri']:.3e} (" + ", ".join(
+            f"{m.upper()} {k} {v:.3e}" for (m, k), v in by_kind.items())
+        + f"); WEIGHTS (S = 128) max abs err {w_err:.3e}, max Σw "
+        f"{w_sum:.7f}")
+    # TRI's machine code: every instance on the tensor cores
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path(ss._LIB))], capture_output=True, text=True,
+        check=True).stdout
+    hmma = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = f.splitlines()[0].strip()
+        if "tri_kernel" in name:
+            hmma[name] = f.count("HMMA")
+    assert len(hmma) == 8 and min(hmma.values()) > 0, hmma
+    log(f"[probe-kernel] TRI's SASS (cuobjdump): HMMA instructions per "
+        f"instance {sorted(hmma.values())}")
     # 10b at the JAX probe's defaults: int8 bit for bit, bf16 ≤ 1e-5 scaled
     size = dict(g=512, r=64, lanes=1024, blocks=64, tables=9)
     par_8 = p8.parity("cuda", size)
@@ -1733,6 +1768,11 @@ def phase_probe_kernels(torch, card: str) -> list:
         f"kernels past the counter (counted {fu['one']['counted_at_capture']}"
         f" at capture); launches SMALL {floor_launches[0]}, GRID "
         f"{floor_launches[1]}")
+    log(f"[probe-kernel] floor ({card}): {pf.format_breakdown(bf['breakdown'])}")
+    log(f"[probe-kernel] floor SMALL ({card}): the wrapper "
+        f"{fu['one']['wrapper']:.3f} µs a rep against bare ctypes "
+        f"{fu['one']['ctypes']:.3f}: {fu['one']['wrapper'] - fu['one']['ctypes']:.3f}"
+        " µs of launch path")
 
     def entry(name, source, replaces, worst, ms, plain, bound, lib, n,
               dev=None):
@@ -1773,10 +1813,18 @@ def phase_probe_kernels(torch, card: str) -> list:
         w_err, r["ms"], br["path_S128_weights_plain"]["ms"], scan_b, None,
         scan_launches[2], r["device_ms"]))
     entries[-1]["cold_device_ms"] = r["cold_device_ms"]
-    c = br["path_S128_cumsum"]
+    c, tri = br["path_S128_cumsum"], br["path_S128_tri"]
     log(f"[probe-kernel] torch.cumsum on the (16384, 128) segment view "
         f"({card}): device {c['device_ms']:.4f} ms, cold L2 "
-        f"{c['cold_device_ms']:.4f} ms")
+        f"{c['cold_device_ms']:.4f} ms; TRI device {tri['device_ms']:.4f} "
+        f"ms, cold {tri['cold_device_ms']:.4f} ms ({scan_b[0] / tri['cold_device_ms'] * 100:.1f} % of "
+        f"its {scan_b[0] * 1e3:.2f} µs bound cold)")
+    log(f"[probe-kernel] per call in turns ({card}), 2,097,152 values, "
+        f"S = 128: SCAN through the wrapper {br['path_S128_scan']['ms'] * 1e3:.2f}"
+        f" µs, bare ctypes {br['path_S128_scan_bare']['ms'] * 1e3:.2f} µs, "
+        f"torch.cumsum {c['ms'] * 1e3:.2f} µs; TRI "
+        f"{tri['ms'] * 1e3:.2f} µs; WEIGHTS "
+        f"{br['path_S128_weights']['ms'] * 1e3:.2f} µs")
     ops = b8["operations"]
     n_basis = size["blocks"] * size["tables"] * size["g"] * size["lanes"]
     out_bytes = size["blocks"] * size["r"] * size["lanes"] * 4

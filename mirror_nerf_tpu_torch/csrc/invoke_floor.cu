@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int BLOCK = 256;
@@ -67,12 +69,24 @@ const char* mnerf_cuda_error_string(int e) {
 // to a message):
 //   -1 row_len not a positive multiple of 4    -2 rows < 1
 //   -3 launches < 1
-// x and y are device pointers to rows × row_len fp32 values, 16-B aligned.
-// SMALL is rows 1, row_len 1024; GRID rows 128, row_len 4096.
-int mnerf_floor_launch(const float* x, float* y, int rows, int row_len,
-                       void* stream) {
+// Each entry takes its arguments packed (csrc/launch.cuh), the card's index
+// (int) and a stream of that card last; the guard makes the card current for
+// the launches. x, y, a and b are device pointers to rows × row_len fp32
+// values, 16-B aligned, on that card. SMALL is rows 1, row_len 1024; GRID
+// rows 128, row_len 4096.
+//   launch: x, y, rows (int), row_len (int)
+int mnerf_floor_launch(const void* packed) {
+  Args args(packed);
+  const float* x = args.next<const float*>();
+  float* y = args.next<float*>();
+  const int rows = args.next<int>();
+  const int row_len = args.next<int>();
+  const int device = args.next<int>();
+  void* stream = args.next<void*>();
   const int rc = check(rows, row_len);
   if (rc) return rc;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   floor_kernel<<<rows, BLOCK, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
       row_len / 4);
@@ -82,11 +96,21 @@ int mnerf_floor_launch(const float* x, float* y, int rows, int row_len,
 // `launches` dependent launches a → b → a → …: launch k reads what launch
 // k − 1 wrote. The result lies in b after an odd count, in a after an even
 // one. Stops at the first launch that fails.
-int mnerf_floor_chain(float* a, float* b, int rows, int row_len, int launches,
-                      void* stream) {
+//   chain: a, b, rows (int), row_len (int), launches (int)
+int mnerf_floor_chain(const void* packed) {
+  Args args(packed);
+  float* a = args.next<float*>();
+  float* b = args.next<float*>();
+  const int rows = args.next<int>();
+  const int row_len = args.next<int>();
+  const int launches = args.next<int>();
+  const int device = args.next<int>();
+  void* stream = args.next<void*>();
   int rc = check(rows, row_len);
   if (rc) return rc;
   if (launches < 1) return -3;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   for (int k = 0; k < launches; ++k) {
     const float* src = (k % 2) ? b : a;

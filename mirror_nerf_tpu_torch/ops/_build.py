@@ -3,8 +3,16 @@ into a shared library with a plain C interface, loaded with ctypes.
 
 The build runs at first use, from the sources in this checkout only, into
 `build/kernels/` at the repository root (listed in .gitignore). The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+name carries a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+
+The launch path (`Library`, `card_index`) is what every launch of a
+wrapper that adopted it pays on the host: one fast test of its inputs (the
+detailed message is built only when it fails), the raw handle of the current
+stream of the inputs' card, the arguments packed into one buffer, and one
+ctypes call into a C entry that makes that card current only when it is not
+and restores the caller's device after the launch (`csrc/launch.cuh`). No
+Python context manager, no Stream object, one ctypes argument.
 """
 
 from __future__ import annotations
@@ -13,9 +21,12 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -26,6 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # name -> seconds of the nvcc run (0.0 when the first load found the library)
 build_seconds: dict = {}
 build_log: dict = {}  # name -> nvcc output (ptxas registers / spills)
+
+
+def cuda_tool(tool: str) -> str:
+    """A tool of the CUDA toolkit that holds nvcc (`cuobjdump`, ...)."""
+    return str(Path(_nvcc()).parent / tool)
 
 
 def _nvcc() -> str:
@@ -42,13 +58,21 @@ def _nvcc() -> str:
         "CUDA kernels are built at first use and need the CUDA toolkit")
 
 
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` is built: the name carries a hash of the
+    source, the shared headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library.
     Callers keep the handle: each call hashes the source again."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    so = library_path(name)
     if so.exists():
         build_seconds.setdefault(name, 0.0)
     else:
@@ -68,7 +92,9 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def on_card(what: str, *tensors) -> bool:
     """Dispatch of a wrapper: True for CUDA tensors (all on one card), False
-    for CPU tensors; raises for another device or a mix."""
+    for CPU tensors; raises for another device or a mix. The wrappers on the
+    launch path ask `x.is_cuda` first and call this only off the card: their
+    `card_index` refuses a mix on the card."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{what}: inputs on several devices {devs}")
@@ -76,6 +102,108 @@ def on_card(what: str, *tensors) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} path for device {dev}")
     return dev.type == "cuda"
+
+
+def card_index(what: str, *checks) -> int:
+    """The index of the card a launch runs on. Each check is (name, tensor,
+    dtypes, alignment in bytes): the tensor must be a contiguous CUDA tensor
+    of one of `dtypes` whose data starts at a multiple of the alignment, all
+    on one card. One fast pass; when any check fails, raises ValueError
+    naming every check that failed ("... needs CUDA tensors", "... on
+    several devices", the dtype, contiguity, alignment)."""
+    dev = checks[0][1].get_device()
+    for _, t, dtypes, align in checks:
+        if t.get_device() != dev or t.dtype not in dtypes \
+                or not t.is_contiguous() or t.data_ptr() % align:
+            break
+    else:
+        if dev >= 0:
+            return dev
+    raise ValueError(refusal(what, checks))
+
+
+def refusal(what: str, checks) -> str:
+    """The message of a failed `card_index`: every check that failed."""
+    faults = []
+    off = [f"{name} on {t.device}" for name, t, _, _ in checks
+           if not t.is_cuda]
+    if off:
+        faults.append(f"the {what} kernel needs CUDA tensors, got "
+                      + ", ".join(off))
+    devs = {t.device for _, t, _, _ in checks}
+    if len(devs) > 1:
+        faults.append(f"inputs on several devices {devs}")
+    for name, t, dtypes, align in checks:
+        if t.dtype not in dtypes:
+            faults.append(f"{name}: need "
+                          f"{' or '.join(str(d) for d in dtypes)}, got "
+                          f"{t.dtype}")
+        if not t.is_contiguous():
+            faults.append(f"{name}: need a contiguous tensor")
+        elif t.data_ptr() % align:
+            faults.append(f"{name}: need {align}-B aligned data")
+    return f"{what}: " + "; ".join(faults)
+
+
+_raw_stream = None  # torch._C._cuda_getCurrentRawStream, bound at first use
+
+
+def current_stream(device: int) -> int:
+    """The raw handle (cudaStream_t as an int) of the current stream of the
+    card `device`: the stream a side-stream context or a CUDA-graph capture
+    made current, as `torch.cuda.current_stream(device).cuda_stream` gives
+    it, without building a Stream object (Triton's launcher reads it the
+    same way)."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(device)
+
+
+class Library:
+    """A kernel library on the launch path: `csrc/<name>.cu`, built and
+    loaded at the first call. Each C entry takes one pointer to its
+    arguments packed by `struct` (`entries` maps the symbol to the format of
+    the arguments before the card's index and the stream, standard sizes:
+    Q a pointer, q long long, i int, f float; csrc/launch.cuh reads them),
+    and returns 0, a negative code for arguments it refused (`refusals` maps
+    each to a message) or the cudaError_t of the launch."""
+
+    def __init__(self, name: str, entries: dict, refusals: dict):
+        self.name = name
+        self.entries = {symbol: struct.Struct("=" + fmt + "iQ")
+                        for symbol, fmt in entries.items()}
+        self.refusals = refusals
+        self._lib = None
+        self._bound = {}  # symbol -> (the ctypes entry, its packer)
+
+    def __call__(self) -> ctypes.CDLL:
+        """The loaded library (built at the first call)."""
+        if self._lib is None:
+            lib = load_library(self.name)
+            for symbol, packer in self.entries.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = [ctypes.c_char_p]
+                fn.restype = ctypes.c_int
+                self._bound[symbol] = (fn, packer.pack)
+            lib.mnerf_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def entry(self, symbol: str):
+        """(the ctypes entry, the packer of its arguments): a bare call is
+        `fn(pack(*args, device, stream))`."""
+        self()
+        return self._bound[symbol]
+
+    def launch(self, symbol: str, what: str, device: int, *args) -> None:
+        """One call of the C entry `symbol` on the current stream of card
+        `device`; raises for a refusal or a failed launch."""
+        fn, pack = self._bound.get(symbol) or self.entry(symbol)
+        rc = fn(pack(*args, device, (_raw_stream or current_stream)(device)))
+        if rc:
+            check_rc(self._lib, rc, what, self.refusals)
 
 
 def check_rc(lib: ctypes.CDLL, rc: int, what: str, refusals: dict) -> None:

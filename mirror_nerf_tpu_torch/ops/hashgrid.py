@@ -24,7 +24,9 @@ hand-written kernel (`csrc/hashgrid.cu`, sm_90a; see its source note):
 Each dispatches on the device of its inputs: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (no fallback). The
 kernel's launches are counted per mode in `launches_encode`,
-`launches_gather` and `launches_dense`. The kernel is forward-only: on the
+`launches_gather` and `launches_dense`. Each launch goes through
+`_build.Library` (one fast check, the arguments packed into one ctypes
+argument, the device guard in C). The kernel is forward-only: on the
 card, under grad mode, a table or an input that requires grad raises
 (training the hash-grid model is ROADMAP.md queue 1, item 11). On the CPU
 the plain versions are differentiable by autograd.
@@ -38,7 +40,6 @@ single rounding in float64 (the product of two floats is exact there).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -46,7 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ._build import check_rc, on_card
+from ._build import Library, card_index, on_card
 
 # the reference's spatial-hash primes (gridencoder.cu:55-56); the identity
 # prime on dim 0 keeps close x-coords in close buckets
@@ -255,39 +256,21 @@ def dense_level_lookup_reference(level_rows: torch.Tensor,
 
 # ---- the CUDA kernel (csrc/hashgrid.cu) ----
 
-_lib = None
+# each entry's arguments before the card and the stream (_build.Library):
+# ENCODE x, table, levels, n_levels, c, n, out; GATHER table, rows, c,
+# element size, idx, n, out; DENSE rows, row count, c, x, n, scale, side, out
+_library = Library(_LIB, {"mnerf_hash_encode": "QQQiiqQ",
+                          "mnerf_hash_gather": "QqiiQqQ",
+                          "mnerf_hash_dense": "QqiQqfiQ"}, _REFUSALS)
+_F32 = (torch.float32,)
+_ROWS = (torch.float32, torch.bfloat16)
+_I32 = (torch.int32,)
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        lib.mnerf_hash_encode.argtypes = [p, p, p, i, i, ll, p, p]
-        lib.mnerf_hash_encode.restype = i
-        lib.mnerf_hash_gather.argtypes = [p, ll, i, i, p, ll, p, p]
-        lib.mnerf_hash_gather.restype = i
-        lib.mnerf_hash_dense.argtypes = [p, ll, i, p, ll, f, i, p, p]
-        lib.mnerf_hash_dense.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(rc: int, mode: str) -> None:
-    check_rc(_library(), rc, f"hash-grid {mode}", _REFUSALS)
-
-
-def _need(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
-    if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous {ndim}-d tensor of "
-            f"{' or '.join(str(d) for d in dtypes)}, got {t.dtype} "
-            f"{tuple(t.shape)} (contiguous={t.is_contiguous()})")
+def _need(name: str, t: torch.Tensor, ndim: int) -> None:
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: need a {ndim}-d tensor, got "
+                         f"{tuple(t.shape)}")
 
 
 def _forward_only(mode: str, *tensors) -> None:
@@ -298,12 +281,10 @@ def _forward_only(mode: str, *tensors) -> None:
             f"hash-grid model is not ported yet: {_TRAIN_TODO}")
 
 
-def _row_aligned(name: str, t: torch.Tensor) -> None:
+def _row_align(t: torch.Tensor) -> int:
     """The kernel moves a row of C·elem bytes in accesses of min(row, 16)
     bytes: the table must start at a multiple of that."""
-    align = min(t.shape[-1] * t.element_size(), 16)
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: the kernel needs {align}-B aligned rows")
+    return min(t.shape[-1] * t.element_size(), 16) if t.dim() else 1
 
 
 _level_words: dict = {}
@@ -332,33 +313,27 @@ def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
     does not take)."""
     global launches_encode
     _forward_only("ENCODE", table, x01)
-    if x01.device.type != "cuda":
-        raise ValueError(f"the hash-grid kernel needs CUDA tensors, got "
-                         f"{x01.device}")
+    dev = card_index("hash-grid ENCODE", ("x01", x01, _F32, 4),
+                     ("table", table, _F32, _row_align(table)))
     if (spec.input_dim != 3 or spec.align_corners
             or spec.interpolation != "linear"):
         raise ValueError("the hash-grid kernel takes 3-d inputs, "
                          "align_corners=False and linear interpolation")
-    _need("x01", x01, (torch.float32,), 2)
-    _need("table", table, (torch.float32,), 2)
+    _need("x01", x01, 2)
+    _need("table", table, 2)
     if x01.shape[1] != 3 or tuple(table.shape) != (spec.table_rows,
                                                    spec.level_dim):
         raise ValueError(f"need x01 (N, 3) and table "
                          f"({spec.table_rows}, {spec.level_dim}), got "
                          f"{tuple(x01.shape)} and {tuple(table.shape)}")
-    _row_aligned("table", table)
     n = x01.shape[0]
-    out = torch.empty((n, spec.output_dim), dtype=torch.float32,
-                      device=x01.device)
+    out = x01.new_empty((n, spec.output_dim))
     if n == 0:
         return out
     words = _level_table(spec, x01.device)
-    with torch.cuda.device(x01.device):
-        rc = _library().mnerf_hash_encode(
-            x01.data_ptr(), table.data_ptr(), words.data_ptr(),
-            spec.num_levels, spec.level_dim, n, out.data_ptr(),
-            torch.cuda.current_stream(x01.device).cuda_stream)
-    _check(rc, "ENCODE")
+    _library.launch("mnerf_hash_encode", "hash-grid ENCODE", dev,
+                    x01.data_ptr(), table.data_ptr(), words.data_ptr(),
+                    spec.num_levels, spec.level_dim, n, out.data_ptr())
     launches_encode += 1
     return out
 
@@ -369,25 +344,18 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     then the row is clamped into [0, R)."""
     global launches_gather
     _forward_only("GATHER", table)
-    if table.device.type != "cuda":
-        raise ValueError(f"the hash-grid kernel needs CUDA tensors, got "
-                         f"{table.device}")
-    _need("table", table, (torch.float32, torch.bfloat16), 2)
-    if idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError(f"idx: need contiguous int32, got {idx.dtype} "
-                         f"(contiguous={idx.is_contiguous()})")
-    _row_aligned("table", table)
+    dev = card_index("hash-grid GATHER",
+                     ("table", table, _ROWS, _row_align(table)),
+                     ("idx", idx, _I32, 4))
+    _need("table", table, 2)
     r, c = table.shape
-    out = torch.empty((*idx.shape, c), dtype=table.dtype,
-                      device=table.device)
-    if idx.numel() == 0:
+    out = table.new_empty((*idx.shape, c))
+    n = idx.numel()
+    if n == 0:
         return out
-    with torch.cuda.device(table.device):
-        rc = _library().mnerf_hash_gather(
-            table.data_ptr(), r, c, table.element_size(), idx.data_ptr(),
-            idx.numel(), out.data_ptr(),
-            torch.cuda.current_stream(table.device).cuda_stream)
-    _check(rc, "GATHER")
+    _library.launch("mnerf_hash_gather", "hash-grid GATHER", dev,
+                    table.data_ptr(), r, c, table.element_size(),
+                    idx.data_ptr(), n, out.data_ptr())
     launches_gather += 1
     return out
 
@@ -397,25 +365,21 @@ def dense_level_lookup_cuda(level_rows: torch.Tensor, x01: torch.Tensor,
     """DENSE: launch the kernel."""
     global launches_dense
     _forward_only("DENSE", level_rows, x01)
-    if x01.device.type != "cuda":
-        raise ValueError(f"the hash-grid kernel needs CUDA tensors, got "
-                         f"{x01.device}")
-    _need("x01", x01, (torch.float32,), 2)
-    _need("level_rows", level_rows, (torch.float32,), 2)
+    dev = card_index("hash-grid DENSE", ("x01", x01, _F32, 4),
+                     ("level_rows", level_rows, _F32,
+                      _row_align(level_rows)))
+    _need("x01", x01, 2)
+    _need("level_rows", level_rows, 2)
     if x01.shape[1] != 3:
         raise ValueError(f"need x01 (N, 3), got {tuple(x01.shape)}")
-    _row_aligned("level_rows", level_rows)
     r, c = level_rows.shape
     n = x01.shape[0]
-    out = torch.empty((n, c), dtype=torch.float32, device=x01.device)
+    out = x01.new_empty((n, c))
     if n == 0:
         return out
-    with torch.cuda.device(x01.device):
-        rc = _library().mnerf_hash_dense(
-            level_rows.data_ptr(), r, c, x01.data_ptr(), n, float(scale),
-            int(side), out.data_ptr(),
-            torch.cuda.current_stream(x01.device).cuda_stream)
-    _check(rc, "DENSE")
+    _library.launch("mnerf_hash_dense", "hash-grid DENSE", dev,
+                    level_rows.data_ptr(), r, c, x01.data_ptr(), n,
+                    float(scale), int(side), out.data_ptr())
     launches_dense += 1
     return out
 
@@ -424,7 +388,7 @@ def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
                     spec: HashGridSpec) -> torch.Tensor:
     """(N, D) positions in [0,1] → (N, L·C). CPU tensors take the plain
     version, CUDA tensors the ENCODE kernel."""
-    if on_card("hash-grid encode", table, x01):
+    if x01.is_cuda or on_card("hash-grid encode", table, x01):
         return hashgrid_encode_cuda(table, x01, spec)
     return hashgrid_encode_reference(table, x01, spec)
 
@@ -432,7 +396,7 @@ def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx]. CPU tensors take the plain version, CUDA tensors the
     GATHER kernel."""
-    if on_card("hash-grid gather", table, idx):
+    if table.is_cuda or on_card("hash-grid gather", table, idx):
         return gather_rows_cuda(table, idx)
     return gather_rows_reference(table, idx)
 
@@ -441,6 +405,6 @@ def dense_level_lookup(level_rows: torch.Tensor, x01: torch.Tensor,
                        scale: float, side: int) -> torch.Tensor:
     """One dense level's trilinear lookup. CPU tensors take the plain
     version, CUDA tensors the DENSE kernel."""
-    if on_card("dense level lookup", level_rows, x01):
+    if x01.is_cuda or on_card("dense level lookup", level_rows, x01):
         return dense_level_lookup_cuda(level_rows, x01, scale, side)
     return dense_level_lookup_reference(level_rows, x01, scale, side)

@@ -13,10 +13,14 @@ from C, with no Python between the launches: the bare floor the probe
 compares the wrapper with. Launches are counted per shape in
 `launches_small` and `launches_grid`, by the wrappers and by `chain_cuda`.
 
-The wrapper takes `torch.cuda.current_stream()`, allocates only when no
-`out` is given, and never synchronises, so a chain of calls can be captured
-in a CUDA graph (`tools/exp_invoke_floor.py`); the counters then move once,
-at capture, and not on replay.
+The wrapper launches through the port's launch path (`_build.Library`: one
+fast check, the raw current stream, the arguments packed into one ctypes
+argument, the device guard in C), so the probe's
+"wrapper" column measures what every adopting wrapper pays. It takes the
+current stream, allocates only when no `out` is given, and never
+synchronises, so a chain of calls can be captured in a CUDA graph
+(`tools/exp_invoke_floor.py`); the counters then move once, at capture, and
+not on replay.
 
 XLA contracts the JAX body into one fused multiply-add, so the kernel calls
 `__fmaf_rn` and the plain version rounds once too (`fma32`).
@@ -24,12 +28,10 @@ XLA contracts the JAX body into one fused multiply-add, so the kernel calls
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from ._build import check_rc, on_card
+from ._build import Library, card_index, on_card
 
 _LIB = "invoke_floor"
 _REFUSALS = {-1: "the row length is not a positive multiple of 4",
@@ -80,34 +82,13 @@ def _shape(x: torch.Tensor):
                      f"{tuple(x.shape)}")
 
 
-def _need(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32 or not t.is_contiguous() \
-            or t.data_ptr() % 16:
-        raise ValueError(f"{name}: need a contiguous, 16-B aligned float32 "
-                         f"tensor, got {t.dtype} (contiguous="
-                         f"{t.is_contiguous()})")
-
-
 # ---- the CUDA kernel (csrc/invoke_floor.cu) ----
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mnerf_floor_launch.argtypes = [p, p, i, i, p]
-        lib.mnerf_floor_launch.restype = i
-        lib.mnerf_floor_chain.argtypes = [p, p, i, i, i, p]
-        lib.mnerf_floor_chain.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+# x, y, rows, row length (and a launch count for the chain); then the card
+# and the stream (_build.Library)
+_library = Library(_LIB, {"mnerf_floor_launch": "QQii",
+                          "mnerf_floor_chain": "QQiii"}, _REFUSALS)
+_F32 = (torch.float32,)
 
 
 def _count(small: bool, n: int) -> None:
@@ -119,19 +100,16 @@ def _count(small: bool, n: int) -> None:
 
 
 def _cuda_pair(a: torch.Tensor, b: torch.Tensor):
-    """Checks shared by the entries: two distinct CUDA float32 tensors of
-    one shape the kernel takes. Returns (rows, row length, is SMALL)."""
-    for name, t in (("x", a), ("out", b)):
-        if t.device.type != "cuda":
-            raise ValueError(f"the floor kernel needs CUDA tensors, got "
-                             f"{name} on {t.device}")
-        _need(name, t)
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"x and out differ: {tuple(a.shape)} on {a.device}"
-                         f", {tuple(b.shape)} on {b.device}")
+    """Checks shared by the entries: two distinct contiguous, 16-B aligned
+    CUDA float32 tensors of one shape the kernel takes, on one card.
+    Returns (card index, rows, row length, is SMALL)."""
+    dev = card_index("floor", ("x", a, _F32, 16), ("out", b, _F32, 16))
+    if a.shape != b.shape:
+        raise ValueError(f"x and out differ: {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
     if a.data_ptr() == b.data_ptr():
         raise ValueError("out must not be x")
-    return _shape(a)
+    return (dev, *_shape(a))
 
 
 def axpb_cuda(x: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
@@ -139,12 +117,9 @@ def axpb_cuda(x: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     tensor unless `out` is given; it must not be x)."""
     if out is None:
         out = torch.empty_like(x)
-    rows, row_len, small = _cuda_pair(x, out)
-    with torch.cuda.device(x.device):
-        rc = _library().mnerf_floor_launch(
-            x.data_ptr(), out.data_ptr(), rows, row_len,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    check_rc(_library(), rc, "floor", _REFUSALS)
+    dev, rows, row_len, small = _cuda_pair(x, out)
+    _library.launch("mnerf_floor_launch", "floor", dev, x.data_ptr(),
+                    out.data_ptr(), rows, row_len)
     _count(small, 1)
     return out
 
@@ -155,12 +130,9 @@ def chain_cuda(a: torch.Tensor, b: torch.Tensor, launches: int
     current stream (each reads what the previous one wrote; a is
     overwritten after the second). Returns the tensor holding the last
     result."""
-    rows, row_len, small = _cuda_pair(a, b)
-    with torch.cuda.device(a.device):
-        rc = _library().mnerf_floor_chain(
-            a.data_ptr(), b.data_ptr(), rows, row_len, int(launches),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    check_rc(_library(), rc, "floor", _REFUSALS)
+    dev, rows, row_len, small = _cuda_pair(a, b)
+    _library.launch("mnerf_floor_chain", "floor", dev, a.data_ptr(),
+                    b.data_ptr(), rows, row_len, int(launches))
     _count(small, int(launches))
     return b if launches % 2 else a
 
@@ -168,8 +140,8 @@ def chain_cuda(a: torch.Tensor, b: torch.Tensor, launches: int
 def axpb(x: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     """1.000001·x + 1e-6 for fp32 x of the SMALL or GRID shape. CPU tensors
     take the plain version, CUDA tensors the kernel."""
-    if on_card("floor", x, *(() if out is None else (out,))):
-        return axpb_cuda(x, out)
+    if x.is_cuda or on_card("floor", x, *(() if out is None else (out,))):
+        return axpb_cuda(x, out)  # raises for an `out` on another device
     _shape(x)
     y = axpb_reference(x)
     return y if out is None else out.copy_(y)

@@ -8,8 +8,9 @@ counterpart of the TPU probe kernel `kernel_reshape`,
     x[…, j], segments of s values (s a power of two dividing 128) along the
     flattened tensor, whose size is a multiple of 128. mode "scan" (a warp
     per row, lane scans combined with shuffles) or "tri" (the TPU's
-    formulation: each row times the strictly lower block-diagonal TRI, fp32
-    FMAs);
+    formulation: each row times the strictly lower block-diagonal TRI, on
+    the tensor cores in bf16 with x split into three bf16 pieces, fp32
+    sums);
   * `prefix_weights(sd, s)` (WEIGHTS): the compositing weights
     w = exp(−prefix)·(1 − exp(−sd)) per segment (a segment is a ray), the
     scan with an epilogue.
@@ -17,22 +18,26 @@ counterpart of the TPU probe kernel `kernel_reshape`,
 Each dispatches on the device of its input: a CPU tensor takes the plain
 version (`segment_prefix_reference`, `prefix_weights_reference`), a CUDA
 tensor launches the kernel or raises (no fallback). Launches are counted
-per mode in `launches_scan`, `launches_tri` and `launches_weights`.
+per mode in `launches_scan`, `launches_tri` and `launches_weights`. The
+launch goes through `_build.Library` (one fast check, the arguments packed
+into one ctypes argument, the device guard in C).
 
 The prefix is exclusive by construction everywhere, never the inclusive sum
 minus the value: a ray's last sd carries δ_inf = 1e10, and fp32
 (1e10 + prefix) − 1e10 cancels the whole prefix. The plain version is a
 cumsum shifted by one with a zero at each segment start (the JAX probe's own
 oracle, cumsum − x, is the trap).
+
+`split3` and `segment_prefix_split_reference` are TRI's arithmetic in plain
+PyTorch (the tests hold them to float64 and to the JAX probe's kernel): the
+three bf16 pieces of x, each multiplied by TRI, summed in fp32.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._build import check_rc, on_card
+from ._build import Library, card_index, on_card
 
 _LIB = "segment_scan"
 _REFUSALS = {-1: "the segment length is not a power of two in [1, 128]",
@@ -40,6 +45,7 @@ _REFUSALS = {-1: "the segment length is not a power of two in [1, 128]",
 ROW = 128
 # the kernel's modes (`Mode` in the .cu)
 MODES = {"scan": 0, "tri": 1, "weights": 2}
+_PREFIX_MODES = ("scan", "tri")
 
 # kernel launches since import (or since a caller last reset them to 0)
 launches_scan = 0
@@ -68,6 +74,30 @@ def segment_prefix_reference(x: torch.Tensor, s: int) -> torch.Tensor:
                      ).reshape(x.shape)
 
 
+def split3(x: torch.Tensor):
+    """x (fp32) as three bf16 pieces whose fp32 sum is x exactly: hi =
+    bf16(x), mid = bf16(x − hi), lo = bf16(x − hi − mid), each rounded to
+    nearest even and each difference exact in fp32 (TRI's split). hi and mid
+    are the JAX package's two-piece `_mm_hilo_lhs` split."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def segment_prefix_split_reference(x: torch.Tensor, s: int) -> torch.Tensor:
+    """TRI's arithmetic in plain PyTorch (any device): per segment of s,
+    (lo·T + mid·T) + hi·T with T[j, i] = 1 for j < i, every product exact
+    and the sums in fp32 (in the CPU's order, not the tensor cores')."""
+    _rows(x, s)
+    tri = torch.triu(torch.ones((s, s), dtype=torch.float32,
+                                device=x.device), diagonal=1)
+    hi, mid, lo = (p.float().reshape(-1, s) for p in split3(x))
+    return ((lo @ tri + mid @ tri) + hi @ tri).reshape(x.shape)
+
+
 def prefix_weights_reference(sd: torch.Tensor, s: int) -> torch.Tensor:
     """The plain version of WEIGHTS (any device): exp(−prefix)·(1 −
     exp(−sd)), `ops/fused_cp.py prefix_weights` per segment of s."""
@@ -77,44 +107,23 @@ def prefix_weights_reference(sd: torch.Tensor, s: int) -> torch.Tensor:
 
 # ---- the CUDA kernel (csrc/segment_scan.cu) ----
 
-_lib = None
+# x, out, rows, seg, mode (then the card and the stream: _build.Library)
+_library = Library(_LIB, {"mnerf_segment_scan": "QQqii"}, _REFUSALS)
+_F32 = (torch.float32,)
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mnerf_segment_scan.argtypes = [p, p, ll, i, i, p]
-        lib.mnerf_segment_scan.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _launch(x: torch.Tensor, s: int, mode: str) -> torch.Tensor:
-    """One launch of `mode` on the current stream; returns the output."""
+def _launch(x: torch.Tensor, s: int, mode: int) -> torch.Tensor:
+    """One launch of `mode` (a `MODES` value) on the current stream; returns
+    the output."""
     global launches_scan, launches_tri, launches_weights
-    if x.device.type != "cuda":
-        raise ValueError(f"the segment-scan kernel needs CUDA tensors, got "
-                         f"{x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() \
-            or x.data_ptr() % 16:
-        raise ValueError(f"need a contiguous, 16-B aligned float32 tensor, "
-                         f"got {x.dtype} (contiguous={x.is_contiguous()})")
+    dev = card_index("segment-scan", ("x", x, _F32, 16))
     rows = _rows(x, s)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _library().mnerf_segment_scan(
-            x.data_ptr(), out.data_ptr(), rows, s, MODES[mode],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    check_rc(_library(), rc, f"segment-scan {mode.upper()}", _REFUSALS)
-    if mode == "scan":
+    _library.launch("mnerf_segment_scan", "segment-scan", dev, x.data_ptr(),
+                    out.data_ptr(), rows, s, mode)
+    if mode == 0:
         launches_scan += 1
-    elif mode == "tri":
+    elif mode == 1:
         launches_tri += 1
     else:
         launches_weights += 1
@@ -125,30 +134,30 @@ def segment_prefix_cuda(x: torch.Tensor, s: int,
                         mode: str = "scan") -> torch.Tensor:
     """SCAN or TRI: launch the kernel (raises for anything it does not
     take)."""
-    if mode not in ("scan", "tri"):
+    if mode not in _PREFIX_MODES:
         raise ValueError(f"mode is 'scan' or 'tri', got {mode!r}")
-    return _launch(x, s, mode)
+    return _launch(x, s, MODES[mode])
 
 
 def prefix_weights_cuda(sd: torch.Tensor, s: int) -> torch.Tensor:
     """WEIGHTS: launch the kernel."""
-    return _launch(sd, s, "weights")
+    return _launch(sd, s, MODES["weights"])
 
 
 def segment_prefix(x: torch.Tensor, s: int,
                    mode: str = "scan") -> torch.Tensor:
     """The per-segment exclusive prefix. CPU tensors take the plain version,
     CUDA tensors the kernel's SCAN or TRI mode."""
-    if mode not in ("scan", "tri"):
+    if mode not in _PREFIX_MODES:
         raise ValueError(f"mode is 'scan' or 'tri', got {mode!r}")
-    if on_card("segment prefix", x):
-        return _launch(x, s, mode)
+    if x.is_cuda or on_card("segment prefix", x):
+        return _launch(x, s, MODES[mode])
     return segment_prefix_reference(x, s)
 
 
 def prefix_weights(sd: torch.Tensor, s: int) -> torch.Tensor:
     """Compositing weights per segment of s. CPU tensors take the plain
     version, CUDA tensors the kernel's WEIGHTS mode."""
-    if on_card("prefix weights", sd):
-        return prefix_weights_cuda(sd, s)
+    if sd.is_cuda or on_card("prefix weights", sd):
+        return _launch(sd, s, MODES["weights"])
     return prefix_weights_reference(sd, s)

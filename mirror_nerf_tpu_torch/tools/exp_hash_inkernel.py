@@ -26,8 +26,12 @@ shapes — a 2¹⁹ × 2 table, fp32 and bf16, idx
 (64, 4096); 262,144 samples at scale 59.43 on a side-62 level — and at the
 render path's: 16384 rays × 128 samples = 2,097,152 points:
   A. torch indexing `table[idx]`, the library call GATHER is held against;
-  B. GATHER and its plain version;  C. DENSE, its plain version and the
-  library call `grid_sample` (trilinear);  D. ENCODE and its plain version.
+  B. GATHER, its plain version, and GATHER through bare ctypes (the C entry
+     with the wrapper's pointers, card and stream packed once, no checks,
+     no allocation: the wrapper's cost above it is the launch path's); A and B
+     are timed in turns, best of 5 rounds (`timing.per_call_ms`);
+  C. DENSE, its plain version and the library call `grid_sample`
+     (trilinear);  D. ENCODE and its plain version.
 Rates in M rows/s (A, B) or M samples/s (C, D).
 
 It imports only torch and the port, and builds the kernels at first use.
@@ -43,7 +47,7 @@ import torch
 
 from ..models.ngp import NGPField
 from ..ops import hashgrid as hg
-from .timing import device_ms, time_ms
+from .timing import device_ms, per_call_ms, time_ms
 
 TABLE_ROWS = 2 ** 19
 IDX_SHAPE = (64, 4096)
@@ -152,14 +156,27 @@ def bench(seed: int = 1) -> dict:
             (TABLE_ROWS, 2)).astype(np.float32)).to(dev).to(torch.bfloat16)
         idx = torch.from_numpy(rng.integers(
             0, TABLE_ROWS - 1, IDX_SHAPE, dtype=np.int32)).to(dev)
+        gather, pack = hg._library.entry("mnerf_hash_gather")
+        stream = torch.cuda.current_stream().cuda_stream
+        rcs = []
         for dtype, t in (("fp32", t16.float()), ("bf16", t16)):
-            run(f"A_torch_index_{dtype}", lambda: t[idx], idx.numel(),
-                "M_rows_per_s", device=True)
-            run(f"B_gather_{dtype}", lambda: hg.gather_rows(t, idx),
-                idx.numel(), "M_rows_per_s", device=True)
-            run(f"B_gather_plain_{dtype}",
-                lambda: hg.gather_rows_reference(t, idx), idx.numel(),
-                "M_rows_per_s")
+            out = torch.empty((*idx.shape, 2), dtype=t.dtype, device=dev)
+            bare = pack(t.data_ptr(), t.shape[0], 2, t.element_size(),
+                        idx.data_ptr(), idx.numel(), out.data_ptr(),
+                        t.get_device(), stream)
+            fns = {f"A_torch_index_{dtype}": lambda: t[idx],
+                   f"B_gather_{dtype}": lambda: hg.gather_rows(t, idx),
+                   f"B_gather_bare_{dtype}":
+                       lambda: rcs.append(gather(bare)),
+                   f"B_gather_plain_{dtype}":
+                       lambda: hg.gather_rows_reference(t, idx)}
+            per = per_call_ms(fns)
+            for tag, fn in fns.items():
+                res[tag] = {"ms": per[tag],
+                            "M_rows_per_s": idx.numel() / per[tag] / 1e3}
+                if tag[0] == "A" or tag == f"B_gather_{dtype}":
+                    res[tag]["device_ms"] = device_ms(fn)
+        assert not any(rcs), f"bare GATHER returned {set(rcs)}"
         rows = torch.from_numpy(rng.standard_normal(
             (DENSE_SIDE ** 3, 2)).astype(np.float32)).to(dev)
         x = torch.from_numpy(rng.random((DENSE_SAMPLES, 3),

@@ -17,7 +17,8 @@ is held against the float64 sum, which is exact for these inputs.
 
 Timing (the card only). The JAX probe's four modes, each a dependent chain
 of REPS = 256 reps (ping-pong buffers: each call reads the previous
-output), best of 4, in µs per rep:
+output), the ways of a mode timed in turns, best of 8 rounds, in µs per
+rep:
   none: one PyTorch elementwise call per rep, `torch.add(1e-6, x,
     alpha=1.000001)`, the library yardstick (the port never calls it);
     `none_grid` is the same call on the GRID shape;
@@ -27,7 +28,7 @@ each measured four ways (host clock around the chain, which ends in a
 synchronize):
   bare: `mnerf_floor_chain` loops the launches in C, called once;
   ctypes: the library's launch entry called from Python per launch, on
-    buffers allocated once, with no checks;
+    buffers allocated once and arguments packed once, with no checks;
   wrapper: the port's wrapper `axpb(x, out)` per launch (device dispatch,
     checks, stream, launch counter);
   graph: the wrapper chain captured once in a `torch.cuda.CUDAGraph` and
@@ -35,6 +36,16 @@ synchronize):
 Beside them, each kernel's device time per launch from a torch.profiler
 trace. The launch counters move once at capture and not on replay, so the
 replays' launches are counted here (`graph_launches`).
+
+The wrapper's cost, step by step (`breakdown`, host clock over 10⁴ calls of
+each step alone on the SMALL tensors, less the loop's own cost): the
+port's launch path as the wrappers run it now (dispatch, checks, the raw
+stream, the packed arguments, the ctypes launch with the device guard in
+C, the counter) beside
+the steps it replaced (`torch.cuda.device` around the launch,
+`torch.cuda.current_stream(dev)`, the device set of the old dispatch) and an
+allocation (`torch.empty_like`), which the wrappers that return a new tensor
+pay.
 
 It imports only torch and the port, and builds the kernel at first use.
 `main` returns the numbers as a dict.
@@ -52,7 +63,7 @@ from ..ops import invoke_floor as fl
 from .timing import device_ms, time_ms
 
 REPS = 256
-BEST_OF = 4
+BEST_OF = 8
 CHAIN = 5  # launches of the parity chain
 # mode -> (buffer shape, calls a rep)
 MODES = {"none": (fl.SMALL_SHAPE, 1), "none_grid": (fl.GRID_SHAPE, 1),
@@ -94,18 +105,23 @@ def parity(device, seed: int = 0) -> dict:
     return out
 
 
-def _best_us(run) -> float:
-    """µs per rep of `run` (a chain of REPS reps), best of BEST_OF
-    after a warm run; the host clock ends in a synchronize."""
-    run()
-    best = float("inf")
-    for _ in range(BEST_OF):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+def _best_us(runs: dict) -> dict:
+    """µs per rep of each of `runs` (name -> a chain of REPS reps), timed
+    in turns so that a slow spell of the shared host hits every way alike:
+    BEST_OF rounds (in reverse order every other round) after a warm run of
+    each, the best round of each; the host clock ends in a synchronize."""
+    for run in runs.values():
         run()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return best / REPS * 1e6
+    best = dict.fromkeys(runs, float("inf"))
+    names = list(runs)
+    for r in range(BEST_OF):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            best[name] = min(best[name], time.perf_counter() - t0)
+    return {name: t / REPS * 1e6 for name, t in best.items()}
 
 
 def _ways(mode: str, a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -126,27 +142,26 @@ def _ways(mode: str, a: torch.Tensor, b: torch.Tensor) -> dict:
                 fl.axpb(x, y)
             x, y = y, x
 
-    res = {"wrapper": _best_us(chain)}
+    runs = {"wrapper": chain}
+    rcs = []
     if not torch_call:
-        res["bare"] = _best_us(lambda: fl.chain_cuda(a, b, n))
-        lib = fl._library()
-        launch = lib.mnerf_floor_launch
+        runs["bare"] = lambda: fl.chain_cuda(a, b, n)
+        launch, pack = fl._library.entry("mnerf_floor_launch")
         rows, row_len, small = fl._shape(a)
-        pa, pb = a.data_ptr(), b.data_ptr()
+        card = a.get_device()
         stream = torch.cuda.current_stream().cuda_stream
-        rcs = []
+        ab = pack(a.data_ptr(), b.data_ptr(), rows, row_len, card, stream)
+        ba = pack(b.data_ptr(), a.data_ptr(), rows, row_len, card, stream)
 
         def raw():
-            x, y = pa, pb
+            x, y = ab, ba
             rc = 0
             for _ in range(n):
-                rc |= launch(x, y, rows, row_len, stream)
+                rc |= launch(x)
                 x, y = y, x
             rcs.append(rc)
 
-        res["ctypes"] = _best_us(raw)
-        assert not any(rcs), rcs
-        fl._count(small, len(rcs) * n)  # launches made past the wrapper
+        runs["ctypes"] = raw
     # the wrapper chain captured once, replayed
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -158,20 +173,86 @@ def _ways(mode: str, a: torch.Tensor, b: torch.Tensor) -> dict:
     with torch.cuda.graph(graph):
         chain()
     at_capture = (fl.launches_small, fl.launches_grid)
-    replays = [0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (fl.launches_small, fl.launches_grid) == at_capture, \
+        "the launch counter moved on a replay"
+    replays = [1]
 
     def replay():
         graph.replay()
         replays[0] += 1
 
-    res["graph"] = _best_us(replay)
-    assert (fl.launches_small, fl.launches_grid) == at_capture, \
-        "the launch counter moved on a replay"
+    runs["graph"] = replay
+    res = _best_us(runs)
+    assert not any(rcs), rcs
+    if rcs:
+        fl._count(small, len(rcs) * n)  # launches made past the wrapper
     res["graph_launches"] = replays[0] * n
     res["counted_at_capture"] = sum(at_capture) - sum(before)
     del graph
     return {w: res.get(w) for w in (*WAYS, "graph_launches",
                                     "counted_at_capture")}
+
+
+BREAKDOWN_CALLS = 10_000
+
+
+def breakdown(seed: int = 1, calls: int = BREAKDOWN_CALLS) -> dict:
+    """µs per call of each step of a wrapper's launch on the SMALL tensors
+    (host clock over `calls` calls, best of 3, less an empty call's cost);
+    the launches these steps make are counted past the wrapper."""
+    from ..ops import _build
+
+    a = _inputs(fl.SMALL_SHAPE, seed, "cuda")
+    b = torch.empty_like(a)
+    launch, pack = fl._library.entry("mnerf_floor_launch")
+    card, pa, pb = a.get_device(), a.data_ptr(), b.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    packed = pack(pa, pb, 1, 1024, card, stream)
+    f32 = (torch.float32,)
+
+    def device_ctx():  # a `with` block, timed whole (enter and exit)
+        with torch.cuda.device(a.device):
+            pass
+
+    steps = {
+        "empty call (subtracted)": lambda: None,
+        "dispatch: x.is_cuda": lambda: a.is_cuda,
+        "checks: card_index(x, out)": lambda: _build.card_index(
+            "floor", ("x", a, f32, 16), ("out", b, f32, 16)),
+        "checks: the floor's shape": lambda: fl._shape(a),
+        "stream: _build.current_stream(i)":
+            lambda: _build.current_stream(card),
+        "arguments: struct pack": lambda: pack(pa, pb, 1, 1024, card,
+                                                stream),
+        "ctypes launch, packed once (device guard in C)":
+            lambda: launch(packed),
+        "counter": lambda: fl._count(True, 1),
+        "the wrapper: axpb(x, out)": lambda: fl.axpb(a, b),
+        "replaced: torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(a.device).cuda_stream,
+        "replaced: with torch.cuda.device(x.device)": device_ctx,
+        "replaced: the dispatch's device set, on_card(x, out)":
+            lambda: _build.on_card("floor", a, b),
+        "allocation: torch.empty_like(x)": lambda: torch.empty_like(a),
+        "allocation: x.new_empty(x.shape)": lambda: a.new_empty(a.shape),
+    }
+    us = {}
+    for name, fn in steps.items():
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        us[name] = best / calls * 1e6
+    fl._count(True, 3 * calls)  # the bare launches, past the wrapper
+    base = us.pop("empty call (subtracted)")
+    return {"calls": calls, "empty_call_us": base,
+            "us": {k: v - base for k, v in us.items()}}
 
 
 def bench(seed: int = 1) -> dict:
@@ -192,6 +273,7 @@ def bench(seed: int = 1) -> dict:
             lambda: torch.add(eps, a, alpha=float(fl.SCALE), out=b),
             64) * 1e3
         res["plain_ms"][name] = time_ms(lambda: fl.axpb_reference(a), 20)
+    res["breakdown"] = breakdown(seed)
     return res
 
 
@@ -203,6 +285,14 @@ def format_table(floor_us: dict) -> str:
             f"{row[w]:10.3f}" if row[w] is not None else f"{'—':>10}"
             for w in WAYS))
     return "\n".join(lines)
+
+
+def format_breakdown(bd: dict) -> str:
+    """The wrapper's cost step by step, as text."""
+    return "\n".join(
+        [f"the wrapper step by step, µs per call over {bd['calls']} calls "
+         f"(less {bd['empty_call_us']:.3f} µs of an empty call):"]
+        + [f"  {k:<55s}{v:8.3f}" for k, v in bd["us"].items()])
 
 
 def main(argv=None) -> dict:
@@ -233,6 +323,7 @@ def main(argv=None) -> dict:
                 f"{k} {v:.3f}" for k, v in b["device_us"].items()))
             print("plain version ms per call: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in b["plain_ms"].items()))
+            print(format_breakdown(b["breakdown"]))
     return result
 
 

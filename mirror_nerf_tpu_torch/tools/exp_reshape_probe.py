@@ -9,25 +9,30 @@ The JAX probe asked whether its TPU compiler lowers an in-kernel
 prefix becomes one matmul by the triangular TRI. On this card the question
 is which formulation to use, and both are modes of `csrc/segment_scan.cu`
 (ops/segment_scan.py): SCAN (a warp per 128-wide row, shuffles) and TRI (the
-TPU's matmul, in fp32 FMAs). WEIGHTS, the compositing epilogue on SCAN, is
-the form the composite uses.
+TPU's matmul, on the tensor cores: x split into three bf16 pieces, fp32
+sums). WEIGHTS, the compositing epilogue on SCAN, is the form the composite
+uses.
 
 Parity, against a float64 exclusive prefix, max |a − b| / max(1, max |b|)
 ≤ 2e-6: the JAX probe's input ((8, 1, 4096) uniform [0, 1) from
 RandomState(0)) and, on the card, the composite's 16384 rays × 128 samples;
-S = 128, 64 and 16; the uniform input and the sentinel input (1e10 on each
+S = 128, 64 and 16; the uniform input, the sentinel input (1e10 on each
 segment's last value), where each sentinel's own value must equal the sum
-of its segment's other values to the same bar. WEIGHTS against float64
+of its segment's other values to the same bar, and the wide input (values
+spread log-uniformly over 1e-6 … 1e10). WEIGHTS against float64
 weights (atol 1e-5), per-segment Σw ≤ 1 + 1e-5, on uniform [0, 1.5) sd with
 the sentinel (the input of tests/test_fused_cp.py:194-199). On the CPU both
 modes are the plain version.
 
-Timing (the card only; CUDA events over back-to-back calls, and the device
-time per call from a torch.profiler trace): SCAN, TRI, the plain version and
-the library yardstick `torch.cumsum` on the segment view (inclusive: timed,
-never used) at the JAX probe's shape (S = 128) and at the composite's
-2,097,152 values (S = 128 and 64); WEIGHTS and its plain version at
-2,097,152 values, S = 128. Rates in GB/s of compulsory traffic (each value
+Timing (the card only; CUDA events over back-to-back calls, in turns and
+best of 5 rounds (`timing.per_call_ms`), and the device time per call from a
+torch.profiler trace): SCAN, TRI, the plain version and the library
+yardstick `torch.cumsum` on the segment view (inclusive: timed, never used)
+at the JAX probe's shape (S = 128) and at the composite's 2,097,152 values
+(S = 128 and 64); WEIGHTS and its plain version at 2,097,152 values, S =
+128. At the composite's size SCAN is also called through bare ctypes, the C
+entry with the same pointers and no checks (`*_bare`): the wrapper's cost
+above it is the launch path's. Rates in GB/s of compulsory traffic (each value
 read once and written once). At the path's size the 16.8 MB of a call stay
 in the 50 MB L2 from one call to the next, so the device time is also taken
 cold (`cold_device_ms`: a 64 MiB fill before each call, left out of the
@@ -45,7 +50,7 @@ import numpy as np
 import torch
 
 from ..ops import segment_scan as ss
-from .timing import FLUSH_KERNEL, device_ms, l2_flush, time_ms
+from .timing import FLUSH_KERNEL, device_ms, l2_flush, per_call_ms
 
 L = 4096
 PROBE_SHAPE = (8, 1, L)
@@ -54,6 +59,7 @@ SEGMENTS = (128, 64, 16)
 PREFIX_BAR = 2e-6  # scaled above 1, against float64
 WEIGHTS_ATOL = 1e-5
 SENTINEL = 1e10
+KINDS = ("uniform", "sentinel", "wide")
 
 
 def probe_input(device) -> torch.Tensor:
@@ -66,6 +72,23 @@ def path_input(device, seed: int = 0, high: float = 1.0) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy((rng.random(PATH_SHAPE) * high).astype(
         np.float32)).to(device)
+
+
+def wide_input(device, shape=PATH_SHAPE, seed: int = 0) -> torch.Tensor:
+    """Values spread log-uniformly over 1e-6 … 1e10 (22 binades of
+    exponent between neighbours, the sentinel's magnitude at the top)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((10.0 ** rng.uniform(-6.0, 10.0, shape)).astype(
+        np.float32)).to(device)
+
+
+def kind_input(x: torch.Tensor, s: int, kind: str) -> torch.Tensor:
+    """x itself, x with sentinels, or a wide input of x's shape."""
+    if kind == "sentinel":
+        return with_sentinel(x, s)
+    if kind == "wide":
+        return wide_input(x.device, tuple(x.shape), seed=s)
+    return x
 
 
 def with_sentinel(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -111,8 +134,8 @@ def parity(device, path: bool = True) -> dict:
         inputs.append(("path", path_input(device)))
     for iname, x in inputs:
         for s in SEGMENTS:
-            for kind in ("uniform", "sentinel"):
-                xi = with_sentinel(x, s) if kind == "sentinel" else x
+            for kind in KINDS:
+                xi = kind_input(x, s, kind)
                 for mode in ("scan", "tri"):
                     err, last = prefix_errors(ss.segment_prefix(xi, s, mode),
                                               xi, s)
@@ -134,36 +157,58 @@ def traffic_bytes(x: torch.Tensor) -> int:
     return 2 * x.numel() * x.element_size()
 
 
+def _bare_scan(x: torch.Tensor, s: int):
+    """SCAN through bare ctypes: the C entry with the wrapper's pointers,
+    card and stream packed once, no checks, no allocation (the output is
+    made once). Returns the call and the list of its return codes."""
+    fn, pack = ss._library.entry("mnerf_segment_scan")
+    out = torch.empty_like(x)
+    packed = pack(x.data_ptr(), out.data_ptr(), x.numel() // ss.ROW, s,
+                  ss.MODES["scan"], x.get_device(),
+                  torch.cuda.current_stream().cuda_stream)
+    rcs = []
+    return (lambda: rcs.append(fn(packed))), rcs
+
+
 def bench(seed: int = 1) -> dict:
     """SCAN, TRI, plain and torch.cumsum at the probe's and the path's
-    shapes; WEIGHTS and its plain version at the path's. Each entry: ms
-    (CUDA events), GB/s from it, and device_ms for the kernels and the
-    library call."""
+    shapes; WEIGHTS and its plain version at the path's; SCAN through bare
+    ctypes at the path's. Each entry: ms per call (in turns), GB/s from it,
+    and device_ms for the kernels and the library call (with cold_device_ms
+    at the path's size)."""
     dev = "cuda"
     res = {}
     flush = l2_flush(dev)
 
-    def run(tag, fn, x, device=True, reps=20):
-        ms = time_ms(fn, reps)
-        res[tag] = {"ms": ms, "GB_per_s": traffic_bytes(x) / ms / 1e6}
-        if device:
-            res[tag]["device_ms"] = device_ms(fn, reps)
-            if x.numel() > L * 8:  # the path's 16.8 MB fit the L2 warm
-                res[tag]["cold_device_ms"] = device_ms(
-                    lambda: (flush(), fn()), reps, exclude=FLUSH_KERNEL)
+    def measure(tag, x, fns, on_device):
+        per = per_call_ms(fns)
+        for name, fn in fns.items():
+            ms = per[name]
+            r = res[f"{tag}_{name}"] = {
+                "ms": ms, "GB_per_s": traffic_bytes(x) / ms / 1e6}
+            if name in on_device:
+                r["device_ms"] = device_ms(fn, 20)
+                if x.numel() > L * 8:  # the path's 16.8 MB fit the L2 warm
+                    r["cold_device_ms"] = device_ms(
+                        lambda: (flush(), fn()), 20, exclude=FLUSH_KERNEL)
 
     path = path_input(dev, seed)
     for tag, x, s in (("probe_S128", probe_input(dev), 128),
                       ("path_S128", path, 128), ("path_S64", path, 64)):
-        for mode in ("scan", "tri"):
-            run(f"{tag}_{mode}", lambda: ss.segment_prefix(x, s, mode), x)
-        run(f"{tag}_plain", lambda: ss.segment_prefix_reference(x, s), x,
-            device=False)
-        run(f"{tag}_cumsum", lambda: torch.cumsum(x.view(-1, s), -1), x)
+        fns = {mode: (lambda m=mode: ss.segment_prefix(x, s, m))
+               for mode in ("scan", "tri")}
+        fns["plain"] = lambda: ss.segment_prefix_reference(x, s)
+        fns["cumsum"] = lambda: torch.cumsum(x.view(-1, s), -1)
+        rcs = []
+        if tag == "path_S128":
+            fns["scan_bare"], rcs = _bare_scan(x, s)
+        measure(tag, x, fns, ("scan", "tri", "cumsum"))
+        assert not any(rcs), f"bare SCAN returned {set(rcs)}"
     sd = with_sentinel(path * 1.5, 128)
-    run("path_S128_weights", lambda: ss.prefix_weights(sd, 128), sd)
-    run("path_S128_weights_plain",
-        lambda: ss.prefix_weights_reference(sd, 128), sd, device=False)
+    measure("path_S128", sd, {
+        "weights": lambda: ss.prefix_weights(sd, 128),
+        "weights_plain": lambda: ss.prefix_weights_reference(sd, 128)},
+        ("weights",))
     return res
 
 

@@ -25,6 +25,32 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def per_call_ms(fns: dict, reps: int = 200, rounds: int = 5) -> dict:
+    """ms per call of each of `fns` (name -> callable), measured in turns so
+    that a slow spell of the shared host hits them alike: `rounds` rounds,
+    each timing every function over `reps` back-to-back calls with CUDA
+    events (in reverse order every other round), after a warm call each;
+    the best round of each. At a few µs of device time a call this is the
+    host's cost of a call."""
+    for fn in fns.values():
+        fn()
+    best = {name: float("inf") for name in fns}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    names = list(fns)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            fn = fns[name]
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            best[name] = min(best[name], start.elapsed_time(end) / reps)
+    return best
+
+
 def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
     """Device time per call: the summed kernel durations of a torch.profiler
     trace of `reps` calls, over reps. With `exclude`, kernels named like it

@@ -8,15 +8,19 @@ probes' own BlockSpecs —
     version rounds once);
   * the segmented exclusive prefix (`tools/exp_reshape_probe.py`
     `kernel_reshape`:35 with `_tri_excl`) against
-    `ops/segment_scan.py segment_prefix`, S = 128 and 16, uniform and δ_inf
-    sentinel input, and `_prefix_weights` (`mirror_nerf_tpu/ops/pallas/
-    fused_mlp_t.py:108`, the test kernel of tests/test_fused_cp.py:204)
-    against `prefix_weights`;
+    `ops/segment_scan.py segment_prefix` and TRI's arithmetic
+    (`segment_prefix_split_reference`: three bf16 pieces, fp32 sums) at
+    every S, uniform and δ_inf sentinel input; TRI's split (`split3`)
+    rebuilding x bit for bit, its first two pieces the JAX package's
+    `_mm_hilo_lhs` split; and `_prefix_weights` (`mirror_nerf_tpu/ops/
+    pallas/fused_mlp_t.py:108`, the test kernel of
+    tests/test_fused_cp.py:204) against `prefix_weights`;
   * the table products (`tools/exp_int8_probe.py` `kernel`:49) against
     `ops/table_mma.py`, int8 bit for bit and bf16 to 1e-5;
 
 the CPU/CUDA dispatch contract and the three entry points with `--cpu` —
-and, on a machine with a card only, each kernel against its plain version.
+and, on a machine with a card only, each kernel against its plain version
+and TRI's machine code on the tensor cores (HMMA).
 
 `kern`, `kern_g` and the int8 probe's `kernel` are closures inside the
 probes' `main()`: their bodies are copied here verbatim, with the line they
@@ -24,6 +28,8 @@ come from."""
 
 import importlib.util
 import os
+import re
+import subprocess
 from fractions import Fraction
 
 import jax
@@ -36,6 +42,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from mirror_nerf_tpu.ops.pallas.fused_mlp_t import _prefix_weights
+from mirror_nerf_tpu_torch.ops import _build
 from mirror_nerf_tpu_torch.ops import invoke_floor as fl
 from mirror_nerf_tpu_torch.ops import segment_scan as ss
 from mirror_nerf_tpu_torch.ops import table_mma as tm
@@ -44,6 +51,7 @@ from mirror_nerf_tpu_torch.tools import (exp_int8_probe, exp_invoke_floor,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREFIX_BAR = 2e-6  # max |a − b| / max(1, max |b|)
+SEGMENTS = [1, 2, 4, 8, 16, 32, 64, 128]
 BF16_BAR = 1e-5  # the same scaling: fp32 sums in another order
 
 
@@ -193,18 +201,24 @@ def _exclusive64(x: np.ndarray, s: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("kind", ["uniform", "sentinel"])
-@pytest.mark.parametrize("s", [128, 16])
+@pytest.mark.parametrize("s", [128, 16, 1, 2, 4, 8, 32, 64])
 def test_segment_prefix_matches_probe_kernel(reshape_probe, s, kind):
+    """The plain version and TRI's arithmetic in plain PyTorch (the three
+    bf16 pieces times TRI, fp32 sums) against `kernel_reshape` and float64,
+    at every segment length."""
     x = _prefix_input(reshape_probe, s, kind)
     want = _jax_prefix(reshape_probe, x, s)
-    got = ss.segment_prefix(torch.from_numpy(x), s).numpy()
-    assert got.shape == x.shape
-    assert _scaled(got, want) <= PREFIX_BAR
     ref = _exclusive64(x, s)
-    assert _scaled(got.reshape(-1, s), ref) <= PREFIX_BAR
     # each segment's last value is the sum of its segment's others
     others = x.astype(np.float64).reshape(-1, s)[:, :-1].sum(-1)
-    assert _scaled(got.reshape(-1, s)[:, -1], others) <= PREFIX_BAR
+    for fn in (ss.segment_prefix, ss.segment_prefix_split_reference):
+        got = fn(torch.from_numpy(x), s).numpy()
+        assert got.shape == x.shape
+        assert _scaled(got, want) <= PREFIX_BAR
+        assert _scaled(got.reshape(-1, s), ref) <= PREFIX_BAR
+        assert _scaled(got.reshape(-1, s)[:, -1], others) <= PREFIX_BAR
+        if s == 1:
+            assert not got.any()
 
 
 def test_inclusive_minus_self_is_the_trap(reshape_probe):
@@ -218,6 +232,79 @@ def test_inclusive_minus_self_is_the_trap(reshape_probe):
     assert np.abs(trap[:, -1] - ref[:, -1]).max() > 10.0
     got = ss.segment_prefix(torch.from_numpy(x), s).numpy().reshape(-1, s)
     assert _scaled(got, ref) <= PREFIX_BAR
+
+
+# TRI's three-piece bf16 split (`split3`) and its arithmetic
+
+
+def _split_input(n: int = 8192, seed: int = 0) -> np.ndarray:
+    """fp32 values of both signs spread over 1e-30 … 1e30, with zeros and
+    the δ_inf sentinel."""
+    rng = np.random.default_rng(seed)
+    x = (10.0 ** rng.uniform(-30.0, 30.0, n)
+         * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    x[:8] = [0.0, -0.0, 1e10, -1e10, 1e-30, -1e30, 1.0, 3.0e-7]
+    return x
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_split3_rebuilds_x_bit_for_bit():
+    x = _split_input()
+    hi, mid, lo = ss.split3(torch.from_numpy(x))
+    assert {p.dtype for p in (hi, mid, lo)} == {torch.bfloat16}
+    back = ((hi.float() + mid.float()) + lo.float()).numpy()
+    nz = x != 0
+    np.testing.assert_array_equal(back[nz].view(np.uint32),
+                                  x[nz].view(np.uint32))
+    assert (back[~nz] == 0).all()
+    exact = (hi.double() + mid.double() + lo.double()).numpy()
+    np.testing.assert_array_equal(exact, x.astype(np.float64))
+    # the pieces fall by at least 2⁸ each: mid is the rounding error of hi
+    big = np.abs(x) > 1e-20
+    h, m = hi.double().abs().numpy(), mid.double().abs().numpy()
+    assert (m[big] <= h[big] * 2.0 ** -8).all()
+
+
+def test_split3_matches_jax_hilo():
+    """hi and mid are `x.astype(bf16)` and `(x − hi).astype(bf16)`, as
+    `_mm_hilo_lhs` writes them, bit for bit on the same numpy input."""
+    x = _split_input(seed=1)
+    hi, mid, _ = ss.split3(torch.from_numpy(x))
+    jx = jnp.asarray(x)
+    jhi = jx.astype(jnp.bfloat16)
+    jlo = (jx - jhi.astype(jnp.float32)).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(_bits(hi), np.asarray(jhi).view(np.uint16))
+    np.testing.assert_array_equal(_bits(mid),
+                                  np.asarray(jlo).view(np.uint16))
+
+
+def test_two_pieces_miss_the_bar():
+    """Why three pieces: hi + mid alone (the JAX package's split, ~16 bits)
+    misses the probe's 2e-6 bar on wide-range values at S = 16 even with
+    exact sums; the three pieces' sums in fp32 meet it."""
+    x = exp_reshape_probe.wide_input("cpu", seed=0)
+    hi, mid, _ = ss.split3(x)
+    ref = exp_reshape_probe.exclusive64(x, 16)
+    two = exp_reshape_probe.exclusive64(hi.float() + mid.float(), 16)
+    assert _scaled(two, ref) > PREFIX_BAR
+    err, last = exp_reshape_probe.prefix_errors(
+        ss.segment_prefix_split_reference(x, 16), x, 16)
+    assert err <= PREFIX_BAR / 10 and last <= PREFIX_BAR / 10
+
+
+@pytest.mark.parametrize("kind", ["uniform", "wide"])
+@pytest.mark.parametrize("s", [16, 64, 128])
+def test_split_reference_wide_range(s, kind):
+    """Log-uniform values over 1e-6 … 1e10 (and uniform ones) on 64 rows:
+    TRI's split and fp32 sums stay within the bar of float64."""
+    x = exp_reshape_probe.kind_input(
+        exp_reshape_probe.path_input("cpu")[:64], s, kind)
+    got = ss.segment_prefix_split_reference(x, s)
+    err, last = exp_reshape_probe.prefix_errors(got, x, s)
+    assert err <= PREFIX_BAR and last <= PREFIX_BAR
 
 
 @pytest.mark.parametrize("s,lanes", [(16, 128), (128, 512)])
@@ -436,14 +523,16 @@ def test_cuda_floor_graph_capture():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["scan", "tri"])
-@pytest.mark.parametrize("s", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("s", SEGMENTS)
 def test_cuda_segment_prefix(mode, s):
-    """1001 rows (a ragged TRI tile), uniform and sentinel input, against
-    float64 at 2e-6 scaled; the sentinels' own values too."""
+    """1001 rows (a ragged TRI tile), uniform, sentinel and wide-range
+    (1e-6 … 1e10) input, against float64 at 2e-6 scaled; the sentinels' own
+    values too."""
     _needs_card()
     g = torch.Generator().manual_seed(s)
     x = torch.rand((1001, 128), generator=g).cuda()
-    for xi in (x, exp_reshape_probe.with_sentinel(x, s)):
+    for kind in exp_reshape_probe.KINDS:
+        xi = exp_reshape_probe.kind_input(x, s, kind)
         before = ss.launches_scan + ss.launches_tri
         got = ss.segment_prefix(xi, s, mode)
         torch.cuda.synchronize()
@@ -488,3 +577,20 @@ def test_cuda_table_mma(size):
             assert torch.equal(got, ref)
         else:
             assert _scaled(got.cpu(), ref.cpu()) <= BF16_BAR
+
+
+@pytest.mark.gpu
+def test_cuda_tri_runs_on_the_tensor_cores():
+    """Every instance of TRI's kernel holds HMMA instructions in its SASS
+    (cuobjdump of the library the wrapper loaded)."""
+    _needs_card()
+    ss._library()
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path(ss._LIB))], capture_output=True, text=True,
+        check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    tri = [f for f in funcs if "tri_kernel" in f.splitlines()[0]]
+    assert len(tri) == len(SEGMENTS), [f.splitlines()[0] for f in funcs]
+    for f in tri:
+        assert "HMMA" in f, f.splitlines()[0]
