@@ -219,22 +219,13 @@ const char* mnerf_cuda_error_string(int e) {
 //   -2 C not 2 (ENCODE, DENSE: the model's level_dim) or not 1, 2, 4, 8
 //      (GATHER)
 //   -3 element size not 2 or 4 bytes         -4 no rows, or side < 2
-// Each entry takes its arguments packed (csrc/launch.cuh), listed below,
-// the card's index (int) and a stream of that card last; the guard makes
-// the card current for the launch. Pointers are device pointers on that
-// card; `levels` holds n_levels × 8 int32 words.
-//   ENCODE: x, table, levels, n_levels (int), c (int), n (long long), out
-int mnerf_hash_encode(const void* packed) {
-  Args a(packed);
-  const float* x = a.next<const float*>();
-  const float* table = a.next<const float*>();
-  const int* levels = a.next<const int*>();
-  const int n_levels = a.next<int>();
-  const int c = a.next<int>();
-  const long long n = a.next<long long>();
-  float* out = a.next<float*>();
-  const int device = a.next<int>();
-  void* stream = a.next<void*>();
+// Each entry takes the card's index (int) and a stream of that card last;
+// the guard makes the card current for the launch (csrc/launch.cuh).
+// Pointers are device pointers on that card; `levels` holds n_levels × 8
+// int32 words.
+int mnerf_hash_encode(const float* x, const float* table, const int* levels,
+                      int n_levels, int c, long long n, float* out,
+                      int device, void* stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS) return -1;
   const Level* lv = reinterpret_cast<const Level*>(levels);
   if (c != 2) return -2;
@@ -246,19 +237,9 @@ int mnerf_hash_encode(const void* packed) {
   return (int)cudaGetLastError();
 }
 
-//   GATHER: table, rows (long long), c (int), elem_bytes (int), idx, n
-//     (long long), out
-int mnerf_hash_gather(const void* packed) {
-  Args a(packed);
-  const void* table = a.next<const void*>();
-  const long long rows = a.next<long long>();
-  const int c = a.next<int>();
-  const int elem_bytes = a.next<int>();
-  const int* idx = a.next<const int*>();
-  const long long n = a.next<long long>();
-  void* out = a.next<void*>();
-  const int device = a.next<int>();
-  void* stream = a.next<void*>();
+int mnerf_hash_gather(const void* table, long long rows, int c,
+                      int elem_bytes, const int* idx, long long n, void* out,
+                      int device, void* stream) {
   if (rows < 1) return -4;
   if (elem_bytes != 2 && elem_bytes != 4) return -3;
   if (c != 1 && c != 2 && c != 4 && c != 8) return -2;
@@ -278,20 +259,9 @@ int mnerf_hash_gather(const void* packed) {
   return (int)cudaGetLastError();
 }
 
-//   DENSE: rows, n_rows (long long), c (int), x, n (long long), scale
-//     (float), side (int), out
-int mnerf_hash_dense(const void* packed) {
-  Args a(packed);
-  const float* rows = a.next<const float*>();
-  const long long n_rows = a.next<long long>();
-  const int c = a.next<int>();
-  const float* x = a.next<const float*>();
-  const long long n = a.next<long long>();
-  const float scale = a.next<float>();
-  const int side = a.next<int>();
-  float* out = a.next<float*>();
-  const int device = a.next<int>();
-  void* stream = a.next<void*>();
+int mnerf_hash_dense(const float* rows, long long n_rows, int c,
+                     const float* x, long long n, float scale, int side,
+                     float* out, int device, void* stream) {
   if (n_rows < 1 || n_rows > 0xFFFFFFFFll || side < 2) return -4;
   if (c != 2) return -2;
   DeviceGuard guard(device);

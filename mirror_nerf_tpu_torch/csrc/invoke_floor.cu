@@ -16,6 +16,9 @@
 // with no Python between them (the bare floor); the port's Python wrapper
 // launches one per call through `mnerf_floor_launch` (ctypes plus the
 // wrapper's checks); a CUDA graph replays a captured chain of wrapper calls.
+// `mnerf_floor_launch_packed` is the same launch with its arguments in one
+// buffer: the probe's breakdown times what one ctypes argument instead of
+// six would save (the port's entries take theirs one by one).
 //
 // Rounding: XLA contracts the JAX body `x * 1.000001 + 1e-6` into one fused
 // multiply-add (on the CPU too), so the kernel calls __fmaf_rn with the fp32
@@ -56,6 +59,7 @@ int check(int rows, int row_len) {
   return 0;
 }
 
+
 }  // namespace
 
 extern "C" {
@@ -69,20 +73,13 @@ const char* mnerf_cuda_error_string(int e) {
 // to a message):
 //   -1 row_len not a positive multiple of 4    -2 rows < 1
 //   -3 launches < 1
-// Each entry takes its arguments packed (csrc/launch.cuh), the card's index
-// (int) and a stream of that card last; the guard makes the card current for
-// the launches. x, y, a and b are device pointers to rows × row_len fp32
-// values, 16-B aligned, on that card. SMALL is rows 1, row_len 1024; GRID
-// rows 128, row_len 4096.
-//   launch: x, y, rows (int), row_len (int)
-int mnerf_floor_launch(const void* packed) {
-  Args args(packed);
-  const float* x = args.next<const float*>();
-  float* y = args.next<float*>();
-  const int rows = args.next<int>();
-  const int row_len = args.next<int>();
-  const int device = args.next<int>();
-  void* stream = args.next<void*>();
+// Each entry takes the card's index (int) and a stream of that card last;
+// the guard makes the card current for the launches (csrc/launch.cuh). x,
+// y, a and b are device pointers to rows × row_len fp32 values, 16-B
+// aligned, on that card. SMALL is rows 1, row_len 1024; GRID rows 128,
+// row_len 4096.
+int mnerf_floor_launch(const float* x, float* y, int rows, int row_len,
+                       int device, void* stream) {
   const int rc = check(rows, row_len);
   if (rc) return rc;
   DeviceGuard guard(device);
@@ -93,19 +90,27 @@ int mnerf_floor_launch(const void* packed) {
   return (int)cudaGetLastError();
 }
 
+// The launch's arguments in one buffer, packed by Python's struct module in
+// native alignment ("PPiiiP").
+struct FloorLaunch {
+  const float* x;
+  float* y;
+  int rows;
+  int row_len;
+  int device;
+  void* stream;
+};
+
+int mnerf_floor_launch_packed(const FloorLaunch* a) {
+  return mnerf_floor_launch(a->x, a->y, a->rows, a->row_len, a->device,
+                            a->stream);
+}
+
 // `launches` dependent launches a → b → a → …: launch k reads what launch
 // k − 1 wrote. The result lies in b after an odd count, in a after an even
 // one. Stops at the first launch that fails.
-//   chain: a, b, rows (int), row_len (int), launches (int)
-int mnerf_floor_chain(const void* packed) {
-  Args args(packed);
-  float* a = args.next<float*>();
-  float* b = args.next<float*>();
-  const int rows = args.next<int>();
-  const int row_len = args.next<int>();
-  const int launches = args.next<int>();
-  const int device = args.next<int>();
-  void* stream = args.next<void*>();
+int mnerf_floor_chain(float* a, float* b, int rows, int row_len, int launches,
+                      int device, void* stream) {
   int rc = check(rows, row_len);
   if (rc) return rc;
   if (launches < 1) return -3;

@@ -1,13 +1,9 @@
 // The C side of the port's launch path (ops/_build.py `Library`), shared by
 // the libraries that adopted it (segment_scan, hashgrid, invoke_floor).
 //
-// Arguments: an entry takes one pointer to its arguments packed by Python's
-// struct module (standard sizes, no padding, native byte order: a pointer
-// or a stream 8 bytes, long long 8, int 4, float 4) and reads them in order
-// with `Args::next`. One ctypes argument instead of one a value: ctypes
-// converts each argument on every call (~0.2 µs a value on a desktop CPU),
-// packing all of them costs about one. The last two are always the card's
-// index (int) and the raw handle of that card's current stream.
+// Arguments: an entry takes its arguments one by one, as ctypes passes them
+// (ops/<module>.py declares their types), and the last two are always the
+// card's index (int) and the raw handle of that card's current stream.
 //
 // The device guard: the entry makes that card current only when it is not
 // (cudaGetDevice is a thread-local read), launches, and restores the
@@ -17,24 +13,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <cstring>
-
-class Args {
- public:
-  explicit Args(const void* packed)
-      : p_(static_cast<const unsigned char*>(packed)) {}
-  template <class T>
-  T next() {
-    T v;
-    memcpy(&v, p_, sizeof(T));
-    p_ += sizeof(T);
-    return v;
-  }
-
- private:
-  const unsigned char* p_;
-};
 
 struct DeviceGuard {
   int prev = -1;  // the caller's device, when it was switched

@@ -61,8 +61,8 @@
 // each k-block split and multiplied as its loads land. The split (about 6
 // instructions a value on the CUDA cores) is the other cost.
 //
-// The C entry takes its arguments packed, the card's index and the current
-// stream of that card last (csrc/launch.cuh).
+// The C entry takes the card's index and the current stream of that card
+// last, and switches the device in C only when it differs (csrc/launch.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,18 +294,11 @@ const char* mnerf_cuda_error_string(int e) {
 // message):
 //   -1 seg is not a power of two in [1, 128]   -2 rows < 1
 //   -3 mode outside {0 SCAN, 1 TRI, 2 WEIGHTS}
-// Arguments, packed (csrc/launch.cuh): x, out (device pointers to rows ×
-// 128 fp32 values, 16-B aligned, not overlapping, on card `device`), rows
-// (long long), seg, mode, device (int), stream (a stream of that card).
-int mnerf_segment_scan(const void* packed) {
-  Args a(packed);
-  const float* x = a.next<const float*>();
-  float* out = a.next<float*>();
-  const long long rows = a.next<long long>();
-  const int seg = a.next<int>();
-  const int mode = a.next<int>();
-  const int device = a.next<int>();
-  void* stream = a.next<void*>();
+// x and out are device pointers to rows × 128 fp32 values, 16-B aligned,
+// not overlapping, on card `device`; stream is a stream of that card, made
+// current there by the guard (csrc/launch.cuh).
+int mnerf_segment_scan(const float* x, float* out, long long rows, int seg,
+                       int mode, int device, void* stream) {
   if (seg < 1 || seg > ROW || (seg & (seg - 1))) return -1;
   if (rows < 1) return -2;
   if (mode < SCAN || mode > WEIGHTS) return -3;

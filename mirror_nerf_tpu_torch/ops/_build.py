@@ -9,10 +9,10 @@ flags, so an edited source is rebuilt and a stale library is never loaded.
 The launch path (`Library`, `card_index`) is what every launch of a
 wrapper that adopted it pays on the host: one fast test of its inputs (the
 detailed message is built only when it fails), the raw handle of the current
-stream of the inputs' card, the arguments packed into one buffer, and one
-ctypes call into a C entry that makes that card current only when it is not
-and restores the caller's device after the launch (`csrc/launch.cuh`). No
-Python context manager, no Stream object, one ctypes argument.
+stream of the inputs' card, and one ctypes call into a C entry that makes
+that card current only when it is not and restores the caller's device
+after the launch (`csrc/launch.cuh`). No Python context manager, no Stream
+object.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import ctypes
 import hashlib
 import os
 import shutil
-import struct
 import subprocess
 import time
 from pathlib import Path
@@ -162,46 +161,44 @@ def current_stream(device: int) -> int:
 
 class Library:
     """A kernel library on the launch path: `csrc/<name>.cu`, built and
-    loaded at the first call. Each C entry takes one pointer to its
-    arguments packed by `struct` (`entries` maps the symbol to the format of
-    the arguments before the card's index and the stream, standard sizes:
-    Q a pointer, q long long, i int, f float; csrc/launch.cuh reads them),
-    and returns 0, a negative code for arguments it refused (`refusals` maps
-    each to a message) or the cudaError_t of the launch."""
+    loaded at the first call. `entries` maps each C entry to the ctypes
+    types of its arguments before the two every entry takes last, the
+    card's index and the stream (csrc/launch.cuh). An entry returns 0, a
+    negative code for arguments it refused (`refusals` maps each to a
+    message) or the cudaError_t of the launch."""
 
     def __init__(self, name: str, entries: dict, refusals: dict):
         self.name = name
-        self.entries = {symbol: struct.Struct("=" + fmt + "iQ")
-                        for symbol, fmt in entries.items()}
+        self.entries = {symbol: [*types, ctypes.c_int, ctypes.c_void_p]
+                        for symbol, types in entries.items()}
         self.refusals = refusals
         self._lib = None
-        self._bound = {}  # symbol -> (the ctypes entry, its packer)
+        self._fns = {}  # symbol -> the ctypes entry
 
     def __call__(self) -> ctypes.CDLL:
         """The loaded library (built at the first call)."""
         if self._lib is None:
             lib = load_library(self.name)
-            for symbol, packer in self.entries.items():
+            for symbol, types in self.entries.items():
                 fn = getattr(lib, symbol)
-                fn.argtypes = [ctypes.c_char_p]
+                fn.argtypes = types
                 fn.restype = ctypes.c_int
-                self._bound[symbol] = (fn, packer.pack)
+                self._fns[symbol] = fn
             lib.mnerf_cuda_error_string.argtypes = [ctypes.c_int]
             lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
     def entry(self, symbol: str):
-        """(the ctypes entry, the packer of its arguments): a bare call is
-        `fn(pack(*args, device, stream))`."""
+        """The ctypes entry: a bare call is `fn(*args, device, stream)`."""
         self()
-        return self._bound[symbol]
+        return self._fns[symbol]
 
     def launch(self, symbol: str, what: str, device: int, *args) -> None:
         """One call of the C entry `symbol` on the current stream of card
         `device`; raises for a refusal or a failed launch."""
-        fn, pack = self._bound.get(symbol) or self.entry(symbol)
-        rc = fn(pack(*args, device, (_raw_stream or current_stream)(device)))
+        fn = self._fns.get(symbol) or self.entry(symbol)
+        rc = fn(*args, device, (_raw_stream or current_stream)(device))
         if rc:
             check_rc(self._lib, rc, what, self.refusals)
 

@@ -25,11 +25,11 @@ Each dispatches on the device of its inputs: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (no fallback). The
 kernel's launches are counted per mode in `launches_encode`,
 `launches_gather` and `launches_dense`. Each launch goes through
-`_build.Library` (one fast check, the arguments packed into one ctypes
-argument, the device guard in C). The kernel is forward-only: on the
-card, under grad mode, a table or an input that requires grad raises
-(training the hash-grid model is ROADMAP.md queue 1, item 11). On the CPU
-the plain versions are differentiable by autograd.
+`_build.Library` (one fast check, the raw current stream, the device guard
+in C). The kernel is forward-only: on the card, under grad mode, a table or
+an input that requires grad raises (training the hash-grid model is
+ROADMAP.md queue 1, item 11). On the CPU the plain versions are
+differentiable by autograd.
 
 pos = x·scale + 0.5 is rounded once, as a fused multiply-add: the JAX
 package's XLA contracts it (on the CPU, as the reference's CUDA encoder
@@ -40,6 +40,7 @@ single rounding in float64 (the product of two floats is exact there).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -259,9 +260,12 @@ def dense_level_lookup_reference(level_rows: torch.Tensor,
 # each entry's arguments before the card and the stream (_build.Library):
 # ENCODE x, table, levels, n_levels, c, n, out; GATHER table, rows, c,
 # element size, idx, n, out; DENSE rows, row count, c, x, n, scale, side, out
-_library = Library(_LIB, {"mnerf_hash_encode": "QQQiiqQ",
-                          "mnerf_hash_gather": "QqiiQqQ",
-                          "mnerf_hash_dense": "QqiQqfiQ"}, _REFUSALS)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_library = Library(_LIB, {
+    "mnerf_hash_encode": [_P, _P, _P, _I, _I, _LL, _P],
+    "mnerf_hash_gather": [_P, _LL, _I, _I, _P, _LL, _P],
+    "mnerf_hash_dense": [_P, _LL, _I, _P, _LL, ctypes.c_float, _I, _P]},
+    _REFUSALS)
 _F32 = (torch.float32,)
 _ROWS = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)

@@ -14,8 +14,7 @@ compares the wrapper with. Launches are counted per shape in
 `launches_small` and `launches_grid`, by the wrappers and by `chain_cuda`.
 
 The wrapper launches through the port's launch path (`_build.Library`: one
-fast check, the raw current stream, the arguments packed into one ctypes
-argument, the device guard in C), so the probe's
+fast check, the raw current stream, the device guard in C), so the probe's
 "wrapper" column measures what every adopting wrapper pays. It takes the
 current stream, allocates only when no `out` is given, and never
 synchronises, so a chain of calls can be captured in a CUDA graph
@@ -27,6 +26,8 @@ XLA contracts the JAX body into one fused multiply-add, so the kernel calls
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -86,8 +87,10 @@ def _shape(x: torch.Tensor):
 
 # x, y, rows, row length (and a launch count for the chain); then the card
 # and the stream (_build.Library)
-_library = Library(_LIB, {"mnerf_floor_launch": "QQii",
-                          "mnerf_floor_chain": "QQiii"}, _REFUSALS)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_library = Library(_LIB, {"mnerf_floor_launch": [_P, _P, _I, _I],
+                          "mnerf_floor_chain": [_P, _P, _I, _I, _I]},
+                   _REFUSALS)
 _F32 = (torch.float32,)
 
 

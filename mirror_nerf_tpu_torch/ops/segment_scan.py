@@ -19,8 +19,8 @@ Each dispatches on the device of its input: a CPU tensor takes the plain
 version (`segment_prefix_reference`, `prefix_weights_reference`), a CUDA
 tensor launches the kernel or raises (no fallback). Launches are counted
 per mode in `launches_scan`, `launches_tri` and `launches_weights`. The
-launch goes through `_build.Library` (one fast check, the arguments packed
-into one ctypes argument, the device guard in C).
+launch goes through `_build.Library` (one fast check, the raw current
+stream, the device guard in C).
 
 The prefix is exclusive by construction everywhere, never the inclusive sum
 minus the value: a ray's last sd carries δ_inf = 1e10, and fp32
@@ -34,6 +34,8 @@ three bf16 pieces of x, each multiplied by TRI, summed in fp32.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -108,7 +110,9 @@ def prefix_weights_reference(sd: torch.Tensor, s: int) -> torch.Tensor:
 # ---- the CUDA kernel (csrc/segment_scan.cu) ----
 
 # x, out, rows, seg, mode (then the card and the stream: _build.Library)
-_library = Library(_LIB, {"mnerf_segment_scan": "QQqii"}, _REFUSALS)
+_library = Library(_LIB, {"mnerf_segment_scan": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int]}, _REFUSALS)
 _F32 = (torch.float32,)
 
 

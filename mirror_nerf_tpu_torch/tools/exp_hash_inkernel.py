@@ -27,11 +27,12 @@ shapes — a 2¹⁹ × 2 table, fp32 and bf16, idx
 render path's: 16384 rays × 128 samples = 2,097,152 points:
   A. torch indexing `table[idx]`, the library call GATHER is held against;
   B. GATHER, its plain version, and GATHER through bare ctypes (the C entry
-     with the wrapper's pointers, card and stream packed once, no checks,
-     no allocation: the wrapper's cost above it is the launch path's); A and B
-     are timed in turns, best of 5 rounds (`timing.per_call_ms`);
-  C. DENSE, its plain version and the library call `grid_sample`
-     (trilinear);  D. ENCODE and its plain version.
+     with the wrapper's pointers, card and stream, no checks,
+     no allocation, counted in `launches_gather` like the wrapper's: the
+     wrapper's cost above it is the launch path's); A and B are timed in
+     turns, best of 5 rounds (`timing.per_call_ms`);
+  C. DENSE and the library call `grid_sample` (trilinear), in turns the
+     same way, and DENSE's plain version;  D. ENCODE and its plain version.
 Rates in M rows/s (A, B) or M samples/s (C, D).
 
 It imports only torch and the port, and builds the kernels at first use.
@@ -156,18 +157,18 @@ def bench(seed: int = 1) -> dict:
             (TABLE_ROWS, 2)).astype(np.float32)).to(dev).to(torch.bfloat16)
         idx = torch.from_numpy(rng.integers(
             0, TABLE_ROWS - 1, IDX_SHAPE, dtype=np.int32)).to(dev)
-        gather, pack = hg._library.entry("mnerf_hash_gather")
+        gather = hg._library.entry("mnerf_hash_gather")
         stream = torch.cuda.current_stream().cuda_stream
         rcs = []
         for dtype, t in (("fp32", t16.float()), ("bf16", t16)):
             out = torch.empty((*idx.shape, 2), dtype=t.dtype, device=dev)
-            bare = pack(t.data_ptr(), t.shape[0], 2, t.element_size(),
-                        idx.data_ptr(), idx.numel(), out.data_ptr(),
-                        t.get_device(), stream)
+            bare = (t.data_ptr(), t.shape[0], 2, t.element_size(),
+                    idx.data_ptr(), idx.numel(), out.data_ptr(),
+                    t.get_device(), stream)
             fns = {f"A_torch_index_{dtype}": lambda: t[idx],
                    f"B_gather_{dtype}": lambda: hg.gather_rows(t, idx),
                    f"B_gather_bare_{dtype}":
-                       lambda: rcs.append(gather(bare)),
+                       lambda: rcs.append(gather(*bare)),
                    f"B_gather_plain_{dtype}":
                        lambda: hg.gather_rows_reference(t, idx)}
             per = per_call_ms(fns)
@@ -177,6 +178,7 @@ def bench(seed: int = 1) -> dict:
                 if tag[0] == "A" or tag == f"B_gather_{dtype}":
                     res[tag]["device_ms"] = device_ms(fn)
         assert not any(rcs), f"bare GATHER returned {set(rcs)}"
+        hg.launches_gather += len(rcs)  # launched past the wrapper
         rows = torch.from_numpy(rng.standard_normal(
             (DENSE_SIDE ** 3, 2)).astype(np.float32)).to(dev)
         x = torch.from_numpy(rng.random((DENSE_SAMPLES, 3),
@@ -187,14 +189,17 @@ def bench(seed: int = 1) -> dict:
             return F.grid_sample(vol, grid, mode="bilinear",
                                  align_corners=True)
 
-        run("C_dense", lambda: hg.dense_level_lookup(
-            rows, x, DENSE_SCALE, DENSE_SIDE), DENSE_SAMPLES,
-            "M_samples_per_s", device=True)
+        fns = {"C_dense": lambda: hg.dense_level_lookup(
+                   rows, x, DENSE_SCALE, DENSE_SIDE),
+               "C_dense_grid_sample": library}
+        per = per_call_ms(fns)
+        for tag, fn in fns.items():
+            res[tag] = {"ms": per[tag],
+                        "M_samples_per_s": DENSE_SAMPLES / per[tag] / 1e3,
+                        "device_ms": device_ms(fn)}
         run("C_dense_plain", lambda: hg.dense_level_lookup_reference(
             rows, x, DENSE_SCALE, DENSE_SIDE), DENSE_SAMPLES,
             "M_samples_per_s", reps=3)
-        run("C_dense_grid_sample", library, DENSE_SAMPLES, "M_samples_per_s",
-            device=True)
         res["C_dense_grid_sample"]["max_abs_diff"] = float(
             (library().reshape(2, -1).t() - hg.dense_level_lookup(
                 rows, x, DENSE_SCALE, DENSE_SIDE)).abs().max())

@@ -28,7 +28,7 @@ each measured four ways (host clock around the chain, which ends in a
 synchronize):
   bare: `mnerf_floor_chain` loops the launches in C, called once;
   ctypes: the library's launch entry called from Python per launch, on
-    buffers allocated once and arguments packed once, with no checks;
+    buffers allocated once, with no checks;
   wrapper: the port's wrapper `axpb(x, out)` per launch (device dispatch,
     checks, stream, launch counter);
   graph: the wrapper chain captured once in a `torch.cuda.CUDAGraph` and
@@ -38,14 +38,14 @@ trace. The launch counters move once at capture and not on replay, so the
 replays' launches are counted here (`graph_launches`).
 
 The wrapper's cost, step by step (`breakdown`, host clock over 10⁴ calls of
-each step alone on the SMALL tensors, less the loop's own cost): the
-port's launch path as the wrappers run it now (dispatch, checks, the raw
-stream, the packed arguments, the ctypes launch with the device guard in
-C, the counter) beside
-the steps it replaced (`torch.cuda.device` around the launch,
-`torch.cuda.current_stream(dev)`, the device set of the old dispatch) and an
-allocation (`torch.empty_like`), which the wrappers that return a new tensor
-pay.
+each step alone on the SMALL tensors, the steps in turns, best of 3 rounds,
+less the loop's own cost): the port's launch path as the wrappers run it now
+(dispatch, checks, the raw stream, the ctypes launch with the device guard
+in C, the counter) beside the steps it replaced (`torch.cuda.device` around
+the launch, `torch.cuda.current_stream(dev)`, the device set of the old
+dispatch), a way it does not take (the arguments packed by `struct` into
+one ctypes argument, `mnerf_floor_launch_packed`) and an allocation
+(`torch.empty_like`), which the wrappers that return a new tensor pay.
 
 It imports only torch and the port, and builds the kernel at first use.
 `main` returns the numbers as a dict.
@@ -54,6 +54,8 @@ It imports only torch and the port, and builds the kernel at first use.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import struct
 import time
 
 import numpy as np
@@ -146,18 +148,17 @@ def _ways(mode: str, a: torch.Tensor, b: torch.Tensor) -> dict:
     rcs = []
     if not torch_call:
         runs["bare"] = lambda: fl.chain_cuda(a, b, n)
-        launch, pack = fl._library.entry("mnerf_floor_launch")
+        launch = fl._library.entry("mnerf_floor_launch")
         rows, row_len, small = fl._shape(a)
         card = a.get_device()
         stream = torch.cuda.current_stream().cuda_stream
-        ab = pack(a.data_ptr(), b.data_ptr(), rows, row_len, card, stream)
-        ba = pack(b.data_ptr(), a.data_ptr(), rows, row_len, card, stream)
+        pa, pb = a.data_ptr(), b.data_ptr()
 
         def raw():
-            x, y = ab, ba
+            x, y = pa, pb
             rc = 0
             for _ in range(n):
-                rc |= launch(x)
+                rc |= launch(x, y, rows, row_len, card, stream)
                 x, y = y, x
             rcs.append(rc)
 
@@ -198,19 +199,30 @@ def _ways(mode: str, a: torch.Tensor, b: torch.Tensor) -> dict:
 BREAKDOWN_CALLS = 10_000
 
 
+def _launch_packed():
+    """The floor's launch with its arguments in one buffer (x, y, rows,
+    row_len, device, stream, native alignment), and their packer."""
+    fn = fl._library().mnerf_floor_launch_packed
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_int
+    return fn, struct.Struct("PPiiiP").pack
+
+
 def breakdown(seed: int = 1, calls: int = BREAKDOWN_CALLS) -> dict:
     """µs per call of each step of a wrapper's launch on the SMALL tensors
-    (host clock over `calls` calls, best of 3, less an empty call's cost);
-    the launches these steps make are counted past the wrapper."""
+    (host clock over `calls` calls, the steps in turns, best of 3 rounds,
+    less an empty call's cost); the launches the bare steps make are counted
+    past the wrapper."""
     from ..ops import _build
 
     a = _inputs(fl.SMALL_SHAPE, seed, "cuda")
     b = torch.empty_like(a)
-    launch, pack = fl._library.entry("mnerf_floor_launch")
+    launch = fl._library.entry("mnerf_floor_launch")
+    packed, pack = _launch_packed()
     card, pa, pb = a.get_device(), a.data_ptr(), b.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
-    packed = pack(pa, pb, 1, 1024, card, stream)
     f32 = (torch.float32,)
+    rcs = []
 
     def device_ctx():  # a `with` block, timed whole (enter and exit)
         with torch.cuda.device(a.device):
@@ -224,12 +236,13 @@ def breakdown(seed: int = 1, calls: int = BREAKDOWN_CALLS) -> dict:
         "checks: the floor's shape": lambda: fl._shape(a),
         "stream: _build.current_stream(i)":
             lambda: _build.current_stream(card),
-        "arguments: struct pack": lambda: pack(pa, pb, 1, 1024, card,
-                                                stream),
-        "ctypes launch, packed once (device guard in C)":
-            lambda: launch(packed),
-        "counter": lambda: fl._count(True, 1),
+        "ctypes launch (device guard in C)":
+            lambda: rcs.append(launch(pa, pb, 1, 1024, card, stream)),
+        "counter (adding 0: the count stays true)":
+            lambda: fl._count(True, 0),
         "the wrapper: axpb(x, out)": lambda: fl.axpb(a, b),
+        "not taken: the arguments packed into one (struct, ctypes)":
+            lambda: rcs.append(packed(pack(pa, pb, 1, 1024, card, stream))),
         "replaced: torch.cuda.current_stream(dev).cuda_stream":
             lambda: torch.cuda.current_stream(a.device).cuda_stream,
         "replaced: with torch.cuda.device(x.device)": device_ctx,
@@ -238,18 +251,17 @@ def breakdown(seed: int = 1, calls: int = BREAKDOWN_CALLS) -> dict:
         "allocation: torch.empty_like(x)": lambda: torch.empty_like(a),
         "allocation: x.new_empty(x.shape)": lambda: a.new_empty(a.shape),
     }
-    us = {}
-    for name, fn in steps.items():
-        best = float("inf")
-        for _ in range(3):
+    us = dict.fromkeys(steps, float("inf"))
+    for _ in range(3):
+        for name, fn in steps.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        us[name] = best / calls * 1e6
-    fl._count(True, 3 * calls)  # the bare launches, past the wrapper
+            us[name] = min(us[name], (time.perf_counter() - t0) / calls * 1e6)
+    assert not any(rcs), f"a bare launch returned {set(rcs)}"
+    fl._count(True, len(rcs))  # the bare launches, past the wrapper
     base = us.pop("empty call (subtracted)")
     return {"calls": calls, "empty_call_us": base,
             "us": {k: v - base for k, v in us.items()}}

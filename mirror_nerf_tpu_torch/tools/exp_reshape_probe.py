@@ -31,8 +31,9 @@ yardstick `torch.cumsum` on the segment view (inclusive: timed, never used)
 at the JAX probe's shape (S = 128) and at the composite's 2,097,152 values
 (S = 128 and 64); WEIGHTS and its plain version at 2,097,152 values, S =
 128. At the composite's size SCAN is also called through bare ctypes, the C
-entry with the same pointers and no checks (`*_bare`): the wrapper's cost
-above it is the launch path's. Rates in GB/s of compulsory traffic (each value
+entry with the same pointers and no checks (`*_bare`, counted in
+`launches_scan` like the wrapper's): the wrapper's cost above it is the
+launch path's. Rates in GB/s of compulsory traffic (each value
 read once and written once). At the path's size the 16.8 MB of a call stay
 in the 50 MB L2 from one call to the next, so the device time is also taken
 cold (`cold_device_ms`: a 64 MiB fill before each call, left out of the
@@ -159,15 +160,15 @@ def traffic_bytes(x: torch.Tensor) -> int:
 
 def _bare_scan(x: torch.Tensor, s: int):
     """SCAN through bare ctypes: the C entry with the wrapper's pointers,
-    card and stream packed once, no checks, no allocation (the output is
-    made once). Returns the call and the list of its return codes."""
-    fn, pack = ss._library.entry("mnerf_segment_scan")
+    card and stream, no checks, no allocation (the output is made once).
+    Returns the call and the list of its return codes."""
+    fn = ss._library.entry("mnerf_segment_scan")
     out = torch.empty_like(x)
-    packed = pack(x.data_ptr(), out.data_ptr(), x.numel() // ss.ROW, s,
-                  ss.MODES["scan"], x.get_device(),
-                  torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), out.data_ptr(), x.numel() // ss.ROW, s,
+            ss.MODES["scan"], x.get_device(),
+            torch.cuda.current_stream().cuda_stream)
     rcs = []
-    return (lambda: rcs.append(fn(packed))), rcs
+    return (lambda: rcs.append(fn(*args))), rcs
 
 
 def bench(seed: int = 1) -> dict:
@@ -204,6 +205,7 @@ def bench(seed: int = 1) -> dict:
             fns["scan_bare"], rcs = _bare_scan(x, s)
         measure(tag, x, fns, ("scan", "tri", "cumsum"))
         assert not any(rcs), f"bare SCAN returned {set(rcs)}"
+        ss.launches_scan += len(rcs)  # launched past the wrapper
     sd = with_sentinel(path * 1.5, 128)
     measure("path_S128", sd, {
         "weights": lambda: ss.prefix_weights(sd, 128),

@@ -1,18 +1,21 @@
 """Port parity, the port's launch path (`ops/_build.py` `card_index`,
-`Library`, and `csrc/launch.cuh`), which the wrappers of `segment_scan`,
-`hashgrid` and `invoke_floor` use:
+`Library`, `check_rc`, and `csrc/launch.cuh`), which the wrappers of
+`segment_scan`, `hashgrid` and `invoke_floor` use:
 
   * the checks refuse CPU, mixed-device, wrong-dtype, non-contiguous and
     misaligned inputs with their messages before any library is loaded;
-  * every C entry a wrapper declares reads the arguments Python packs, in
-    order, the card's index and the stream last, and guards the device;
+  * a C entry's return code raises with the refusal's message or the CUDA
+    error's;
   * a library's name hashes the shared headers;
+  * the side-by-side timing tool (`tools/exp_launch_ab.py`) loads another
+    tree's package beside this one and holds their outputs together;
 
 and, on a machine with a card only: SCAN, TRI, WEIGHTS, GATHER and ENCODE
 on a side stream and inside a captured CUDA graph give the default stream's
 results, their counters moving once a launch and not on a replay."""
 
-import re
+import ctypes
+from pathlib import Path
 
 import pytest
 import torch
@@ -21,7 +24,8 @@ from mirror_nerf_tpu_torch.ops import _build
 from mirror_nerf_tpu_torch.ops import hashgrid as hg
 from mirror_nerf_tpu_torch.ops import invoke_floor as fl
 from mirror_nerf_tpu_torch.ops import segment_scan as ss
-from mirror_nerf_tpu_torch.tools import exp_hash_inkernel, exp_reshape_probe
+from mirror_nerf_tpu_torch.tools import exp_hash_inkernel, exp_launch_ab
+from mirror_nerf_tpu_torch.tools import exp_reshape_probe
 
 
 # ------------------------------------------------------ the launch helper
@@ -71,32 +75,74 @@ def test_on_card_dispatch():
         _build.on_card("x", cpu.to("meta"))
 
 
-_C_TYPES = {"Q": "*", "q": "long long", "i": "int", "f": "float"}
-
-
 @pytest.mark.parametrize("mod", [ss, hg, fl], ids=["segment_scan",
                                                    "hashgrid",
                                                    "invoke_floor"])
-def test_c_entries_read_what_python_packs(mod):
-    """Each C entry a wrapper declares reads, in order, the values its
-    `struct` format packs (Q a pointer, q long long, i int, f float), the
-    card's index and the stream last, and guards the device: a mismatch
-    would pass garbage silently."""
+def test_entries_take_the_card_and_stream_last(mod):
+    """Each C entry a wrapper declares takes the card's index (int) and the
+    stream (a pointer) after its own arguments, and its source guards the
+    device with them."""
     src = (_build.CSRC / f"{mod._LIB}.cu").read_text()
     assert '#include "launch.cuh"' in src
-    for symbol, packer in mod._library.entries.items():
-        m = re.search(rf"\bint {symbol}\(const void\* packed\) {{", src)
-        assert m, symbol
-        body = src[m.end():src.index("\n}\n", m.end())]
-        reads = re.findall(r"(\w+) = \w+\.next<([^>]+)>\(\);", body)
-        fmt = packer.format.lstrip("=")
-        assert len(reads) == len(fmt), (symbol, reads, fmt)
-        for (_, ctype), code in zip(reads, fmt):
-            want = _C_TYPES[code]
-            assert ctype.endswith(want) if code == "Q" else ctype == want, (
-                symbol, ctype, code)
-        assert [name for name, _ in reads[-2:]] == ["device", "stream"]
-        assert "DeviceGuard guard(device);" in body, symbol
+    for symbol, types in mod._library.entries.items():
+        assert types[-2:] == [ctypes.c_int, ctypes.c_void_p], symbol
+        assert f"int {symbol}(" in src, symbol
+    assert src.count("DeviceGuard guard(device);") >= len(
+        mod._library.entries)
+
+
+class _Lib:
+    """A stand-in for a loaded library: its CUDA error strings."""
+
+    @staticmethod
+    def mnerf_cuda_error_string(rc):
+        return f"error {rc}".encode()
+
+
+def test_check_rc_messages():
+    """0 passes; a refusal raises ValueError with its message (or its code
+    when it has none); a CUDA error raises RuntimeError with its string."""
+    _build.check_rc(_Lib, 0, "segment-scan", ss._REFUSALS)
+    with pytest.raises(ValueError, match="segment-scan kernel refused its "
+                                         "arguments: " + ss._REFUSALS[-2]):
+        _build.check_rc(_Lib, -2, "segment-scan", ss._REFUSALS)
+    with pytest.raises(ValueError, match="refused its arguments: -9"):
+        _build.check_rc(_Lib, -9, "floor", fl._REFUSALS)
+    with pytest.raises(RuntimeError, match="floor kernel launch failed: "
+                                           "error 700"):
+        _build.check_rc(_Lib, 700, "floor", fl._REFUSALS)
+
+
+def test_launch_ab_loads_another_tree():
+    """The timing tool imports a tree's package under another name: its
+    modules are its own (own counters, own build directory), and on the CPU
+    its wrappers give this tree's results."""
+    root = Path(_build.__file__).resolve().parents[2]
+    other = exp_launch_ab.load_other(root)
+    assert other["segment_scan"] is not ss
+    assert other["segment_scan"].__name__ == (
+        f"{exp_launch_ab.OTHER}.ops.segment_scan")
+    assert other["_build"].BUILD_DIR == _build.BUILD_DIR
+    x = torch.rand(4, 128, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(other["segment_scan"].segment_prefix(x, 64),
+                       ss.segment_prefix(x, 64))
+    assert torch.equal(other["invoke_floor"].axpb(x[:1].reshape(1, 1, 128)),
+                       fl.axpb(x[:1].reshape(1, 1, 128)))
+    with pytest.raises(SystemExit, match="no mirror_nerf_tpu_torch"):
+        exp_launch_ab.load_other(root / "tests")
+
+
+def test_launch_ab_holds_the_trees_together():
+    """Each this/other pair of a group is compared, to its bar: a pair that
+    differs beyond it fails; the library call is not compared."""
+    x = torch.rand(64)
+    fns = {"scan_this": lambda: x, "scan_other": lambda: x.clone(),
+           "library": lambda: -x}
+    assert exp_launch_ab._agree(fns, 0.0) == 0.0
+    fns["tri_this"], fns["tri_other"] = (lambda: x), (lambda: x + 1e-3)
+    assert exp_launch_ab._agree(fns, 2e-3) == pytest.approx(1e-3, rel=1e-3)
+    with pytest.raises(AssertionError):
+        exp_launch_ab._agree(fns, 1e-4)
 
 
 def test_header_change_renames_the_library(tmp_path, monkeypatch):
