@@ -13,8 +13,11 @@ each fatal on failure:
      build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
-     rays: S=128 full and S=64 σ-only, relu and softplus, plus a saturating
-     field (σ ≳ 1e3); max abs error per output, per-ray Σw ≤ 1 + 1e-5, times;
+     rays: S=128 full and S=64 σ-only, relu and softplus, seeded and a
+     saturating field (σ ≳ 1e3); max abs error per output, per-ray Σw ≤
+     1 + 1e-5, times beside the fp32 and the 3×TF32 bound; the SASS of its
+     ten instances (HMMA in each; FFMA, LDS, LDG, LDL, STL counted) and
+     ptxas' registers and spills;
   4. the training kernels vs their plain versions at the training path's
      shapes (T = 131072 and 65536 + 37, ~2 % of the points outside the
      bound): forward with tangents and density-only; backward under random
@@ -57,7 +60,8 @@ each fatal on failure:
      the plain version on the CPU on 256 rays;
  11. the per-sample kernels vs their plain versions: CP rows (16384 strided
      rays of the 800×800 camera, S=128 full and S=64 σ-only) and the CP
-     composite from per-sample inputs (relu and softplus, Σw ≤ 1 + 1e-5);
+     composite from per-sample inputs (both variants, relu and softplus,
+     Σw ≤ 1 + 1e-5), seeded and saturating;
      flagship rows (16384 rays of the 400×300 camera, the same S, plus
      S=80 and 192 on 2048 + 37 rays) and points (16384·128 and 100003);
      a saturating field for each; errors scaled above 1, kernel and plain
@@ -181,6 +185,10 @@ NGP_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
 # output written once.
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # bytes/s
+# the TF32 tensor-core peak, dense: the CP composite runs its products as
+# three TF32 products each, so 3 × its operations over this is its second
+# bound (beside the fp32 one, which keeps shares comparable across PRs)
+PEAK_TF32 = 495e12  # FLOP/s
 
 
 def log(msg: str) -> None:
@@ -312,7 +320,22 @@ def phase_kernel(torch, card: str) -> dict:
     from mirror_nerf_tpu_torch.core.sampling import (merge_fine_z_vals,
                                                      stratified_z_vals)
     from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
-    from mirror_nerf_tpu_torch.ops import fused_cp
+    from mirror_nerf_tpu_torch.ops import _build, fused_cp
+
+    # the machine code: every instance on the tensor cores; registers and
+    # spills from ptxas
+    sass = _build.sass_counts(_build.library_path(fused_cp._LIB),
+                              "cp_field_kernel")
+    assert len(sass) == 10 and min(c["HMMA"] for c in sass.values()) > 0, \
+        sass
+    for name, c in sorted(sass.items()):
+        inst = re.search(r"cp_field_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+        log(f"[kernel] SASS of cp_field_kernel<mode {inst.group(1)}, "
+            f"sigma_only {inst.group(2)}, softplus {inst.group(3)}>: "
+            + ", ".join(f"{k} {v}" for k, v in c.items()))
+    for line in _build.build_log.get(fused_cp._LIB, "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[kernel] ptxas: {line.strip()}")
 
     dev = torch.device("cuda")
     field = TPUGridField(bound=6.0, predict_normal=True,
@@ -328,11 +351,14 @@ def phase_kernel(torch, card: str) -> dict:
     rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).to(dev)
     o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
     z64 = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 64).contiguous()
+    sum_r = sum(r for _, r in field.grid_levels)
 
     worst = 0.0
     entry_ms = entry_plain = None
     for pname, params in (("seeded", seeded), ("saturating", saturating)):
-        for act in (("relu", "softplus") if pname == "seeded" else ("relu",)):
+        tables, _ = fused_cp._pack_tables(params, field.grid_levels)
+        nets = fused_cp._pack_nets(params, field.grid_levels)
+        for act in ("relu", "softplus"):
             coarse = fused_cp.cp_rays_composite_reference(
                 field, params, o, d, d, z64, sigma_only=True, sigma_act=act)
             z128 = merge_fine_z_vals(z64, coarse["weights"], 64,
@@ -366,25 +392,26 @@ def phase_kernel(torch, card: str) -> dict:
                 assert max(errs.values()) <= KERNEL_ATOL, (tag, errs)
                 assert wsum <= 1.0 + 1e-5, (tag, wsum)
                 worst = max(worst, max(errs.values()))
-                if (pname, act, sigma_only) == ("seeded", "relu", False):
+                if pname != "seeded" or act != "relu":
+                    continue
+                flop = n * z.shape[1] * _cp_flop(sum_r, not sigma_only)
+                b_ms, b_by = _bound(flop, _nbytes(o, d, d, z, tables, nets,
+                                                  *got.values()))
+                tc_ms = 3 * flop / PEAK_TF32 * 1e3
+                log(f"[kernel] bound at {tag}: {b_ms:.3f} ms ({b_by}, fp32 "
+                    f"CUDA cores); the kernel reaches {b_ms / ms * 100:.1f} "
+                    f"%; 3×TF32 bound {tc_ms:.3f} ms (3 × the operations at "
+                    f"the TF32 tensor-core peak): {tc_ms / ms * 100:.1f} %")
+                if not sigma_only:
                     entry_ms, entry_plain = ms, plain_ms
-                    sum_r = sum(r for _, r in field.grid_levels)
-                    tables, _ = fused_cp._pack_tables(params,
-                                                      field.grid_levels)
-                    bound_ms, bound_by = _bound(
-                        n * z.shape[1] * _cp_flop(sum_r, True),
-                        _nbytes(o, d, d, z, tables,
-                                fused_cp._pack_nets(params),
-                                *got.values()))
-                    log(f"[kernel] bound at {tag}: {bound_ms:.3f} ms "
-                        f"({bound_by}); the kernel reaches "
-                        f"{bound_ms / ms * 100:.1f} %")
+                    bound_ms, bound_by, tf32_ms = b_ms, b_by, tc_ms
     return {"name": "fused_cp_composite", "route": "cuda",
             "source": "mirror_nerf_tpu_torch/csrc/fused_cp_composite.cu",
             "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp.py:363",
             "launches": 0, "max_abs_err": worst, "ms": entry_ms,
             "plain_ms": entry_plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "bound_tf32x3_ms": tf32_ms}
 
 
 def _rel(a, b) -> float:
@@ -1234,12 +1261,10 @@ def phase_rows_kernels(torch, card: str) -> list:
             "weights"])
     sum_r = sum(r for _, r in field.grid_levels)
     tables, _ = fused_cp._pack_tables(seeded, field.grid_levels)
-    nets = fused_cp._pack_nets(seeded)
+    nets = fused_cp._pack_nets(seeded, field.grid_levels)
     timed = {}
     for pname, params in (("seeded", seeded), ("saturating", saturating)):
         for sigma_only, z in ((False, z128), (True, z64)):
-            if pname == "saturating" and sigma_only:
-                continue
             tag = (f"cp rows {pname} S={z.shape[1]} "
                    f"{'sigma-only' if sigma_only else 'full'}, {n} rays")
             err, ms, plain_ms, got = _rows_case(
@@ -1254,10 +1279,11 @@ def phase_rows_kernels(torch, card: str) -> list:
                 timed["cp_rows"] = {"ms": ms, "plain_ms": plain_ms}
                 rows_bytes = _nbytes(o, d, d, z, tables, nets) + n * 128 * 32
     for pname, params, act, sigma_only, z in (
-            ("seeded", seeded, "relu", False, z128),
-            ("seeded", seeded, "softplus", False, z128),
-            ("seeded", seeded, "relu", True, z64),
-            ("saturating", saturating, "relu", False, z128)):
+            (pname, params, act, sigma_only, z)
+            for pname, params in (("seeded", seeded),
+                                  ("saturating", saturating))
+            for act in ("relu", "softplus")
+            for sigma_only, z in ((False, z128), (True, z64))):
         xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
         v = d[:, None, :].expand_as(xyz).contiguous()
         dl = torch.cat([z[:, 1:] - z[:, :-1],
@@ -1838,10 +1864,19 @@ def phase_probe_kernels(torch, card: str) -> list:
         bound = (max(t_ops, t_bytes),
                  "operations" if t_ops >= t_bytes else "bytes")
         v = b8[kind]
+        # no single PyTorch call computes the function: the GEMMs on bases
+        # built beforehand do less work, the build + GEMMs two calls a table
         entries.append(entry(
             f"table_mma_{kind}", "table_mma.cu", "tools/exp_int8_probe.py:49",
             0.0 if kind == "int8" else par_8["bf16"], v["ms"], v["plain_ms"],
-            bound, v["library_ms"], mma_launches[i], v["device_ms"]))
+            bound, None, mma_launches[i], v["device_ms"]))
+        entries[-1]["library_gemm_only_ms"] = v["library_ms"]
+        entries[-1]["library_build_gemm_ms"] = v["library_build_ms"]
+        log(f"[probe-kernel] table_mma_{kind} ({card}): library GEMMs only "
+            f"(bases built beforehand) {v['library_ms']:.4f} ms, device "
+            f"{v['library_device_ms']:.4f}; build + GEMMs "
+            f"{v['library_build_ms']:.4f} ms, device "
+            f"{v['library_build_device_ms']:.4f}")
     for e in entries:
         dev = (f", device {e['device_ms']:.4f} ms"
                + (f" (cold L2 {e['cold_device_ms']:.4f} ms)"

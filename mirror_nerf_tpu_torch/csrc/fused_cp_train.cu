@@ -54,6 +54,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int F = 32;    // CP fold output features
@@ -460,16 +462,20 @@ const char* mnerf_cuda_error_string(int e) {
 //   -5 the nets exceed the shared memory     -6 n < 1
 // Device pointers except `tables` (a host array of n_levels × 3 device
 // pointers, axis-minor), level_g and level_r (host arrays). `grad` is
-// written only when `tangents` is set.
+// written only when `tangents` is set. Each entry takes the card's index
+// (int) and a stream of that card last; the guard makes the card current
+// for the launch (csrc/launch.cuh).
 int mnerf_cp_train_fwd(const float* xyz, const float* fold, const float* s1,
                        const float* s2, const float* const* tables,
                        const int* level_g, const int* level_r, int n_levels,
                        int n, float bound, int tangents, float* sigma,
-                       float* geo, float* grad, void* stream) {
+                       float* geo, float* grad, int device, void* stream) {
   Levels lv;
   const int sum_r = make_levels(tables, level_g, level_r, n_levels, &lv);
   if (sum_r < 0) return sum_r;
   if (n < 1) return -6;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const size_t smem = (size_t)(sum_r * F + F * H + H * NSG) * sizeof(float);
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
@@ -497,11 +503,13 @@ int mnerf_cp_train_bwd(const float* xyz, const float* fold, const float* s1,
                        const float* dsig, const float* dgeo,
                        const float* dgrad, float* dx,
                        float* const* d_tables, float* d_fold, float* d_s1,
-                       float* d_s2, void* stream) {
+                       float* d_s2, int device, void* stream) {
   Levels lv;
   const int sum_r = make_levels(tables, level_g, level_r, n_levels, &lv);
   if (sum_r < 0) return sum_r;
   if (n < 1) return -6;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   TableGrads gt;
   for (int l = 0; l < n_levels; ++l)
     for (int a = 0; a < 3; ++a) gt.tab[l][a] = d_tables[l * 3 + a];

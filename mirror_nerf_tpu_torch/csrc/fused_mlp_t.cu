@@ -69,6 +69,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TILE = 64;           // samples per tile
@@ -514,14 +516,17 @@ const char* mnerf_cuda_error_string(int e) {
 // variant. Composite mode (rows_mode 0) writes weights (N, S) and, unless
 // σ-only, per_ray (N, 9); rows mode (1) writes rows (N·S, 8), or (N·S,)
 // raw σ when σ-only, and ignores softplus. nets holds every leaf of the
-// field, heads included, whichever the variant.
+// field, heads included, whichever the variant. The entry takes the card's
+// index (int) and a stream of that card last; the guard makes the card
+// current for the launch (csrc/launch.cuh).
 int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
                       const float* view_dirs, const float* z_vals,
                       const float* nets, long long n_nets, int n_rays,
                       int n_samples, int n_emb_xyz, int n_emb_dir,
                       int has_normal, int has_mirror, int sigma_only,
                       int softplus, int rows_mode, float* weights,
-                      float* per_ray, float* rows, void* stream) {
+                      float* per_ray, float* rows, int device,
+                      void* stream) {
   if (n_samples < 1 || n_samples > MAXS) return -2;
   if (n_emb_xyz < 0 || n_emb_xyz > MAX_NF || n_emb_dir < 0 ||
       n_emb_dir > MAX_NF)
@@ -532,6 +537,8 @@ int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
                n_rays, n_samples, weights, per_ray, rows};
   if (n_nets != a.no.total) return -4;
   if (n_rays < 1) return -6;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   if (rows_mode)
     return launch_variant<true, false>(a, sigma_only, has_normal, has_mirror,

@@ -45,6 +45,8 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int BLOCK = 256;  // 8 warps: 2 (rows) × 4 (lanes)
@@ -240,22 +242,26 @@ const char* mnerf_cuda_error_string(int e) {
 //   -2 lanes not a positive multiple of 128   -3 nb, nt or r < 1
 //   -4 kind outside {0 int8, 1 bf16}
 // Device pointers: t (nt, r, g) int8 or bf16 row-major, 16-B aligned; x
-// (nb, 1, lanes) fp32; out (nb, r, lanes) fp32.
+// (nb, 1, lanes) fp32; out (nb, r, lanes) fp32. The entry takes the card's
+// index (int) and a stream of that card last; the guard makes the card
+// current for the launch (csrc/launch.cuh).
 int mnerf_table_mma(const void* t, const float* x, float* out, int nb,
-                    int nt, int r, int g, int lanes, int kind, void* stream) {
+                    int nt, int r, int g, int lanes, int kind, int device,
+                    void* stream) {
   if (g < KC || g % KC || g >= (1 << 24)) return -1;
   if (lanes < TN || lanes % TN) return -2;
   if (nb < 1 || nt < 1 || r < 1) return -3;
+  if (kind != 0 && kind != 1) return -4;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const dim3 grid(lanes / TN, nb, (r + TM - 1) / TM);
   cudaStream_t s = (cudaStream_t)stream;
   if (kind == 0)
     table_mma_kernel<int8_t><<<grid, BLOCK, 0, s>>>(
         static_cast<const int8_t*>(t), x, out, nt, r, g, lanes);
-  else if (kind == 1)
+  else
     table_mma_kernel<__nv_bfloat16><<<grid, BLOCK, 0, s>>>(
         static_cast<const __nv_bfloat16*>(t), x, out, nt, r, g, lanes);
-  else
-    return -4;
   return (int)cudaGetLastError();
 }
 

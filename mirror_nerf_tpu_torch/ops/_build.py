@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,6 +42,22 @@ build_log: dict = {}  # name -> nvcc output (ptxas registers / spills)
 def cuda_tool(tool: str) -> str:
     """A tool of the CUDA toolkit that holds nvcc (`cuobjdump`, ...)."""
     return str(Path(_nvcc()).parent / tool)
+
+
+def sass_counts(so_path, match: str,
+                opcodes=("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")) -> dict:
+    """Each function of a built library whose name holds `match` -> how
+    many instructions of each opcode its machine code (cuobjdump -sass)
+    holds; LDL and STL are local-memory traffic (spills)."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(so_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = f.splitlines()[0].strip()
+        if match in name:
+            out[name] = {op: len(re.findall(rf"\b{op}\b", f))
+                         for op in opcodes}
+    return out
 
 
 def _nvcc() -> str:
@@ -150,9 +167,9 @@ _raw_stream = None  # torch._C._cuda_getCurrentRawStream, bound at first use
 def current_stream(device: int) -> int:
     """The raw handle (cudaStream_t as an int) of the current stream of the
     card `device`: the stream a side-stream context or a CUDA-graph capture
-    made current, as `torch.cuda.current_stream(device).cuda_stream` gives
-    it, without building a Stream object (Triton's launcher reads it the
-    same way)."""
+    made current, the handle PyTorch's current-stream object holds,
+    without building a Stream object (Triton's launcher reads it the same
+    way)."""
     global _raw_stream
     if _raw_stream is None:
         _raw_stream = torch._C._cuda_getCurrentRawStream

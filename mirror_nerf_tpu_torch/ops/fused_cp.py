@@ -24,7 +24,15 @@ modules of models/ + the exclusive-prefix transmittance) and dispatches on
 the device of its inputs: the plain version for CPU tensors, the kernel for
 CUDA tensors, with no fallback (a kernel that fails to build or launch
 raises). The kernel's launches are counted per mode in `launches`,
-`launches_rows` and `launches_samples`. Forward-only.
+`launches_rows` and `launches_samples`, each launch through `_build.Library`
+(one check, the raw current stream, the device guard in C). Forward-only.
+
+The kernel runs its products on the tensor cores in 3×TF32 (`tf32_split`,
+`mma3_reference` are its plain versions) and feeds each layer's output
+fragments to the next in registers, so `_pack_nets` hands it every weight
+with its K rows in the kernel's fragment order (`c_order`, `quad_order`),
+padded to multiples of 8, each level's ranks padded to 16 (`padded_rank`,
+the tables likewise in `_pack_tables`).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
 from ..train.checkpoints import tree_leaves
+from ._build import Library, card_index
 
 _LIB = "fused_cp_composite"
 _ACTS = ("relu", "softplus")
@@ -46,7 +55,9 @@ _REFUSALS = {-1: "the level count is outside [1, 8]",
              -4: "the packed nets disagree with the kernel's layout",
              -5: "the nets exceed the kernel's shared memory",
              -6: "no rays",
-             -7: "an unknown mode"}
+             -7: "an unknown mode",
+             -8: "a packed rank is not a multiple of 16, or the tables "
+                 "exceed 2**31 floats"}
 # the kernel's modes (`Mode` in the .cu)
 COMPOSITE, ROWS, SAMPLES = 0, 1, 2
 
@@ -141,28 +152,160 @@ def cp_samples_composite_reference(field, params: dict, xyz, view_dirs,
     return composite_rows(rows, z_vals, deltas, sigma_only, sigma_act)
 
 
-def _pack_nets(params: dict) -> torch.Tensor:
-    """Fold + nets in the kernel's order (`net_offsets` in the .cu), each
-    matrix flattened in its (in, out) layout."""
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as `cvt.rna.tf32.f32` rounds: the low 13 bits of the result are
+    zero. Finite inputs."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """The kernel's split of an fp32 operand: hi = tf32_round(x) and
+    lo = x − hi, exact in fp32 (hi + lo == x). The kernel hands the tensor
+    cores hi and tf32_round(lo)."""
+    hi = tf32_round(x)
+    return hi, x.to(torch.float32) - hi
+
+
+def mma3_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's 3×TF32 products give it, each product exact
+    and summed in float64: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with
+    a = a_hi + a_lo, b = b_hi + b_lo split by `tf32_split` and each lo
+    rounded to TF32 (the dropped a_lo·b_lo is below 2⁻²² of |a||b|)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    a_lo, b_lo = tf32_round(a_lo), tf32_round(b_lo)
+    d = torch.float64
+    return (a_lo.to(d) @ b_hi.to(d) + a_hi.to(d) @ b_lo.to(d)
+            + a_hi.to(d) @ b_hi.to(d))
+
+
+# The kernel's nets after the fold (`S1` … `M2B` in the .cu), in order:
+# name, K rows, N columns, each zero-padded to a multiple of 8 (the biases
+# m1b and m2b as they are). σ and geo feed the heads as the σ-net's 16
+# output columns, σ's row zero.
+NET_LAYOUT = (("s1", 32, 64), ("s2", 64, 16), ("c1", 32, 64),
+              ("c2", 64, 64), ("c3", 64, 8), ("n1", 16, 64), ("n2", 64, 8),
+              ("m1", 16, 32), ("m2", 32, 8), ("m1b", 1, 32), ("m2b", 1, 1))
+NETS = sum(k * n for _, k, n in NET_LAYOUT)  # floats after the fold
+
+
+def padded_rank(r: int) -> int:
+    """A level's rank as the kernel reads it: rounded up to 16 (its
+    tables and fold rows zero-padded)."""
+    return -(-r // 16) * 16
+
+
+def c_order(k: int) -> list:
+    """K order of a layer fed by the previous layer's C fragments: row
+    8k' + p reads input column 8k' + 2(p mod 4) + p div 4 (a lane's C
+    columns 2t, 2t+1 are its A columns t, t+4)."""
+    return [r - r % 8 + 2 * (r % 4) + (r % 8) // 4 for r in range(k)]
+
+
+def quad_order(k: int) -> list:
+    """K order of the fold and of c1's SH rows: row 16p + 8h + q reads
+    input 16p + 4(q mod 4) + 2h + q div 4, so that a lane's A columns t,
+    t+4 of k-tiles 2p, 2p+1 are the four adjacent inputs 16p + 4t …
+    16p + 4t + 3 (one 16-B table load)."""
+    return [r - r % 16 + 4 * (r % 4) + 2 * ((r % 16) // 8) + (r % 8) // 4
+            for r in range(k)]
+
+
+def _plain_parts(params: dict) -> list:
+    """The fold and the nets, each in its JAX (in, out) layout: fold, s1,
+    s2, c1, c2, c3, n1, n2, m1 w, m1 b, m2 w, m2 b."""
     s, c, nn_, m = (params["sigma_net"], params["color_net"],
                     params["normal"], params["is_mirror"])
-    parts = [params["grid"]["fold"], s[0]["w"], s[1]["w"], c[0]["w"],
-             c[1]["w"], c[2]["w"], nn_[0]["w"], nn_[1]["w"], m[0]["w"],
-             m[0]["b"], m[1]["w"], m[1]["b"]]
-    return torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
+    return [params["grid"]["fold"], s[0]["w"], s[1]["w"], c[0]["w"],
+            c[1]["w"], c[2]["w"], nn_[0]["w"], nn_[1]["w"], m[0]["w"],
+            m[0]["b"], m[1]["w"], m[1]["b"]]
+
+
+def net_index(levels) -> torch.Tensor:
+    """Where each float of the kernel's packed nets comes from: an index
+    into the plain parts concatenated (`_plain_parts`, flattened) with one
+    zero appended, the zero for every padded row and column."""
+    sum_r = sum(r for _, r in levels)
+    shapes = [(sum_r, 32), (32, 64), (64, 16), (31, 64), (64, 64), (64, 3),
+              (15, 64), (64, 3), (15, 32), (1, 32), (32, 1), (1, 1)]
+    offs = [0]
+    for k, n in shapes:
+        offs.append(offs[-1] + k * n)
+    zero = offs[-1]
+
+    def rows(part, src_rows, n_pad):
+        """(len(src_rows), n_pad) indices: row j reads row src_rows[j] of
+        the part (None: zeros), columns past its width zeros."""
+        n = shapes[part][1]
+        idx = torch.full((len(src_rows), n_pad), zero, dtype=torch.long)
+        for j, r in enumerate(src_rows):
+            if r is not None:
+                idx[j, :n] = offs[part] + r * n + torch.arange(n)
+        return idx
+
+    fold, r0 = [], 0
+    for _, r in levels:
+        fold += [r0 + q if q < r else None
+                 for q in quad_order(padded_rank(r))]
+        r0 += r
+    geo = [None] + list(range(15))  # the σ column reads a zero row
+    heads = [geo[j] for j in c_order(16)]
+    c1 = quad_order(16) + [None if r is None else 16 + r for r in heads]
+    # each kernel matrix: its plain part and the part's row for each K row
+    src = {"s1": (1, c_order(32)), "s2": (2, c_order(64)), "c1": (3, c1),
+           "c2": (4, c_order(64)), "c3": (5, c_order(64)), "n1": (6, heads),
+           "n2": (7, c_order(64)), "m1": (8, heads), "m2": (10, c_order(32)),
+           "m1b": (9, [0]), "m2b": (11, [0])}
+    parts = [rows(0, fold, 32)]
+    for name, k, n in NET_LAYOUT:
+        part, src_rows = src[name]
+        assert len(src_rows) == k, name
+        parts.append(rows(part, src_rows, n))
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+_net_index: dict = {}  # (levels, device) -> net_index(levels) there
+
+
+def _pack_nets(params: dict, levels) -> torch.Tensor:
+    """The fold and the nets as the kernel reads them: the fold's rows in
+    `quad_order` per level (ranks padded to 16), then `NET_LAYOUT`, each
+    weight's K rows in `c_order` (c1's SH rows in `quad_order`), zero
+    rows for σ, columns padded to 8."""
+    parts = _plain_parts(params)
+    flat = torch.cat([p.reshape(-1) for p in parts]
+                     + [parts[0].new_zeros(1)]).to(torch.float32)
+    key = (tuple(levels), str(flat.device))
+    if key not in _net_index:
+        _net_index[key] = net_index(levels).to(flat.device)
+    return flat[_net_index[key]]
+
+
+def table_offsets(levels) -> list:
+    """The float offset of each (level, axis) table in `_pack_tables`'
+    buffer, level-major: each (G, R) table takes G·padded_rank(R)."""
+    offsets, off = [], 0
+    for g, r in levels:
+        for _ in range(3):
+            offsets.append(off)
+            off += g * padded_rank(r)
+    return offsets
 
 
 def _pack_tables(params: dict, levels):
-    """All (level, axis) tables in one flat buffer + their float offsets."""
+    """All (level, axis) tables in one flat buffer, each (G, R) table
+    zero-padded to (G, padded_rank(R)), + their float offsets."""
     axes = params["grid"]["axes"]
-    parts, offsets, off = [], [], 0
-    for li in range(len(levels)):
+    parts = []
+    for li, (_, r) in enumerate(levels):
         for a in range(3):
-            t = axes[a][li].reshape(-1)
-            parts.append(t)
-            offsets.append(off)
-            off += t.numel()
-    return torch.cat(parts).to(torch.float32), offsets
+            t = axes[a][li]
+            if padded_rank(r) != r:
+                t = torch.nn.functional.pad(t, (0, padded_rank(r) - r))
+            parts.append(t.reshape(-1))
+    return torch.cat(parts).to(torch.float32), table_offsets(levels)
 
 
 def check_inputs(dev, ins: dict) -> None:
@@ -216,28 +359,32 @@ def split_per_ray(weights, per_ray) -> dict:
     return res
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mnerf_fused_cp_composite.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_longlong, p, p, p, i, i, i,
-            ctypes.c_float, i, i, i, p, p, p, p]
-        lib.mnerf_fused_cp_composite.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+# the entry's arguments before the card and the stream (_build.Library):
+# pos, rays_d, vdir, z, deltas, tables, nets, n_nets, level_g, level_r,
+# table_off, n_levels, n_rays, S, bound, mode, sigma_only, softplus,
+# weights, per_ray, rows
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_library = Library(_LIB, {"mnerf_fused_cp_composite": [
+    _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
+    ctypes.c_float, _I, _I, _I, _P, _P, _P]}, _REFUSALS)
+_F32 = (torch.float32,)
+_level_args: dict = {}  # levels -> the entry's host arrays
+
+
+def _levels_c(levels):
+    """level_g, level_r (padded ranks) and table_off as ctypes arrays."""
+    if levels not in _level_args:
+        n = len(levels)
+        offs = table_offsets(levels)
+        _level_args[levels] = (
+            (ctypes.c_int * n)(*[g for g, _ in levels]),
+            (ctypes.c_int * n)(*[padded_rank(r) for _, r in levels]),
+            (ctypes.c_longlong * len(offs))(*offs))
+    return _level_args[levels]
 
 
 def _launch(field, params: dict, mode: int, ins: dict, n: int, s: int,
@@ -256,9 +403,10 @@ def _launch(field, params: dict, mode: int, ins: dict, n: int, s: int,
             "parameter requires grad: run them under torch.no_grad(), or "
             "train through the differentiable kernels of "
             "ops/fused_cp_train.py")
-    dev = ins["z"].device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused CP kernel needs CUDA tensors, got {dev}")
+    z = ins["z"]
+    if not z.is_cuda:
+        raise ValueError(f"the fused CP kernel needs CUDA tensors, got "
+                         f"{z.device}")
     if sigma_act not in _ACTS:
         raise ValueError(f"sigma_act must be one of {_ACTS}")
     if not field.supports_fused_cp:
@@ -266,30 +414,20 @@ def _launch(field, params: dict, mode: int, ins: dict, n: int, s: int,
                          "(TPUGridField.supports_fused_cp)")
     if n == 0:
         return
-    lib = _library()
     levels = tuple(field.grid_levels)
-    nets = _pack_nets(params)
-    tables, offsets = _pack_tables(params, levels)
-    if nets.device != dev or tables.device != dev:
-        raise ValueError(f"params must lie on {dev}")
-    g_arr = (ctypes.c_int * len(levels))(*[g for g, _ in levels])
-    r_arr = (ctypes.c_int * len(levels))(*[r for _, r in levels])
-    off_arr = (ctypes.c_longlong * len(offsets))(*offsets)
-    with torch.cuda.device(dev):  # the runtime launches on the current one
-        rc = lib.mnerf_fused_cp_composite(
-            _ptr(ins["pos"]), _ptr(ins["rays_d"]), _ptr(ins["vdir"]),
-            _ptr(ins["z"]), _ptr(ins["deltas"]), tables.data_ptr(),
-            nets.data_ptr(), nets.numel(), g_arr, r_arr, off_arr,
-            len(levels), n, s, float(field.bound), mode, int(sigma_only),
-            int(sigma_act == "softplus"), _ptr(outs.get("weights")),
-            _ptr(outs.get("per_ray")), _ptr(outs.get("rows")),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc < 0:
-        raise ValueError(f"fused CP kernel refused its arguments: "
-                         f"{_REFUSALS.get(rc, rc)}")
-    if rc > 0:
-        raise RuntimeError("fused CP kernel launch failed: "
-                           + lib.mnerf_cuda_error_string(rc).decode())
+    nets = _pack_nets(params, levels)
+    tables, _ = _pack_tables(params, levels)
+    dev = card_index("fused CP", ("z_vals", z, _F32, 4),
+                     ("nets", nets, _F32, 16), ("tables", tables, _F32, 16))
+    g_arr, r_arr, off_arr = _levels_c(levels)
+    _library.launch(
+        "mnerf_fused_cp_composite", "fused CP", dev, _ptr(ins["pos"]),
+        _ptr(ins["rays_d"]), _ptr(ins["vdir"]), z.data_ptr(),
+        _ptr(ins["deltas"]), tables.data_ptr(), nets.data_ptr(),
+        nets.numel(), g_arr, r_arr, off_arr, len(levels), n, s,
+        float(field.bound), mode, int(sigma_only),
+        int(sigma_act == "softplus"), _ptr(outs.get("weights")),
+        _ptr(outs.get("per_ray")), _ptr(outs.get("rows")))
     if mode == COMPOSITE:
         launches += 1
     elif mode == ROWS:

@@ -27,6 +27,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import Library, card_index
+
 _LIB = "fused_cp_train"
 # the kernel entries' negative return codes (see mnerf_cp_train_fwd)
 _REFUSALS = {-1: "the level count is outside [1, 8]",
@@ -59,35 +61,18 @@ def density_with_grad_reference(field, params: dict, xyz: torch.Tensor):
     return sigma, geo, grad
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mnerf_cp_train_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i,
-                                           p, p, p, p]
-        lib.mnerf_cp_train_fwd.restype = i
-        lib.mnerf_cp_train_bwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i,
-                                           i, p, p, p, p, p, p, p, p, p]
-        lib.mnerf_cp_train_bwd.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc < 0:
-        raise ValueError(f"fused CP train {what} kernel refused its "
-                         f"arguments: {_REFUSALS.get(rc, rc)}")
-    if rc > 0:
-        raise RuntimeError(f"fused CP train {what} kernel launch failed: "
-                           + _library().mnerf_cuda_error_string(rc).decode())
+# the entries' arguments before the card and the stream (_build.Library):
+# forward xyz, fold, s1, s2, tables, level_g, level_r, n_levels, n, bound,
+# tangents, sigma, geo, grad; backward xyz, fold, s1, s2, tables, level_g,
+# level_r, n_levels, n, bound, tangents, need_dx, dsig, dgeo, dgrad, dx,
+# d_tables, d_fold, d_s1, d_s2
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_F32 = (torch.float32,)
+_library = Library(_LIB, {
+    "mnerf_cp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P,
+                           _P, _P],
+    "mnerf_cp_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P]}, _REFUSALS)
 
 
 def _ptrs(tensors):
@@ -103,49 +88,44 @@ def _level_args(levels):
 def _inputs(field, xyz, fold, s1, s2, tables):
     """Check what the kernels take: contiguous float32 on one CUDA device,
     xyz (T, 3), tables (G, R) per level and axis (level-major), fold
-    (ΣR, 32), s1 (32, 64), s2 (64, 16)."""
-    dev = xyz.device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused CP train kernels need CUDA tensors, got "
-                         f"{dev}")
+    (ΣR, 32), s1 (32, 64), s2 (64, 16). Returns the levels and the card's
+    index."""
+    want = {"xyz": (xyz, (xyz.shape[0], 3)), "fold": (fold, None),
+            "s1": (s1, (32, 64)), "s2": (s2, (64, 16))}
+    for k, t in enumerate(tables):
+        want[f"axes/{k % 3}/{k // 3}"] = (t, None)
+    dev = card_index("fused CP train", *((name, t, _F32, 4)
+                                          for name, (t, _) in want.items()))
     if not field.supports_fused_train:
         raise ValueError("the fused CP train kernels need the 2-layer, "
                          "64-wide σ-net with 15 geo features "
                          "(TPUGridField.supports_fused_train)")
     levels = tuple(field.grid_levels)
-    want = {"xyz": (xyz, (xyz.shape[0], 3)),
-            "fold": (fold, (sum(r for _, r in levels), 32)),
-            "s1": (s1, (32, 64)), "s2": (s2, (64, 16))}
+    want["fold"] = (fold, (sum(r for _, r in levels), 32))
     for k, t in enumerate(tables):
         want[f"axes/{k % 3}/{k // 3}"] = (t, levels[k // 3])
     for name, (t, shape) in want.items():
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous float32 {tuple(shape)} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
-    return levels
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: need a {tuple(shape)} tensor, got "
+                             f"{tuple(t.shape)}")
+    return levels, dev
 
 
 def _forward(field, tangents: bool, xyz, fold, s1, s2, tables):
     global launches_fwd
-    levels = _inputs(field, xyz, fold, s1, s2, tables)
+    levels, dev = _inputs(field, xyz, fold, s1, s2, tables)
     t = xyz.shape[0]
     sigma = torch.empty((t,), dtype=torch.float32, device=xyz.device)
     geo = torch.empty((t, 15), dtype=torch.float32, device=xyz.device)
     grad = torch.empty((t, 3), dtype=torch.float32, device=xyz.device)
     if t == 0:
         return sigma, geo, grad
-    lib = _library()
     g_arr, r_arr, nl = _level_args(levels)
-    with torch.cuda.device(xyz.device):
-        rc = lib.mnerf_cp_train_fwd(
-            xyz.data_ptr(), fold.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            _ptrs(tables), g_arr, r_arr, nl, t, float(field.bound),
-            int(tangents), sigma.data_ptr(), geo.data_ptr(), grad.data_ptr(),
-            torch.cuda.current_stream(xyz.device).cuda_stream)
-    _check(rc, "forward")
+    _library.launch("mnerf_cp_train_fwd", "fused CP train forward", dev,
+                    xyz.data_ptr(), fold.data_ptr(),
+                    s1.data_ptr(), s2.data_ptr(), _ptrs(tables), g_arr, r_arr,
+                    nl, t, float(field.bound), int(tangents),
+                    sigma.data_ptr(), geo.data_ptr(), grad.data_ptr())
     launches_fwd += 1
     return sigma, geo, grad
 
@@ -155,7 +135,7 @@ def _backward(field, tangents: bool, need_dx: bool, xyz, fold, s1, s2,
     """Launch the backward kernel; returns (dx or None, d_fold, d_s1, d_s2,
     d_tables)."""
     global launches_bwd
-    levels = _inputs(field, xyz, fold, s1, s2, tables)
+    levels, dev = _inputs(field, xyz, fold, s1, s2, tables)
     t = xyz.shape[0]
 
     def cot(c, shape):
@@ -172,18 +152,15 @@ def _backward(field, tangents: bool, need_dx: bool, xyz, fold, s1, s2,
         if need_dx else None
     if t == 0:
         return dx, d_fold, d_s1, d_s2, d_tables
-    lib = _library()
     g_arr, r_arr, nl = _level_args(levels)
-    with torch.cuda.device(xyz.device):
-        rc = lib.mnerf_cp_train_bwd(
-            xyz.data_ptr(), fold.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            _ptrs(tables), g_arr, r_arr, nl, t, float(field.bound),
-            int(tangents), int(need_dx), dsig.data_ptr(), dgeo.data_ptr(),
-            None if dgrad is None else dgrad.data_ptr(),
-            None if dx is None else dx.data_ptr(), _ptrs(d_tables),
-            d_fold.data_ptr(), d_s1.data_ptr(), d_s2.data_ptr(),
-            torch.cuda.current_stream(xyz.device).cuda_stream)
-    _check(rc, "backward")
+    _library.launch("mnerf_cp_train_bwd", "fused CP train backward", dev,
+                    xyz.data_ptr(), fold.data_ptr(),
+                    s1.data_ptr(), s2.data_ptr(), _ptrs(tables), g_arr, r_arr,
+                    nl, t, float(field.bound), int(tangents), int(need_dx),
+                    dsig.data_ptr(), dgeo.data_ptr(),
+                    None if dgrad is None else dgrad.data_ptr(),
+                    None if dx is None else dx.data_ptr(), _ptrs(d_tables),
+                    d_fold.data_ptr(), d_s1.data_ptr(), d_s2.data_ptr())
     launches_bwd += 1
     return dx, d_fold, d_s1, d_s2, d_tables
 

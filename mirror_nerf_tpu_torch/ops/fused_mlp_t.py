@@ -12,8 +12,9 @@ normalize them either).
   * `mlp_rays_composite_reference` is the plain PyTorch version: the field
     modules of models/fields.py + the exclusive-prefix transmittance.
   * `fused_t_composite_cuda` launches the hand-written kernel
-    `csrc/fused_mlp_t.cu` (sm_90a; see its source note) and counts its
-    launches in the module-level `launches`.
+    `csrc/fused_mlp_t.cu` (sm_90a; see its source note) through
+    `_build.Library` and counts its launches in the module-level
+    `launches`.
   * `fused_t_rays_composite` dispatches on the device of the inputs: the
     plain version for CPU tensors, the kernel for CUDA tensors. There is no
     fallback: a kernel that fails to build or launch raises.
@@ -30,6 +31,7 @@ import torch
 from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
 from ..train.checkpoints import tree_leaves
+from ._build import Library, card_index
 from .fused_cp import (check_ray_inputs, on_cpu, prefix_weights, prep,
                        split_per_ray)
 
@@ -92,24 +94,15 @@ def _pack(params: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mnerf_fused_mlp_t.argtypes = [p, p, p, p, p, ctypes.c_longlong,
-                                          i, i, i, i, i, i, i, i, i, p, p, p,
-                                          p]
-        lib.mnerf_fused_mlp_t.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+# the entry's arguments before the card and the stream (_build.Library):
+# rays_o, rays_d, view_dirs, z_vals, nets, n_nets, n_rays, n_samples,
+# n_emb_xyz, n_emb_dir, has_normal, has_mirror, sigma_only, softplus,
+# rows_mode, weights, per_ray, rows
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F32 = (torch.float32,)
+_library = Library(_LIB, {"mnerf_fused_mlp_t": [
+    _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I,
+    _I, _P, _P, _P]}, _REFUSALS)
 
 
 def check_kernel_call(field, params: dict, inputs, sigma_act: str,
@@ -125,10 +118,9 @@ def check_kernel_call(field, params: dict, inputs, sigma_act: str,
             f"the fused PE-MLP {what} kernel is forward-only, and an input "
             "or a parameter requires grad: run it under torch.no_grad(), or "
             "render through the plain field modules (fused_field off)")
-    dev = inputs[-1].device
-    if dev.type != "cuda":
+    if not inputs[-1].is_cuda:
         raise ValueError(f"the fused PE-MLP {what} kernel needs CUDA "
-                         f"tensors, got {dev}")
+                         f"tensors, got {inputs[-1].device}")
     if sigma_act not in _ACTS:
         raise ValueError(f"sigma_act must be one of {_ACTS}")
     if not field.supports_fused:
@@ -143,29 +135,20 @@ def launch_kernel(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
     inputs and allocated outputs: composite mode writes weights and per_ray,
     rows mode rows. Raises on a refusal or a failed launch."""
     n, s = z_vals.shape
-    dev = z_vals.device
-    lib = _library()
     nets = _pack(params)
-    if nets.device != dev:
-        raise ValueError(f"params must lie on {dev}")
+    dev = card_index("fused PE-MLP", ("z_vals", z_vals, _F32, 4),
+                     ("nets", nets, _F32, 16))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):  # the runtime launches on the current one
-        rc = lib.mnerf_fused_mlp_t(
-            rays_o.data_ptr(), rays_d.data_ptr(), ptr(view_dirs),
-            z_vals.data_ptr(), nets.data_ptr(), nets.numel(), n, s,
-            field.N_emb_xyz, field.N_emb_dir, int(field.predict_normal),
-            int(field.predict_mirror_mask), int(sigma_only), int(softplus),
-            int(rows_mode), ptr(weights), ptr(per_ray), ptr(rows),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc < 0:
-        raise ValueError(f"fused PE-MLP kernel refused its arguments: "
-                         f"{_REFUSALS.get(rc, rc)}")
-    if rc > 0:
-        raise RuntimeError("fused PE-MLP kernel launch failed: "
-                           + lib.mnerf_cuda_error_string(rc).decode())
+    _library.launch(
+        "mnerf_fused_mlp_t", "fused PE-MLP", dev,
+        rays_o.data_ptr(), rays_d.data_ptr(), ptr(view_dirs),
+        z_vals.data_ptr(), nets.data_ptr(), nets.numel(), n, s,
+        field.N_emb_xyz, field.N_emb_dir, int(field.predict_normal),
+        int(field.predict_mirror_mask), int(sigma_only), int(softplus),
+        int(rows_mode), ptr(weights), ptr(per_ray), ptr(rows))
 
 
 def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,

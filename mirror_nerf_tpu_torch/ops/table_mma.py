@@ -12,7 +12,7 @@ note) for two operand types:
 
 It dispatches on the device of its inputs: CPU tensors take the plain
 version `table_mma_reference`, CUDA tensors launch the kernel through
-`table_mma_cuda` or raise (no fallback). Launches are counted per type in
+`table_mma_cuda` (on `_build.Library`) or raise (no fallback). Launches are counted per type in
 `launches_int8` and `launches_bf16`.
 
 The basis is three fp32 roundings, as the JAX body computes it (and as the
@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ._build import check_rc, on_card
+from ._build import Library, card_index, on_card
 
 _LIB = "table_mma"
 _REFUSALS = {-1: "g is not a positive multiple of 64 below 2**24",
@@ -75,22 +75,13 @@ def _check_shapes(x: torch.Tensor, t: torch.Tensor) -> None:
 
 # ---- the CUDA kernel (csrc/table_mma.cu) ----
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._build import load_library
-
-        lib = load_library(_LIB)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mnerf_table_mma.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.mnerf_table_mma.restype = i
-        lib.mnerf_cuda_error_string.argtypes = [i]
-        lib.mnerf_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+# the entry's arguments before the card and the stream (_build.Library):
+# t, x, out, nb, nt, r, g, lanes, kind
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_library = Library(_LIB, {"mnerf_table_mma": [_P, _P, _P, _I, _I, _I, _I,
+                                               _I, _I]}, _REFUSALS)
+_TABLES = tuple(KINDS)
+_F32 = (torch.float32,)
 
 
 def table_mma_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -98,22 +89,14 @@ def table_mma_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     not take: g a multiple of 64, L of 128, contiguous 16-B aligned
     inputs)."""
     global launches_int8, launches_bf16
-    for name, v in (("x", x), ("t", t)):
-        if v.device.type != "cuda":
-            raise ValueError(f"the table-mma kernel needs CUDA tensors, got "
-                             f"{name} on {v.device}")
-        if not v.is_contiguous() or v.data_ptr() % 16:
-            raise ValueError(f"{name}: need a contiguous, 16-B aligned "
-                             "tensor")
+    dev = card_index("table-mma", ("x", x, _F32, 16), ("t", t, _TABLES, 16))
     _check_shapes(x, t)
     nb, _, lanes = x.shape
     nt, r, g = t.shape
-    out = torch.empty((nb, r, lanes), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().mnerf_table_mma(
-            t.data_ptr(), x.data_ptr(), out.data_ptr(), nb, nt, r, g, lanes,
-            KINDS[t.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    check_rc(_library(), rc, "table-mma", _REFUSALS)
+    out = x.new_empty((nb, r, lanes))
+    _library.launch("mnerf_table_mma", "table-mma", dev, t.data_ptr(),
+                    x.data_ptr(), out.data_ptr(), nb, nt, r, g, lanes,
+                    KINDS[t.dtype])
     if t.dtype == torch.int8:
         launches_int8 += 1
     else:
@@ -124,6 +107,6 @@ def table_mma_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def table_mma(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """out_b = Σ_j t_j @ basis_j(x_b). CPU tensors take the plain version,
     CUDA tensors the kernel."""
-    if on_card("table mma", x, t):
+    if x.is_cuda or on_card("table mma", x, t):
         return table_mma_cuda(x, t)
     return table_mma_reference(x, t)

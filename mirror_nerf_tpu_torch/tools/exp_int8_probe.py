@@ -20,11 +20,14 @@ wrapper is the plain version and runs at a small size (g 64, r 16, lanes
 
 Timing (the card only; CUDA events over `--reps` back-to-back calls, best of
 `--dispatches`, and the device time per call from a torch.profiler trace):
-the kernel, the plain version, and the library yardstick — the same
-products from a basis built beforehand by PyTorch, one GEMM per table,
-(r, g) @ (g, blocks·lanes), `torch._int_mm` for int8 and `torch.matmul` for
-bf16 (timed only; the port never calls it). Rates in TOP/s (int8) and
-TFLOP/s (bf16) of the products' 2·blocks·tables·r·g·lanes operations.
+the kernel, the plain version, and two library figures, timed only (the
+port never calls them). No single PyTorch call computes the function:
+"GEMMs only" is one GEMM per table, (r, g) @ (g, blocks·lanes),
+`torch._int_mm` for int8 and `torch.matmul` for bf16, on bases PyTorch
+built beforehand (at the defaults 64 × 9 × 512 × 1024 values, 604 MB in
+bf16: less work than the kernel does); "build + GEMMs" also builds the
+bases in each call, the same function as the kernel. Rates in TOP/s (int8)
+and TFLOP/s (bf16) of the products' 2·blocks·tables·r·g·lanes operations.
 
 It imports only torch and the port, and builds the kernel at first use.
 `main` returns the numbers as a dict.
@@ -96,15 +99,20 @@ def parity(device, size: dict, seed: int = 0) -> dict:
     return out
 
 
-def _library_call(x, t, name):
-    """The yardstick: one GEMM per table on a basis PyTorch built
-    beforehand as (g, blocks·lanes)."""
+def _library_call(x, t, name, build: bool = False):
+    """The yardstick: one GEMM per table on a basis (g, blocks·lanes) that
+    PyTorch built beforehand, or, with `build`, builds in each call."""
     nt, r, g = t.shape
-    bases = [tm.basis_reference(x, g, j, t.dtype).permute(1, 0, 2)
-             .reshape(g, -1).contiguous() for j in range(nt)]
-    if name == "int8":
-        return lambda: [torch._int_mm(t[j], bases[j]) for j in range(nt)]
-    return lambda: [torch.matmul(t[j], bases[j]) for j in range(nt)]
+
+    def bases():
+        return [tm.basis_reference(x, g, j, t.dtype).permute(1, 0, 2)
+                .reshape(g, -1).contiguous() for j in range(nt)]
+
+    mm = torch._int_mm if name == "int8" else torch.matmul
+    if build:
+        return lambda: [mm(t[j], b) for j, b in enumerate(bases())]
+    built = bases()
+    return lambda: [mm(t[j], built[j]) for j in range(nt)]
 
 
 def bench(size: dict, reps: int, dispatches: int, seed: int = 1) -> dict:
@@ -118,13 +126,17 @@ def bench(size: dict, reps: int, dispatches: int, seed: int = 1) -> dict:
             return tm.table_mma(x, t)
 
         lib = _library_call(x, t, name)
+        lib_build = _library_call(x, t, name, build=True)
         ms = min(time_ms(kern, reps) for _ in range(dispatches))
         lib_ms = min(time_ms(lib, reps) for _ in range(dispatches))
+        build_ms = min(time_ms(lib_build, reps) for _ in range(dispatches))
         plain_ms = time_ms(lambda: tm.table_mma_reference(x, t), 3)
         res[name] = {
             "ms": ms, "device_ms": device_ms(kern, reps),
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_device_ms": device_ms(lib, reps),
+            "library_build_ms": build_ms,
+            "library_build_device_ms": device_ms(lib_build, reps),
             "rate": ops / ms / 1e9, "plain_rate": ops / plain_ms / 1e9,
             "library_rate": ops / lib_ms / 1e9}
     return res
@@ -171,9 +183,11 @@ def main(argv=None) -> dict:
                 print(f"{kind}: kernel {v['ms']:.4f} ms (device "
                       f"{v['device_ms']:.4f}) {v['rate']:.1f} {unit}; plain "
                       f"{v['plain_ms']:.3f} ms {v['plain_rate']:.2f} {unit}; "
-                      f"library {v['library_ms']:.4f} ms (device "
-                      f"{v['library_device_ms']:.4f}) "
-                      f"{v['library_rate']:.1f} {unit}")
+                      f"library, GEMMs only {v['library_ms']:.4f} ms "
+                      f"(device {v['library_device_ms']:.4f}) "
+                      f"{v['library_rate']:.1f} {unit}; library, build + "
+                      f"GEMMs {v['library_build_ms']:.4f} ms (device "
+                      f"{v['library_build_device_ms']:.4f})")
     return result
 
 

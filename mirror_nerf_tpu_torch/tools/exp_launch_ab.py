@@ -22,9 +22,24 @@ library call where there is one:
     and `torch.cumsum` on the segment view (inclusive: timed only);
   weights: WEIGHTS (`prefix_weights`) on the same size, S = 128;
   floor: the launch floor's SMALL wrapper `axpb(x, out)` on (8, 128), and
-    `torch.add(1e-6, x, alpha=1.000001, out=y)`.
+    `torch.add(1e-6, x, alpha=1.000001, out=y)`;
+  moved_cp, moved_train, moved_mlp, moved_mma: the four libraries that
+    last moved onto the launch path, at small shapes: the CP
+    composite (one ray, S = 16, default field), the CP train forward
+    (tangents, 1024 points), the flagship composite (one ray, S = 16) and
+    the int8 table products (2 blocks, g 64, r 16, 128 lanes).
+With `--groups composite`, the CP composite kernel at the main path's
+shapes (16384 strided rays of the 800×800 camera, the default field,
+seeded weights; 20 calls a round, best of 3): COMPOSITE S = 128 full and
+S = 64 σ-only, ROWS S = 128 full, SAMPLES S = 128 full; and each tree's
+composite library's registers and spills (ptxas) and its SASS counts of
+HMMA, FFMA, LDS and LDG per instance. With `--groups view`: one 800×800
+level-2 CP view through each tree's `run_view` (run.sh mode-1 nerf_tpu
+flags, --fused_field, chunk 16384, seeded and all-mirror weights made once
+and handed to both), a warm view each, then 3 rounds in turns.
 Each group is also checked: the two trees' outputs agree (GATHER and the
-floor bit for bit, the rest within their kernels' bars).
+floor bit for bit, the views within 1e-3, the rest within their kernels'
+bars).
 
 It imports only torch and the two trees' ports. `main` returns the numbers
 as a dict.
@@ -43,13 +58,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import _build, hashgrid, invoke_floor, segment_scan
+from ..ops import (_build, fused_cp, fused_cp_train, fused_mlp_t, hashgrid,
+                   invoke_floor, segment_scan, table_mma)
 from .exp_hash_inkernel import (DENSE_SAMPLES, DENSE_SCALE, DENSE_SIDE,
                                 IDX_SHAPE, TABLE_ROWS, _grid_sample_args)
 from .exp_reshape_probe import PREFIX_BAR, path_input, with_sentinel
 from .timing import per_call_ms
 
-LIBS = ("segment_scan", "hashgrid", "invoke_floor")
+LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
+        "fused_cp_train", "fused_mlp_t", "table_mma")
+GROUPS = ("launch", "composite", "view")
+KERNEL_BAR = 1e-4  # the composite's bar against its plain version
+VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
 
 
@@ -66,6 +86,11 @@ def load_other(root) -> dict:
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{OTHER}.ops.{name}")
             for name in ("_build", *LIBS)}
+
+
+def _libraries(mods: dict) -> list:
+    """The kernel libraries (`_LIB` names) of a tree's modules."""
+    return [mods[name]._LIB for name in LIBS]
 
 
 def _groups(other: dict, seed: int) -> dict:
@@ -117,7 +142,128 @@ def _groups(other: dict, seed: int) -> dict:
         {"this": lambda: fl.axpb(a, b), "other": lambda: ofl.axpb(a, c),
          "library": lambda: torch.add(eps, a, alpha=float(fl.SCALE),
                                       out=c)}, 0.0)
+    groups.update(_moved_groups(other, rng))
     return groups
+
+
+def _moved_groups(other: dict, rng, dev: str = "cuda") -> dict:
+    """The four libraries that last moved onto the launch path (the CP
+    composite, the train kernels, the flagship, the table products), at
+    small shapes."""
+    from ..models.fields import MirrorNeRFField
+    from ..models.tpugrid import TPUGridField
+
+    g = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    cp_field, mlp_field = TPUGridField(bound=6.0), MirrorNeRFField()
+    cpp = cp_field.init(g, dev)
+    mlpp = mlp_field.init(g, dev)
+    o = torch.zeros((1, 3), device=dev)
+    d = torch.tensor([[0.0, 0.6, 0.8]], device=dev)
+    z = torch.linspace(0.5, 4.0, 16, device=dev)[None]
+    x = (torch.rand((1024, 3), generator=g) * 4 - 2).to(dev)
+    tr, otr = fused_cp_train, other["fused_cp_train"]
+    x8 = torch.from_numpy(rng.random((2, 1, 128), dtype=np.float32)).to(dev)
+    t8 = torch.from_numpy(rng.integers(-127, 127, (3, 16, 64)).astype(
+        np.int8)).to(dev)
+
+    def cat(res: dict):
+        return torch.cat([v.reshape(-1).float() for v in res.values()])
+
+    return {
+        "moved_cp": ({"this": lambda: cat(fused_cp.fused_cp_rays_composite(
+                      cp_field, cpp, o, d, d, z)),
+                   "other": lambda: cat(other["fused_cp"].
+                                        fused_cp_rays_composite(
+                                            cp_field, cpp, o, d, d, z))},
+                  KERNEL_BAR),
+        "moved_train": ({"this": lambda: tr.density_with_grad_fused(
+                          cp_field, cpp, x)[2],
+                      "other": lambda: otr.density_with_grad_fused(
+                          cp_field, cpp, x)[2]}, 0.0),
+        "moved_mlp": ({"this": lambda: cat(fused_mlp_t.fused_t_rays_composite(
+                        mlp_field, mlpp, o, d, d, z)),
+                    "other": lambda: cat(other["fused_mlp_t"].
+                                         fused_t_rays_composite(
+                                             mlp_field, mlpp, o, d, d, z))},
+                   0.0),
+        "moved_mma": ({"this": lambda: table_mma.table_mma(x8, t8),
+                    "other": lambda: other["table_mma"].table_mma(x8, t8)},
+                   0.0)}
+
+
+def camera_rays(size: int = 800) -> np.ndarray:
+    """The bench camera's size×size rays (chip_smoke's: the first pose of
+    the procedural ring, 0.9 rad across), (size², 8)."""
+    from ..core.rays import get_ray_directions, get_rays, make_ray_buffer
+    from ..data.synthetic import camera_ring
+
+    focal = 0.5 * size / np.tan(0.45)
+    ro, rd = get_rays(get_ray_directions(size, size, focal),
+                      camera_ring(1)[0])
+    return make_ray_buffer(ro, rd, 0.05, 8.0)
+
+
+def _main_path_rays(n: int = 16384, dev: str = "cuda"):
+    """n strided rays of the 800×800 bench camera: o, d (n, 3) and the
+    coarse depths z (n, 64)."""
+    from ..core.sampling import stratified_z_vals
+
+    rays_np = camera_rays()
+    rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).to(dev)
+    z64 = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 64).contiguous()
+    return rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous(), z64
+
+
+def _composite_groups(other: dict, n: int = 16384,
+                      dev: str = "cuda") -> dict:
+    """The CP composite's three modes at the main path's shapes, both
+    trees on the same inputs."""
+    from ..core.sampling import merge_fine_z_vals
+    from ..models.tpugrid import TPUGridField
+
+    field = TPUGridField(bound=6.0, predict_normal=True,
+                         predict_mirror_mask=True)
+    p = field.init(torch.Generator().manual_seed(0), dev)
+    s2 = p["sigma_net"][1]["w"].clone()
+    s2[:, 0] = s2[:, 0].abs() * 5.0
+    p["sigma_net"] = [p["sigma_net"][0], {"w": s2}]
+    o, d, z64 = _main_path_rays(n, dev)
+    coarse = fused_cp.cp_rays_composite_reference(field, p, o, d, d, z64,
+                                                  sigma_only=True)
+    z128 = merge_fine_z_vals(z64, coarse["weights"], 64, 0.0).contiguous()
+    xyz = (o[:, None, :] + d[:, None, :] * z128[..., None]).contiguous()
+    v = d[:, None, :].expand_as(xyz).contiguous()
+    deltas = torch.cat([z128[:, 1:] - z128[:, :-1],
+                        torch.full_like(z128[:, :1], 1e10)], -1)
+    ocp = other["fused_cp"]
+
+    def cat(res: dict):
+        return torch.cat([t.reshape(-1) for t in res.values()])
+
+    calls = {
+        "composite_s128": lambda m: m.fused_cp_rays_composite(
+            field, p, o, d, d, z128),
+        "composite_s64_sigma": lambda m: m.fused_cp_rays_composite(
+            field, p, o, d, d, z64, sigma_only=True),
+        "rows_s128": lambda m: m.fused_cp_rays_eval(field, p, o, d, d, z128),
+        "samples_s128": lambda m: m.fused_cp_forward_composite(
+            field, p, xyz, v, z128, deltas)}
+    return {name: ({"this": lambda c=c: cat(c(fused_cp)),
+                    "other": lambda c=c: cat(c(ocp))}, KERNEL_BAR)
+            for name, c in calls.items()}
+
+
+def composite_code(other: dict) -> dict:
+    """Each tree's composite library: ptxas' registers and spills, and the
+    SASS counts of every `cp_field_kernel` instance."""
+    res = {}
+    for tree, b in (("this", _build), ("other", other["_build"])):
+        log = [ln.strip() for ln in b.build_log.get(
+            "fused_cp_composite", "").splitlines()
+            if "registers" in ln or "spill" in ln]
+        res[tree] = {"ptxas": log, "sass": _build.sass_counts(
+            b.library_path("fused_cp_composite"), "cp_field_kernel")}
+    return res
 
 
 def _agree(fns: dict, bar: float) -> float:
@@ -136,16 +282,92 @@ def _agree(fns: dict, bar: float) -> float:
     return worst
 
 
-def bench(other: dict, seed: int = 1) -> dict:
+def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
     """Per group: µs per call of each function (in turns) and the largest
     difference between the two trees' outputs."""
     res = {}
     with torch.no_grad():
-        for group, (fns, bar) in _groups(other, seed).items():
+        todo = {}
+        if "launch" in groups:
+            todo.update((k, (v, 200, 5)) for k, v in
+                        _groups(other, seed).items())
+        if "composite" in groups:
+            todo.update((k, (v, 20, 3)) for k, v in
+                        _composite_groups(other).items())
+        for group, ((fns, bar), reps, rounds) in todo.items():
             diff = _agree(fns, bar)
-            us = {k: v * 1e3 for k, v in per_call_ms(fns).items()}
+            us = {k: v * 1e3 for k, v in
+                  per_call_ms(fns, reps, rounds).items()}
             res[group] = {"us": us, "max_diff": diff}
+        if "view" in groups:
+            res["view"] = view_ab(other)
     return res
+
+
+# run.sh mode 1, MODEL_TYPE=nerf_tpu, with --fused_field (chip_smoke.py)
+VIEW_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far", "8",
+              "--model_type", "nerf_tpu", "--predict_normal",
+              "--predict_mirror_mask", "--trace_secondary_rays",
+              "--bound", "6", "--N_importance", "64", "--chunk", "16384",
+              "--fused_field", "--max_recursive_level", "2",
+              "--img_wh", "800", "800"]
+
+
+def view_ab(other: dict, rounds: int = 3, size: int = 800,
+            device: str = "cuda", extra=()) -> dict:
+    """One size×size level-2 CP view through each tree's `run_view`,
+    seeded and all-mirror weights (the same tensors for both), in turns:
+    rays/s of the best round each (a CPU run times nothing), and the
+    largest difference of rgb_fine."""
+    import time
+
+    from ..eval import get_opt
+    from ..eval.cli import init_params
+    from ..models.fields import make_field
+
+    cfg, args = get_opt(VIEW_FLAGS[:-3] + ["--img_wh", str(size), str(size),
+                                           *extra])
+    field = make_field(cfg)
+    seeded = init_params(field, cfg, device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mirror = {}
+    for k, side in seeded.items():
+        m = dict(side)
+        s2 = side["sigma_net"][1]["w"].clone()
+        s2[:, 0] = s2[:, 0].abs() * 5.0
+        m["sigma_net"] = [side["sigma_net"][0], {"w": s2}]
+        m2 = dict(side["is_mirror"][1])
+        m2["b"] = m2["b"] + 5.0
+        m["is_mirror"] = [side["is_mirror"][0], m2]
+        mirror[k] = m
+    rays_np = camera_rays(size)
+    sample = {"rays": rays_np}
+    out = {}
+    for label, params in (("seeded", seeded), ("all_mirror", mirror)):
+        runs = {}
+        for tree, prefix in (("this", "mirror_nerf_tpu_torch"),
+                             ("other", OTHER)):
+            apps = importlib.import_module(f"{prefix}.eval.apps")
+            ctx = apps.AppContext.build(cfg, args, field, params, device)
+            runs[tree] = (apps.run_view, ctx)
+        first = {t: fn(ctx, sample) for t, (fn, ctx) in runs.items()}
+        diff = float(np.abs(first["this"]["rgb_fine"]
+                            - first["other"]["rgb_fine"]).max())
+        assert diff <= VIEW_BAR, (label, diff)
+        best = {t: float("inf") for t in runs}
+        for r in range(rounds):
+            for t in (("other", "this") if r % 2 == 0 else
+                      ("this", "other")):
+                fn, ctx = runs[t]
+                sync()
+                t0 = time.perf_counter()
+                fn(ctx, sample)
+                sync()
+                best[t] = min(best[t], time.perf_counter() - t0)
+        out[label] = {"rays_per_s": {t: len(rays_np) / v
+                                     for t, v in best.items()},
+                      "rgb_max_diff": diff}
+    return out
 
 
 def main(argv=None) -> dict:
@@ -153,19 +375,39 @@ def main(argv=None) -> dict:
     ap.add_argument("--other", required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--groups", nargs="+", choices=GROUPS,
+                    default=["launch"],
+                    help="launch: the wrappers' per-call times; composite: "
+                         "the CP composite at the main path's shapes; view: "
+                         "the 800×800 CP view")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the launch path is timed on a card")
     other = load_other(args.other)
+    this = {name: globals()[name] for name in LIBS}
     with ThreadPoolExecutor(2) as pool:  # both trees' kernels at once
-        list(pool.map(lambda b: b.build_libraries(LIBS),
-                      (_build, other["_build"])))
+        list(pool.map(lambda t: t[0].build_libraries(_libraries(t[1])),
+                      ((_build, this), (other["_build"], other))))
     print(f"device: {torch.cuda.get_device_name(0)}; other tree "
           f"{Path(args.other).resolve()}")
     res = {"device": torch.cuda.get_device_name(0), "other": args.other,
-           "bench": bench(other, args.seed)}
+           "bench": bench(other, args.seed, args.groups)}
+    if "composite" in args.groups:
+        res["composite_code"] = composite_code(other)
+        for tree, c in res["composite_code"].items():
+            for line in c["ptxas"]:
+                print(f"[{tree}] ptxas: {line}")
+            for name, counts in c["sass"].items():
+                print(f"[{tree}] {name[:72]}: " + ", ".join(
+                    f"{k} {v}" for k, v in counts.items()))
     for group, r in res["bench"].items():
+        if group == "view":
+            for label, v in r.items():
+                print(f"view {label:10s} rays/s: " + ", ".join(
+                    f"{k} {x:.1f}" for k, x in v["rays_per_s"].items())
+                    + f"; rgb differs by {v['rgb_max_diff']:.2e}")
+            continue
         print(f"{group:12s} µs per call: " + ", ".join(
             f"{k} {v:.2f}" for k, v in r["us"].items())
             + f"; outputs differ by {r['max_diff']:.2e}")

@@ -143,22 +143,41 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_packed_nets_match_kernel_layout(setup):
-    """The packed buffer has the float count `net_offsets` in the .cu
-    expects: fold ΣR×32, s1 32×64, s2 64×16, c1 31×64, c2 64×64, c3 64×3,
-    n1 15×64, n2 64×3, m1 15×32 + 32, m2 32 + 1; the σ-only prefix first."""
+    """The packed buffer has the float count the .cu expects (`NETS` after
+    the fold): the fold ΣR'×32 with each level's rank R' padded to 16, then
+    s1 32×64, s2 64×16, c1 32×64, c2 64×64, c3 64×8, n1 16×64, n2 64×8,
+    m1 16×32, m2 32×8, m1 b 32, m2 b 1; s2's σ column and the biases land
+    where the kernel reads them, padded rows and columns are zero; the
+    tables are padded to R' with zeros at the offsets the entry takes."""
     jf, tf, _, _, _ = setup
     pt = params_from_numpy(_params(jf, 1.0))
-    nets = fused_cp._pack_nets(pt)
-    sum_r = sum(r for _, r in LEVELS)
-    sigma_part = sum_r * 32 + 32 * 64 + 64 * 16
-    assert nets.numel() == sigma_part + (31 * 64 + 64 * 64 + 64 * 3 + 15 * 64
-                                         + 64 * 3 + 15 * 32 + 32 + 32 + 1)
-    s2 = pt["sigma_net"][1]["w"].reshape(-1)
-    assert torch.equal(nets[sigma_part - s2.numel():sigma_part], s2)
+    nets = fused_cp._pack_nets(pt, LEVELS)
+    sum_rp = sum(fused_cp.padded_rank(r) for _, r in LEVELS)
+    assert sum_rp == 32
+    assert fused_cp.NETS == (32 * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 8
+                             + 16 * 64 + 64 * 8 + 16 * 32 + 32 * 8 + 32 + 1)
+    assert nets.numel() == sum_rp * 32 + fused_cp.NETS
+    s2 = pt["sigma_net"][1]["w"]
+    off = sum_rp * 32 + 32 * 64
+    s2p = nets[off:off + 64 * 16].reshape(64, 16)
+    assert torch.equal(s2p, s2[fused_cp.c_order(64)])
     assert float(nets[-1]) == float(pt["is_mirror"][1]["b"][0])
+    assert torch.equal(nets[-33:-1], pt["is_mirror"][0]["b"])
+    # each level's ranks 8..15 are padding: zero fold rows
+    fold = nets[:sum_rp * 32].reshape(sum_rp, 32)
+    src = fused_cp.quad_order(16)
+    for lvl in range(2):
+        for row in range(16):
+            want = (pt["grid"]["fold"][8 * lvl + src[row]] if src[row] < 8
+                    else torch.zeros(32))
+            assert torch.equal(fold[16 * lvl + row], want), (lvl, row)
     tables, offsets = fused_cp._pack_tables(pt, LEVELS)
-    assert offsets[:4] == [0, 16 * 8, 2 * 16 * 8, 3 * 16 * 8]
-    assert tables.numel() == 3 * (16 + 32) * 8
+    assert offsets[:4] == [0, 16 * 16, 2 * 16 * 16, 3 * 16 * 16]
+    assert tables.numel() == 3 * (16 + 32) * 16
+    assert list(fused_cp._levels_c(LEVELS)[2]) == offsets
+    t0 = tables[:16 * 16].reshape(16, 16)
+    assert torch.equal(t0[:, :8], pt["grid"]["axes"][0][0])
+    assert not t0[:, 8:].any()
 
 
 @pytest.mark.gpu

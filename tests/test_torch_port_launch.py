@@ -1,6 +1,6 @@
 """Port parity, the port's launch path (`ops/_build.py` `card_index`,
-`Library`, `check_rc`, and `csrc/launch.cuh`), which the wrappers of
-`segment_scan`, `hashgrid` and `invoke_floor` use:
+`Library`, `check_rc`, and `csrc/launch.cuh`), which the wrappers of all
+seven kernel libraries use:
 
   * the checks refuse CPU, mixed-device, wrong-dtype, non-contiguous and
     misaligned inputs with their messages before any library is loaded;
@@ -10,9 +10,11 @@
   * the side-by-side timing tool (`tools/exp_launch_ab.py`) loads another
     tree's package beside this one and holds their outputs together;
 
-and, on a machine with a card only: SCAN, TRI, WEIGHTS, GATHER and ENCODE
-on a side stream and inside a captured CUDA graph give the default stream's
-results, their counters moving once a launch and not on a replay."""
+and, on a machine with a card only: SCAN, TRI, WEIGHTS, GATHER and ENCODE,
+and the CP composite, the CP train forward and backward, the flagship
+composite and the table products, on a side stream and inside a captured
+CUDA graph give the default stream's results, their counters moving once a
+launch and not on a replay."""
 
 import ctypes
 from pathlib import Path
@@ -20,12 +22,20 @@ from pathlib import Path
 import pytest
 import torch
 
-from mirror_nerf_tpu_torch.ops import _build
+from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
+from mirror_nerf_tpu_torch.ops import _build, fused_cp, fused_cp_train
+from mirror_nerf_tpu_torch.ops import fused_mlp_t
 from mirror_nerf_tpu_torch.ops import hashgrid as hg
 from mirror_nerf_tpu_torch.ops import invoke_floor as fl
 from mirror_nerf_tpu_torch.ops import segment_scan as ss
-from mirror_nerf_tpu_torch.tools import exp_hash_inkernel, exp_launch_ab
-from mirror_nerf_tpu_torch.tools import exp_reshape_probe
+from mirror_nerf_tpu_torch.ops import table_mma as tm
+from mirror_nerf_tpu_torch.tools import exp_hash_inkernel, exp_int8_probe
+from mirror_nerf_tpu_torch.tools import exp_launch_ab, exp_reshape_probe
+
+LIBRARIES = {"segment_scan": ss, "hashgrid": hg, "invoke_floor": fl,
+             "fused_cp_composite": fused_cp, "fused_cp_train": fused_cp_train,
+             "fused_mlp_t": fused_mlp_t, "table_mma": tm}
 
 
 # ------------------------------------------------------ the launch helper
@@ -60,8 +70,10 @@ def test_launch_helper_refuses_before_loading():
     with pytest.raises(ValueError, match="several devices"):
         fl.axpb_cuda(torch.ones(fl.SMALL_SHAPE),
                      torch.ones(fl.SMALL_SHAPE, device="meta"))
-    for lib in (ss._library, hg._library, fl._library):
-        assert lib._lib is None
+    with pytest.raises(ValueError, match="needs CUDA tensors, got x on cpu"):
+        tm.table_mma_cuda(*_int8_case("cpu"))
+    for mod in LIBRARIES.values():
+        assert mod._library._lib is None
 
 
 def test_on_card_dispatch():
@@ -75,9 +87,8 @@ def test_on_card_dispatch():
         _build.on_card("x", cpu.to("meta"))
 
 
-@pytest.mark.parametrize("mod", [ss, hg, fl], ids=["segment_scan",
-                                                   "hashgrid",
-                                                   "invoke_floor"])
+@pytest.mark.parametrize("mod", list(LIBRARIES.values()),
+                         ids=list(LIBRARIES))
 def test_entries_take_the_card_and_stream_last(mod):
     """Each C entry a wrapper declares takes the card's index (int) and the
     stream (a pointer) after its own arguments, and its source guards the
@@ -89,6 +100,16 @@ def test_entries_take_the_card_and_stream_last(mod):
         assert f"int {symbol}(" in src, symbol
     assert src.count("DeviceGuard guard(device);") >= len(
         mod._library.entries)
+
+
+def test_no_wrapper_switches_the_device_in_python():
+    """The device switch and the stream read are the launch path's: no
+    wrapper opens `torch.cuda.device` or builds a Stream object."""
+    for mod in LIBRARIES.values():
+        src = Path(mod.__file__).read_text()
+        assert "torch.cuda.device(" not in src, mod.__name__
+        assert "torch.cuda.current_stream(" not in src, mod.__name__
+        assert "def _library(" not in src, mod.__name__
 
 
 class _Lib:
@@ -235,3 +256,107 @@ def test_cuda_graph_capture(five_inputs):
     assert _counts() == at_capture
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _int8_case(device):
+    x, tabs = exp_int8_probe.inputs(**exp_int8_probe.CPU_SIZE, seed=0,
+                                    device=device)
+    return x, tabs["int8"]
+
+
+@pytest.fixture
+def four_inputs():
+    """Inputs of the four libraries that last moved onto the launch path:
+    the CP
+    composite (37 rays, S = 64), the CP train kernels (1000 points), the
+    flagship composite (37 rays, S = 16) and the int8 table products."""
+    _needs_card()
+    g = torch.Generator().manual_seed(6)
+    cp_field = TPUGridField(bound=2.0, grid_levels=((16, 16), (32, 8)))
+    cp_params = cp_field.init(g, "cuda")
+    o = (torch.randn((37, 3), generator=g) * 0.2).cuda()
+    d = torch.nn.functional.normalize(torch.randn((37, 3), generator=g),
+                                      dim=-1).cuda()
+    z = torch.sort(torch.rand((37, 64), generator=g) * 3 + 0.1,
+                   -1).values.cuda()
+    x = ((torch.rand((1000, 3), generator=g) * 2 - 1) * 2).cuda()
+    cots = [torch.randn(s, generator=g).cuda()
+            for s in ((1000,), (1000, 15), (1000, 3))]
+    mlp_field = MirrorNeRFField()
+    mlp_params = mlp_field.init(g, "cuda")
+    return (cp_field, cp_params, o, d, z, x, cots, mlp_field, mlp_params,
+            *_int8_case("cuda"))
+
+
+def _four_counts():
+    return (fused_cp.launches, fused_cp_train.launches_fwd,
+            fused_cp_train.launches_bwd, fused_mlp_t.launches,
+            tm.launches_int8)
+
+
+def _four(cp_field, cp_params, o, d, z, x, cots, mlp_field, mlp_params,
+          xt, t8):
+    """The CP composite, the train forward and backward, the flagship
+    composite and the int8 table products once each."""
+    args = fused_cp_train._param_args(cp_params)
+    with torch.no_grad():
+        cp = fused_cp.fused_cp_rays_composite(cp_field, cp_params, o, d, d, z)
+        fwd = fused_cp_train._forward(cp_field, True, x, *args[:3],
+                                      args[3:])
+        bwd = fused_cp_train._backward(cp_field, True, True, x, *args[:3],
+                                       args[3:], *cots)
+        mlp = fused_mlp_t.fused_t_rays_composite(mlp_field, mlp_params, o,
+                                                 d, d, z[:, :16])
+        t = tm.table_mma(xt, t8)
+    return ([cp["weights"], cp["rgb"], *fwd, mlp["weights"], mlp["rgb"], t],
+            [bwd[0], bwd[1], *bwd[4]])
+
+
+def _four_agree(got, want):
+    """Bit for bit, but the backward's sums: atomics in another order."""
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[1], want[1]):
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_side_stream_moved_libraries(four_inputs):
+    """On a side stream the four libraries give the default stream's
+    results, and each counter moves once."""
+    want = _four(*four_inputs)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = _four_counts()
+    with torch.cuda.stream(side):
+        got = _four(*four_inputs)
+    side.synchronize()
+    assert [a - b for a, b in zip(_four_counts(), before)] == [1] * 5
+    _four_agree(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_capture_moved_libraries(four_inputs):
+    """Captured in a CUDA graph, the four libraries replay to the default
+    stream's results; the counters move at capture and not on replay."""
+    want = _four(*four_inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _four(*four_inputs)  # warm on a side stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _four_counts()
+    with torch.cuda.graph(graph):
+        got = _four(*four_inputs)
+    at_capture = _four_counts()
+    assert [a - b for a, b in zip(at_capture, before)] == [1] * 5
+    for group in got:
+        for t in group:
+            t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _four_counts() == at_capture
+    _four_agree(got, want)
