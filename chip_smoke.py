@@ -15,7 +15,8 @@ each fatal on failure:
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
      rays: S=128 full and S=64 σ-only, relu and softplus, seeded and a
      saturating field (σ ≳ 1e3); max abs error per output, per-ray Σw ≤
-     1 + 1e-5, times beside the fp32 and the 3×TF32 bound; the SASS of its
+     1 + 1e-5, times beside the 3×TF32 bound (and the fp32 CUDA-core
+     one, for comparison with the first design); the SASS of its
      ten instances (HMMA in each; FFMA, LDS, LDG, LDL, STL counted) and
      ptxas' registers and spills;
   4. the training kernels vs their plain versions at the training path's
@@ -112,7 +113,8 @@ each fatal on failure:
 Each phase prints its wall time. The script prints one JSON line with the
 eighteen kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
-kernels' also with their profiler `device_ms`, and the segmented
+kernels' also with their profiler `device_ms`, the CP composite's
+modes also with `bound_fp32_ms`, and the segmented
 prefix's with `cold_device_ms` after an L2 flush), the nvidia-smi name and
 power limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -185,9 +187,9 @@ NGP_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
 # output written once.
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # bytes/s
-# the TF32 tensor-core peak, dense: the CP composite runs its products as
-# three TF32 products each, so 3 × its operations over this is its second
-# bound (beside the fp32 one, which keeps shares comparable across PRs)
+# the TF32 tensor-core peak, dense: fp32-accurate products on the tensor
+# cores take three TF32 products each (3×TF32), so the CP composite's bound
+# counts its products 3× over this peak (`_cp_bound`)
 PEAK_TF32 = 495e12  # FLOP/s
 
 
@@ -268,16 +270,31 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def _cp_flop(sum_r: int, full: bool) -> int:
-    """Operations per sample of the CP composite kernel: per rank three
-    lerps (3 each), the three-axis product (2) and the fold into 32 features
-    (32 multiply-adds); the σ-net 32→64→16; the full variant adds color
-    31→64→64→3, normal 15→64→3 and mirror 15→32→1."""
-    f = sum_r * (9 + 2 + 2 * 32) + 2 * (32 * 64 + 64 * 16)
+def _cp_flop(sum_r: int, full: bool) -> tuple:
+    """Operations per sample of the CP composite kernel, (products, the
+    rest): the products are the fold of the rank products into 32 features
+    (32 multiply-adds a rank), the σ-net 32→64→16 and, in the full variant,
+    color 31→64→64→3, normal 15→64→3 and mirror 15→32→1; the rest is per
+    rank three lerps (3 each) and the three-axis product (2)."""
+    mm = sum_r * 2 * 32 + 2 * (32 * 64 + 64 * 16)
     if full:
-        f += 2 * (31 * 64 + 64 * 64 + 64 * 3 + 15 * 64 + 64 * 3 + 15 * 32
-                  + 32)
-    return f
+        mm += 2 * (31 * 64 + 64 * 64 + 64 * 3 + 15 * 64 + 64 * 3 + 15 * 32
+                   + 32)
+    return mm, sum_r * (9 + 2)
+
+
+def _cp_bound(samples: int, sum_r: int, full: bool, nbytes: float):
+    """(bound_ms, bound_by, bound_fp32_ms) of the CP composite: its
+    products at fp32 accuracy are fastest as 3×TF32 on the tensor cores,
+    its lerps on the CUDA cores beside them, so the bound is the largest of
+    3 × the products over the TF32 peak, the rest over the fp32 peak and
+    the bytes over the memory rate. bound_fp32_ms puts every operation on
+    the fp32 CUDA cores, the bound of the kernel's first design."""
+    mm, rest = (samples * f for f in _cp_flop(sum_r, full))
+    t_ops = max(3 * mm / PEAK_TF32, rest / PEAK_FP32) * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", _bound(mm + rest, nbytes)[0])
 
 
 def _cp_train_flop(sum_r: int) -> tuple:
@@ -394,24 +411,23 @@ def phase_kernel(torch, card: str) -> dict:
                 worst = max(worst, max(errs.values()))
                 if pname != "seeded" or act != "relu":
                     continue
-                flop = n * z.shape[1] * _cp_flop(sum_r, not sigma_only)
-                b_ms, b_by = _bound(flop, _nbytes(o, d, d, z, tables, nets,
-                                                  *got.values()))
-                tc_ms = 3 * flop / PEAK_TF32 * 1e3
-                log(f"[kernel] bound at {tag}: {b_ms:.3f} ms ({b_by}, fp32 "
-                    f"CUDA cores); the kernel reaches {b_ms / ms * 100:.1f} "
-                    f"%; 3×TF32 bound {tc_ms:.3f} ms (3 × the operations at "
-                    f"the TF32 tensor-core peak): {tc_ms / ms * 100:.1f} %")
+                b_ms, b_by, fp32_ms = _cp_bound(
+                    n * z.shape[1], sum_r, not sigma_only,
+                    _nbytes(o, d, d, z, tables, nets, *got.values()))
+                log(f"[kernel] bound at {tag}: {b_ms:.3f} ms ({b_by}; 3×TF32 "
+                    "products on the tensor cores): the kernel reaches "
+                    f"{b_ms / ms * 100:.1f} %; fp32 CUDA-core bound "
+                    f"{fp32_ms:.3f} ms: {fp32_ms / ms * 100:.1f} %")
                 if not sigma_only:
                     entry_ms, entry_plain = ms, plain_ms
-                    bound_ms, bound_by, tf32_ms = b_ms, b_by, tc_ms
+                    bound_ms, bound_by, bound_fp32 = b_ms, b_by, fp32_ms
     return {"name": "fused_cp_composite", "route": "cuda",
             "source": "mirror_nerf_tpu_torch/csrc/fused_cp_composite.cu",
             "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp.py:363",
             "launches": 0, "max_abs_err": worst, "ms": entry_ms,
             "plain_ms": entry_plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "bound_tf32x3_ms": tf32_ms}
+            "bound_fp32_ms": bound_fp32}
 
 
 def _rel(a, b) -> float:
@@ -1202,18 +1218,25 @@ def _rows_case(torch, tag: str, kern, plain, card: str, time_it=True,
 
 
 def _entry(name: str, source: str, replaces: str, worst: float, timed: dict,
-           flop: float, nbytes: int, tag: str) -> dict:
-    """A JSON entry (launches filled in later) and its bound's log line."""
-    bound_ms, bound_by = _bound(flop, nbytes)
+           bound: tuple, tag: str) -> dict:
+    """A JSON entry (launches filled in later) and its bound's log line;
+    `bound` is (ms, by) or, for the CP composite's modes, `_cp_bound`'s
+    three values."""
+    bound_ms, bound_by = bound[:2]
     log(f"[rows-kernel] {name} at {tag}: bound {bound_ms:.3f} ms "
         f"({bound_by}); kernel at {bound_ms / timed['ms'] * 100:.1f} % of it, "
-        f"plain at {bound_ms / timed['plain_ms'] * 100:.1f} %")
-    return {"name": name, "route": "cuda",
-            "source": f"mirror_nerf_tpu_torch/csrc/{source}",
-            "replaces": f"mirror_nerf_tpu/ops/pallas/{replaces}",
-            "launches": 0, "max_abs_err": worst, "ms": timed["ms"],
-            "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+        f"plain at {bound_ms / timed['plain_ms'] * 100:.1f} %"
+        + (f"; fp32 CUDA-core bound {bound[2]:.3f} ms, kernel at "
+           f"{bound[2] / timed['ms'] * 100:.1f} %" if len(bound) > 2 else ""))
+    out = {"name": name, "route": "cuda",
+           "source": f"mirror_nerf_tpu_torch/csrc/{source}",
+           "replaces": f"mirror_nerf_tpu/ops/pallas/{replaces}",
+           "launches": 0, "max_abs_err": worst, "ms": timed["ms"],
+           "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None}
+    if len(bound) > 2:
+        out["bound_fp32_ms"] = bound[2]
+    return out
 
 
 def _ray_inputs(torch, rays_np, n: int, coarse_weights):
@@ -1303,14 +1326,13 @@ def phase_rows_kernels(torch, card: str) -> list:
             timed["cp_samples"] = {"ms": ms, "plain_ms": plain_ms}
             samples_bytes = _nbytes(xyz, v, z, dl, tables, nets,
                                     *got.values())
-    flop_cp = n * 128 * _cp_flop(sum_r, True)
     entries = [
         _entry("fused_cp_rows", "fused_cp_composite.cu", "fused_cp.py:314",
-               worst["cp_rows"], timed["cp_rows"], flop_cp, rows_bytes,
-               "S=128 full"),
+               worst["cp_rows"], timed["cp_rows"],
+               _cp_bound(n * 128, sum_r, True, rows_bytes), "S=128 full"),
         _entry("fused_cp_samples_composite", "fused_cp_composite.cu",
                "fused_cp.py:335", worst["cp_samples"], timed["cp_samples"],
-               flop_cp, samples_bytes, "S=128 full")]
+               _cp_bound(n * 128, sum_r, True, samples_bytes), "S=128 full")]
     del o, d, z64, z128, xyz, v, dl, got
 
     # -- flagship: rows (JAX fused_mlp.py:238) and points (:223)
@@ -1381,11 +1403,11 @@ def phase_rows_kernels(torch, card: str) -> list:
     flop_mlp = 2 * n * 128 * MLP_MACS[False]
     entries += [
         _entry("fused_mlp_rows", "fused_mlp_t.cu", "fused_mlp.py:238",
-               worst["mlp_rows"], timed["mlp_rows"], flop_mlp,
-               mlp_rows_bytes, "S=128 full"),
+               worst["mlp_rows"], timed["mlp_rows"],
+               _bound(flop_mlp, mlp_rows_bytes), "S=128 full"),
         _entry("fused_mlp_points", "fused_mlp_t.cu", "fused_mlp.py:223",
-               worst["mlp_points"], timed["mlp_points"], flop_mlp,
-               points_bytes, f"{pts.shape[0]} points full")]
+               worst["mlp_points"], timed["mlp_points"],
+               _bound(flop_mlp, points_bytes), f"{pts.shape[0]} points full")]
     entries[1]["launches"] = fused_cp.launches_samples
     entries[3]["launches"] = fused_mlp.launches_points
     log(f"[rows-kernel] launches in this phase: per-sample composite "

@@ -55,7 +55,8 @@
 //     32→64→64→8; normal 16→64→8; mirror 16→32→8) runs as 3×TF32 with fp32
 //     accumulators, a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, each hi and lo a
 //     `cvt.rna.tf32.f32` (lo of x − hi): fp32-level accuracy. Single-pass
-//     TF32 misses the 1e-4 bar. Positions (o + d·z, x01, the lerp weights)
+//     TF32 misses the 1e-4 bar (tools/exp_cp_diag.py `one_tf32` holds it
+//     against the plain version). Positions (o + d·z, x01, the lerp weights)
 //     stay fp32 on the CUDA cores with the first version's roundings;
 //   * a layer's C fragments are the next layer's A fragments in registers:
 //     a lane holds C columns 2t, 2t+1 of each n-tile, which it feeds as A
@@ -78,9 +79,10 @@
 //     the normal's L2 norm run in fp32 on the fragment registers.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6, rows 1, 7,
 // 8): 1.63–1.81 ms for S = 128 full on 16384 rays (7.12 ms before, in the
-// same process), 0.51 ms σ-only at S = 64 (3.77): 63–70 % of the fp32
-// CUDA-core bound, 26–28 % of the 3×TF32 bound (3 × the operations at 495
-// TFLOP/s).
+// same process), 0.51 ms σ-only at S = 64 (3.77): 24–27 % of its bound
+// with 3×TF32 products on the tensor cores (0.436 ms: 3 × the products'
+// operations at 495 TFLOP/s, the lerps on the CUDA cores beside them);
+// 63–70 % of the first design's fp32 CUDA-core bound (1.140 ms).
 // What bounds it now (tools/exp_cp_diag.py): the tensor pipe of
 // `mma.sync` and the table loads, in turn: with one TF32 product in place
 // of three the full variant takes 39 % less time, without the table loads
@@ -90,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 #include "launch.cuh"
 
@@ -779,39 +782,55 @@ __global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
   }
 }
 
-// Per instance: the card its shared-memory attribute and grid were set for.
+// Per instance and card: the largest dynamic shared memory the kernel's
+// attribute was raised to there, and the grid for the size last asked for.
+// The entry drops Python's lock, so callers on two cards may launch at once:
+// one mutex an instance guards its cards' slots.
 struct Launch {
-  int device = -1;
+  size_t attr = 0;
   size_t smem = 0;
   int grid = 0;  // blocks resident on the card at once
 };
+constexpr int MAX_DEVICES = 64;
 
 template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
 int launch(const Args& a, int device, cudaStream_t stream) {
   auto kern = cp_field_kernel<MODE, SIGMA_ONLY, SOFTPLUS>;
-  static Launch cached;
+  static Launch cached[MAX_DEVICES];
+  static std::mutex mu;
+  if (device < 0 || device >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
   const size_t smem =
       (size_t)((SIGMA_ONLY ? SM_SIGMA : SM_FULL) + 2 * a.lv.sum_r * F) *
       sizeof(float);
-  if (cached.device != device || cached.smem != smem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int per_sm = 0, sms = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BLOCK,
-                                                        smem);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    cached.device = device;
-    cached.smem = smem;
-    cached.grid = per_sm * sms;
+  int resident;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    Launch& c = cached[device];
+    if (c.smem != smem) {
+      // raised only: a launch of a smaller size in flight stays valid
+      cudaError_t e = cudaSuccess;
+      if (smem > c.attr)
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      int per_sm = 0, sms = 0;
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          BLOCK, smem);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      if (smem > c.attr) c.attr = smem;
+      c.smem = smem;
+      c.grid = per_sm * sms;
+    }
+    resident = c.grid;
   }
   const long long want =
       ((long long)a.n_rays + WARPS * RAYS - 1) / (WARPS * RAYS);
-  const int grid = (int)(want < cached.grid ? want : cached.grid);
+  const int grid = (int)(want < resident ? want : resident);
   kern<<<grid, BLOCK, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -10,13 +10,15 @@
     padded tables reproduce `cp_rows_reference` and the three modes' plain
     versions when multiplied in the kernel's order, emulated here fragment
     column by fragment column — and the JAX kernels through them;
-  * the diagnosis tool's patches (`tools/exp_cp_diag.py`) still match the
-    kernel's source;
+  * the diagnosis tool (`tools/exp_cp_diag.py`) applies a variant's
+    patches to a source that holds each once, and refuses one that does
+    not (the kernel's own text is not pinned here);
 
 and, on a machine with a card only: every mode and variant against its
 plain version at S ∈ {1, 17, 31, 64, 80, 128, 192, 256} and 1, 37 and
 16384 rays on the default field, seeded and saturating, a field whose ranks
-are padded, and HMMA in every instance's SASS."""
+are padded, HMMA in every instance's SASS, and a build with one TF32
+product in place of three outside the 1e-4 bar that the kernel meets."""
 
 import jax
 import numpy as np
@@ -253,10 +255,18 @@ def test_packed_nets_in_kernel_order_reproduce_samples(cp):
 
 @pytest.mark.parametrize("variant", list(exp_cp_diag.PATCHES))
 def test_diagnosis_patches_match_the_source(variant):
-    """Each variant of the diagnosis tool patches the kernel's source at
-    places that exist exactly once, and changes it."""
-    src = exp_cp_diag.patched_source(variant)
-    assert src != (_build.CSRC / "fused_cp_composite.cu").read_text()
+    """A variant's patches apply to a source that holds each old text
+    once, and the tool refuses a source where one is missing or twice."""
+    patches = exp_cp_diag.PATCHES[variant]
+    src = "".join(f"// piece {i}\n{old}\n" for i, (old, _) in
+                  enumerate(patches))
+    got = exp_cp_diag.patched_source(variant, src)
+    for old, new in patches:
+        assert new in got and (old in new or old not in got)
+    with pytest.raises(ValueError, match=variant):
+        exp_cp_diag.patched_source(variant, src.replace(patches[-1][0], ""))
+    with pytest.raises(ValueError, match=variant):
+        exp_cp_diag.patched_source(variant, src + patches[0][0])
 
 
 # --------------------------------------------------- on a card only
@@ -369,3 +379,16 @@ def test_cuda_composite_runs_on_the_tensor_cores():
     assert len(sass) == 10, list(sass)
     for name, counts in sass.items():
         assert counts["HMMA"] > 0, name
+
+
+@pytest.mark.gpu
+def test_cuda_single_pass_tf32_misses_the_bar():
+    """The composite with one TF32 product in place of three (the
+    diagnosis tool's `one_tf32` build) differs from the plain version by
+    more than 1e-4 on chip_smoke.py phase 3's inputs, where the kernel
+    stays within it: the bar tells the 3×TF32 kernel from a single-pass
+    one."""
+    _needs_card()
+    fns = {k: v[0] for k, v in exp_cp_diag.builds(["one_tf32"]).items()}
+    diff = exp_cp_diag.worst(exp_cp_diag.plain_differences(fns))
+    assert diff["real"] <= exp_cp_diag.KERNEL_ATOL < diff["one_tf32"], diff
