@@ -51,7 +51,10 @@ each fatal on failure:
      mirror head or both and with 6/2 posenc frequencies, and a render of
      the head-less field with --fused_field (it must launch the kernel);
      max abs error per output (scaled above 1), per-ray Σw ≤ 1 + 1e-5,
-     kernel and plain times beside the fp32 bound;
+     kernel and plain times beside the 3×TF32 bound (and the fp32
+     CUDA-core one, the first design's); the SASS of its fifteen
+     instances (HGMMA in each; FFMA, LDS, LDL, STL counted) and ptxas'
+     registers and spills;
  10. the flagship eval path: the eval CLI (run.sh mode-1 nerf flags,
      --fused_field) on a generated 64×64 scene from an npz and from a
      reference-layout Lightning .ckpt of the same weights (equal PSNRs),
@@ -65,8 +68,11 @@ each fatal on failure:
      Σw ≤ 1 + 1e-5), seeded and saturating;
      flagship rows (16384 rays of the 400×300 camera, the same S, plus
      S=80 and 192 on 2048 + 37 rays) and points (16384·128 and 100003);
+     the flagship rows' raw σ against a float64 plain version, its mean
+     signed error (the tensor cores' truncating sums) within 1e-7;
      a saturating field for each; errors scaled above 1, kernel and plain
-     times beside the bound. The per-sample composite's and the points'
+     times beside the bound (the flagship's: 3×TF32 and fp32 CUDA-core, as
+     in phase 9). The per-sample composite's and the points'
      launches are counted here (no render path runs them);
  12. the σ-noise path: one level-2 view per model through trace_rays in
      16384-ray chunks (CP 800×800, flagship 400×300; fused_field,
@@ -114,7 +120,7 @@ Each phase prints its wall time. The script prints one JSON line with the
 eighteen kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
-modes also with `bound_fp32_ms`, and the segmented
+modes and the flagship's three also with `bound_fp32_ms`, and the segmented
 prefix's with `cold_device_ms` after an L2 flush), the nvidia-smi name and
 power limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -188,8 +194,9 @@ NGP_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # bytes/s
 # the TF32 tensor-core peak, dense: fp32-accurate products on the tensor
-# cores take three TF32 products each (3×TF32), so the CP composite's bound
-# counts its products 3× over this peak (`_cp_bound`)
+# cores take three TF32 products each (3×TF32), so the CP composite's and
+# the flagship's bounds count their products 3× over this peak
+# (`_cp_bound`, `_mlp_bound`)
 PEAK_TF32 = 495e12  # FLOP/s
 
 
@@ -295,6 +302,20 @@ def _cp_bound(samples: int, sum_r: int, full: bool, nbytes: float):
     t_bytes = nbytes / PEAK_HBM * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", _bound(mm + rest, nbytes)[0])
+
+
+def _mlp_bound(samples: int, sigma_only: bool, nbytes: float):
+    """(bound_ms, bound_by, bound_fp32_ms) of the flagship PE-MLP kernel:
+    its products (`MLP_MACS`, every multiply-add of the trunk and the
+    heads) at fp32 accuracy are fastest as 3×TF32 on the tensor cores, so
+    the bound is the larger of 3 × the products over the TF32 peak and the
+    bytes over the memory rate. bound_fp32_ms puts them on the fp32 CUDA
+    cores, the bound of the kernel's first design."""
+    flop = 2 * samples * MLP_MACS[sigma_only]
+    t_ops = 3 * flop / PEAK_TF32 * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", _bound(flop, nbytes)[0])
 
 
 def _cp_train_flop(sum_r: int) -> tuple:
@@ -982,7 +1003,25 @@ def phase_mlp_kernel(torch, card: str) -> dict:
     from mirror_nerf_tpu_torch.core.sampling import (merge_fine_z_vals,
                                                      stratified_z_vals)
     from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.ops import _build
     from mirror_nerf_tpu_torch.ops import fused_mlp_t as fm
+
+    # the machine code: every instance on wgmma; registers and spills from
+    # ptxas
+    sass = _build.sass_counts(_build.library_path(fm._LIB),
+                              "mlp_field_kernel",
+                              opcodes=("HGMMA", "FFMA", "LDS", "LDL", "STL"))
+    assert len(sass) == 15 and min(c["HGMMA"] for c in sass.values()) > 0, \
+        sass
+    for name, c in sorted(sass.items()):
+        inst = re.search(r"mlp_field_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb"
+                         r"(\d)E", name)
+        log("[mlp-kernel] SASS of mlp_field_kernel<rows {}, sigma_only {}, "
+            "softplus {}, normal {}, mirror {}>: ".format(*inst.groups())
+            + ", ".join(f"{k} {v}" for k, v in c.items()))
+    for line in _build.build_log.get(fm._LIB, "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[mlp-kernel] ptxas: {line.strip()}")
 
     dev = torch.device("cuda")
     field = MirrorNeRFField()
@@ -1012,24 +1051,24 @@ def phase_mlp_kernel(torch, card: str) -> dict:
                     card)
                 worst = max(worst, err)
                 s = z.shape[1]
-                bound_ms, bound_by = _bound(
-                    2 * n * s * MLP_MACS[sigma_only],
+                bound_ms, bound_by, bound_fp32 = _mlp_bound(
+                    n * s, sigma_only,
                     _nbytes(o, d, None if sigma_only else d, z,
                             fm._pack(params), *got.values()))
-                log(f"[mlp-kernel] {tag}: bound {bound_ms:.3f} ms "
+                log(f"[mlp-kernel] {tag}: 3×TF32 bound {bound_ms:.3f} ms "
                     f"({bound_by}); kernel at {bound_ms / ms * 100:.1f} % "
                     f"of it, {2 * n * s * MLP_MACS[sigma_only] / ms / 1e9:.2f}"
-                    f" TFLOP/s; plain at {bound_ms / plain_ms * 100:.1f} %")
+                    f" TFLOP/s of fp32-accurate products; fp32 CUDA-core "
+                    f"bound {bound_fp32:.3f} ms, kernel at "
+                    f"{bound_fp32 / ms * 100:.1f} %; plain at "
+                    f"{bound_ms / plain_ms * 100:.1f} % of the 3×TF32 bound")
                 if (pname, act, sigma_only) == ("seeded", "relu", False):
                     entry = {"ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by}
-                    flop = 2 * n * s * MLP_MACS[False]
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bound_fp32_ms": bound_fp32}
                     log(f"[mlp-kernel] {tag}: packed weights "
-                        f"{_nbytes(fm._pack(params)) / 1e6:.2f} MB; the "
-                        f"same work on the tensor cores would be bound at "
-                        f"{flop / 495e12 * 1e3:.2f} ms (TF32) and "
-                        f"{flop / 989e12 * 1e3:.2f} ms (bf16, dense peaks "
-                        "of the data sheet)")
+                        f"{_nbytes(fm._pack(params)) / 1e6:.2f} MB (TF32 "
+                        "hi and lo planes and the fp32 leaves)")
     # S that do not tile the 256-sample block, on a ragged ray count
     n2 = 2048 + 37
     sub = rays[:n2]
@@ -1265,6 +1304,7 @@ def phase_rows_kernels(torch, card: str) -> list:
     from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
     from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp
     from mirror_nerf_tpu_torch.ops import fused_mlp_t as fm
+    from mirror_nerf_tpu_torch.tools import exp_mlp_diag
 
     fused_cp.launches_samples = fused_mlp.launches_points = 0
     n = 16384
@@ -1361,6 +1401,16 @@ def phase_rows_kernels(torch, card: str) -> list:
         if (pname, sigma_only) == ("seeded", False):
             timed["mlp_rows"] = {"ms": ms, "plain_ms": plain_ms}
             mlp_rows_bytes = _nbytes(o, d, d, z, packed) + n * 128 * 32
+    # raw σ against float64: the tensor cores' sums truncate toward zero,
+    # so a bias is what a sum left on them too long shows (the diagnosis
+    # tool's `layer_sums` build: ~1e-6 of σ's scale; the kernel's ~1e-8)
+    bias = exp_mlp_diag.sigma_bias(
+        {"kernel": fm._library.entry("mnerf_fused_mlp_t")})
+    log(f"[rows-kernel] flagship rows raw σ against a float64 plain version, "
+        f"S=128, {n} rays ({card}): mean signed error, max abs error (scaled "
+        "above 1): " + "; ".join(f"{k} {m:+.3e}, {a:.3e}"
+                                 for k, (m, a) in bias.items()))
+    assert abs(bias["kernel"][0]) <= 1e-7, bias
     # S that do not tile the 256-sample block, on a ragged ray count
     n2 = 2048 + 37
     o2, d2 = o[:n2].contiguous(), d[:n2].contiguous()
@@ -1400,14 +1450,14 @@ def phase_rows_kernels(torch, card: str) -> list:
         if (pname, sigma_only, b) == ("seeded", False, pts.shape[0]):
             timed["mlp_points"] = {"ms": ms, "plain_ms": plain_ms}
             points_bytes = _nbytes(x, v, packed) + b * 32
-    flop_mlp = 2 * n * 128 * MLP_MACS[False]
     entries += [
         _entry("fused_mlp_rows", "fused_mlp_t.cu", "fused_mlp.py:238",
                worst["mlp_rows"], timed["mlp_rows"],
-               _bound(flop_mlp, mlp_rows_bytes), "S=128 full"),
+               _mlp_bound(n * 128, False, mlp_rows_bytes), "S=128 full"),
         _entry("fused_mlp_points", "fused_mlp_t.cu", "fused_mlp.py:223",
                worst["mlp_points"], timed["mlp_points"],
-               _bound(flop_mlp, points_bytes), f"{pts.shape[0]} points full")]
+               _mlp_bound(pts.shape[0], False, points_bytes),
+               f"{pts.shape[0]} points full")]
     entries[1]["launches"] = fused_cp.launches_samples
     entries[3]["launches"] = fused_mlp.launches_points
     log(f"[rows-kernel] launches in this phase: per-sample composite "

@@ -26,14 +26,15 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
 from ..train.checkpoints import tree_leaves
 from ._build import Library, card_index
-from .fused_cp import (check_ray_inputs, on_cpu, prefix_weights, prep,
-                       split_per_ray)
+from .fused_cp import (c_order, check_ray_inputs, on_cpu, prefix_weights,
+                       prep, split_per_ray, tf32_round)
 
 _LIB = "fused_mlp_t"
 _ACTS = ("relu", "softplus")
@@ -74,10 +75,17 @@ def mlp_rays_composite_reference(field, params: dict, rays_o, rays_d,
     return res
 
 
-def _pack(params: dict) -> torch.Tensor:
-    """All weights in the kernel's order (`net_offsets` in the .cu; the
-    normal and mirror heads where the field has them), each leaf flattened
-    in its (in, out) layout and zero-padded to a multiple of 4 floats."""
+W, WH, DEPTH, SKIP = 256, 128, 8, 4  # the kernel's trunk and head widths
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _leaves(params: dict) -> list:
+    """The field's leaves in the packed index's order: trunk (w, b) × 8,
+    σ, xyz_final, dir_enc, rgb, then normal (2) and is_mirror (2) where the
+    field has them, each as (w, b)."""
     leaves = []
     for layer in params["trunk"]:
         leaves += [layer["w"], layer["b"]]
@@ -85,13 +93,104 @@ def _pack(params: dict) -> torch.Tensor:
                 params["rgb"], *params.get("normal", ()),
                 *params.get("is_mirror", ())):
         leaves += [lin["w"], lin["b"]]
-    parts = []
-    for leaf in leaves:
-        flat = leaf.reshape(-1).to(torch.float32)
-        parts.append(flat)
-        if flat.numel() % 4:
-            parts.append(flat.new_zeros(4 - flat.numel() % 4))
-    return torch.cat(parts)
+    return leaves
+
+
+def stream_layout(pe: int, dpe: int, has_n: bool, has_m: bool) -> list:
+    """The kernel's weight stream (`net_offsets` in the .cu), in the order
+    it runs the products: (name, leaf, K rows, N) per layer, the leaf an
+    index into `_leaves` and K rows the leaf's row each packed row reads
+    (None: a zero row). Rows fed by a hidden layer's accumulators are in
+    `c_order`; posenc rows in their own order, padded to 8."""
+    h = c_order(W)
+    pe_rows = list(range(pe)) + [None] * (_pad(pe, 8) - pe)
+    layers = []
+    for i in range(DEPTH):
+        rows = pe_rows if i == 0 else (
+            pe_rows + [pe + r for r in h] if i == SKIP else h)
+        layers.append((f"trunk{i}", 2 * i, rows, W))
+    heads = 2 * DEPTH + 8  # the first head leaf, after σ, xf, dir, rgb
+    if has_n:
+        layers.append(("normal0", heads, h, WH))
+    if has_m:
+        layers.append(("mirror0", heads + 4 * has_n, h, WH))
+    layers.append(("xyz_final", 2 * DEPTH + 2, h, W))
+    layers.append(("dir_enc", 2 * DEPTH + 4,
+                   h + [W + j for j in range(dpe)]
+                   + [None] * (_pad(dpe, 8) - dpe), WH))
+    return layers
+
+
+def _raw_leaves(has_n: bool, has_m: bool) -> list:
+    """The fp32 leaves after the stream, in order, as indices into
+    `_leaves`: the trunk's biases, σ (w, b), xf b, dir b, rgb (w, b), then
+    normal (b0, w1, b1) and mirror (b0, w1, b1) where present."""
+    raw = [2 * i + 1 for i in range(DEPTH)]
+    s = 2 * DEPTH
+    raw += [s, s + 1, s + 3, s + 5, s + 6, s + 7]
+    at = s + 8
+    for present in (has_n, has_m):
+        if present:
+            raw += [at + 1, at + 2, at + 3]
+            at += 4
+    return raw
+
+
+def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
+               has_m: bool):
+    """(index, kind) of every float of the packed buffer: the index into
+    the leaves (`shapes`, in `_leaves` order) flattened and concatenated
+    with one zero appended, and the kind 0 (TF32 hi), 1 (TF32 lo) or 2
+    (fp32 as it is). A streamed layer of K rows and N columns is K/8
+    k-steps of [hi plane, lo plane], a plane N rows of 8 K values, K-major,
+    in the 32-byte swizzle: the 16-B half h of row n holds K values
+    4(h ^ (n/4 mod 2)) … + 3 of the k-step."""
+    offs = np.cumsum([0] + [int(np.prod(s)) for s in shapes])
+    zero = int(offs[-1])
+    idx, kind = [], []
+    for _, leaf, rows, n in stream_layout(pe, dpe, has_n, has_m):
+        pos = np.arange(8 * n)
+        col, q = pos // 8, pos % 8
+        k = ((q // 4) ^ ((col // 4) & 1)) * 4 + q % 4
+        src = np.array([-1 if r is None else r for r in rows]).reshape(
+            -1, 8)[:, k]
+        plane = np.where(src >= 0, offs[leaf] + src * n + col, zero)
+        idx.append(np.stack([plane, plane], 1).reshape(-1))
+        kind.append(np.tile(np.repeat([0, 1], 8 * n), len(rows) // 8))
+    for leaf in _raw_leaves(has_n, has_m):
+        size = int(np.prod(shapes[leaf]))
+        idx.append(np.concatenate([offs[leaf] + np.arange(size),
+                                   [zero] * (_pad(size, 4) - size)]))
+        kind.append(np.full(_pad(size, 4), 2))
+    return (torch.from_numpy(np.concatenate(idx).astype(np.int64)),
+            torch.from_numpy(np.concatenate(kind).astype(np.int8)))
+
+
+_pack_index: dict = {}  # (shapes, device) -> pack_index there
+
+
+def _pack(params: dict) -> torch.Tensor:
+    """All weights as the kernel reads them (`pack_index`): the streamed
+    layers split into TF32 hi and lo planes, the rest fp32. The layout is
+    cached per leaf shapes and device; the values are packed on every
+    call."""
+    leaves = _leaves(params)
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves]
+                     + [leaves[0].new_zeros(1)]).to(torch.float32)
+    shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+    key = (shapes, str(flat.device))
+    if key not in _pack_index:
+        pe = shapes[0][0]
+        dpe = shapes[2 * DEPTH + 4][0] - W
+        _pack_index[key] = tuple(
+            t.to(flat.device) for t in pack_index(
+                list(shapes), pe, dpe, "normal" in params,
+                "is_mirror" in params))
+    index, kind = _pack_index[key]
+    g = flat[index]
+    hi = tf32_round(g)
+    lo = tf32_round(g - hi)
+    return torch.where(kind == 0, hi, torch.where(kind == 1, lo, g))
 
 
 # the entry's arguments before the card and the stream (_build.Library):

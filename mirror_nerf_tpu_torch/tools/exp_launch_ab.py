@@ -36,7 +36,13 @@ composite library's registers and spills (ptxas) and its SASS counts of
 HMMA, FFMA, LDS and LDG per instance. With `--groups view`: one 800×800
 level-2 CP view through each tree's `run_view` (run.sh mode-1 nerf_tpu
 flags, --fused_field, chunk 16384, seeded and all-mirror weights made once
-and handed to both), a warm view each, then 3 rounds in turns.
+and handed to both), a warm view each, then 3 rounds in turns. With
+`--groups flagship`: the flagship PE-MLP kernel at its main path's shapes
+(16384 strided rays of the 400×300 camera, the default field, seeded
+weights; 5 calls a round, best of 3): composite S = 128 full and S = 64
+σ-only, rows S = 128 full; then one 400×300 level-2 flagship view through
+each tree's `run_view` (chip_smoke.py phase 10's flags), seeded and
+all-mirror weights, as the CP view.
 Each group is also checked: the two trees' outputs agree (GATHER and the
 floor bit for bit, the views within 1e-3, the rest within their kernels'
 bars).
@@ -58,8 +64,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import (_build, fused_cp, fused_cp_train, fused_mlp_t, hashgrid,
-                   invoke_floor, segment_scan, table_mma)
+from ..ops import (_build, fused_cp, fused_cp_train, fused_mlp, fused_mlp_t,
+                   hashgrid, invoke_floor, segment_scan, table_mma)
 from .exp_hash_inkernel import (DENSE_SAMPLES, DENSE_SCALE, DENSE_SIDE,
                                 IDX_SHAPE, TABLE_ROWS, _grid_sample_args)
 from .exp_reshape_probe import PREFIX_BAR, path_input, with_sentinel
@@ -67,7 +73,7 @@ from .timing import per_call_ms
 
 LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
         "fused_cp_train", "fused_mlp_t", "table_mma")
-GROUPS = ("launch", "composite", "view")
+GROUPS = ("launch", "composite", "view", "flagship")
 KERNEL_BAR = 1e-4  # the composite's bar against its plain version
 VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
@@ -85,7 +91,7 @@ def load_other(root) -> dict:
     sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"{OTHER}.ops.{name}")
-            for name in ("_build", *LIBS)}
+            for name in ("_build", "fused_mlp", *LIBS)}
 
 
 def _libraries(mods: dict) -> list:
@@ -191,14 +197,15 @@ def _moved_groups(other: dict, rng, dev: str = "cuda") -> dict:
                    0.0)}
 
 
-def camera_rays(size: int = 800) -> np.ndarray:
-    """The bench camera's size×size rays (chip_smoke's: the first pose of
-    the procedural ring, 0.9 rad across), (size², 8)."""
+def camera_rays(size: int = 800, height: int = None) -> np.ndarray:
+    """The bench camera's size×height rays (chip_smoke's: the first pose of
+    the procedural ring, 0.9 rad across the width; height defaults to
+    size), (size·height, 8)."""
     from ..core.rays import get_ray_directions, get_rays, make_ray_buffer
     from ..data.synthetic import camera_ring
 
     focal = 0.5 * size / np.tan(0.45)
-    ro, rd = get_rays(get_ray_directions(size, size, focal),
+    ro, rd = get_rays(get_ray_directions(height or size, size, focal),
                       camera_ring(1)[0])
     return make_ray_buffer(ro, rd, 0.05, 8.0)
 
@@ -253,6 +260,41 @@ def _composite_groups(other: dict, n: int = 16384,
             for name, c in calls.items()}
 
 
+def _flagship_groups(other: dict, n: int = 16384,
+                     dev: str = "cuda") -> dict:
+    """The flagship PE-MLP kernel at the main path's shapes (16384 strided
+    rays of the 400×300 camera, the default field, seeded weights with the
+    σ column |w|·5), both trees on the same inputs: composite S = 128 full
+    and S = 64 σ-only, rows S = 128 full."""
+    from ..core.sampling import merge_fine_z_vals, stratified_z_vals
+    from ..models.fields import MirrorNeRFField
+
+    field = MirrorNeRFField()
+    p = _sigma_scaled(field.init(torch.Generator().manual_seed(0), dev))
+    rays_np = camera_rays(400, 300)
+    rays = torch.from_numpy(rays_np[::len(rays_np) // n][:n]).to(dev)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    z64 = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 64).contiguous()
+    coarse = fused_mlp_t.mlp_rays_composite_reference(field, p, o, d, d,
+                                                      z64, sigma_only=True)
+    z128 = merge_fine_z_vals(z64, coarse["weights"], 64, 0.0).contiguous()
+    om, omr = other["fused_mlp_t"], other["fused_mlp"]
+
+    def cat(res: dict):
+        return torch.cat([t.reshape(-1) for t in res.values()])
+
+    calls = {
+        "flagship_s128": lambda m, _: cat(m.fused_t_rays_composite(
+            field, p, o, d, d, z128)),
+        "flagship_s64_sigma": lambda m, _: cat(m.fused_t_rays_composite(
+            field, p, o, d, d, z64, sigma_only=True)),
+        "flagship_rows_s128": lambda _, r: r.fused_rays_eval(
+            field, p, o, d, d, z128)}
+    return {name: ({"this": lambda c=c: c(fused_mlp_t, fused_mlp),
+                    "other": lambda c=c: c(om, omr)}, KERNEL_BAR)
+            for name, c in calls.items()}
+
+
 def composite_code(other: dict) -> dict:
     """Each tree's composite library: ptxas' registers and spills, and the
     SASS counts of every `cp_field_kernel` instance."""
@@ -294,6 +336,9 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
         if "composite" in groups:
             todo.update((k, (v, 20, 3)) for k, v in
                         _composite_groups(other).items())
+        if "flagship" in groups:
+            todo.update((k, (v, 5, 3)) for k, v in
+                        _flagship_groups(other).items())
         for group, ((fns, bar), reps, rounds) in todo.items():
             diff = _agree(fns, bar)
             us = {k: v * 1e3 for k, v in
@@ -301,6 +346,9 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
             res[group] = {"us": us, "max_diff": diff}
         if "view" in groups:
             res["view"] = view_ab(other)
+        if "flagship" in groups:
+            res["flagship_view"] = view_ab(other, size=400, height=300,
+                                           flags=FLAGSHIP_VIEW_FLAGS)
     return res
 
 
@@ -311,36 +359,61 @@ VIEW_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far", "8",
               "--bound", "6", "--N_importance", "64", "--chunk", "16384",
               "--fused_field", "--max_recursive_level", "2",
               "--img_wh", "800", "800"]
+# run.sh mode 1, MODEL_TYPE=nerf, with --fused_field (chip_smoke.py phase
+# 10: the flagship's 400×300 view)
+FLAGSHIP_VIEW_FLAGS = ["--dataset_name", "blender", "--near", "0.05",
+                       "--far", "8", "--scale_factor", "6", "--model_type",
+                       "nerf", "--predict_normal", "--predict_mirror_mask",
+                       "--trace_secondary_rays", "--bound", "6",
+                       "--N_importance", "64", "--chunk", "16384",
+                       "--fused_field", "--max_recursive_level", "2",
+                       "--img_wh", "400", "300"]
+
+
+def _sigma_scaled(side: dict) -> dict:
+    """A side's weights with the σ column |w|·5 (CP-grid or flagship)."""
+    m = dict(side)
+    if "sigma" in side:
+        m["sigma"] = {"w": side["sigma"]["w"].abs() * 5.0,
+                      "b": side["sigma"]["b"]}
+    else:
+        s2 = side["sigma_net"][1]["w"].clone()
+        s2[:, 0] = s2[:, 0].abs() * 5.0
+        m["sigma_net"] = [side["sigma_net"][0], {"w": s2}]
+    return m
+
+
+def _all_mirror(side: dict) -> dict:
+    """`_sigma_scaled` with the mirror head biased on (+5): every ray an
+    opaque mirror at every level."""
+    m = _sigma_scaled(side)
+    m2 = dict(side["is_mirror"][1])
+    m2["b"] = m2["b"] + 5.0
+    m["is_mirror"] = [side["is_mirror"][0], m2]
+    return m
 
 
 def view_ab(other: dict, rounds: int = 3, size: int = 800,
-            device: str = "cuda", extra=()) -> dict:
-    """One size×size level-2 CP view through each tree's `run_view`,
-    seeded and all-mirror weights (the same tensors for both), in turns:
-    rays/s of the best round each (a CPU run times nothing), and the
-    largest difference of rgb_fine."""
+            device: str = "cuda", extra=(), height: int = None,
+            flags=VIEW_FLAGS) -> dict:
+    """One size×height level-2 view (`flags`: the CP model by default, or
+    FLAGSHIP_VIEW_FLAGS) through each tree's `run_view`, seeded and
+    all-mirror weights (the same tensors for both), in turns: rays/s of the
+    best round each (a CPU run times nothing), and the largest difference
+    of rgb_fine."""
     import time
 
     from ..eval import get_opt
     from ..eval.cli import init_params
     from ..models.fields import make_field
 
-    cfg, args = get_opt(VIEW_FLAGS[:-3] + ["--img_wh", str(size), str(size),
-                                           *extra])
+    cfg, args = get_opt(flags[:-3] + ["--img_wh", str(size),
+                                      str(height or size), *extra])
     field = make_field(cfg)
     seeded = init_params(field, cfg, device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    mirror = {}
-    for k, side in seeded.items():
-        m = dict(side)
-        s2 = side["sigma_net"][1]["w"].clone()
-        s2[:, 0] = s2[:, 0].abs() * 5.0
-        m["sigma_net"] = [side["sigma_net"][0], {"w": s2}]
-        m2 = dict(side["is_mirror"][1])
-        m2["b"] = m2["b"] + 5.0
-        m["is_mirror"] = [side["is_mirror"][0], m2]
-        mirror[k] = m
-    rays_np = camera_rays(size)
+    mirror = {k: _all_mirror(side) for k, side in seeded.items()}
+    rays_np = camera_rays(size, height)
     sample = {"rays": rays_np}
     out = {}
     for label, params in (("seeded", seeded), ("all_mirror", mirror)):
@@ -379,7 +452,9 @@ def main(argv=None) -> dict:
                     default=["launch"],
                     help="launch: the wrappers' per-call times; composite: "
                          "the CP composite at the main path's shapes; view: "
-                         "the 800×800 CP view")
+                         "the 800×800 CP view; flagship: the flagship "
+                         "kernel at its main path's shapes and the 400×300 "
+                         "flagship view")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -402,9 +477,9 @@ def main(argv=None) -> dict:
                 print(f"[{tree}] {name[:72]}: " + ", ".join(
                     f"{k} {v}" for k, v in counts.items()))
     for group, r in res["bench"].items():
-        if group == "view":
+        if group in ("view", "flagship_view"):
             for label, v in r.items():
-                print(f"view {label:10s} rays/s: " + ", ".join(
+                print(f"{group} {label:10s} rays/s: " + ", ".join(
                     f"{k} {x:.1f}" for k, x in v["rays_per_s"].items())
                     + f"; rgb differs by {v['rgb_max_diff']:.2e}")
             continue

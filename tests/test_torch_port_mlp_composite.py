@@ -207,30 +207,44 @@ def test_fused_field_off_the_kernel_raises_off_the_cpu():
 
 
 def test_packed_weights_match_kernel_layout(fields):
-    """The packed buffer holds every leaf in `net_offsets` order (.cu), each
-    padded to 4 floats: trunk (63, 256×6, 319)×256 + 8×256, σ 256 + 1,
-    xyz_final 256×256 + 256, dir_enc 283×128 + 128, rgb 128×3 + 3, normal
-    256×128 + 128 and 128×3 + 3, mirror 256×128 + 128 and 128 + 1."""
+    """The packed buffer holds the weight stream in `net_offsets` order
+    (.cu): each streamed layer (trunk 0..7 with K 64, 256 ×3, 320, 256 ×3;
+    normal0 and mirror0 256→128, xyz_final 256→256, dir_enc 288→128) as
+    K/8 k-steps of a TF32 hi and a lo plane, a plane N rows of 8 K values
+    in the 32-byte swizzle; then the fp32 leaves, each padded to 4 floats:
+    the trunk's biases, σ 256 + 1, xyz_final b, dir_enc b, rgb 128×3 + 3,
+    normal 128 + 128×3 + 3, mirror 128 + 128 + 1."""
+    from mirror_nerf_tpu_torch.ops.fused_cp import tf32_round
+
     jf, tf = fields
     pt = params_from_numpy(_params(jf, 1.0))
     nets = fused_mlp_t._pack(pt)
-    trunk = (63 + 256 * 6 + 319) * 256 + 8 * 256
-    sigma_part = trunk + 256 + 4
-    assert torch.equal(nets[trunk:trunk + 256], pt["sigma"]["w"][:, 0])
-    assert float(nets[trunk + 256]) == float(pt["sigma"]["b"][0])
-    heads = (256 * 256 + 256 + 283 * 128 + 128 + 128 * 3 + 4
-             + 256 * 128 + 128 + 128 * 3 + 4 + 256 * 128 + 128 + 128 + 4)
-    assert nets.numel() == sigma_part + heads
-    # the skip layer's first 63 rows belong to the posenc
-    off4 = 63 * 256 + 256 + 3 * (256 * 256 + 256)
-    assert torch.equal(nets[off4:off4 + 63 * 256],
-                       pt["trunk"][4]["w"][:63].reshape(-1))
+    trunk = 2 * 256 * (64 + 256 * 6 + 320)
+    heads = 2 * (256 * 128 * 2 + 256 * 256 + 288 * 128)
+    raw = (8 * 256 + 256 + 4 + 256 + 128 + 128 * 3 + 4
+           + 128 + 128 * 3 + 4 + 128 + 128 + 4)
+    assert nets.numel() == trunk + heads + raw
+    at = trunk + heads
+    assert torch.equal(nets[at + 3 * 256:at + 4 * 256], pt["trunk"][3]["b"])
+    sw = at + 8 * 256
+    assert torch.equal(nets[sw:sw + 256], pt["sigma"]["w"][:, 0])
+    assert float(nets[sw + 256]) == float(pt["sigma"]["b"][0])
+    # the skip layer's first k-step: posenc rows 0..7 in their own order, a
+    # row n of the hi plane their TF32 values in column n, the two 16-B
+    # halves swapped where n mod 8 ≥ 4
+    off4 = 2 * 256 * (64 + 3 * 256)
+    plane = nets[off4:off4 + 8 * 256].reshape(256, 8)
+    hi = tf32_round(pt["trunk"][4]["w"][:8]).T
+    swapped = ((torch.arange(256) // 4) % 2 == 1)[:, None]
+    assert torch.equal(plane, torch.where(
+        swapped, hi[:, [4, 5, 6, 7, 0, 1, 2, 3]], hi))
     assert float(nets[-4]) == float(pt["is_mirror"][1]["b"][0])
-    # without heads the buffer ends at rgb's bias
+    # without heads the stream loses normal0 and mirror0, the buffer ends at
+    # rgb's bias
     bare = {k: v for k, v in pt.items() if k not in ("normal", "is_mirror")}
     nets = fused_mlp_t._pack(bare)
-    assert nets.numel() == sigma_part + 256 * 256 + 256 + 283 * 128 + 128 \
-        + 128 * 3 + 4
+    assert nets.numel() == trunk + 2 * (256 * 256 + 288 * 128) + (
+        8 * 256 + 256 + 4 + 256 + 128 + 128 * 3 + 4)
     assert torch.equal(nets[-4:-1], pt["rgb"]["b"])
 
 
