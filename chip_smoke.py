@@ -81,7 +81,17 @@ each fatal on failure:
      composite kernels not), rays/s; on 1024 rays the fused route against
      the plain modules on the card from the same generator seed, and the
      flagship's fused_t=False route at noise 0 against its composite route;
- 13. the hash-grid kernel's three modes vs their plain versions: ENCODE at
+ 13. the fused NGP composite (`hash_field_kernel` of
+     csrc/fused_cp_composite.cu, ops/fused_hash.py) vs its plain version:
+     the hash-grid model at full width (bound 6, dense levels ×1e4, seeded
+     and a saturating σ field), 16384 strided rays of the 800×800 camera,
+     S=128 full and S=64 σ-only, relu and softplus
+     (`tools/exp_hash_diag.py cases`); errors scaled above 1 against 1e-4,
+     Σw ≤ 1 + 1e-5, kernel and plain times beside the 3×TF32 bound and the
+     L2→SM sectors its gathers touch; the SASS of its four instances
+     (HMMA in each; LDG, LDL, STL counted) and ptxas' registers and
+     spills. Then the hash-grid kernel's three modes vs their plain
+     versions: ENCODE at
      2,097,152 points of the full bound-6 spec (16 levels × 2, 6,616,280
      rows, ×1e4 table, ~2 % out of bound) and at the 800×800 view's sample
      positions (16384 strided rays × 128); GATHER at the probe's (64, 4096)
@@ -98,7 +108,13 @@ each fatal on failure:
      (equal PSNRs), then one 800×800 level-2 view through run_view, seeded
      and all-mirror weights; the ENCODE counter is reset before the CLI and
      read right after the timed views; the card against the plain version
-     on the CPU on 256 rays;
+     on the CPU on 256 rays. Then the eval CLI once more with --fused_field
+     (PSNRs within 0.05 dB of the unfused run's) and the 800×800 view with
+     and without --fused_field in turns on the same weights, seeded and
+     all-mirror; the fused kernel's and ENCODE's counters are reset before
+     the CLI and read around each fused run (the fused kernel launches,
+     ENCODE does not); the fused route against the plain path on the CPU
+     on 256 rays;
  15. the last three probes' kernels vs their plain versions: the launch
      floor (SMALL (8, 128), GRID (128, 1, 4096)) bit for bit, alone and as
      a chain looped in C; the segmented exclusive prefix, SCAN and TRI, at
@@ -117,7 +133,7 @@ each fatal on failure:
      torch.cumsum, timed in turns.
 
 Each phase prints its wall time. The script prints one JSON line with the
-eighteen kernels' numbers (each with the least time the card could take for
+nineteen kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
 modes and the flagship's three also with `bound_fp32_ms`, and the segmented
@@ -228,7 +244,7 @@ def phase_environment(torch):
 
 def phase_build():
     from mirror_nerf_tpu_torch.ops import (_build, fused_cp, fused_cp_train,
-                                           fused_mlp_t, hashgrid,
+                                           fused_hash, fused_mlp_t, hashgrid,
                                            invoke_floor, segment_scan,
                                            table_mma)
 
@@ -239,6 +255,7 @@ def phase_build():
     _build.build_libraries(names)
     for m in mods:
         m._library()
+    fused_hash._library()  # the fused NGP composite's entry, same library
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} "
         "s wall")
     for name in names:
@@ -1583,10 +1600,118 @@ def _hash_flop(c: int = 2) -> int:
     return 6 + 6 + 3 + 8 * 2 + 8 * c * 2
 
 
+def _hash_composite_bound(samples: int, full: bool, nbytes: float):
+    """(bound_ms, bound_by) of the fused NGP composite: its nets' products
+    (the CP composite's without the fold, `_cp_flop(0, full)`) at fp32
+    accuracy are fastest as 3×TF32 on the tensor cores, the levels'
+    interpolation (16 × `_hash_flop`) on the fp32 CUDA cores beside them;
+    bytes over the memory rate."""
+    t_ops = max(3 * samples * _cp_flop(0, full)[0] / PEAK_TF32,
+                samples * 16 * _hash_flop() / PEAK_FP32) * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _gather_sectors(torch, field, o, d, z) -> int:
+    """The 32-B L2 sectors the fused kernel's corner loads touch: per
+    sample and level, the distinct sectors of its eight 8-B corner rows
+    (the kernel loads them for samples out of bound too), summed; a figure
+    beside the bound, not a bound."""
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+
+    spec = field.grid_spec
+    xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    x01 = (xyz + field.bound) * field.inv_2b
+    corners = hg._corner_offsets(3, x01.device)
+    total = 0
+    for lv in spec.levels():
+        pg, _ = hg._grid_pos(x01, lv.scale, 0.5)
+        rows = lv.offset + hg._corner_indices(
+            spec, lv, pg[None] + corners[:, None, :])  # (8, N)
+        sec = torch.sort(rows * 8 // 32, dim=0).values
+        total += int(sec.shape[1] + (sec[1:] != sec[:-1]).sum())
+    return total
+
+
+def _fused_hash_kernel(torch, card: str) -> dict:
+    """(13, first part) The fused NGP composite vs its plain version at the
+    main path's shapes (`tools/exp_hash_diag.py cases`): errors, Σw, times
+    beside the bound and the gathers' sector figure, the SASS of its four
+    instances and ptxas' report. Returns its JSON entry (launches set from
+    phase 14)."""
+    from mirror_nerf_tpu_torch.ops import _build, fused_cp, fused_hash
+    from mirror_nerf_tpu_torch.tools import exp_hash_diag
+
+    sass = _build.sass_counts(_build.library_path(fused_hash._LIB),
+                              "hash_field_kernel")
+    assert len(sass) == 4 and min(c["HMMA"] for c in sass.values()) > 0, \
+        sass
+    for name, c in sorted(sass.items()):
+        log(f"[hash-fused] SASS of {exp_hash_diag._instance(name)}: "
+            + ", ".join(f"{k} {v}" for k, v in c.items()))
+    for line in exp_hash_diag.ptxas_lines(
+            _build.build_log.get(fused_hash._LIB, "")):
+        log(f"[hash-fused] ptxas: {line}")
+
+    worst, timed = 0.0, {}
+    field, o, d, _ = exp_hash_diag.inputs()
+    for case, (kern, plain, params, z) in exp_hash_diag.cases().items():
+        with torch.no_grad():
+            got = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            errs = _scaled_errs(got, ref)
+            wsum = float(got["weights"].sum(-1).max())
+            for k, v in got.items():
+                assert v.is_cuda and bool(torch.isfinite(v).all()), (case, k)
+            line = (f"[hash-fused] {case}: max w "
+                    f"{float(got['weights'].max()):.4f}, max Σw {wsum:.6f}; "
+                    "max abs err (scaled above 1) " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in errs.items()))
+            if case.startswith("seeded relu"):
+                ms = _time_ms(torch, kern, reps=20, warmup=3)
+                plain_ms = _time_ms(torch, plain, reps=3, warmup=1)
+                full = "full" in case
+                nbytes = (_nbytes(o, d, d if full else None, z,
+                                  params["grid"], *got.values())
+                          + 4 * fused_cp.NETS)
+                b_ms, b_by = _hash_composite_bound(z.numel(), full, nbytes)
+                timed[case] = (ms, plain_ms, b_ms, b_by, z)
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                         f"bound {b_ms:.4f} ms ({b_by}; 3×TF32 products on "
+                         "the tensor cores, the lerps on the fp32 cores "
+                         f"beside them, {nbytes / 1e6:.1f} MB): the kernel "
+                         f"reaches {b_ms / ms * 100:.1f} %")
+        log(line + f" ({card})")
+        assert max(errs.values()) <= KERNEL_ATOL, (case, errs)
+        assert wsum <= 1.0 + 1e-5, (case, wsum)
+        worst = max(worst, max(errs.values()))
+
+    ms, plain_ms, b_ms, b_by, z128 = timed["seeded relu S=128 full"]
+    with torch.no_grad():
+        sectors = _gather_sectors(torch, field, o, d, z128)
+    n_smp = z128.numel()
+    log(f"[hash-fused] gathers at S=128 full ({n_smp} samples): "
+        f"{sectors} distinct 32-B sectors ({sectors / n_smp:.1f} a sample "
+        f"for 128 corner loads), {sectors * 32 / 1e9:.3f} GB of L2→SM "
+        f"sectors: {sectors * 32 / ms / 1e9:.2f} TB/s at the kernel's "
+        f"{ms:.3f} ms ({card})")
+    return {"name": "fused_hash_composite", "route": "cuda",
+            "source": "mirror_nerf_tpu_torch/csrc/fused_cp_composite.cu",
+            "replaces": "tools/exp_hash_inkernel.py:59", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "sigma_only_ms": timed["seeded relu S=64 sigma-only"][0],
+            "sector_gb": sectors * 32 / 1e9}
+
+
 def phase_hash_kernels(torch, card: str) -> list:
-    """(13) The hash-grid kernel's modes vs their plain versions, then the
-    probe's timing entry point as the GATHER/DENSE path. Returns the three
-    JSON entries (ENCODE's launches set from phase 14)."""
+    """(13) The fused NGP composite vs its plain version; the hash-grid
+    kernel's modes vs their plain versions, then the probe's timing entry
+    point as the GATHER/DENSE path. Returns the four JSON entries (the
+    fused kernel's and ENCODE's launches set from phase 14)."""
+    fused = _fused_hash_kernel(torch, card)
     from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
     from mirror_nerf_tpu_torch.ops import hashgrid as hg
     from mirror_nerf_tpu_torch.tools import exp_hash_inkernel as probe
@@ -1692,12 +1817,89 @@ def phase_hash_kernels(torch, card: str) -> list:
                 b["C_dense"]["ms"], b["C_dense_plain"]["ms"], d_bound,
                 b["C_dense_grid_sample"]["ms"])
     gat["launches"], den["launches"] = launches
-    return [enc, gat, den]
+    return [fused, enc, gat, den]
 
 
-def phase_ngp_main_path(torch, card: str) -> int:
-    """(14) The hash-grid model's eval path on the card. Returns ENCODE's
-    launches."""
+def _fused_ctx(ctx):
+    """The same eval context with --fused_field."""
+    return replace(ctx, rs=replace(ctx.rs, fused_field=True),
+                   rs_sec=None if ctx.rs_sec is None else replace(
+                       ctx.rs_sec, fused_field=True))
+
+
+def _ngp_fused_path(torch, card: str, views, rays_np, psnr_unfused):
+    """(14, second part) The eval CLI with --fused_field (the fused NGP
+    composite), then the 800×800 view with and without the flag in turns on
+    the same weights. Returns the fused kernel's launches on that path."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import main
+    from mirror_nerf_tpu_torch.eval.apps import run_view
+    from mirror_nerf_tpu_torch.ops import fused_hash, hashgrid
+
+    hashgrid.launches_encode = fused_hash.launches = 0
+    t0 = time.perf_counter()
+    out = main(NGP_EVAL_FLAGS + [
+        "--fused_field", "--root_dir", "scene", "--img_wh", "64", "64",
+        "--split", "test", "--ckpt_path", "w.npz", "--exp_name",
+        "smoke_ngp_fused"])
+    with open(os.path.join(out, "psnr.json")) as f:
+        psnrs = json.load(f)["psnrs"]
+    assert "rgb_fine_001.png" in os.listdir(out), os.listdir(out)
+    cli = (fused_hash.launches, hashgrid.launches_encode)
+    log(f"[ngp-main] eval CLI (nerf_tcnn --fused_field, from w.npz) wrote "
+        f"{out}: PSNRs {psnrs} (without the flag {psnr_unfused}), fused "
+        f"kernel launches {cli[0]}, ENCODE launches {cli[1]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert cli[0] > 0 and cli[1] == 0, cli
+    # the same checkpoint, two routes: the quality parity bar (ROADMAP.md)
+    assert np.allclose(psnrs, psnr_unfused, atol=0.05, rtol=0), psnrs
+
+    sample = {"rays": rays_np}
+    fused_launches, encode_launches = cli
+    for label, ctx, _, _ in views:
+        fctx = _fused_ctx(ctx)
+        run_view(fctx, sample)  # warm
+        walls = {"without": [], "with": []}
+        for flag in ("without", "with", "with", "without") * 2:
+            c = fctx if flag == "with" else ctx
+            n0 = (fused_hash.launches, hashgrid.launches_encode)
+            t0 = time.perf_counter()
+            res = run_view(c, sample)
+            walls[flag].append(time.perf_counter() - t0)
+            if flag == "with":
+                fused_launches += fused_hash.launches - n0[0]
+                encode_launches += hashgrid.launches_encode - n0[1]
+                fused_res = res
+            else:
+                assert fused_hash.launches == n0[0], label
+        n = rays_np.shape[0]
+        log(f"[ngp-main] 800x800 hash-grid level-2 view, {label}, in turns "
+            f"on the same weights ({card}): without --fused_field "
+            f"{n / min(walls['without']):.1f} rays/s (best of "
+            f"{len(walls['without'])}: "
+            f"{', '.join(f'{w:.3f}' for w in walls['without'])} s), with "
+            f"{n / min(walls['with']):.1f} rays/s ("
+            f"{', '.join(f'{w:.3f}' for w in walls['with'])} s): "
+            f"{min(walls['without']) / min(walls['with']):.2f}×")
+        views_fused = (label, fctx, fused_res, walls["with"])
+    # the main path's count ends here: the diagnostics below launch too
+    log(f"[ngp-main] fused NGP composite launches on the fused path: "
+        f"{fused_launches} ({cli[0]} in the eval CLI); ENCODE launches "
+        f"there: {encode_launches}")
+    assert fused_launches > cli[0] and encode_launches == 0, (
+        fused_launches, encode_launches)
+    label, fctx, res, walls = views_fused
+    _report_view(torch, fctx, rays_np, res, walls, f"{label}, --fused_field",
+                 card, size="800x800 hash-grid")
+    _check_against_plain(torch, fctx, rays_np, n=256)
+    return fused_launches
+
+
+def phase_ngp_main_path(torch, card: str) -> tuple:
+    """(14) The hash-grid model's eval path on the card, without and with
+    --fused_field. Returns ENCODE's launches (without) and the fused
+    kernel's (with)."""
     import numpy as np
 
     from mirror_nerf_tpu_torch.data.synthetic import generate_scene
@@ -1766,7 +1968,8 @@ def phase_ngp_main_path(torch, card: str) -> int:
             _report_view(torch, c, rays_np, res, times, label, card,
                          size="800x800 hash-grid")
         _check_against_plain(torch, mirror_ctx, rays_np, n=256)
-        return launches
+        return launches, _ngp_fused_path(torch, card, views, rays_np,
+                                         psnrs["npz"])
     finally:
         os.chdir(cwd)
 
@@ -2004,8 +2207,8 @@ def main() -> int:
     rows_entries[0]["launches"], rows_entries[2]["launches"] = timed(
         "noise path", phase_noise_path, torch, card)
     hash_entries = timed("hash kernels", phase_hash_kernels, torch, card)
-    hash_entries[0]["launches"] = timed("hash-grid main path",
-                                        phase_ngp_main_path, torch, card)
+    hash_entries[1]["launches"], hash_entries[0]["launches"] = timed(
+        "hash-grid main path", phase_ngp_main_path, torch, card)
     probe_entries = timed("probe kernels", phase_probe_kernels, torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules

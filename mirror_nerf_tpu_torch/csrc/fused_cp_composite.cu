@@ -88,12 +88,36 @@
 // of three the full variant takes 39 % less time, without the table loads
 // 26 % less, without both 61 %. `wgmma` (a warpgroup's 64-row tiles, B from
 // shared memory) is the next step; the table rows' L2 traffic after it.
+//
+// The same body, with the hash grid's encoder in place of the CP fold, is
+// the fused NGP composite (`hash_field_kernel`, the C entry
+// mnerf_fused_hash_composite; ops/fused_hash.py): `NGPField`'s field (16
+// levels × 2 features, the nets above) and the COMPOSITE mode's
+// compositing, for the hash-grid model's noise-free passes. It replaces
+// ENCODE (csrc/hashgrid.cu, the port's kernel for the XLA gathers of
+// mirror_nerf_tpu/ops/hashgrid.py:139) followed by the PyTorch nets and
+// compositing, which the JAX package leaves to XLA. ENCODE's device
+// functions (csrc/hashgrid.cuh) write the σ-net's A fragments directly, so
+// the (N·S, 32) encoding never goes to memory, and x01 is the plain
+// version's (o + d·z + b)·fp32(1/2b), rounded as it rounds.
+// What bounds it on the H100: the 3×TF32 products, 11k multiply-adds a
+// sample full (0.28 ms for 2,097,152 samples at 495 TFLOP/s), beside 128
+// corner loads a sample (16 levels × 8 corners of 8 B; ~80 distinct 32-B
+// L2 sectors, the x-neighbours sharing theirs) from a 52.9 MB table that
+// does not fit the 50 MB L2. Its nets take 96 KB of shared memory full,
+// 25 KB σ-only (no fold). Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md §6, row 9): 1.64 ms for S = 128 full on 16384 rays (ENCODE
+// alone took 1.06 ms, before the nets), 0.54–0.57 σ-only at S = 64;
+// without the corner loads 51 % / 68 % less time, with one TF32 product in
+// place of three 32 % / 0 % less (tools/exp_hash_diag.py): the gathers
+// hold both variants, the tensor pipe the full one beside them.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
 
+#include "hashgrid.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -103,6 +127,7 @@ constexpr int H = 64;            // σ / color / normal hidden width
 constexpr int NSG = 16;          // σ-net output: raw σ + 15 geo
 constexpr int HM = 32;           // mirror hidden width
 constexpr int MAX_LEVELS = 8;
+constexpr int MAX_HASH_LEVELS = 16;  // 2 features a level fill K = 32
 constexpr int MAX_S = 256;
 constexpr int RAYS = 8;          // rays a warp walks together
 constexpr int JB = 4;            // hidden n-tiles computed together
@@ -111,6 +136,9 @@ constexpr int NROW = 8;          // ROWS: σ, rgb(3), normal(3), mirror
 constexpr int SMEM_LIMIT = 232448;
 
 enum Mode { COMPOSITE = 0, ROWS = 1, SAMPLES = 2 };
+// the encoder in front of the σ-net: the CP fold (`cp_field_kernel`) or the
+// hash grid's levels (`hash_field_kernel`, COMPOSITE only)
+enum Enc { CP_GRID = 0, HASH_GRID = 1 };
 
 // The nets' float offsets, in the packed buffer after the fold (ΣR × 32)
 // and in shared memory before it. Each matrix is (K, N) with K and N padded
@@ -154,7 +182,10 @@ struct Levels {
 
 struct Args {
   const float *pos, *rays_d, *vdir, *z_vals, *deltas, *tables, *nets;
-  Levels lv;
+  Levels lv;                  // CP_GRID
+  const Level* hash_levels;   // HASH_GRID: the (rows, 2) table's levels
+  int n_hash_levels;
+  float inv_2b;               // HASH_GRID: fp32(1 / 2·bound)
   int n_rays, n_samples;
   float bound;
   float *weights, *per_ray, *rows;
@@ -289,12 +320,119 @@ __device__ __forceinline__ float sum_parts(const float part[JB][2][4], int m,
   return v;
 }
 
+// The CP encode straight into the fold's A fragments (A columns t, t+4 of
+// k-tiles 2p, 2p+1 are ranks 16p + 4t … 16p + 4t + 3: one 16-B table load),
+// then the fold's C fragments as the σ-net's A fragments. x: this lane's
+// four rows' x01.
+__device__ __forceinline__ void cp_encode(const Args& a, const float* smem,
+                                          int fold_base,
+                                          const float (&x)[4][3], int t,
+                                          int lane, AFrag (&feat)[2][4]) {
+  const Levels& lv = a.lv;
+  float fold[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fold[m][nt][k] = 0.f;
+  for (int l = 0; l < lv.n; ++l) {
+    const int G = lv.G[l], R = lv.R[l];
+    int row[4][3];
+    float w[4][3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float xf = fminf(fmaxf(x[q][k], 0.f), 1.f) * (float)(G - 1);
+        const int xi = min((int)floorf(xf), G - 2);
+        w[q][k] = xf - (float)xi;
+        row[q][k] = lv.off[l][k] + xi * R + 4 * t;
+      }
+    for (int p = 0; p < (R >> 4); ++p) {
+      // f[q][j]: rank 16p + 4t + j of row q
+      float f[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float* r0 = a.tables + row[q][k] + 16 * p;
+          const float4 t0 = __ldg(reinterpret_cast<const float4*>(r0));
+          const float4 t1 = __ldg(reinterpret_cast<const float4*>(r0 + R));
+          const float u = 1.f - w[q][k], v = w[q][k];
+          const float e[4] = {t0.x * u + t1.x * v, t0.y * u + t1.y * v,
+                              t0.z * u + t1.z * v, t0.w * u + t1.w * v};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[q][j] = k == 0 ? e[j] : f[q][j] * e[j];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kt = lv.kt0[l] + 2 * p + h;
+        AFrag af[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          af[m] = split_a(f[2 * m][2 * h], f[2 * m + 1][2 * h],
+                          f[2 * m][2 * h + 1], f[2 * m + 1][2 * h + 1]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const BFrag b = load_b(smem, fold_base, 4, kt, nt, lane);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma3(fold[m][nt], af[m], b);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) feat[m][kt] = a_from_c(fold[m][kt]);
+}
+
+// The hash-grid encode straight into the σ-net's A fragments. The packed
+// s1 reads its K rows in c_order, so A columns t and t + 4 of k-tile kt are
+// input features 8kt + 2t and 8kt + 2t + 1: the two features of level
+// 4kt + t. Lane (g, t) interpolates levels t, t+4, t+8 and t+12 of its four
+// rows' samples (ENCODE's `interp_level`, each corner one 8-B load that
+// holds both of its A entries); a level past the spec's, or a sample
+// outside [0, 1]³, gives zeros. Every corner is loaded (an out-of-bound
+// sample's rows are still rows of its level, reduced modulo its size) and
+// the zeros selected after, so the loads of a level's four samples issue
+// together.
+__device__ __forceinline__ void hash_encode(const Args& a,
+                                            const float (&x)[4][3], int t,
+                                            AFrag (&feat)[2][4]) {
+  bool in[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) in[q] = in_unit_cube(x[q][0], x[q][1], x[q][2]);
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt) {
+    const int l = 4 * kt + t;
+    float f[4][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[q][0] = f[q][1] = 0.f;
+    if (l < a.n_hash_levels) {
+      const Level L = load_level(a.hash_levels, l);
+      const float* rows = a.tables + (size_t)L.offset * 2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v[2];
+        interp_level<2>(rows, L, x[q][0], x[q][1], x[q][2], v);
+        f[q][0] = in[q] ? v[0] : 0.f;
+        f[q][1] = in[q] ? v[1] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      feat[m][kt] = split_a(f[2 * m][0], f[2 * m + 1][0], f[2 * m][1],
+                            f[2 * m + 1][1]);
+  }
+}
+
 // pos: ray origins (N, 3), or world positions (N, S, 3) in SAMPLES mode;
 // vdir: view dirs (N, 3), or (N, S, 3) in SAMPLES mode; rays_d is read in
 // COMPOSITE and ROWS, deltas (N, S) in SAMPLES only.
-template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
-__global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
-    cp_field_kernel(const Args a) {
+template <int ENC, int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
+__device__ __forceinline__ void field_body(const Args& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FOLD = SIGMA_ONLY ? SM_SIGMA : SM_FULL;
   constexpr bool RAY_DIRS = MODE != SAMPLES;  // one view dir a ray
@@ -302,8 +440,8 @@ __global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
 
   // the weights, staged once a block (the grid is persistent)
   {
-    const float* nets = a.nets + lv.sum_r * F;
-    stage(a.nets, lv.sum_r, F, smem + FOLD);
+    const float* nets = a.nets + lv.sum_r * F;  // the hash grid's sum_r is 0
+    if constexpr (ENC == CP_GRID) stage(a.nets, lv.sum_r, F, smem + FOLD);
     stage(nets + S1, F, H, smem + 2 * S1);
     stage(nets + S2, H, NSG, smem + 2 * S2);
     if (!SIGMA_ONLY) {
@@ -376,64 +514,19 @@ __global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
           const float p = MODE == SAMPLES
               ? a.pos[zi * 3 + k]
               : __fadd_rn(o[k], __fmul_rn(d[k], zq[q]));
-          x[q][k] = (p + a.bound) / two_b;
+          // NGPField.density: (p + b)·fp32(1/2b), two roundings
+          x[q][k] = ENC == CP_GRID
+              ? (p + a.bound) / two_b
+              : __fmul_rn(__fadd_rn(p, a.bound), a.inv_2b);
         }
       }
 
-      // ---- CP encode straight into the fold's A fragments -------------
-      float fold[2][4][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) fold[m][nt][k] = 0.f;
-      for (int l = 0; l < lv.n; ++l) {
-        const int G = lv.G[l], R = lv.R[l];
-        int row[4][3];
-        float w[4][3];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            const float xf = fminf(fmaxf(x[q][k], 0.f), 1.f) * (float)(G - 1);
-            const int xi = min((int)floorf(xf), G - 2);
-            w[q][k] = xf - (float)xi;
-            row[q][k] = lv.off[l][k] + xi * R + 4 * t;
-          }
-        for (int p = 0; p < (R >> 4); ++p) {
-          // f[q][j]: rank 16p + 4t + j of row q
-          float f[4][4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              const float* r0 = a.tables + row[q][k] + 16 * p;
-              const float4 t0 = __ldg(reinterpret_cast<const float4*>(r0));
-              const float4 t1 = __ldg(reinterpret_cast<const float4*>(r0 + R));
-              const float u = 1.f - w[q][k], v = w[q][k];
-              const float e[4] = {t0.x * u + t1.x * v, t0.y * u + t1.y * v,
-                                  t0.z * u + t1.z * v, t0.w * u + t1.w * v};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) f[q][j] = k == 0 ? e[j] : f[q][j] * e[j];
-            }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int kt = lv.kt0[l] + 2 * p + h;
-            AFrag af[2];
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              af[m] = split_a(f[2 * m][2 * h], f[2 * m + 1][2 * h],
-                              f[2 * m][2 * h + 1], f[2 * m + 1][2 * h + 1]);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const BFrag b = load_b(smem, FOLD, 4, kt, nt, lane);
-#pragma unroll
-              for (int m = 0; m < 2; ++m) mma3(fold[m][nt], af[m], b);
-            }
-          }
-        }
-      }
+      // ---- the encoder, straight into the σ-net's A fragments ----------
+      AFrag feat[2][4];
+      if constexpr (ENC == CP_GRID)
+        cp_encode(a, smem, FOLD, x, t, lane, feat);
+      else
+        hash_encode(a, x, t, feat);
 
       // ---- σ-net: 32 → 64 relu → 16 -----------------------------------
       // JB hidden n-tiles at a time (2·JB independent accumulators), each
@@ -441,11 +534,6 @@ __global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
       // sums even and odd hidden tiles apart (two chains a tile)
       float sg[2][2][4];
       {
-        AFrag feat[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int kt = 0; kt < 4; ++kt) feat[m][kt] = a_from_c(fold[m][kt]);
         float part[2][2][2][4];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -782,6 +870,30 @@ __global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
   }
 }
 
+template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
+__global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? 2 : 1)
+    cp_field_kernel(const Args a) {
+  field_body<CP_GRID, MODE, SIGMA_ONLY, SOFTPLUS>(a);
+}
+
+// The fused NGP composite: the hash grid's 16 levels into the σ-net, the
+// heads and the composite of the CP kernel. Its nets take 96 KB of shared
+// memory (full) or 25 KB (σ-only), so two full blocks an SM, or more
+// σ-only ones, would fit; the registers decide. One 8-warp block an SM,
+// both variants, measured (tools/exp_hash_diag.py, H100 80GB HBM3 at
+// 700 W): held to 128 registers the full variant spills ~850 B and takes
+// 1.7× as long; the σ-only variant, at 183 registers, is 7 % faster than
+// two blocks at 128 with ~60 B of spills, and three blocks (80 registers)
+// take 1.5× as long.
+constexpr int HASH_BLOCKS_FULL = 1;
+constexpr int HASH_BLOCKS_SIGMA = 1;
+template <bool SIGMA_ONLY, bool SOFTPLUS>
+__global__ void __launch_bounds__(BLOCK, SIGMA_ONLY ? HASH_BLOCKS_SIGMA
+                                                    : HASH_BLOCKS_FULL)
+    hash_field_kernel(const Args a) {
+  field_body<HASH_GRID, COMPOSITE, SIGMA_ONLY, SOFTPLUS>(a);
+}
+
 // Per instance and card: the largest dynamic shared memory the kernel's
 // attribute was raised to there, and the grid for the size last asked for.
 // The entry drops Python's lock, so callers on two cards may launch at once:
@@ -793,9 +905,13 @@ struct Launch {
 };
 constexpr int MAX_DEVICES = 64;
 
-template <int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
+template <int ENC, int MODE, bool SIGMA_ONLY, bool SOFTPLUS>
 int launch(const Args& a, int device, cudaStream_t stream) {
-  auto kern = cp_field_kernel<MODE, SIGMA_ONLY, SOFTPLUS>;
+  void (*kern)(const Args);
+  if constexpr (ENC == HASH_GRID)
+    kern = hash_field_kernel<SIGMA_ONLY, SOFTPLUS>;
+  else
+    kern = cp_field_kernel<MODE, SIGMA_ONLY, SOFTPLUS>;
   static Launch cached[MAX_DEVICES];
   static std::mutex mu;
   if (device < 0 || device >= MAX_DEVICES)
@@ -835,14 +951,14 @@ int launch(const Args& a, int device, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int ENC, int MODE>
 int launch_variant(const Args& a, bool sigma_only, bool softplus, int device,
                    cudaStream_t s) {
   if (sigma_only)
-    return softplus ? launch<MODE, true, true>(a, device, s)
-                    : launch<MODE, true, false>(a, device, s);
-  return softplus ? launch<MODE, false, true>(a, device, s)
-                  : launch<MODE, false, false>(a, device, s);
+    return softplus ? launch<ENC, MODE, true, true>(a, device, s)
+                    : launch<ENC, MODE, true, false>(a, device, s);
+  return softplus ? launch<ENC, MODE, false, true>(a, device, s)
+                  : launch<ENC, MODE, false, false>(a, device, s);
 }
 
 }  // namespace
@@ -915,11 +1031,49 @@ int mnerf_fused_cp_composite(
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == ROWS)  // raw σ out: no activation, one instance per variant
-    return sigma_only ? launch<ROWS, true, false>(a, device, s)
-                      : launch<ROWS, false, false>(a, device, s);
+    return sigma_only ? launch<CP_GRID, ROWS, true, false>(a, device, s)
+                      : launch<CP_GRID, ROWS, false, false>(a, device, s);
   if (mode == SAMPLES)
-    return launch_variant<SAMPLES>(a, sigma_only, softplus, device, s);
-  return launch_variant<COMPOSITE>(a, sigma_only, softplus, device, s);
+    return launch_variant<CP_GRID, SAMPLES>(a, sigma_only, softplus, device,
+                                            s);
+  return launch_variant<CP_GRID, COMPOSITE>(a, sigma_only, softplus, device,
+                                            s);
+}
+
+// The fused NGP composite (COMPOSITE semantics; ops/fused_hash.py). Returns
+// 0, a cudaError_t (> 0), or a negative code for arguments the kernel does
+// not take, which ops/fused_hash.py turns into a message:
+//   -1 level count outside [1, MAX_HASH_LEVELS]   -2 S outside [1, MAX_S]
+//   -4 n_nets is not the layout's                 -6 n_rays < 1
+// rays_o, rays_d, vdir (N, 3), z (N, S); table the flat (rows, 2) table;
+// levels its n_levels × 8 int32 words (ops/hashgrid.py `_level_table`), a
+// device array; nets the layout above without the fold (ops/fused_hash.py
+// `_pack_nets`); inv_2b = fp32(1 / 2·bound). Writes weights (N, S) and,
+// unless σ-only, per_ray (N, 9). vdir is unread when σ-only. The card's
+// index and a stream of that card come last (csrc/launch.cuh).
+int mnerf_fused_hash_composite(
+    const float* rays_o, const float* rays_d, const float* vdir,
+    const float* z_vals, const float* table, const int* levels, int n_levels,
+    const float* nets, long long n_nets, int n_rays, int n_samples,
+    float bound, float inv_2b, int sigma_only, int softplus, float* weights,
+    float* per_ray, int device, void* stream) {
+  if (n_levels < 1 || n_levels > MAX_HASH_LEVELS) return -1;
+  if (n_samples < 1 || n_samples > MAX_S) return -2;
+  if (n_nets != NETS) return -4;
+  if (n_rays < 1) return -6;
+  Args a{rays_o, rays_d, vdir, z_vals, nullptr, table, nets};
+  a.hash_levels = reinterpret_cast<const Level*>(levels);
+  a.n_hash_levels = n_levels;
+  a.inv_2b = inv_2b;
+  a.n_rays = n_rays;
+  a.n_samples = n_samples;
+  a.bound = bound;
+  a.weights = weights;
+  a.per_ray = per_ray;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return launch_variant<HASH_GRID, COMPOSITE>(
+      a, sigma_only, softplus, device, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,111 @@
+// The hash-grid lookup's device functions, shared by the ENCODE, GATHER and
+// DENSE modes of csrc/hashgrid.cu and by the fused NGP composite of
+// csrc/fused_cp_composite.cu (`hash_field_kernel`), so that both compute a
+// level's features with the same arithmetic.
+//
+// One level as the wrapper packs it (ops/hashgrid.py `_level_table`): 8
+// int32 words. A level's rows start at `offset` rows into the flat (rows,
+// C) table; a hashed level's corner row is the uint32 xor of
+// coordinate·prime (gridencoder.cu:51-66) modulo its size, a dense level's
+// the strided sum. pos = x·scale + 0.5 is one fused multiply-add
+// (__fmaf_rn), as XLA contracts the JAX package's expression.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+struct Level {
+  unsigned offset;     // first row of the level in the table
+  unsigned size;       // rows of the level
+  float scale;         // fp32 2^(l·S)·H − 1
+  unsigned stride[3];  // dense strides (0 past the level size)
+  int use_hash;
+  int pad;
+};
+static_assert(sizeof(Level) == 32, "Level is 8 words");
+
+// Level l of the device array the wrapper packs: two 16-B read-only loads.
+__device__ __forceinline__ Level load_level(const Level* __restrict__ levels,
+                                            int l) {
+  Level L;
+  const uint4* w = reinterpret_cast<const uint4*>(levels + l);
+  const uint4 a = __ldg(w), b = __ldg(w + 1);
+  memcpy(&L, &a, 16);
+  memcpy(reinterpret_cast<unsigned char*>(&L) + 16, &b, 16);
+  return L;
+}
+
+// The widest load unit for a row of BYTES bytes (rows start at multiples of
+// min(BYTES, 16) bytes; the wrapper checks the table's base).
+template <int BYTES> struct Unit { using T = uint4; };
+template <> struct Unit<2> { using T = unsigned short; };
+template <> struct Unit<4> { using T = unsigned; };
+template <> struct Unit<8> { using T = uint2; };
+
+// GATHER's device function: one row of BYTES bytes through the read-only
+// path, into registers.
+template <int BYTES>
+__device__ __forceinline__ void copy_row(const unsigned char* __restrict__ base,
+                                         size_t row, void* dst) {
+  using U = typename Unit<BYTES>::T;
+  constexpr int K = BYTES / sizeof(U);
+  const U* src = reinterpret_cast<const U*>(base + row * BYTES);
+  U u[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) u[k] = __ldg(src + k);
+  memcpy(dst, u, BYTES);
+}
+
+__device__ __forceinline__ unsigned corner_row(const Level& L, unsigned x,
+                                               unsigned y, unsigned z) {
+  const unsigned h =
+      L.use_hash ? (x ^ (y * 2654435761u) ^ (z * 805459861u))
+                 : (x * L.stride[0] + y * L.stride[1] + z * L.stride[2]);
+  return h % L.size;
+}
+
+// DENSE's device function: the trilinear interpolation of one level at
+// x ∈ [0, 1]³ from the level's rows (size × C floats). Corner c has bit d
+// set for +1 along axis d; weights ((w_x·w_y)·w_z), corners summed 0..7, as
+// the JAX package orders them.
+template <int C>
+__device__ __forceinline__ void interp_level(const float* __restrict__ rows,
+                                             const Level& L, float x0,
+                                             float x1, float x2,
+                                             float (&acc)[C]) {
+  const float p0 = __fmaf_rn(x0, L.scale, 0.5f);
+  const float p1 = __fmaf_rn(x1, L.scale, 0.5f);
+  const float p2 = __fmaf_rn(x2, L.scale, 0.5f);
+  const float f0 = floorf(p0), f1 = floorf(p1), f2 = floorf(p2);
+  const float t0 = p0 - f0, t1 = p1 - f1, t2 = p2 - f2;
+  const unsigned g0 = (unsigned)(int)f0, g1 = (unsigned)(int)f1,
+                 g2 = (unsigned)(int)f2;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(rows);
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wx = (c & 1) ? t0 : 1.f - t0;
+    const float wy = (c & 2) ? t1 : 1.f - t1;
+    const float wz = (c & 4) ? t2 : 1.f - t2;
+    const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+    float v[C];
+    copy_row<C * 4>(base,
+                    corner_row(L, g0 + (c & 1), g1 + ((c >> 1) & 1),
+                               g2 + ((c >> 2) & 1)),
+                    v);
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] = fmaf(w, v[k], acc[k]);
+  }
+}
+
+__device__ __forceinline__ bool in_unit_cube(float x0, float x1, float x2) {
+  return !(x0 < 0.f || x0 > 1.f || x1 < 0.f || x1 > 1.f || x2 < 0.f ||
+           x2 > 1.f);
+}
+
+}  // namespace

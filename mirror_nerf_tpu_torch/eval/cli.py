@@ -8,12 +8,14 @@ steady-state render rate (views after the first) in rays/s.
 
 All three models render: the CP grid (`--model_type nerf_tpu`), the
 flagship PE-MLP (`nerf`, the default) and the hash-grid model
-(`nerf_tcnn`). `--fused_field` runs the first two through their eval
-kernels with in-kernel compositing; the hash-grid model always encodes
-through its ENCODE kernel (csrc/hashgrid.cu) and runs its small nets in
-PyTorch, and ignores the flag, as the JAX package does. `--ckpt_path` takes
-an npz (either package's) or a reference torch Lightning `.ckpt` of the
-PE-MLP or the hash-grid (MirrorNeRFTcnn) layout. `--device` (default
+(`nerf_tcnn`). `--fused_field` runs each through its eval kernel with
+in-kernel compositing: the hash-grid model through the fused NGP composite
+(ops/fused_hash.py: its levels, nets and compositing in one kernel; a spec
+the kernel lacks raises on the card). Without the flag the hash-grid model
+encodes through ENCODE (csrc/hashgrid.cu) and runs its small nets and the
+compositing in PyTorch, as the JAX package runs them on XLA. `--ckpt_path`
+takes an npz (either package's) or a reference torch Lightning `.ckpt` of
+the PE-MLP or the hash-grid (MirrorNeRFTcnn) layout. `--device` (default
 `cuda`) picks where parameters and rays live; a CUDA run goes through the
 port's kernels, a CPU run through their plain versions. Not ported yet: the
 four applications, `--megabatch` and `--proposal_drop_levels` (TPU
@@ -42,7 +44,8 @@ def get_opt(argv=None):
     parser.add_argument("--render_coarse_rgb", default=False,
                         action="store_true")
     # the fused eval kernel with in-kernel compositing (nerf_tpu: the CP
-    # composite kernel; nerf: the PE-MLP kernel)
+    # composite kernel; nerf: the PE-MLP kernel; nerf_tcnn: the fused NGP
+    # composite)
     parser.add_argument("--fused_field", default=False, action="store_true")
     # drop the coarse proposal pass; one fine pass on
     # N_samples + N_importance stratified samples

@@ -11,6 +11,10 @@ nerf_tcnn`).
   * mirror net: Linear(15,32) + LeakyReLU(0.01) + Linear(32,1) + sigmoid
   * world coords scaled (x + bound)·fp32(1/(2·bound)) before encoding
 
+`supports_fused_hash` says whether the fused NGP composite
+(ops/fused_hash.py) takes the field: the renderer's noise-free passes with
+`fused_field` then run the whole field and the compositing in one kernel.
+
 The field is a static description; its parameters are a dict of tensors
 with the JAX package's leaf names and (in, out) layout (`grid` the flat
 (rows, 2) table). `TPUGridField` (models/tpugrid.py) swaps the encoder for
@@ -68,6 +72,29 @@ class NGPField:
         return self.grid_spec.output_dim  # 32
 
     @property
+    def fused_nets(self) -> bool:
+        """Both heads and the net dims the fused kernels hard-code: σ-net
+        →64→16, color 31→64→64→3, normal 15→64→3, mirror 15→32→1, SH4."""
+        return (self.predict_normal and self.predict_mirror_mask
+                and self.geo_feat_dim == 15 and self.hidden_dim == 64
+                and self.num_layers == 2 and self.num_layers_color == 3
+                and self.hidden_dim_color == 64 and self.sh_degree == 4)
+
+    @property
+    def supports_fused_hash(self) -> bool:
+        """The fused NGP composite (ops/fused_hash.py) takes 2-feature
+        levels, at most 16 (its K of 32, zero-padded below 16), and
+        `fused_nets`; any bound and table size."""
+        spec = self.grid_spec
+        return (spec.level_dim == 2 and 1 <= spec.num_levels
+                and 2 * spec.num_levels <= 32 and self.fused_nets)
+
+    @property
+    def inv_2b(self) -> float:
+        """fp32(1/(2·bound)): x01 = (x + bound)·inv_2b."""
+        return float(np.float32(1.0) / np.float32(2.0 * self.bound))
+
+    @property
     def in_dim_dir(self) -> int:
         return self.sh_degree ** 2  # 16
 
@@ -114,17 +141,18 @@ class NGPField:
                 h = relu(h)
         return h[..., 0], h[..., 1:]
 
-    def density(self, params: dict, xyz: torch.Tensor):
-        """Raw world coords in [-bound, bound] → (σ raw, geo_feat)."""
+    def density(self, params: dict, xyz: torch.Tensor, encode=None):
+        """Raw world coords in [-bound, bound] → (σ raw, geo_feat);
+        `encode` the hash-grid encoder (default `hashgrid_encode`, the
+        dispatcher: ENCODE on the card)."""
         # × the fp32 reciprocal of 2·bound, as PyTorch divides a CUDA tensor
         # by a scalar and XLA a traced one by a constant: written out, every
         # device puts a point in the same cell. A point on the +bound face
         # lands at exactly 1.0, in bound: (b + b)·fp32(1/2b) rounds to 1.0
         # for every integer bound 1–32 (ROADMAP.md §3).
-        inv = float(np.float32(1.0) / np.float32(2.0 * self.bound))
-        x01 = (xyz + self.bound) * inv
-        return self._sigma_net(params, hashgrid_encode(params["grid"], x01,
-                                                       self.grid_spec))
+        x01 = (xyz + self.bound) * self.inv_2b
+        return self._sigma_net(params, (encode or hashgrid_encode)(
+            params["grid"], x01, self.grid_spec))
 
     def color(self, params: dict, geo_feat: torch.Tensor,
               dirs: torch.Tensor) -> torch.Tensor:

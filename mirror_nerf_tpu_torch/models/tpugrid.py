@@ -7,7 +7,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ..ops.cpgrid import CPGridSpec, cpgrid_encode, init_cpgrid
@@ -28,10 +27,12 @@ class TPUGridField(NGPField):
     def supports_fused_cp(self) -> bool:
         """The fused composite kernel (ops/fused_cp.py) hard-codes these
         net dims; other dims take the unfused path."""
-        return (self.predict_normal and self.predict_mirror_mask
-                and self.geo_feat_dim == 15 and self.hidden_dim == 64
-                and self.num_layers == 2 and self.num_layers_color == 3
-                and self.hidden_dim_color == 64 and self.sh_degree == 4)
+        return self.fused_nets
+
+    @property
+    def supports_fused_hash(self) -> bool:
+        """No hash grid: the renderer's hash route never takes this field."""
+        return False
 
     @property
     def supports_fused_train(self) -> bool:
@@ -55,8 +56,7 @@ class TPUGridField(NGPField):
         # puts every sample in the same grid cell as the card and as the
         # train kernel. ∇σ jumps across cell boundaries, so a sample within
         # an ulp of a node must not switch cells between devices.
-        inv = float(np.float32(1.0) / np.float32(2.0 * self.bound))
-        x01 = (xyz + self.bound) * inv
+        x01 = (xyz + self.bound) * self.inv_2b
         return self._sigma_net(params,
                                cpgrid_encode(params["grid"], x01,
                                              self.cp_spec))

@@ -60,6 +60,21 @@ def sass_counts(so_path, match: str,
     return out
 
 
+def ptxas_by_function(log: str, match: str = "") -> dict:
+    """nvcc's `-Xptxas -v` output -> each compiled function whose name holds
+    `match`: "<registers>; <spills>" (ptxas' own words)."""
+    out, name, spills = {}, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            name, spills = m.group(1), ""
+        elif name and "spill" in ln:
+            spills = ln.split(":", 1)[-1].strip()
+        elif name and "registers" in ln and match in name:
+            out[name] = ln.split(":", 1)[-1].strip() + "; " + spills
+    return out
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -80,12 +80,13 @@ def prefix_weights(sd: torch.Tensor) -> torch.Tensor:
 
 
 def cp_rows_reference(field, params: dict, xyz, dirs,
-                      sigma_only: bool = False) -> dict:
+                      sigma_only: bool = False, density=None) -> dict:
     """Per-sample field outputs from world positions xyz and view dirs
     (N, S, 3; dirs unread when σ-only): `sigma` (raw) and, unless σ-only,
-    `rgb3`, `normal3` (unit) and `mirror` (any device)."""
+    `rgb3`, `normal3` (unit) and `mirror` (any device). `density(params,
+    xyz)` replaces `field.density` (ops/fused_hash.py: the plain encoder)."""
     n, s = xyz.shape[:2]
-    sigma, geo = field.density(params, xyz.reshape(-1, 3))
+    sigma, geo = (density or field.density)(params, xyz.reshape(-1, 3))
     res = {"sigma": sigma.reshape(n, s)}
     if sigma_only:
         return res
@@ -125,11 +126,13 @@ def composite_rows(rows: dict, z_vals, deltas, sigma_only: bool,
 
 def cp_rays_composite_reference(field, params: dict, rays_o, rays_d,
                                 view_dirs, z_vals, sigma_only: bool = False,
-                                sigma_act: str = "relu") -> dict:
-    """The plain PyTorch version of the composite mode (any device)."""
+                                sigma_act: str = "relu",
+                                density=None) -> dict:
+    """The plain PyTorch version of the composite mode (any device);
+    `density` as in `cp_rows_reference`."""
     rows = cp_rows_reference(field, params,
                              *_ray_samples(rays_o, rays_d, view_dirs, z_vals),
-                             sigma_only)
+                             sigma_only, density)
     deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                         torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
     return composite_rows(rows, z_vals, deltas, sigma_only, sigma_act)
@@ -213,22 +216,27 @@ def quad_order(k: int) -> list:
             for r in range(k)]
 
 
-def _plain_parts(params: dict) -> list:
+def _plain_parts(params: dict, fold: bool = True) -> list:
     """The fold and the nets, each in its JAX (in, out) layout: fold, s1,
-    s2, c1, c2, c3, n1, n2, m1 w, m1 b, m2 w, m2 b."""
+    s2, c1, c2, c3, n1, n2, m1 w, m1 b, m2 w, m2 b. Without the fold (the
+    hash grid), an empty (0, 32) in its place."""
     s, c, nn_, m = (params["sigma_net"], params["color_net"],
                     params["normal"], params["is_mirror"])
-    return [params["grid"]["fold"], s[0]["w"], s[1]["w"], c[0]["w"],
+    head = (params["grid"]["fold"] if fold
+            else s[0]["w"].new_zeros((0, 32)))
+    return [head, s[0]["w"], s[1]["w"], c[0]["w"],
             c[1]["w"], c[2]["w"], nn_[0]["w"], nn_[1]["w"], m[0]["w"],
             m[0]["b"], m[1]["w"], m[1]["b"]]
 
 
-def net_index(levels) -> torch.Tensor:
+def net_index(levels, in_dim: int = 32) -> torch.Tensor:
     """Where each float of the kernel's packed nets comes from: an index
     into the plain parts concatenated (`_plain_parts`, flattened) with one
-    zero appended, the zero for every padded row and column."""
+    zero appended, the zero for every padded row and column. `in_dim` is
+    the σ-net's input width: the fold's 32, or the hash grid's 2·levels
+    (≤ 32; s1's rows past it read zeros)."""
     sum_r = sum(r for _, r in levels)
-    shapes = [(sum_r, 32), (32, 64), (64, 16), (31, 64), (64, 64), (64, 3),
+    shapes = [(sum_r, 32), (in_dim, 64), (64, 16), (31, 64), (64, 64), (64, 3),
               (15, 64), (64, 3), (15, 32), (1, 32), (32, 1), (1, 1)]
     offs = [0]
     for k, n in shapes:
@@ -254,7 +262,8 @@ def net_index(levels) -> torch.Tensor:
     heads = [geo[j] for j in c_order(16)]
     c1 = quad_order(16) + [None if r is None else 16 + r for r in heads]
     # each kernel matrix: its plain part and the part's row for each K row
-    src = {"s1": (1, c_order(32)), "s2": (2, c_order(64)), "c1": (3, c1),
+    s1 = [r if r < in_dim else None for r in c_order(32)]
+    src = {"s1": (1, s1), "s2": (2, c_order(64)), "c1": (3, c1),
            "c2": (4, c_order(64)), "c3": (5, c_order(64)), "n1": (6, heads),
            "n2": (7, c_order(64)), "m1": (8, heads), "m2": (10, c_order(32)),
            "m1b": (9, [0]), "m2b": (11, [0])}
@@ -266,20 +275,22 @@ def net_index(levels) -> torch.Tensor:
     return torch.cat([p.reshape(-1) for p in parts])
 
 
-_net_index: dict = {}  # (levels, device) -> net_index(levels) there
+_net_index: dict = {}  # (levels, in_dim, device) -> net_index there
 
 
 def _pack_nets(params: dict, levels) -> torch.Tensor:
     """The fold and the nets as the kernel reads them: the fold's rows in
     `quad_order` per level (ranks padded to 16), then `NET_LAYOUT`, each
     weight's K rows in `c_order` (c1's SH rows in `quad_order`), zero
-    rows for σ, columns padded to 8."""
-    parts = _plain_parts(params)
+    rows for σ, columns padded to 8. No levels (the hash grid's kernel):
+    no fold, s1's K the encoder's width padded to 32."""
+    parts = _plain_parts(params, fold=bool(levels))
     flat = torch.cat([p.reshape(-1) for p in parts]
                      + [parts[0].new_zeros(1)]).to(torch.float32)
-    key = (tuple(levels), str(flat.device))
+    in_dim = parts[1].shape[0]
+    key = (tuple(levels), in_dim, str(flat.device))
     if key not in _net_index:
-        _net_index[key] = net_index(levels).to(flat.device)
+        _net_index[key] = net_index(levels, in_dim).to(flat.device)
     return flat[_net_index[key]]
 
 

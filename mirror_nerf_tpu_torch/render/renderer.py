@@ -8,10 +8,12 @@ reference's stop-gradient variants, surface points x = o + d·depth.
 The field runs one of three ways: a fused eval kernel (`fused_field`,
 forward-only), which composites in-kernel on noise-free passes
 (ops/fused_cp.py for the CP grid, ops/fused_mlp_t.py for the flagship
-PE-MLP) and emits per-sample rows that are composited here on σ-noise
-passes, and on the flagship's passes with `fused_t` off (ops/fused_cp.py
-`fused_cp_rays_eval`, ops/fused_mlp.py `fused_rays_eval`); the training
-kernels for density + ∇σ or density alone (`fused_density`,
+PE-MLP, ops/fused_hash.py for the hash grid, `nerf_tcnn`) and emits
+per-sample rows that are composited here on σ-noise passes, and on the
+flagship's passes with `fused_t` off (ops/fused_cp.py `fused_cp_rays_eval`,
+ops/fused_mlp.py `fused_rays_eval`); the hash grid's σ-noise passes take
+the plain route below (ENCODE and the PyTorch nets); the training kernels
+for density + ∇σ or density alone (`fused_density`,
 ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
 normal by `torch.autograd.grad` (`density_with_grad_reference`).
 
@@ -138,11 +140,29 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
             return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
                                        results, sigma_only, rays_o, rays_d,
                                        pass_noise)
+        if getattr(field, "supports_fused_hash", False):
+            if rs.noise_std == 0:
+                from ..ops.fused_hash import fused_hash_rays_composite
+
+                return _inference_in_kernel(
+                    fused_hash_rays_composite, field, params, typ, z_vals,
+                    dirs, rs, results, sigma_only, rays_o, rays_d)
+            # σ-noise passes: ENCODE and the PyTorch nets below (a rows
+            # mode of the fused kernel is ROADMAP.md queue 2, item 13)
+        elif (hasattr(field, "supports_fused_hash")
+              and not hasattr(field, "supports_fused_cp")
+              and z_vals.device.type != "cpu"):
+            raise NotImplementedError(
+                "--fused_field: the fused NGP composite takes 2-feature "
+                "levels, at most 16, both heads and the default net dims; "
+                f"{field} has no kernel. Render it without --fused_field")
         if getattr(field, "supports_fused", False):
             if rs.fused_t and rs.noise_std == 0:
-                return _inference_fused_t(field, params, typ, z_vals, dirs,
-                                          rs, results, sigma_only, rays_o,
-                                          rays_d)
+                from ..ops.fused_mlp_t import fused_t_rays_composite
+
+                return _inference_in_kernel(
+                    fused_t_rays_composite, field, params, typ, z_vals, dirs,
+                    rs, results, sigma_only, rays_o, rays_d)
             return _inference_fused(field, params, typ, z_vals, dirs, rs,
                                     results, sigma_only, rays_o, rays_d,
                                     pass_noise)
@@ -267,16 +287,14 @@ def _inference_fused_cp(field, params, typ, z_vals, dirs, rs, results,
     return _composited(field, typ, z_vals, rs, results, sigma_only, res)
 
 
-def _inference_fused_t(field, params, typ, z_vals, dirs, rs, results,
-                       sigma_only, ray_o, ray_d) -> dict:
-    """Eval-path inference for the flagship PE-MLP through its fused kernel
-    with in-kernel compositing (ops/fused_mlp_t.py). Forward-only; eval
-    semantics (noise_std == 0)."""
-    from ..ops.fused_mlp_t import fused_t_rays_composite
-
-    res = fused_t_rays_composite(field, params, ray_o, ray_d, dirs, z_vals,
-                                 sigma_only=sigma_only,
-                                 sigma_act=rs.sigma_activation)
+def _inference_in_kernel(composite, field, params, typ, z_vals, dirs, rs,
+                         results, sigma_only, ray_o, ray_d) -> dict:
+    """Eval-path inference through a fused kernel with in-kernel
+    compositing, `composite` its adapter: the flagship PE-MLP's
+    (ops/fused_mlp_t.py) or the hash grid's (ops/fused_hash.py).
+    Forward-only; eval semantics (noise_std == 0)."""
+    res = composite(field, params, ray_o, ray_d, dirs, z_vals,
+                    sigma_only=sigma_only, sigma_act=rs.sigma_activation)
     return _composited(field, typ, z_vals, rs, results, sigma_only, res)
 
 

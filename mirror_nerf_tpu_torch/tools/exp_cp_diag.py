@@ -46,8 +46,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import subprocess
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -91,12 +93,13 @@ WRONG = ("one_tf32", "no_table_loads", "both")  # timed only
 KERNEL_ATOL = 1e-4  # chip_smoke.py's bar, kernel against plain
 
 
-def patched_source(name: str, src: str = None) -> str:
+def patched_source(name: str, src: str = None, patches: dict = None) -> str:
     """`src` (default: the composite's source) with variant `name`'s
-    patches applied; raises ValueError unless each matches exactly once."""
+    patches (default: `PATCHES`) applied; raises ValueError unless each
+    matches exactly once."""
     if src is None:
         src = (_build.CSRC / "fused_cp_composite.cu").read_text()
-    for old, new in PATCHES[name]:
+    for old, new in (patches or PATCHES)[name]:
         if src.count(old) != 1:
             raise ValueError(f"{name}: the patch does not match the source "
                              f"once: {old[:60]!r}")
@@ -104,24 +107,30 @@ def patched_source(name: str, src: str = None) -> str:
     return src
 
 
-def build(name: str):
-    """nvcc a variant into build/kernels/diag/: (ctypes entry, ptxas
-    lines)."""
+def build(name: str, patches: dict = None,
+          entry: str = "mnerf_fused_cp_composite", library=None):
+    """nvcc a variant (of `patches`, default `PATCHES`) into
+    build/kernels/diag/: (its ctypes `entry`, typed as `library`'s, default
+    the CP composite's; ptxas lines)."""
     out = _build.BUILD_DIR / "diag"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "launch.cuh").write_text((_build.CSRC / "launch.cuh").read_text())
+    for header in _build.CSRC.glob("*.cuh"):
+        # replaced whole: a build running in another thread may read it
+        tmp = out / f"{header.name}.{threading.get_ident()}.tmp"
+        tmp.write_text(header.read_text())
+        os.replace(tmp, out / header.name)
     cu = out / f"{name}.cu"
-    cu.write_text(patched_source(name))
+    cu.write_text(patched_source(name, patches=patches))
     so = cu.with_suffix(".so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                            str(cu)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(so)).mnerf_fused_cp_composite
-    fn.argtypes = fused_cp._library.entries["mnerf_fused_cp_composite"]
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = (library or fused_cp._library).entries[entry]
     fn.restype = ctypes.c_int
     ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     return fn, ptxas
 
 

@@ -51,26 +51,47 @@ def per_call_ms(fns: dict, reps: int = 200, rounds: int = 5) -> dict:
     return best
 
 
+def _traced_kernels(fn, reps: int) -> list:
+    """The kernel events of a torch.profiler trace of `reps` calls, taken
+    after a warm-up pass of as many calls under the profiler: the device's
+    activity is recorded only some time after the profiler starts, and in a
+    long process (chip_smoke.py's phase 15 on an H100) a trace of 20 short
+    calls started cold held 17 of their 20 kernels, or none."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    events = []
+
+    def keep(prof):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events.extend(json.load(f)["traceEvents"])
+
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched,
+                                on_trace_ready=keep) as prof:
+        for _ in range(2):  # the warm-up pass, then the traced one
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
 def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
     """Device time per call: the summed kernel durations of a torch.profiler
     trace of `reps` calls, over reps. With `exclude`, kernels named like it
     (a cache flush before each call) are left out, `fn` must launch one
-    kernel, and the time is that kernel's mean duration in the trace."""
+    kernel, and the time is that kernel's mean duration in the trace. A
+    trace without a kernel raises."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events
-               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    kernels = _traced_kernels(fn, reps)
+    if not kernels:
+        raise RuntimeError(f"a profiler trace of {reps} calls held no "
+                           "kernel event")
     if exclude is None:
         return sum(e["dur"] for e in kernels) / reps / 1e3
     kept = [e for e in kernels if exclude not in e.get("name", "")]

@@ -5,6 +5,7 @@
     python3 tools/profile_view_torch.py --model_type nerf   # flagship, 400×300
     python3 tools/profile_view_torch.py --model_type nerf --noise_std 1
     python3 tools/profile_view_torch.py --model_type nerf_tcnn  # 800×800
+    python3 tools/profile_view_torch.py --model_type nerf_tcnn --fused_field
     python3 tools/profile_view_torch.py --cpu 48            # CPU rehearsal
 
 Renders the `chip_smoke.py` view (bench camera, run.sh mode-1 flags of the
@@ -24,6 +25,12 @@ exported trace it prints, per weight set:
     compositing, sampling and copies); for nerf_tcnn also the share of the
     PyTorch nets (cuBLAS/CUTLASS GEMM kernels), since its kernel is the
     encoder alone.
+
+With `--fused_field` the hash-grid model renders through the fused NGP
+composite (`hash_field_kernel`, ops/fused_hash.py) in place of ENCODE and
+the PyTorch nets; its launches and share are the kernel's, and ENCODE's
+launches in the profiled view are printed beside them (the other two
+models' flags always carry --fused_field).
 
 With `--noise_std` > 0 every pass draws σ noise, so the fused passes run
 the per-sample rows mode of the kernel and composite in PyTorch (the eval
@@ -91,6 +98,8 @@ def main(argv=None) -> int:
                     choices=["nerf_tpu", "nerf", "nerf_tcnn"])
     ap.add_argument("--noise_std", type=float, default=0.0,
                     help="σ noise of every pass (> 0: the rows kernels)")
+    ap.add_argument("--fused_field", action="store_true",
+                    help="nerf_tcnn: the fused NGP composite")
     opt = ap.parse_args(argv)
 
     import torch
@@ -100,16 +109,21 @@ def main(argv=None) -> int:
     from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
     from mirror_nerf_tpu_torch.eval.cli import init_params
     from mirror_nerf_tpu_torch.models.fields import make_field
-    from mirror_nerf_tpu_torch.ops import (fused_cp, fused_mlp, fused_mlp_t,
-                                           hashgrid)
+    from mirror_nerf_tpu_torch.ops import (fused_cp, fused_hash, fused_mlp,
+                                           fused_mlp_t, hashgrid)
 
     nerf = opt.model_type == "nerf"
     ngp = opt.model_type == "nerf_tcnn"
+    ngp_fused = ngp and opt.fused_field
     noisy = opt.noise_std > 0
     kernel_name = {"nerf": "mlp_field_kernel", "nerf_tcnn":
                    "hash_encode_kernel"}.get(opt.model_type, "cp_field_kernel")
+    if ngp_fused:
+        kernel_name = "hash_field_kernel"
 
     def launches() -> int:
+        if ngp_fused:
+            return fused_hash.launches
         if ngp:
             return hashgrid.launches_encode
         if nerf:
@@ -132,7 +146,8 @@ def main(argv=None) -> int:
 
     flags = ({"nerf": cs.NERF_EVAL_FLAGS, "nerf_tcnn": cs.NGP_EVAL_FLAGS}
              .get(opt.model_type, cs.EVAL_FLAGS)
-             + ["--img_wh", str(w), str(h)])
+             + ["--img_wh", str(w), str(h)]
+             + (["--fused_field"] if ngp_fused else []))
     if opt.cpu:
         flags += ["--chunk", "1024"] + (
             ["--grid_levels", "16:8,32:8"] if opt.model_type == "nerf_tpu"
@@ -161,9 +176,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             run_view(c, sample)
             walls.append(time.perf_counter() - t0)
-        n0 = launches()
+        n0, e0 = launches(), hashgrid.launches_encode
         wall_prof, events = profile(lambda: run_view(c, sample), acts)
         n_launches = launches() - n0
+        n_encode = hashgrid.launches_encode - e0
         dev_ev = [e for e in events if e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset")]
         cpu_ev = [e for e in events if e.get("cat") in
@@ -193,7 +209,9 @@ def main(argv=None) -> int:
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms -> "
               f"{len(rays_np) / min(walls):.1f} rays/s; profiled wall "
               f"{wall_prof * 1e3:.1f} ms, trace span {span / 1e3:.1f} ms, "
-              f"{device}; kernel launches {n_launches}; device events "
+              f"{device}; kernel launches {n_launches}"
+              + (f", ENCODE launches {n_encode}" if ngp_fused else "")
+              + "; device events "
               f"{len(dev_ev)} ({card})", flush=True)
         for name, (cnt, dur) in sorted(by_name.items(),
                                        key=lambda kv: -kv[1][1])[:14]:
