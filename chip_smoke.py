@@ -19,12 +19,21 @@ each fatal on failure:
      one, for comparison with the first design); the SASS of its
      ten instances (HMMA in each; FFMA, LDS, LDG, LDL, STL counted) and
      ptxas' registers and spills;
-  4. the training kernels vs their plain versions at the training path's
-     shapes (T = 131072 and 65536 + 37, ~2 % of the points outside the
-     bound): forward with tangents and density-only; backward under random
-     cotangents on σ, geo and tanh(∇σ), density-only with and without d_x,
-     and a saturating σ field; the backward twice for the run-to-run spread
-     of its atomics; kernel and plain times, forward and forward+backward;
+  4. the training kernels (3×TF32 `mma.sync`) vs their plain
+     versions at the training path's shapes (T = 131072 and 65536 + 37,
+     ~2 % of the points outside the bound; and a train batch's
+     ray-ordered samples, 1024 rays × 128 fine and × 64 coarse; every
+     sample compared, those with a hidden unit within 1e-6 of its sign
+     change counted and their differences logged): forward with tangents
+     and density-only; backward under random cotangents on σ, geo and
+     tanh(∇σ), density-only with and without d_x, and a saturating σ
+     field; the backward twice for the run-to-run spread of its atomics;
+     σ and ∇σ against a float64 version, their signed mean error within
+     1e-7 of scale; the SASS of its six instances (HMMA in each; FFMA,
+     LDS, LDG, LDL, STL counted) and ptxas' registers and spills; kernel
+     and plain times, forward and forward+backward, each launch alone on
+     uniform and ray-ordered samples, beside the 3×TF32 bound and the
+     first design's fp32 one;
   5. the composite kernel's gradient guard: it raises on parameters that
      require grad;
   6. the eval path: the port's eval CLI on a generated 64×64 mirror scene
@@ -38,7 +47,10 @@ each fatal on failure:
      novel-ray reg) on a generated 64×64 scene, the train launch counters
      reset before it and read after; finite losses, parameters and optimizer
      state on the card, the reflection-stage train-step rate at batch 1024;
-     its last.ckpt.npz rendered through the eval CLI;
+     its last.ckpt.npz rendered through the eval CLI; then three traced
+     reflection-stage steps (tools/profile_train_torch.py `step_profile`):
+     the summed device time of a step, the train kernels' share of it, the
+     idle share and the step rate;
   8. one reflection-stage loss and backward on the card against the plain
      version on the CPU, from the same parameters: the loss and every
      gradient leaf;
@@ -136,7 +148,8 @@ Each phase prints its wall time. The script prints one JSON line with the
 nineteen kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
-modes and the flagship's three also with `bound_fp32_ms`, and the segmented
+modes, the train kernels and the flagship's three also with
+`bound_fp32_ms`, and the segmented
 prefix's with `cold_device_ms` after an L2 flush), the nvidia-smi name and
 power limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -336,17 +349,53 @@ def _mlp_bound(samples: int, sigma_only: bool, nbytes: float):
 
 
 def _cp_train_flop(sum_r: int) -> tuple:
-    """Operations per sample of the CP train kernels, tangent variant:
-    forward = the fold of e and of the three tangent streams (4 × 32
-    multiply-adds a rank), lerps, slopes and products (26 a rank), the σ-net
-    and its three tangent products 32→64 plus ∇σ; backward = that forward
-    (recomputed: the function takes no stash) plus its own products
-    (d_s1, d_s2, z̄1, ē, v, s1ᵀu: 12352 multiply-adds; u, pb, qv and the two
-    d_fold outer products: 5 × 32 a rank; 30 scalar ops a rank)."""
+    """Operations per sample of the CP train kernels' first design,
+    tangent variant, all on the fp32 CUDA cores: forward = the fold of e
+    and of the three tangent streams (4 × 32 multiply-adds a rank), lerps,
+    slopes and products (26 a rank), the σ-net and its three tangent
+    products 32→64 plus ∇σ; backward = that forward (recomputed: the
+    function takes no stash) plus its own products (d_s1, d_s2, z̄1, ē, v,
+    s1ᵀu: 12352 multiply-adds; u, pb, qv and the two d_fold outer
+    products: 5 × 32 a rank; 30 scalar ops a rank)."""
     fwd = (sum_r * (4 * 2 * 32 + 26) + 2 * (32 * 64 + 64 * 16)
            + 2 * (3 * 32 * 64 + 3 * 64))
     bwd = fwd + 2 * (12352 + 5 * 32 * sum_r) + 30 * sum_r
     return fwd, bwd
+
+
+def _cp_train_tc_flop(sum_r: int) -> tuple:
+    """Operations per sample that the CP train functions need, tangent
+    variants, split as the tensor-core route runs them: ((forward
+    products, forward scalar work), (backward products, backward scalar
+    work)), a multiply-add 2. Forward products: the fold of P (32 a rank),
+    z1 = e·s1 (32 × 64), h·s2 (64 × 16), v = s1·m (32 × 64) and
+    qv = fold·v (32 a rank), since ∇σ_a = TP_a·qv; scalar: per rank the
+    three lerps and slopes (12), P and the three pair products (4), qv·g_a
+    (3) and the three ∇σ multiply-adds (6), per sample m = [z1 > 0]·s2[:, 0]
+    (64). (The kernel folds all four streams, P, TP0, TP1, TP2, and takes
+    the three tangent streams through s1: about twice these products.)
+    Backward products: the fold of P and TPN, pb = fold ē and qv = fold v,
+    d_fold (6 × 32 a rank), z1, zu, ē, v, d_s1 (6 × 32 × 64), s2 sḡ and
+    d_s2 (2 × 64 × 16) and Σ tn (64); scalar per rank: the recompute's
+    lerps, slopes, P and TPN (25) and the second pass's lerps and slopes,
+    the product rule, the table rows' weights, d_x, P and TPN (79)."""
+    fwd = (2 * (2 * 32 * sum_r + 2 * 32 * 64 + 64 * 16),
+           25 * sum_r + 64)
+    bwd = (2 * (6 * 32 * sum_r + 6 * 32 * 64 + 2 * 64 * 16 + 64),
+           104 * sum_r)
+    return fwd, bwd
+
+
+def _train_bound(samples: int, flop: tuple, nbytes: float) -> tuple:
+    """(bound_ms, bound_by) of a CP train function on the tensor-core
+    route: the largest of 3 × its products over the TF32 peak, its scalar
+    work over the fp32 peak (the two pipes run side by side) and its bytes
+    over the memory rate."""
+    mm, rest = (samples * f for f in flop)
+    t_ops = max(3 * mm / PEAK_TF32, rest / PEAK_FP32) * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
 # multiply-adds per sample of the flagship: trunk 63·256 + 6·256² + 319·256
@@ -509,11 +558,92 @@ def _train_grads(torch, fn, field, params, x, cots, tangents: bool,
     return [o.detach() for o in out], grads
 
 
+def _train_check(torch, fct, field, params, x, cots, nscale, tag,
+                 variants) -> tuple:
+    """Each variant's kernels against the plain versions on (x, cots),
+    every sample: forward outputs ≤ TRAIN_FWD_ATOL scaled above 1, every
+    gradient leaf and d_x ≤ TRAIN_GRAD_RTOL relative, d_x and ∇σ exactly 0
+    outside the bound, d_x exactly 0 without need_dx. Logs, apart, the
+    largest differences at the samples with a hidden unit within 1e-6 of
+    its sign change (`exp_train_diag.stable_samples`), where ∇σ jumps.
+    Returns the largest absolute forward and backward differences."""
+    from mirror_nerf_tpu_torch.tools.exp_train_diag import stable_samples
+
+    near = ~stable_samples(field, params, x)
+    n_near = int(near.sum())
+    abs_fwd = abs_bwd = 0.0
+    out_frac = float((x.abs() > 6.0).any(-1).float().mean())
+    for vname, (kern, plain, tangents, need_dx) in variants.items():
+        got, g1 = _train_grads(torch, kern, field, params, x, cots,
+                               tangents, need_dx, nscale)
+        _, g2 = _train_grads(torch, kern, field, params, x, cots, tangents,
+                             need_dx, nscale)
+        ref, g0 = _train_grads(torch, plain, field, params, x, cots,
+                               tangents, need_dx, nscale)
+        torch.cuda.synchronize()
+        fwd = {k: float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for k, a, b in zip(("sigma", "geo", "grad"), got, ref)}
+        bwd = [_rel(a, b) for a, b in zip(g0[:-1], g1[:-1])]
+        dx = _rel(g0[-1], g1[-1]) if need_dx else float(g1[-1].abs().max())
+        if n_near:
+            at_near = ", ".join(
+                f"{k} {float((a[near] - b[near]).abs().max()):.2e}"
+                for k, a, b in zip(("sigma", "geo", "grad", "d_x"),
+                                   list(got) + [g1[-1]],
+                                   list(ref) + [g0[-1]]))
+        spread = max(_rel(a, b) for a, b in zip(g1, g2))
+        oob = (x.abs() > 6.0).any(-1)
+        if tangents and bool((x.abs() > 6.0).any()):
+            # no slope along an axis outside the bound
+            assert float(got[2][x.abs() > 6.0].abs().max()) == 0.0
+        if need_dx and bool((x.abs() > 6.0).any()):
+            assert float(g1[-1][(x.abs() > 6.0)].abs().max()) == 0.0
+        full = f"{tag} {vname}"
+        log(f"[train-kernels] {full} ({out_frac * 100:.2f} % out of "
+            f"bound, {int(oob.sum())} points): fwd err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in fwd.items())
+            + f"; grad rel err max {max(bwd):.2e} (fold "
+            f"{bwd[0]:.2e}, s1 {bwd[1]:.2e}, s2 {bwd[2]:.2e}, "
+            f"tables {max(bwd[3:]):.2e}), d_x "
+            f"{'rel err' if need_dx else 'max (must be 0)'} "
+            f"{dx:.2e}; run-to-run spread {spread:.2e}; {n_near} samples "
+            "with a hidden unit within 1e-6 of its sign change"
+            + (f" (largest differences there: {at_near})" if n_near else ""))
+        assert max(fwd.values()) <= TRAIN_FWD_ATOL, (full, fwd)
+        assert max(bwd) <= TRAIN_GRAD_RTOL, (full, bwd)
+        assert (dx <= TRAIN_GRAD_RTOL) if need_dx else dx == 0.0, full
+        abs_fwd = max([abs_fwd] + [float((a - b).abs().max())
+                                   for a, b in zip(got, ref)])
+        abs_bwd = max([abs_bwd] + [float((a - b).abs().max())
+                                   for a, b in zip(g0, g1)])
+        del got, g1, g2, ref, g0
+    return abs_fwd, abs_bwd
+
+
 def phase_train_kernels(torch, card: str):
     """The training kernels vs their plain versions at the main path's
     shapes. Returns the JSON entries (fwd, bwd) without launch counts."""
     from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
+    from mirror_nerf_tpu_torch.ops import _build
     from mirror_nerf_tpu_torch.ops import fused_cp_train as fct
+    from mirror_nerf_tpu_torch.tools import exp_train_diag as etd
+
+    # the machine code: all six instances on the tensor cores; registers
+    # and spills from ptxas
+    sass = _build.sass_counts(_build.library_path(fct._LIB), "_kernel")
+    assert len(sass) == 6 and min(c["HMMA"] for c in sass.values()) > 0, \
+        sass
+    for name, c in sorted(sass.items()):
+        inst = re.search(r"(fwd|bwd)_kernelILb(\d)E(?:Lb(\d)E)?", name)
+        log(f"[train-kernels] SASS of {inst.group(1)}_kernel<tangents "
+            f"{inst.group(2)}"
+            + (f", need_dx {inst.group(3)}" if inst.group(3) else "")
+            + ">: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    for name, line in _build.ptxas_by_function(
+            _build.build_log.get(fct._LIB, ""), "_kernel").items():
+        inst = re.search(r"(fwd|bwd)_kernelIL[^E]*E(?:Lb\d+E)?", name)
+        log(f"[train-kernels] ptxas {inst.group(0) if inst else name}: "
+            f"{line}")
 
     field = TPUGridField(bound=6.0, predict_normal=True,
                          predict_mirror_mask=True)
@@ -538,44 +668,34 @@ def phase_train_kernels(torch, card: str):
                                   ("saturating", saturating, 1 / 2000)):
         for t in (131072, 65536 + 37):
             x, cots = _train_case(torch, params, t, seed=t)
-            out_frac = float((x.abs() > 6.0).any(-1).float().mean())
-            for vname, (kern, plain, tangents, need_dx) in variants.items():
-                got, g1 = _train_grads(torch, kern, field, params, x, cots,
-                                       tangents, need_dx, nscale)
-                _, g2 = _train_grads(torch, kern, field, params, x, cots,
-                                     tangents, need_dx, nscale)
-                ref, g0 = _train_grads(torch, plain, field, params, x, cots,
-                                       tangents, need_dx, nscale)
-                torch.cuda.synchronize()
-                fwd = {k: float((a - b).abs().max())
-                       / max(1.0, float(b.abs().max()))
-                       for k, a, b in zip(("sigma", "geo", "grad"), got, ref)}
-                bwd = [_rel(a, b) for a, b in zip(g0[:-1], g1[:-1])]
-                dx = _rel(g0[-1], g1[-1]) if need_dx else float(
-                    g1[-1].abs().max())
-                spread = max(_rel(a, b) for a, b in zip(g1, g2))
-                oob = (x.abs() > 6.0).any(-1)
-                if tangents:  # no slope along an axis outside the bound
-                    assert float(got[2][x.abs() > 6.0].abs().max()) == 0.0
-                if need_dx:
-                    assert float(g1[-1][(x.abs() > 6.0)].abs().max()) == 0.0
-                tag = f"{pname} {vname} T={t}"
-                log(f"[train-kernels] {tag} ({out_frac * 100:.2f} % out of "
-                    f"bound, {int(oob.sum())} points): fwd err "
-                    + ", ".join(f"{k} {v:.2e}" for k, v in fwd.items())
-                    + f"; grad rel err max {max(bwd):.2e} (fold "
-                    f"{bwd[0]:.2e}, s1 {bwd[1]:.2e}, s2 {bwd[2]:.2e}, "
-                    f"tables {max(bwd[3:]):.2e}), d_x "
-                    f"{'rel err' if need_dx else 'max (must be 0)'} "
-                    f"{dx:.2e}; run-to-run spread {spread:.2e}")
-                assert max(fwd.values()) <= TRAIN_FWD_ATOL, (tag, fwd)
-                assert max(bwd) <= TRAIN_GRAD_RTOL, (tag, bwd)
-                assert (dx <= TRAIN_GRAD_RTOL) if need_dx else dx == 0.0, tag
-                abs_fwd = max([abs_fwd] + [float((a - b).abs().max())
-                                           for a, b in zip(got, ref)])
-                abs_bwd = max([abs_bwd] + [float((a - b).abs().max())
-                                           for a, b in zip(g0, g1)])
-                del got, g1, g2, ref, g0
+            af, ab = _train_check(torch, fct, field, params, x, cots, nscale,
+                                  f"{pname} T={t}", variants)
+            abs_fwd, abs_bwd = max(abs_fwd, af), max(abs_bwd, ab)
+        # a train batch's samples as the renderer hands them over: 1024
+        # rays of the train camera, a ray's fine (128) or coarse (64)
+        # samples consecutive; every sample compared, as at uniform points
+        coarse, fine = etd.ray_samples(field, params)
+        for tag, x in (("rays 1024x128", fine), ("rays 1024x64", coarse)):
+            g = torch.Generator(device="cuda").manual_seed(x.shape[0])
+            cots = [torch.randn(sh, generator=g, device="cuda")
+                    for sh in ((x.shape[0],), (x.shape[0], 15),
+                               (x.shape[0], 3))]
+            af, ab = _train_check(torch, fct, field, params, x, cots, nscale,
+                                  f"{pname} {tag}", variants)
+            abs_fwd, abs_bwd = max(abs_fwd, af), max(abs_bwd, ab)
+        # the tensor cores' sums truncate toward zero: σ and ∇σ against a
+        # float64 version, their signed mean error within 1e-7 of scale
+        # (phase 11's bar for the flagship's raw σ)
+        for tag, x in (("uniform T=131072", _train_case(torch, params,
+                                                        131072, 1)[0]),
+                       ("rays 1024x128", fine)):
+            with torch.no_grad():
+                got = fct.density_with_grad_fused(field, params, x)
+            bias = etd.signed_mean_errors(field, params, x, got)
+            log(f"[train-kernels] {pname} {tag}: signed mean error against "
+                "float64 (over max(1, max|·|)): "
+                + ", ".join(f"{k} {v:+.3e}" for k, v in bias.items()))
+            assert max(abs(v) for v in bias.values()) <= 1e-7, (tag, bias)
 
     # times at the main path's shapes, seeded weights
     t = 131072
@@ -601,14 +721,30 @@ def phase_train_kernels(torch, card: str):
             f"{times[(vname, 'plain', 'fwd')]:.3f} ms; forward+backward "
             f"kernels {times[(vname, 'kernel', 'fwd+bwd')]:.3f} ms, plain "
             f"{times[(vname, 'plain', 'fwd+bwd')]:.3f} ms")
+    # each launch alone through the wrapper, uniform and ray-ordered (the
+    # tangent forward; the tangent backward with d_x)
+    p5 = etd.field_and_params()[1]
+    for case, (xc, cc) in etd.cases(field, p5).items():
+        fwd, bwd = etd._calls(fct, field, p5, xc, cc)
+        log(f"[train-kernels] {case} T={xc.shape[0]} ({card}), σ column "
+            f"|w|·5: forward {_time_ms(torch, fwd, 20, 2):.4f} ms, backward "
+            f"{_time_ms(torch, bwd, 20, 2):.4f} ms a launch")
+
     sum_r = sum(r for _, r in field.grid_levels)
     flop_f, flop_b = _cp_train_flop(sum_r)
+    tc_f, tc_b = _cp_train_tc_flop(sum_r)
     p_bytes = _nbytes(*fct._param_args(seeded))
-    b_fwd = _bound(t * flop_f, _nbytes(x) + p_bytes + t * (1 + 15 + 3) * 4)
+    bytes_f = _nbytes(x) + p_bytes + t * (1 + 15 + 3) * 4
     # in: x, the cotangents, the params; out: their grads and d_x
-    b_bwd = _bound(t * flop_b, 2 * _nbytes(x) + _nbytes(*cots) + 2 * p_bytes)
-    log(f"[train-kernels] bounds at T={t}: forward {b_fwd[0]:.3f} ms, "
-        f"backward {b_bwd[0]:.3f} ms ({b_fwd[1]}, {b_bwd[1]})")
+    bytes_b = 2 * _nbytes(x) + _nbytes(*cots) + 2 * p_bytes
+    b_fwd, b_bwd = _train_bound(t, tc_f, bytes_f), _train_bound(t, tc_b,
+                                                                bytes_b)
+    f32_fwd, f32_bwd = _bound(t * flop_f, bytes_f), _bound(t * flop_b,
+                                                           bytes_b)
+    log(f"[train-kernels] bounds at T={t}: 3×TF32 forward {b_fwd[0]:.4f} "
+        f"ms, backward {b_bwd[0]:.4f} ms ({b_fwd[1]}, {b_bwd[1]}); the first "
+        f"design's fp32 CUDA-core bounds {f32_fwd[0]:.4f}, "
+        f"{f32_bwd[0]:.4f} ms")
     k_bwd = (times[("tangents", "kernel", "fwd+bwd")]
              - times[("tangents", "kernel", "fwd")])
     p_bwd = (times[("tangents", "plain", "fwd+bwd")]
@@ -621,13 +757,14 @@ def phase_train_kernels(torch, card: str):
                  "ms": times[("tangents", "kernel", "fwd")],
                  "plain_ms": times[("tangents", "plain", "fwd")],
                  "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
-                 "library_ms": None}
+                 "library_ms": None, "bound_fp32_ms": f32_fwd[0]}
     bwd_entry = {"name": "fused_cp_train_bwd", "route": "cuda",
                  "source": src,
                  "replaces": "mirror_nerf_tpu/ops/pallas/fused_cp_train.py:257",
                  "launches": 0, "max_abs_err": abs_bwd,
                  "ms": k_bwd, "plain_ms": p_bwd, "bound_ms": b_bwd[0],
-                 "bound_by": b_bwd[1], "library_ms": None}
+                 "bound_by": b_bwd[1], "library_ms": None,
+                 "bound_fp32_ms": f32_bwd[0]}
     return fwd_entry, bwd_entry
 
 
@@ -906,6 +1043,26 @@ def phase_train_path(torch, card: str):
         assert np.isfinite(table["mean_psnr"]), table
         log(f"[train] last.ckpt.npz through the eval CLI: test PSNR "
             f"{table['mean_psnr']:.2f}")
+        # where the reflection-stage step's time goes: three traced steps
+        # of the trained model (tools/profile_train_torch.py)
+        sys.path.insert(0, str(ROOT / "tools"))
+        from profile_train_torch import step_profile
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        r = step_profile(tr, tr.cfg, "cuda", acts)
+        log(f"[train] reflection-stage step, batch {r['batch']} ({card}): "
+            f"{r['ms_per_step']:.2f} ms/step, {r['rays_per_s']:.1f} rays/s "
+            f"(host clock, synchronized); traced: summed device time "
+            f"{r['device_ms_per_step']:.3f} ms a step, the train kernels "
+            f"{100 * r['train_kernel_share']:.1f} % of it, idle share "
+            f"{r['idle_share']:.4f}, {r['events_per_step']:.0f} device "
+            f"events a step, train kernel launches fwd {r['launches'][0]}, "
+            f"bwd {r['launches'][1]} in 3 steps")
+        for name, (cnt, ms) in sorted(r["by_name"].items(),
+                                      key=lambda kv: -kv[1][1])[:6]:
+            log(f"[train]   {ms / 3:8.3f} ms a step x{cnt // 3:4d}  {name}")
+        assert r["events_per_step"] > 0 and r["train_kernel_share"] > 0, r
         return launches, vals[-1]["rays_per_sec"]
     finally:
         os.chdir(cwd)

@@ -170,7 +170,7 @@ class AppContext:
         if cfg.num_gpus > 1:
             raise NotImplementedError(
                 "multi-GPU eval is not ported yet: ROADMAP.md queue 1, "
-                "item 5 (torch.distributed)")
+                "item 9 (torch.distributed)")
         rs = RenderSettings(
             N_samples=cfg.N_samples, N_importance=cfg.N_importance,
             use_disp=cfg.use_disp, perturb=0.0, noise_std=0.0,

@@ -119,8 +119,8 @@ def make_field(cfg):
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            "the port computes in float32 only; bf16 comes with the faster "
-            "kernels of ROADMAP.md queue 2")
+            "the port computes in float32 only; bf16 is ROADMAP.md queue 1, "
+            "item 12")
     if cfg.model_type == "nerf":
         return MirrorNeRFField(
             N_emb_xyz=cfg.N_emb_xyz,

@@ -98,13 +98,22 @@ def patched_source(name: str, src: str = None, patches: dict = None) -> str:
     patches (default: `PATCHES`) applied; raises ValueError unless each
     matches exactly once."""
     if src is None:
-        src = (_build.CSRC / "fused_cp_composite.cu").read_text()
+        src = composite_source()
     for old, new in (patches or PATCHES)[name]:
         if src.count(old) != 1:
             raise ValueError(f"{name}: the patch does not match the source "
                              f"once: {old[:60]!r}")
         src = src.replace(old, new)
     return src
+
+
+def composite_source() -> str:
+    """The composite's source with `csrc/tf32.cuh` written in place of its
+    include, so that a patch can change the 3×TF32 products too."""
+    header = (_build.CSRC / "tf32.cuh").read_text().replace(
+        "#pragma once\n", "")
+    return (_build.CSRC / "fused_cp_composite.cu").read_text().replace(
+        '#include "tf32.cuh"\n', header)
 
 
 def build(name: str, patches: dict = None,

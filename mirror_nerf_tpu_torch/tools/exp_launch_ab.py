@@ -26,8 +26,9 @@ library call where there is one:
   moved_cp, moved_train, moved_mlp, moved_mma: the four libraries that
     last moved onto the launch path, at small shapes: the CP
     composite (one ray, S = 16, default field), the CP train forward
-    (tangents, 1024 points), the flagship composite (one ray, S = 16) and
-    the int8 table products (2 blocks, g 64, r 16, 128 lanes).
+    (tangents, 1024 points; ∇σ within 1e-4, as the trees' train kernels
+    may differ), the flagship composite (one ray, S = 16) and the int8
+    table products (2 blocks, g 64, r 16, 128 lanes).
 With `--groups composite`, the CP composite kernel at the main path's
 shapes (16384 strided rays of the 800×800 camera, the default field,
 seeded weights; 20 calls a round, best of 3): COMPOSITE S = 128 full and
@@ -43,9 +44,13 @@ weights; 5 calls a round, best of 3): composite S = 128 full and S = 64
 σ-only, rows S = 128 full; then one 400×300 level-2 flagship view through
 each tree's `run_view` (chip_smoke.py phase 10's flags), seeded and
 all-mirror weights, as the CP view.
+With `--groups train`: the CP train kernels' tangent forward and tangent
+backward with d_x on `exp_train_diag.cases` (uniform T = 131072, a train
+batch's ray-ordered 1024 × 128 and 1024 × 64 samples; 10 calls a round,
+best of 3), each through its tree's wrapper.
 Each group is also checked: the two trees' outputs agree (GATHER and the
-floor bit for bit, the views within 1e-3, the rest within their kernels'
-bars).
+floor bit for bit, the views and the train backward within 1e-3, the rest
+within their kernels' bars).
 
 It imports only torch and the two trees' ports. `main` returns the numbers
 as a dict.
@@ -73,7 +78,7 @@ from .timing import per_call_ms
 
 LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
         "fused_cp_train", "fused_mlp_t", "table_mma")
-GROUPS = ("launch", "composite", "view", "flagship")
+GROUPS = ("launch", "composite", "view", "flagship", "train")
 KERNEL_BAR = 1e-4  # the composite's bar against its plain version
 VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
@@ -185,7 +190,7 @@ def _moved_groups(other: dict, rng, dev: str = "cuda") -> dict:
         "moved_train": ({"this": lambda: tr.density_with_grad_fused(
                           cp_field, cpp, x)[2],
                       "other": lambda: otr.density_with_grad_fused(
-                          cp_field, cpp, x)[2]}, 0.0),
+                          cp_field, cpp, x)[2]}, KERNEL_BAR),
         "moved_mlp": ({"this": lambda: cat(fused_mlp_t.fused_t_rays_composite(
                         mlp_field, mlpp, o, d, d, z)),
                     "other": lambda: cat(other["fused_mlp_t"].
@@ -295,6 +300,48 @@ def _flagship_groups(other: dict, n: int = 16384,
             for name, c in calls.items()}
 
 
+def _train_groups(other: dict) -> dict:
+    """The CP train kernels at the main path's shapes (`exp_train_diag.
+    cases`: uniform T = 131072 and a train batch's ray-ordered 1024 × 128
+    and 1024 × 64 samples, the default field with the σ column |w|·5),
+    both trees on the same inputs: the tangent forward (σ, geo, ∇σ) and the
+    tangent backward with d_x (every grad), each launched through the
+    tree's wrapper. The two trees' outputs agree within the forward's bar
+    (their backwards sum in other orders: within 1e-3 of the largest grad
+    entry above 1), ∇σ, σ, geo and d_x on `exp_train_diag.stable_samples`
+    (∇σ jumps where a hidden unit changes sign: the first design's kernel
+    differed from the plain version by up to 0.39 at a few samples within
+    1e-6 of it)."""
+    from .exp_train_diag import (_calls, cases, field_and_params,
+                                 stable_samples)
+
+    field, p = field_and_params()
+    otr = other["fused_cp_train"]
+    out = {}
+    for case, (x, cots) in cases(field, p).items():
+        stable = stable_samples(field, p, x)
+
+        def flat(res, stable=stable):
+            """Per-sample outputs (σ, geo, ∇σ, d_x) on the stable samples,
+            the parameter grads whole."""
+            parts = []
+            for r in res:
+                for v in (r if isinstance(r, list) else [r]):
+                    if v is not None:
+                        per_sample = v.shape[0] == stable.shape[0]
+                        parts.append((v[stable] if per_sample else v)
+                                     .reshape(-1))
+            return torch.cat(parts)
+
+        this = _calls(fused_cp_train, field, p, x, cots)
+        oth = _calls(otr, field, p, x, cots)
+        for k, what in enumerate(("fwd", "bwd")):
+            out[f"train_{case}_{what}"] = (
+                {"this": this[k], "other": oth[k]},
+                KERNEL_BAR if what == "fwd" else 1e-3, flat)
+    return out
+
+
 def composite_code(other: dict) -> dict:
     """Each tree's composite library: ptxas' registers and spills, and the
     SASS counts of every `cp_field_kernel` instance."""
@@ -308,15 +355,18 @@ def composite_code(other: dict) -> dict:
     return res
 
 
-def _agree(fns: dict, bar: float) -> float:
+def _agree(fns: dict, bar: float, flat=None) -> float:
     """The largest difference, scaled above 1, between the two trees'
-    outputs of each pair in a group (this vs other); asserted ≤ bar."""
+    outputs of each pair in a group (this vs other), `flat` (default:
+    the output as it is) turning an output into the values compared;
+    asserted ≤ bar."""
     worst = 0.0
+    flat = flat or (lambda v: v)
     for name in fns:
         if not name.endswith("this"):
             continue
-        got = fns[name]().float()
-        want = fns[name[:-4] + "other"]().float()
+        got = flat(fns[name]()).float()
+        want = flat(fns[name[:-4] + "other"]()).float()
         err = float((got - want).abs().max()) / max(
             1.0, float(want.abs().max()))
         assert err <= bar, (name, err, bar)
@@ -339,8 +389,11 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
         if "flagship" in groups:
             todo.update((k, (v, 5, 3)) for k, v in
                         _flagship_groups(other).items())
-        for group, ((fns, bar), reps, rounds) in todo.items():
-            diff = _agree(fns, bar)
+        if "train" in groups:
+            todo.update((k, (v, 10, 3)) for k, v in
+                        _train_groups(other).items())
+        for group, ((fns, bar, *flat), reps, rounds) in todo.items():
+            diff = _agree(fns, bar, *flat)
             us = {k: v * 1e3 for k, v in
                   per_call_ms(fns, reps, rounds).items()}
             res[group] = {"us": us, "max_diff": diff}
@@ -454,7 +507,8 @@ def main(argv=None) -> dict:
                          "the CP composite at the main path's shapes; view: "
                          "the 800×800 CP view; flagship: the flagship "
                          "kernel at its main path's shapes and the 400×300 "
-                         "flagship view")
+                         "flagship view; train: the CP train kernels at "
+                         "their main path's shapes")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

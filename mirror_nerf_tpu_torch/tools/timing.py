@@ -51,47 +51,73 @@ def per_call_ms(fns: dict, reps: int = 200, rounds: int = 5) -> dict:
     return best
 
 
-def _traced_kernels(fn, reps: int) -> list:
-    """The kernel events of a torch.profiler trace of `reps` calls, taken
-    after a warm-up pass of as many calls under the profiler: the device's
-    activity is recorded only some time after the profiler starts, and in a
+def _traced_kernels(fn, reps: int) -> tuple:
+    """The kernel events of two torch.profiler traces of `reps` calls each,
+    after a warm call: (the first trace's, the second's). The device's
+    activity is recorded only some time after the profiler starts: in a
     long process (chip_smoke.py's phase 15 on an H100) a trace of 20 short
-    calls started cold held 17 of their 20 kernels, or none."""
+    calls started cold held 17 of their 20 kernels, or none. So each trace
+    is one pass of calls after a pass in the profiler's own warm-up (two
+    cycles of the schedule); the first counts how many kernels a call
+    launches, the second is the one timed."""
+    fn()
+    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    events = []
+    traces = []
 
     def keep(prof):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as f:
-                events.extend(json.load(f)["traceEvents"])
+                traces.append([e for e in json.load(f)["traceEvents"]
+                               if e.get("ph") == "X"
+                               and e.get("cat") == "kernel"])
 
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=2)
     with torch.profiler.profile(activities=acts, schedule=sched,
                                 on_trace_ready=keep) as prof:
-        for _ in range(2):  # the warm-up pass, then the traced one
+        for _ in range(4):  # warm-up, count; warm-up, time
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if len(traces) != 2:
+        raise RuntimeError(f"the profiler gave {len(traces)} traces of the "
+                           "two it was asked for")
+    return traces[0], traces[1]
+
+
+TRACE_TRIES = 3  # pairs of traces `device_ms` takes before it gives up
 
 
 def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
     """Device time per call: the summed kernel durations of a torch.profiler
     trace of `reps` calls, over reps. With `exclude`, kernels named like it
     (a cache flush before each call) are left out, `fn` must launch one
-    kernel, and the time is that kernel's mean duration in the trace. A
-    trace without a kernel raises."""
-    fn()
-    torch.cuda.synchronize()
-    kernels = _traced_kernels(fn, reps)
-    if not kernels:
-        raise RuntimeError(f"a profiler trace of {reps} calls held no "
-                           "kernel event")
+    kernel, and the time is that kernel's mean duration in the trace.
+
+    A trace may lose kernels (chip_smoke.py phase 15 on an H100: 7 of 20
+    after a warm-up pass, or all of a first trace), which would read low:
+    a call's kernels are counted in the first of two traces (the larger
+    count of the two), and the timed trace must hold `reps` times that.
+    Up to TRACE_TRIES pairs of traces are taken; when none is whole (or
+    every first trace held no kernel), raises."""
+    for _ in range(TRACE_TRIES):
+        warm, kernels = _traced_kernels(fn, reps)
+        per_call = max(-(-len(warm) // reps), -(-len(kernels) // reps))
+        if warm and len(kernels) >= reps * per_call:
+            break
+    else:
+        if not warm:
+            raise RuntimeError(f"the warm-up pass of {reps} calls held no "
+                               f"kernel event, in each of {TRACE_TRIES} "
+                               "tries")
+        raise RuntimeError(
+            f"a profiler trace of {reps} calls held {len(kernels)} kernel "
+            f"events, where a call launched {per_call}, in each of "
+            f"{TRACE_TRIES} tries: the trace lost kernels")
     if exclude is None:
         return sum(e["dur"] for e in kernels) / reps / 1e3
     kept = [e for e in kernels if exclude not in e.get("name", "")]

@@ -466,6 +466,60 @@ def test_entry_point_runs_on_cpu(probe):
     assert res["device"] == "cpu" and res["parity"] and "bench" not in res
 
 
+def test_device_ms_refuses_a_partial_trace(monkeypatch):
+    """`timing.device_ms` counts the kernels a call launched in the
+    warm-up trace (or the timed one, whichever holds more) and takes
+    another pair of traces while the timed one holds fewer than reps ×
+    that (a trace that lost kernels reads low), and also when the warm-up
+    trace held no kernel; it raises when none of its tries is whole. A
+    whole trace gives its kernels' summed time a call."""
+    from mirror_nerf_tpu_torch.tools import timing
+
+    def kernels(n, ts, name="k"):
+        return [{"ph": "X", "cat": "kernel", "name": name, "ts": ts,
+                 "dur": 3.0} for _ in range(n)]
+
+    def trace(*pairs):
+        it = iter(pairs)
+        monkeypatch.setattr(timing, "_traced_kernels",
+                            lambda fn, reps: next(it))
+
+    # two kernels a call; every timed trace kept 37 of its 40
+    trace(*[(kernels(40, 0), kernels(37, 1))] * 3)
+    with pytest.raises(RuntimeError, match="lost kernels"):
+        timing.device_ms(lambda: None, 20)
+    # the warm-up trace itself lost three: still two a call
+    trace(*[(kernels(37, 0), kernels(39, 1))] * 3)
+    with pytest.raises(RuntimeError, match="lost kernels"):
+        timing.device_ms(lambda: None, 20)
+    # the warm-up trace lost one of each call's two, the timed one kept
+    # 25 of 40: the timed trace's own count (two a call) refuses it
+    trace(*[(kernels(20, 0), kernels(25, 1))] * 3)
+    with pytest.raises(RuntimeError, match="lost kernels"):
+        timing.device_ms(lambda: None, 20)
+    trace(*[([], kernels(20, 1))] * 3)
+    with pytest.raises(RuntimeError, match="held no kernel"):
+        timing.device_ms(lambda: None, 20)
+    # a first trace that lost every kernel, then a whole pair
+    trace(([], []), (kernels(20, 0), kernels(20, 1)))
+    assert timing.device_ms(lambda: None, 20) == pytest.approx(0.003)
+    trace((kernels(37, 0), kernels(40, 1)))
+    assert timing.device_ms(lambda: None, 20) == pytest.approx(0.006)
+    # a partial trace, then a whole one: the whole one's time
+    trace((kernels(20, 0), kernels(7, 1)), (kernels(20, 0),
+                                            kernels(20, 1, "k2")))
+    assert timing.device_ms(lambda: None, 20) == pytest.approx(0.003)
+    # with a flush kernel left out: the one kernel's mean
+    trace((kernels(20, 0, "FillFunctor") + kernels(20, 0),
+           kernels(20, 1, "FillFunctor") + kernels(20, 1)))
+    assert timing.device_ms(lambda: None, 20,
+                            exclude="FillFunctor") == pytest.approx(0.003)
+    trace(*[(kernels(20, 0, "FillFunctor") + kernels(20, 0),
+             kernels(20, 1, "FillFunctor") + kernels(17, 1))] * 3)
+    with pytest.raises(RuntimeError, match="lost kernels"):
+        timing.device_ms(lambda: None, 20, exclude="FillFunctor")
+
+
 # --------------------------------------------------- on a card only
 
 

@@ -148,11 +148,18 @@ def test_unported_paths_raise():
                          "--app_place_new_mirror"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    # the port computes in float32 only (bf16 is ROADMAP queue 2), for
-    # every model, the hash-grid one included
+    # multi-GPU eval is ROADMAP queue 1, item 9 (torch.distributed)
+    cfg, args = get_opt(["--model_type", "nerf_tpu", "--predict_normal",
+                         "--num_gpus", "2"])
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 9 "):
+        AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
+    # the port computes in float32 only (bf16 is ROADMAP queue 1, item
+    # 12), for every model, the hash-grid one included
     cfg, _ = get_opt(["--model_type", "nerf_tcnn", "--compute_dtype",
                       "bfloat16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 12"):
         make_field(cfg)
 
 
