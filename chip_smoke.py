@@ -107,9 +107,13 @@ each fatal on failure:
      2,097,152 points of the full bound-6 spec (16 levels × 2, 6,616,280
      rows, ×1e4 table, ~2 % out of bound) and at the 800×800 view's sample
      positions (16384 strided rays × 128); GATHER at the probe's (64, 4096)
-     on a 2¹⁹ × 2 table, fp32 and bf16, bit for bit; DENSE on level 3 (side
-     62); errors scaled above 1, kernel / plain / library times beside the
-     bound. Then the probe's entry point (`python -m mirror_nerf_tpu_torch.
+     on a 2¹⁹ × 2 table, fp32 and bf16, bit for bit; DENSE bit for bit on
+     level 3 (side 62), on a level read from its second row (odd rows
+     16-B aligned) at samples whose rows wrap, and on level 0 (4920 rows,
+     side 17: not side³), with its L2 sector requests per sample before
+     (the first design's eight 8-B loads) and now (16-B x-pairs); errors
+     scaled above 1, kernel / plain / library times beside the bound. Then
+     the probe's entry point (`python -m mirror_nerf_tpu_torch.
      tools.exp_hash_inkernel`, timing part) with the GATHER and DENSE
      counters reset before it and read after: their path; GATHER per call
      through the wrapper, through bare ctypes and as torch indexing, timed
@@ -135,8 +139,12 @@ each fatal on failure:
      scaled above 1, each sentinel's own value equal to its segment's other
      values' sum), TRI's SASS holding HMMA in each of its eight instances,
      and WEIGHTS (S = 128) against its plain version (atol 1e-5, Σw ≤ 1 +
-     1e-5); the table products at the JAX probe's defaults, int8 bit for
-     bit and bf16 ≤ 1e-5 scaled. Then each probe's entry point (`python -m
+     1e-5); the table products at the JAX probe's defaults and at g 192,
+     r 80, 640 lanes (a ragged row tile and lane tile, an int8 chunk of
+     64), on the probe's input and the edge inputs (negative x, x that
+     clips at ±127, bf16 rounding ties), int8 bit for bit and bf16 ≤ 1e-5
+     scaled, `wgmma` in both instances' SASS (IGMMA, HGMMA), ptxas'
+     registers and spills. Then each probe's entry point (`python -m
      mirror_nerf_tpu_torch.tools.exp_{invoke_floor,reshape_probe,
      int8_probe}`, timing part) with its counters reset before and read
      after: their path. It prints the floor table (mode × way, µs per rep),
@@ -1791,6 +1799,22 @@ def _gather_sectors(torch, field, o, d, z) -> int:
     return total
 
 
+def _dense_sectors(torch, rows, x, scale, side) -> tuple:
+    """DENSE's L2 traffic per sample on these inputs: the 32-B sector
+    requests of the first design (eight 8-B corner loads, each within one
+    sector), those of this one (one 16-B load an x-pair of corners where
+    `hashgrid.dense_pair_loads` says so, else two), and the distinct
+    sectors a sample's corners touch."""
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+
+    r8 = hg.dense_corner_rows(rows.shape[0], x, scale, side)  # (8, N)
+    pairs = hg.dense_pair_loads(r8, rows.data_ptr())  # (4, N)
+    after = float((8 - pairs.sum(0)).float().mean())
+    sec = torch.sort((rows.data_ptr() + r8 * 8) // 32, dim=0).values
+    distinct = float((1 + (sec[1:] != sec[:-1]).sum(0)).float().mean())
+    return 8.0, after, distinct
+
+
 def _fused_hash_kernel(torch, card: str) -> dict:
     """(13, first part) The fused NGP composite vs its plain version at the
     main path's shapes (`tools/exp_hash_diag.py cases`): errors, Σw, times
@@ -1887,6 +1911,33 @@ def phase_hash_kernels(torch, card: str) -> list:
     for k in ("dense", "dense_vs_encode_level3", "encode"):
         assert par[k] <= 1e-5, (k, par)
     assert par["gather_fp32"] == 0.0 and par["gather_bf16"] == 0.0, par
+    assert par["dense"] == 0.0, par
+    # DENSE bit for bit beyond the probe's input: a level read from its
+    # second row (odd rows 16-B aligned) at samples whose rows wrap, and
+    # level 0 of the bound-6 spec (4920 rows, side 17: not side³, odd side)
+    from mirror_nerf_tpu_torch.tools.exp_hash_diag import dense_inputs
+    cases = dense_inputs()
+    spec0, table0, _ = probe.encode_case(8, 5, "cuda")
+    lv0 = spec0.levels()[0]
+    g0 = torch.Generator().manual_seed(6)
+    cases["level0_wrap"] = (
+        table0[lv0.offset:lv0.offset + lv0.size].contiguous(),
+        (torch.rand((100_003, 3), generator=g0) * 1.1 - 0.05).cuda(),
+        lv0.scale, lv0.resolution + 1)
+    with torch.no_grad():
+        for case, (rows, x, scale, side) in cases.items():
+            got = hg.dense_level_lookup(rows, x, scale, side)
+            want = hg.dense_level_lookup_reference(rows, x, scale, side)
+            assert torch.equal(got, want), (case, int((got != want).sum()))
+    torch.cuda.synchronize()
+    before, after, distinct = _dense_sectors(
+        torch, *cases["probe"])
+    log(f"[hash-kernel] DENSE bit for bit against its plain version on "
+        f"{', '.join(cases)} ({card}); its L2 traffic on the probe's "
+        f"{probe.DENSE_SAMPLES} samples, per sample: {before:.3f} sector "
+        f"requests with the first design's eight 8-B corner loads, "
+        f"{after:.3f} with the 16-B x-pairs; {distinct:.3f} distinct 32-B "
+        "sectors (figures, not bounds)")
 
     # ENCODE at the view's sample positions: 16384 strided rays × 128
     spec, table, _ = probe.encode_case(8, 3, "cuda")
@@ -2197,12 +2248,57 @@ def phase_probe_kernels(torch, card: str) -> list:
     assert len(hmma) == 8 and min(hmma.values()) > 0, hmma
     log(f"[probe-kernel] TRI's SASS (cuobjdump): HMMA instructions per "
         f"instance {sorted(hmma.values())}")
-    # 10b at the JAX probe's defaults: int8 bit for bit, bf16 ≤ 1e-5 scaled
+    # 10b at the JAX probe's defaults: int8 bit for bit, bf16 ≤ 1e-5 scaled,
+    # on the probe's input and the edge inputs (negative, clipping at ±127,
+    # bf16 rounding ties); a size with several lane tiles, a ragged row
+    # tile and an int8 chunk of 64
+    from mirror_nerf_tpu_torch.tools.exp_table_diag import edge_inputs
     size = dict(g=512, r=64, lanes=1024, blocks=64, tables=9)
     par_8 = p8.parity("cuda", size)
+    edge = {}
+    with torch.no_grad():
+        for sz in (size, dict(g=192, r=80, lanes=640, blocks=3, tables=2)):
+            x8, tabs8 = p8.inputs(**sz, seed=9, device="cuda")
+            for case, xc in edge_inputs(x8).items():
+                for kind, t in tabs8.items():
+                    got = tm.table_mma(xc, t)
+                    ref = tm.table_mma_reference(xc, t)
+                    if kind == "int8":
+                        assert torch.equal(got, ref), (sz, case)
+                    else:
+                        err = p8._scaled_err(got, ref)
+                        assert err <= p8.BF16_BAR, (sz, case, err)
+                        edge[case] = max(edge.get(case, 0.0), err)
+                        if sz is size and case == "uniform":
+                            # the tensor cores' truncating sums: the mean
+                            # error toward zero, scaled (a figure)
+                            bias = float(((got - ref) * torch.sign(ref))
+                                         .double().mean()) / max(
+                                1.0, float(ref.abs().max()))
+    torch.cuda.synchronize()
+    par_8["bf16"] = max(par_8["bf16"], *edge.values())
     log(f"[probe-kernel] table products at {size} ({card}): int8 "
         f"{par_8['int8_values_that_differ']} values differ, bf16 max err "
-        f"{par_8['bf16']:.3e} (scaled above 1)")
+        f"{par_8['bf16']:.3e} (scaled above 1); with g 192, r 80, 640 "
+        "lanes too, int8 bit for bit and bf16 on the edge inputs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in edge.items())
+        + f"; bf16's mean error away from zero at the defaults {bias:.3e} "
+        "(scaled above 1; negative: toward zero)")
+    # both instances on wgmma (IGMMA int8, HGMMA bf16: cuobjdump), and
+    # ptxas' registers and spills
+    gmma = {}
+    for name, counts in _build.sass_counts(
+            _build.library_path(tm._LIB), "table_mma_kernel",
+            ("IGMMA", "HGMMA", "F2I", "LDL", "STL")).items():
+        gmma["bf16" if "bfloat16" in name else "int8"] = counts
+    assert gmma["int8"]["IGMMA"] > 0 and gmma["bf16"]["HGMMA"] > 0, gmma
+    ptx = _build.ptxas_by_function(_build.build_log.get(tm._LIB, ""),
+                                   "table_mma_kernel")
+    log(f"[probe-kernel] table products' SASS (cuobjdump): " + "; ".join(
+        f"{k} " + ", ".join(f"{op} {n}" for op, n in v.items())
+        for k, v in gmma.items()) + "; ptxas: " + "; ".join(
+        f"{'bf16' if 'bfloat16' in k else 'int8'} {v}"
+        for k, v in ptx.items()))
 
     # the entry points' timing parts are the kernels' path
     fl.launches_small = fl.launches_grid = 0

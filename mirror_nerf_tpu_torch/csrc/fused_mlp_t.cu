@@ -111,6 +111,7 @@
 #include <cstdint>
 
 #include "launch.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -236,31 +237,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and the cluster --------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}" ::"r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
+// ---- the cluster (mbarriers, wgmma fences: csrc/sm90.cuh) -----------------
 
 // arrive on the barrier at the same offset in every CTA of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
@@ -333,16 +310,6 @@ __device__ __forceinline__ void split(const float4 a, AFrag& f) {
 __device__ __forceinline__ uint64_t plane_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // keeps the compiler from moving reads of the accumulators above the wait

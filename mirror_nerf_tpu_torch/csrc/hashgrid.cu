@@ -8,7 +8,12 @@
 //   DENSE replaces `_dense_matmul_kernel` (tools/exp_hash_inkernel.py:137;
 //     dense_matmul_lookup:168 → :171): the trilinear lookup of one dense
 //     level from its flat rows (row x + y·side + z·side², modulo the row
-//     count) at pos = x·scale + 0.5, fp32. Device function: `interp_level`.
+//     count) at pos = x·scale + 0.5, fp32. Device functions:
+//     `dense_corners` / `dense_sum`, interp_level's arithmetic with the
+//     x-pair of corners (rows r, r + 1) as one 16-B load where r + 1
+//     follows r and r is 16-B aligned (two samples a thread, every load
+//     before the FMAs, measured no faster). Its output equals that of
+//     `interp_level`, its first design, bit for bit.
 //   ENCODE is the encoder the probe was written for: the hash-grid model's
 //     `hashgrid_encode` (mirror_nerf_tpu/ops/hashgrid.py:139, XLA gathers
 //     in the JAX package) for every level of a point, (N, 3) x01 →
@@ -40,7 +45,8 @@
 //     (uniform within a level, cached); a dense level's rows (≤ 1.9 MB at
 //     bound 6) stay in L2, a hashed level's 4 MB of rows mostly do too
 //     (the whole table is 52.9 MB against 50 MB of L2);
-//   * corner rows are read-only loads (__ldg) of one 8-byte access for C = 2;
+//   * corner rows are read-only loads (__ldg) of one 8-byte access for C = 2
+//     (DENSE: a 16-B access for an aligned x-pair);
 //   * nothing is staged in shared memory, no tensor-core work: gathers and
 //     the FMAs of the interpolation on the CUDA cores.
 
@@ -56,6 +62,9 @@ namespace {
 
 constexpr int MAX_LEVELS = 32;
 constexpr int BLOCK = 256;
+// DENSE's samples a thread (tools/exp_hash_diag.py --dense times two: no
+// faster on an H100)
+constexpr int DENSE_SPT = 1;
 
 // Level, load_level, copy_row, corner_row and interp_level are in
 // csrc/hashgrid.cuh (shared with the fused NGP composite).
@@ -114,17 +123,36 @@ __global__ void __launch_bounds__(BLOCK)
   store_row<BYTES>(out, (size_t)i, v);
 }
 
-template <int C>
+// DENSE: DENSE_SPT samples a thread (block-strided, so that the x loads and
+// the output stores of a warp stay contiguous), every sample's corner loads
+// issued before the first sample's FMAs (`dense_corners`, `dense_sum`);
+// a sample past n reads the rows of x = 0 and stores nothing
 __global__ void __launch_bounds__(BLOCK)
     hash_dense_kernel(const float* __restrict__ rows, Level L,
                       const float* __restrict__ x, long long n,
                       float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  float acc[C];
-  interp_level<C>(rows, L, __ldg(x + 3 * i), __ldg(x + 3 * i + 1),
-                  __ldg(x + 3 * i + 2), acc);
-  store_row<C * 4>(reinterpret_cast<unsigned char*>(out), (size_t)i, acc);
+  const long long i0 =
+      (long long)blockIdx.x * BLOCK * DENSE_SPT + threadIdx.x;
+  DenseCorners d[DENSE_SPT];
+#pragma unroll
+  for (int s = 0; s < DENSE_SPT; ++s) {
+    const long long i = i0 + (long long)s * BLOCK;
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+    if (i < n) {
+      x0 = __ldg(x + 3 * i);
+      x1 = __ldg(x + 3 * i + 1);
+      x2 = __ldg(x + 3 * i + 2);
+    }
+    d[s] = dense_corners(rows, L, x0, x1, x2);
+  }
+#pragma unroll
+  for (int s = 0; s < DENSE_SPT; ++s) {
+    const long long i = i0 + (long long)s * BLOCK;
+    if (i >= n) break;
+    float acc[2];
+    dense_sum(d[s], acc);
+    store_row<8>(reinterpret_cast<unsigned char*>(out), (size_t)i, acc);
+  }
 }
 
 unsigned blocks(long long threads) {
@@ -202,8 +230,8 @@ int mnerf_hash_dense(const float* rows, long long n_rows, int c,
   L.stride[2] = (unsigned)side * (unsigned)side;
   L.use_hash = 0;
   L.pad = 0;
-  hash_dense_kernel<2><<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
-      rows, L, x, n, out);
+  hash_dense_kernel<<<blocks((n + DENSE_SPT - 1) / DENSE_SPT), BLOCK, 0,
+                      (cudaStream_t)stream>>>(rows, L, x, n, out);
   return (int)cudaGetLastError();
 }
 

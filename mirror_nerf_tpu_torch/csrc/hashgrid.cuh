@@ -1,5 +1,6 @@
 // The hash-grid lookup's device functions, shared by the ENCODE, GATHER and
-// DENSE modes of csrc/hashgrid.cu and by the fused NGP composite of
+// DENSE modes of csrc/hashgrid.cu and (all but DENSE's) by the fused NGP
+// composite of
 // csrc/fused_cp_composite.cu (`hash_field_kernel`), so that both compute a
 // level's features with the same arithmetic.
 //
@@ -100,6 +101,71 @@ __device__ __forceinline__ void interp_level(const float* __restrict__ rows,
                     v);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] = fmaf(w, v[k], acc[k]);
+  }
+}
+
+// DENSE's device functions: interp_level's arithmetic for one dense
+// level of C = 2 (8-B rows, x stride 1, as the DENSE entry packs it), split
+// so that a thread can issue the loads of several samples before their
+// FMAs. `dense_corners` computes the position with the same FMA and floor
+// and loads the eight corner rows; `dense_sum` weighs them ((w_x·w_y)·w_z)
+// and sums corners 0..7 by fmaf, so the result equals interp_level's bit
+// for bit. The x-pair of corners (rows r and r + 1 of one y, z: corners 2k
+// and 2k + 1) comes in one 16-B load where r + 1 follows r (the modulo
+// does not wrap between them) and row r starts on a 16-B boundary; else in
+// two 8-B loads. Row r + 1 is derived from r, not from a second modulo.
+struct DenseCorners {
+  float t[3];     // the position's fractions
+  float2 v[8];    // corner c's row (bit d of c: +1 along axis d)
+};
+
+__device__ __forceinline__ DenseCorners dense_corners(
+    const float* __restrict__ rows, const Level& L, float x0, float x1,
+    float x2) {
+  DenseCorners d;
+  const float p0 = __fmaf_rn(x0, L.scale, 0.5f);
+  const float p1 = __fmaf_rn(x1, L.scale, 0.5f);
+  const float p2 = __fmaf_rn(x2, L.scale, 0.5f);
+  const float f0 = floorf(p0), f1 = floorf(p1), f2 = floorf(p2);
+  d.t[0] = p0 - f0;
+  d.t[1] = p1 - f1;
+  d.t[2] = p2 - f2;
+  const unsigned g0 = (unsigned)(int)f0, g1 = (unsigned)(int)f1,
+                 g2 = (unsigned)(int)f2;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(rows);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned h = g0 + (g1 + (k & 1)) * L.stride[1] +
+                       (g2 + (k >> 1)) * L.stride[2];
+    const unsigned r0 = h % L.size;
+    // (h + 1) mod 2³², then mod the size
+    const unsigned r1 = h == 0xFFFFFFFFu ? 0u
+                                         : (r0 + 1 == L.size ? 0u : r0 + 1);
+    const unsigned char* a0 = base + (size_t)r0 * 8;
+    if (r1 == r0 + 1 && (reinterpret_cast<uintptr_t>(a0) & 15) == 0) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(a0));
+      d.v[2 * k] = make_float2(v.x, v.y);
+      d.v[2 * k + 1] = make_float2(v.z, v.w);
+    } else {
+      d.v[2 * k] = __ldg(reinterpret_cast<const float2*>(a0));
+      d.v[2 * k + 1] =
+          __ldg(reinterpret_cast<const float2*>(base + (size_t)r1 * 8));
+    }
+  }
+  return d;
+}
+
+__device__ __forceinline__ void dense_sum(const DenseCorners& d,
+                                          float (&acc)[2]) {
+  acc[0] = acc[1] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wx = (c & 1) ? d.t[0] : 1.f - d.t[0];
+    const float wy = (c & 2) ? d.t[1] : 1.f - d.t[1];
+    const float wz = (c & 4) ? d.t[2] : 1.f - d.t[2];
+    const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+    acc[0] = fmaf(w, d.v[c].x, acc[0]);
+    acc[1] = fmaf(w, d.v[c].y, acc[1]);
   }
 }
 

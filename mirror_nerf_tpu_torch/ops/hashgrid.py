@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ._build import Library, card_index, on_card
+from .invoke_floor import fma32
 
 # the reference's spatial-hash primes (gridencoder.cu:55-56); the identity
 # prime on dim 0 keeps close x-coords in close buckets
@@ -244,15 +245,48 @@ def _dense_spec(scale: float, side: int, rows: int) -> Tuple:
                            (1, side, side * side))
 
 
+def dense_corner_rows(n_rows: int, x01: torch.Tensor, scale: float,
+                      side: int) -> torch.Tensor:
+    """DENSE's eight corner rows of each point, (8, N) int64: corner c has
+    bit d set for +1 along axis d, row (x + y·side + z·side²) mod R in
+    uint32 arithmetic, at pos = x·scale + 0.5 rounded once."""
+    spec, lv = _dense_spec(scale, side, n_rows)
+    pos = fma32(x01, scale, 0.5)
+    corners = _corner_offsets(3, x01.device)
+    return _corner_indices(
+        spec, lv, torch.floor(pos).to(torch.int64)[None]
+        + corners[:, None, :])
+
+
+def dense_pair_loads(rows8: torch.Tensor, base_ptr: int) -> torch.Tensor:
+    """Which x-pairs of corners (c = 2k, 2k + 1; rows r, r') the kernel
+    loads as one 16-B access, (4, N) bool: r' = r + 1 and row r of 8-B rows
+    from `base_ptr` starts on a 16-B boundary (`dense_corners`)."""
+    r0, r1 = rows8[0::2], rows8[1::2]
+    return (r1 == r0 + 1) & ((base_ptr + r0 * 8) % 16 == 0)
+
+
 def dense_level_lookup_reference(level_rows: torch.Tensor,
                                  x01: torch.Tensor, scale: float,
                                  side: int) -> torch.Tensor:
     """The plain version of DENSE: one dense level's trilinear lookup at
     pos = x·scale + 0.5 from its flat (R, C) rows, row index
     (x + y·side + z·side²) mod R; (N, 3) → (N, C), in fp32. For x ∈ [0,1]³
-    it is `hashgrid_encode`'s slice of that level."""
-    spec, lv = _dense_spec(scale, side, level_rows.shape[0])
-    return _level_lookup(spec, lv, level_rows, x01)
+    it is `hashgrid_encode`'s slice of that level. The kernel's arithmetic,
+    so that the two agree bit for bit: pos as one FMA, the fraction
+    t = pos − floor(pos), w = ((w_x·w_y)·w_z) in fp32, and the corners
+    summed 0..7 by single-rounding FMAs (`fma32`) from 0."""
+    pos = fma32(x01, scale, 0.5)
+    frac = pos - torch.floor(pos)
+    corners = _corner_offsets(3, x01.device)
+    f = torch.where(corners[:, None, :] == 1, frac[None], 1.0 - frac[None])
+    w = (f[..., 0] * f[..., 1]) * f[..., 2]  # (8, N)
+    vals = level_rows[dense_corner_rows(level_rows.shape[0], x01, scale,
+                                        side)]  # (8, N, C)
+    acc = torch.zeros_like(vals[0])
+    for c in range(8):
+        acc = fma32(vals[c], w[c][:, None], acc)
+    return acc
 
 
 # ---- the CUDA kernel (csrc/hashgrid.cu) ----

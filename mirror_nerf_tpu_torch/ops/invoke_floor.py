@@ -47,14 +47,21 @@ launches_small = 0
 launches_grid = 0
 
 
+def _f64(v):
+    """An fp32 tensor in float64, or a number rounded to fp32 first."""
+    return v.double() if torch.is_tensor(v) else float(np.float32(v))
+
+
 def fma32(x: torch.Tensor, scale, shift) -> torch.Tensor:
     """fp32 x·scale + shift rounded once, as a fused multiply-add, for any
-    fp32 x on any device. The product of two floats is exact in float64;
-    the float64 sum is made round-to-odd (its exact error from TwoSum; an
-    inexact sum with an even last bit moves one ulp toward the exact value),
-    after which the cast to fp32 rounds as one rounding would."""
-    p = x.double() * float(np.float32(scale))
-    c = float(np.float32(shift))
+    fp32 x on any device; scale and shift are numbers (rounded to fp32) or
+    fp32 tensors that broadcast with x. The product of two floats is exact
+    in float64; the float64 sum is made round-to-odd (its exact error from
+    TwoSum; an inexact sum with an even last bit moves one ulp toward the
+    exact value), after which the cast to fp32 rounds as one rounding
+    would."""
+    p = x.double() * _f64(scale)
+    c = _f64(shift)
     s = p + c
     bp = s - p
     err = (p - (s - bp)) + (c - bp)

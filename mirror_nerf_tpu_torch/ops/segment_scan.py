@@ -100,11 +100,30 @@ def segment_prefix_split_reference(x: torch.Tensor, s: int) -> torch.Tensor:
     return ((lo @ tri + mid @ tri) + hi @ tri).reshape(x.shape)
 
 
+_LOG2_E = 1.4426950408889634  # float64 log2(e)
+
+
+def exp_plain(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) in x's type, for the plain versions. A CUDA tensor takes
+    torch.exp. On the CPU, torch.exp hands fp32 and float64 tensors to MKL's
+    VML (vmsExp / vmdExp) on torch's OpenMP threads, and the first fp32 call
+    in a process sometimes returns one thread's share of the values (4096
+    of 32768) with relative errors up to 1.5e-4: a fault in that library,
+    not in the port. So the CPU path evaluates exp2(x·log2 e) in float64,
+    which torch computes with its own vectorised (SLEEF) kernel and no MKL,
+    and rounds once to x's type: within an ulp of exp in fp32 for any
+    input."""
+    if x.is_cuda:
+        return torch.exp(x)
+    return torch.exp2(x.double() * _LOG2_E).to(x.dtype)
+
+
 def prefix_weights_reference(sd: torch.Tensor, s: int) -> torch.Tensor:
     """The plain version of WEIGHTS (any device): exp(−prefix)·(1 −
-    exp(−sd)), `ops/fused_cp.py prefix_weights` per segment of s."""
-    return torch.exp(-segment_prefix_reference(sd, s)) * (1.0
-                                                          - torch.exp(-sd))
+    exp(−sd)), `ops/fused_cp.py prefix_weights` per segment of s; the
+    exponentials by `exp_plain`."""
+    return exp_plain(-segment_prefix_reference(sd, s)) * (
+        1.0 - exp_plain(-sd))
 
 
 # ---- the CUDA kernel (csrc/segment_scan.cu) ----

@@ -1,7 +1,8 @@
 """Encoder-shaped table products on the tensor cores (torch counterpart of
 the TPU probe kernel `kernel`, `tools/exp_int8_probe.py:49`), as one
-hand-written kernel (`csrc/table_mma.cu`, sm_90a, `mma.sync`; see its source
-note) for two operand types:
+hand-written kernel (`csrc/table_mma.cu`, sm_90a, `wgmma` with the basis
+built by producer warps into a ring of shared-memory stages while consumer
+warpgroups multiply; see its source note) for two operand types:
 
   * `table_mma(x, t)`: x (nb, 1, L) fp32 rows and t (nt, r, g) tables, int8
     or bf16 → out (nb, r, L) fp32, out_b = Σ_j t_j @ basis_j with the basis
@@ -31,9 +32,15 @@ import torch
 from ._build import Library, card_index, on_card
 
 _LIB = "table_mma"
-_REFUSALS = {-1: "g is not a positive multiple of 64 below 2**24",
+G_MAX = 16384  # the kernel keeps fl(i·1e-3) for every i in shared memory
+_REFUSALS = {-1: "g is not a positive multiple of 64",
              -2: "the lane count is not a positive multiple of 128",
-             -3: "no blocks, tables or rows", -4: "an unknown operand type"}
+             -3: "no blocks, tables or rows (or over 2**31 - 1 tiles)",
+             -4: "an unknown operand type",
+             -5: f"g is above {G_MAX} (the kernel keeps fl(i*1e-3) for "
+                 "every i in shared memory)",
+             -6: "cuTensorMapEncodeTiled did not make the tables' tensor "
+                 "map (or was not found)"}
 KINDS = {torch.int8: 0, torch.bfloat16: 1}
 
 # kernel launches since import (or since a caller last reset them to 0)
@@ -86,8 +93,8 @@ _F32 = (torch.float32,)
 
 def table_mma_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream (raises for anything it does
-    not take: g a multiple of 64, L of 128, contiguous 16-B aligned
-    inputs)."""
+    not take: g a multiple of 64 up to G_MAX, L of 128, contiguous 16-B
+    aligned inputs)."""
     global launches_int8, launches_bf16
     dev = card_index("table-mma", ("x", x, _F32, 16), ("t", t, _TABLES, 16))
     _check_shapes(x, t)

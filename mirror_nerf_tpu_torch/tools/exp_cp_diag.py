@@ -117,10 +117,11 @@ def composite_source() -> str:
 
 
 def build(name: str, patches: dict = None,
-          entry: str = "mnerf_fused_cp_composite", library=None):
-    """nvcc a variant (of `patches`, default `PATCHES`) into
-    build/kernels/diag/: (its ctypes `entry`, typed as `library`'s, default
-    the CP composite's; ptxas lines)."""
+          entry: str = "mnerf_fused_cp_composite", library=None,
+          source: str = None):
+    """nvcc a variant (of `patches`, default `PATCHES`, applied to `source`,
+    default the composite's) into build/kernels/diag/: (its ctypes `entry`,
+    typed as `library`'s, default the CP composite's; ptxas lines)."""
     out = _build.BUILD_DIR / "diag"
     out.mkdir(parents=True, exist_ok=True)
     for header in _build.CSRC.glob("*.cuh"):
@@ -129,7 +130,7 @@ def build(name: str, patches: dict = None,
         tmp.write_text(header.read_text())
         os.replace(tmp, out / header.name)
     cu = out / f"{name}.cu"
-    cu.write_text(patched_source(name, patches=patches))
+    cu.write_text(patched_source(name, src=source, patches=patches))
     so = cu.with_suffix(".so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                            str(cu)], capture_output=True, text=True)

@@ -18,6 +18,16 @@ the bar):
   sigma_2_blocks  the σ-only variant at two blocks an SM (128 registers);
   sigma_3_blocks  the σ-only variant at three blocks an SM (85 registers).
 
+With `--dense`, DENSE of `csrc/hashgrid.cu` instead (`mnerf_hash_dense`):
+the kernel beside copies with two samples a thread, every corner load
+issued before the FMAs (`dense_2_samples`), and with the first design's
+body, `interp_level`'s eight 8-B corner loads a sample (`dense_interp`),
+on the probe's input (262,144 uniform samples of a side-62 level, ×1e4
+rows, `exp_hash_inkernel` DENSE_*) and on a level read from one row in
+(odd rows 16-B aligned) with samples that wrap the row count; every build
+bit for bit against the plain version; 100 calls a round, best of 5
+rounds in turns.
+
 Inputs (`cases`, also chip_smoke.py phase 13's): the hash-grid model at
 full width (16 levels × 2, 2¹⁹ rows a level, bound 6; seeded weights with
 the table's dense levels ×1e4 and the σ column |w|·5, and a saturating
@@ -159,14 +169,96 @@ def builds(names) -> dict:
     return out
 
 
+DENSE_ENTRY = "mnerf_hash_dense"
+DENSE_PATCHES = {
+    "dense_2_samples": [("constexpr int DENSE_SPT = 1;",
+                         "constexpr int DENSE_SPT = 2;")],
+    "dense_interp": [
+        ("    d[s] = dense_corners(rows, L, x0, x1, x2);\n",
+        "    d[s].t[0] = x0;\n    d[s].t[1] = x1;\n    d[s].t[2] = x2;\n"),
+        ("    float acc[2];\n    dense_sum(d[s], acc);",
+         "    float acc[2];\n    interp_level<2>(rows, L, d[s].t[0], "
+         "d[s].t[1], d[s].t[2], acc);")],
+}
+
+
+def dense_inputs():
+    """case -> (level rows, x, scale, side): the probe's DENSE input, and a
+    level read from its second row (the pairs of odd rows then 16-B
+    aligned) at samples in [−0.05, 1.05]³ (their rows wrap)."""
+    from .exp_hash_inkernel import DENSE_SAMPLES, DENSE_SCALE, DENSE_SIDE
+
+    g = torch.Generator().manual_seed(4)
+    rows = (torch.randn((DENSE_SIDE ** 3 + 1, 2), generator=g) * 1e4).cuda()
+    x = torch.rand((DENSE_SAMPLES, 3), generator=g).cuda()
+    xw = (x * 1.1 - 0.05).contiguous()
+    return {"probe": (rows[:-1], x, DENSE_SCALE, DENSE_SIDE),
+            "offset_wrap": (rows[1:], xw, DENSE_SCALE, DENSE_SIDE)}
+
+
+def dense_main(rounds: int) -> dict:
+    """DENSE and its variants, bit for bit and timed in turns."""
+    from ..ops import hashgrid
+
+    hashgrid._library()
+    fns = {"real": hashgrid._library._fns[DENSE_ENTRY]}
+    src = (_build.CSRC / "hashgrid.cu").read_text()
+
+    def one(name):
+        return exp_cp_diag.build(f"hash_{name}", {f"hash_{name}":
+                                                  DENSE_PATCHES[name]},
+                                 DENSE_ENTRY, hashgrid._library,
+                                 source=src)[0]
+
+    with ThreadPoolExecutor(len(DENSE_PATCHES)) as pool:
+        fns.update(zip(DENSE_PATCHES, pool.map(one, DENSE_PATCHES)))
+    real = hashgrid._library._fns
+    res = {name: {} for name in fns}
+    differ = {name: 0 for name in fns}
+    with torch.no_grad():
+        for case, (rows, x, scale, side) in dense_inputs().items():
+            want = hashgrid.dense_level_lookup_reference(rows, x, scale,
+                                                         side)
+            call = (lambda rows=rows, x=x, scale=scale, side=side:
+                    hashgrid.dense_level_lookup(rows, x, scale, side))
+            for name, fn in fns.items():
+                real[DENSE_ENTRY] = fn
+                try:
+                    differ[name] += int((call() != want).sum())
+                finally:
+                    real[DENSE_ENTRY] = fns["real"]
+            for rnd in range(rounds):
+                order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+                for name in order:
+                    real[DENSE_ENTRY] = fns[name]
+                    try:
+                        ms = _ms(call, 100)
+                    finally:
+                        real[DENSE_ENTRY] = fns["real"]
+                    res[name][case] = min(res[name].get(case, 1e9), ms)
+    print(f"device: {torch.cuda.get_device_name(0)}; DENSE ms per call, "
+          f"best of {rounds} rounds in turns; values that differ from the "
+          "plain version")
+    for name in fns:
+        print(f"{name:15s} " + ", ".join(
+            f"{case} {ms:.4f}" for case, ms in res[name].items())
+            + f" (differ {differ[name]})")
+    assert not any(differ.values()), differ
+    return {"ms": res, "differ": differ}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+", choices=list(PATCHES),
                     default=list(PATCHES))
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--dense", action="store_true",
+                    help="DENSE's variants instead of the fused kernel's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on a card")
+    if args.dense:
+        return dense_main(max(args.rounds, 5))
     torch.backends.cuda.matmul.allow_tf32 = False
     built = builds(args.variants)
     fns = {k: v[0] for k, v in built.items()}

@@ -47,9 +47,15 @@ all-mirror weights, as the CP view.
 With `--groups train`: the CP train kernels' tangent forward and tangent
 backward with d_x on `exp_train_diag.cases` (uniform T = 131072, a train
 batch's ray-ordered 1024 × 128 and 1024 × 64 samples; 10 calls a round,
-best of 3), each through its tree's wrapper.
-Each group is also checked: the two trees' outputs agree (GATHER and the
-floor bit for bit, the views and the train backward within 1e-3, the rest
+best of 3), each through its tree's wrapper. With `--groups tables`: the
+table products, int8 and bf16, at the JAX probe's defaults (64 blocks × 9
+tables × (64, 512) @ (512, 1024)). With `--groups hash`: DENSE (262,144
+samples of a side-62 level), ENCODE (2,097,152 points of the bound-6 spec)
+and the fused NGP composite (16384 rays, S = 128 full and S = 64 σ-only),
+the kernels that share `csrc/hashgrid.cuh` (20 calls a round, best of 3).
+Each group is also checked: the two trees' outputs agree (GATHER, DENSE,
+ENCODE, the fused NGP composite, int8 table products and the floor bit for
+bit, the views and the train backward within 1e-3, the rest
 within their kernels' bars).
 
 It imports only torch and the two trees' ports. `main` returns the numbers
@@ -69,8 +75,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import (_build, fused_cp, fused_cp_train, fused_mlp, fused_mlp_t,
-                   hashgrid, invoke_floor, segment_scan, table_mma)
+from ..ops import (_build, fused_cp, fused_cp_train, fused_hash, fused_mlp,
+                   fused_mlp_t, hashgrid, invoke_floor, segment_scan,
+                   table_mma)
 from .exp_hash_inkernel import (DENSE_SAMPLES, DENSE_SCALE, DENSE_SIDE,
                                 IDX_SHAPE, TABLE_ROWS, _grid_sample_args)
 from .exp_reshape_probe import PREFIX_BAR, path_input, with_sentinel
@@ -78,7 +85,8 @@ from .timing import per_call_ms
 
 LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
         "fused_cp_train", "fused_mlp_t", "table_mma")
-GROUPS = ("launch", "composite", "view", "flagship", "train")
+GROUPS = ("launch", "composite", "view", "flagship", "train", "tables",
+          "hash")
 KERNEL_BAR = 1e-4  # the composite's bar against its plain version
 VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
@@ -133,7 +141,7 @@ def _groups(other: dict, seed: int) -> dict:
          "other": lambda: ohg.dense_level_lookup(rows, x, DENSE_SCALE,
                                                  DENSE_SIDE),
          "library": lambda: torch.nn.functional.grid_sample(
-             vol, grid, mode="bilinear", align_corners=True)}, 1e-5)
+             vol, grid, mode="bilinear", align_corners=True)}, 0.0)
     p = path_input(dev, seed)
     groups["prefix"] = (
         {"scan_this": lambda: ss.segment_prefix(p, 128, "scan"),
@@ -342,6 +350,66 @@ def _train_groups(other: dict) -> dict:
     return out
 
 
+def _table_groups(other: dict, seed: int) -> dict:
+    """The table products at the JAX probe's defaults (64 blocks × 9 tables
+    × (64, 512) @ (512, 1024); `exp_int8_probe.inputs`), int8 and bf16, each
+    through its tree's wrapper: int8 bit for bit, bf16 within its bar (the
+    trees sum in other orders)."""
+    from .exp_int8_probe import BF16_BAR, inputs
+
+    x, tabs = inputs(g=512, r=64, lanes=1024, blocks=64, tables=9,
+                     seed=seed, device="cuda")
+    otm = other["table_mma"]
+    return {f"tables_{kind}": (
+        {"this": lambda t=t: table_mma.table_mma(x, t),
+         "other": lambda t=t: otm.table_mma(x, t)},
+        0.0 if kind == "int8" else BF16_BAR) for kind, t in tabs.items()}
+
+
+def _hash_groups(other: dict) -> dict:
+    """The kernels that share `csrc/hashgrid.cuh`, at their main paths'
+    shapes, both trees on the same inputs, bit for bit: DENSE (262,144
+    samples of the probe's side-62 level), ENCODE (the 800×800 view's
+    2,097,152 points of the full bound-6 spec, ×1e4 table) and the fused NGP
+    composite (`exp_hash_diag.cases`: seeded, relu, S = 128 full and S = 64
+    σ-only)."""
+    from .exp_hash_diag import cases, inputs
+    from .exp_hash_inkernel import encode_case
+
+    ohg = other["hashgrid"]
+    ofh = importlib.import_module(f"{OTHER}.ops.fused_hash")
+    g = torch.Generator().manual_seed(2)
+    rows = (torch.randn((DENSE_SIDE ** 3, 2), generator=g) * 1e4).cuda()
+    x = torch.rand((DENSE_SAMPLES, 3), generator=g).cuda()
+    spec, table, x01 = encode_case(16384 * 128, 3, "cuda")
+    out = {
+        "hash_dense": ({"this": lambda: hashgrid.dense_level_lookup(
+                            rows, x, DENSE_SCALE, DENSE_SIDE),
+                        "other": lambda: ohg.dense_level_lookup(
+                            rows, x, DENSE_SCALE, DENSE_SIDE)}, 0.0),
+        "hash_encode": ({"this": lambda: hashgrid.hashgrid_encode(
+                             table, x01, spec),
+                         "other": lambda: ohg.hashgrid_encode(
+                             table, x01, spec)}, 0.0)}
+
+    def cat(res: dict):
+        return torch.cat([v.reshape(-1).float() for v in res.values()])
+
+    field, o, d, _ = inputs()
+    for case, (_, _, p, z) in cases().items():
+        if not case.startswith("seeded relu"):
+            continue
+        so = case.endswith("sigma-only")
+        out[f"hash_fused_S{z.shape[1]}"] = (
+            {"this": lambda p=p, z=z, so=so: cat(
+                fused_hash.fused_hash_rays_composite(field, p, o, d, d, z,
+                                                     so)),
+             "other": lambda p=p, z=z, so=so: cat(
+                 ofh.fused_hash_rays_composite(field, p, o, d, d, z, so))},
+            0.0)
+    return out
+
+
 def composite_code(other: dict) -> dict:
     """Each tree's composite library: ptxas' registers and spills, and the
     SASS counts of every `cp_field_kernel` instance."""
@@ -392,6 +460,12 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
         if "train" in groups:
             todo.update((k, (v, 10, 3)) for k, v in
                         _train_groups(other).items())
+        if "tables" in groups:
+            todo.update((k, (v, 20, 3)) for k, v in
+                        _table_groups(other, seed).items())
+        if "hash" in groups:
+            todo.update((k, (v, 20, 3)) for k, v in
+                        _hash_groups(other).items())
         for group, ((fns, bar, *flat), reps, rounds) in todo.items():
             diff = _agree(fns, bar, *flat)
             us = {k: v * 1e3 for k, v in
@@ -508,7 +582,10 @@ def main(argv=None) -> dict:
                          "the 800×800 CP view; flagship: the flagship "
                          "kernel at its main path's shapes and the 400×300 "
                          "flagship view; train: the CP train kernels at "
-                         "their main path's shapes")
+                         "their main path's shapes; tables: the table "
+                         "products at the probe's defaults; hash: DENSE, "
+                         "ENCODE and the fused NGP composite at their main "
+                         "paths' shapes")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

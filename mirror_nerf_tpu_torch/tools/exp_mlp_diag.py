@@ -48,8 +48,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import subprocess
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -129,7 +131,11 @@ def build(name: str):
     lines)."""
     out = _build.BUILD_DIR / "diag_mlp"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "launch.cuh").write_text((_build.CSRC / "launch.cuh").read_text())
+    for header in _build.CSRC.glob("*.cuh"):  # launch.cuh, sm90.cuh, ...
+        # replaced whole: a build running in another thread may read it
+        tmp = out / f"{header.name}.{threading.get_ident()}.tmp"
+        tmp.write_text(header.read_text())
+        os.replace(tmp, out / header.name)
     cu = out / f"{name}.cu"
     cu.write_text(patched_source(name))
     so = cu.with_suffix(".so")

@@ -21,8 +21,9 @@ segment's last value), where each sentinel's own value must equal the sum
 of its segment's other values to the same bar, and the wide input (values
 spread log-uniformly over 1e-6 … 1e10). WEIGHTS against float64
 weights (atol 1e-5), per-segment Σw ≤ 1 + 1e-5, on uniform [0, 1.5) sd with
-the sentinel (the input of tests/test_fused_cp.py:194-199). On the CPU both
-modes are the plain version.
+the sentinel (the input of tests/test_fused_cp.py:194-199); a miss names
+the worst segment, its position and its input (`worst_segment`). On the CPU
+both modes are the plain version.
 
 Timing (the card only; CUDA events over back-to-back calls, in turns and
 best of 5 rounds (`timing.per_call_ms`), and the device time per call from a
@@ -118,12 +119,30 @@ def prefix_errors(got: torch.Tensor, x: torch.Tensor, s: int):
     return err, last
 
 
+def weights64(sd: torch.Tensor, s: int) -> torch.Tensor:
+    """The float64 weights per segment, (segments, s); the exponentials by
+    `segment_scan.exp_plain` (on the CPU no MKL: see its note)."""
+    x = sd.double().reshape(-1, s)
+    return ss.exp_plain(-exclusive64(sd, s)) * (1.0 - ss.exp_plain(-x))
+
+
 def weights_errors(got: torch.Tensor, sd: torch.Tensor, s: int):
     """(max abs error against float64 weights, max per-segment Σw)."""
-    x = sd.double().reshape(-1, s)
-    want = torch.exp(-exclusive64(sd, s)) * (1.0 - torch.exp(-x))
     g = got.double().reshape(-1, s)
-    return float((g - want).abs().max()), float(g.sum(-1).max())
+    return float((g - weights64(sd, s)).abs().max()), float(g.sum(-1).max())
+
+
+def worst_segment(got: torch.Tensor, sd: torch.Tensor, s: int) -> str:
+    """The segment whose weights stray furthest from float64: its index, the
+    position in it, both values and the segment's input."""
+    d = (got.double().reshape(-1, s) - weights64(sd, s)).abs()
+    k = int(d.max(-1).values.argmax())
+    i = int(d[k].argmax())
+    return (f"segment {k} (of {d.shape[0]}), position {i}: got "
+            f"{float(got.reshape(-1, s)[k, i])!r}, float64 "
+            f"{float(weights64(sd, s)[k, i])!r}; Σw "
+            f"{float(got.double().reshape(-1, s)[k].sum())!r}; input "
+            f"{sd.reshape(-1, s)[k].tolist()}")
 
 
 def parity(device, path: bool = True) -> dict:
@@ -146,10 +165,12 @@ def parity(device, path: bool = True) -> dict:
                         (iname, s, kind, mode, err, last)
         for s in (128, 16):
             sd = with_sentinel(x * 1.5, s)
-            err, wsum = weights_errors(ss.prefix_weights(sd, s), sd, s)
+            w = ss.prefix_weights(sd, s)
+            err, wsum = weights_errors(w, sd, s)
             out[f"{iname}_S{s}_weights"] = err
             out[f"{iname}_S{s}_weights_max_sum"] = wsum
-            assert err <= WEIGHTS_ATOL and wsum <= 1.0 + 1e-5, (s, err, wsum)
+            assert err <= WEIGHTS_ATOL and wsum <= 1.0 + 1e-5, (
+                s, err, wsum, worst_segment(w, sd, s))
     return out
 
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+import time
 
 import torch
 
@@ -89,7 +90,12 @@ def _traced_kernels(fn, reps: int) -> tuple:
     return traces[0], traces[1]
 
 
-TRACE_TRIES = 3  # pairs of traces `device_ms` takes before it gives up
+# pairs of traces `device_ms` takes before it gives up, and the pause after
+# a pair that was not whole: on an H100 a trace loses kernels now and then,
+# at random, whether its pair comes from one profiler session or two, and
+# chip_smoke.py once drew three such pairs in a row
+TRACE_TRIES = 8
+RETRY_PAUSE_S = 0.2
 
 
 def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
@@ -102,9 +108,11 @@ def device_ms(fn, reps: int = 20, exclude: str = None) -> float:
     after a warm-up pass, or all of a first trace), which would read low:
     a call's kernels are counted in the first of two traces (the larger
     count of the two), and the timed trace must hold `reps` times that.
-    Up to TRACE_TRIES pairs of traces are taken; when none is whole (or
-    every first trace held no kernel), raises."""
-    for _ in range(TRACE_TRIES):
+    Up to TRACE_TRIES pairs of traces are taken, RETRY_PAUSE_S apart; when
+    none is whole (or every first trace held no kernel), raises."""
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(RETRY_PAUSE_S)
         warm, kernels = _traced_kernels(fn, reps)
         per_call = max(-(-len(warm) // reps), -(-len(kernels) // reps))
         if warm and len(kernels) >= reps * per_call:

@@ -16,6 +16,7 @@ would hide."""
 
 import importlib.util
 import os
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -281,6 +282,100 @@ def test_dense_wraps_out_of_range_corners():
                                atol=ENC_ATOL, rtol=0)
 
 
+def _jax_dense_level(rows, x, scale, side):
+    """One dense level as the JAX package computes it: the level loop of
+    `mirror_nerf_tpu/ops/hashgrid.py hashgrid_encode` (pos, floor, the
+    corners' weights and their sum) with its `_corner_indices` (uint32
+    strided sum, modulo the row count), on a level of any row count, without
+    the out-of-bound mask; jitted, as hashgrid_encode is, so that XLA
+    contracts x·scale + 0.5 into one FMA."""
+    lv = jhg.LevelSpec(side - 1, float(np.float32(scale)), 0, len(rows),
+                       False, (1, side, side * side))
+    spec = jhg.HashGridSpec(num_levels=1, level_dim=rows.shape[1])
+
+    @jax.jit
+    def level(table, x):
+        pos = x * lv.scale + 0.5
+        pf = jnp.floor(pos)
+        frac = pos - pf
+        corners = jnp.asarray(jhg._corner_offsets(3))
+        idx = jhg._corner_indices(spec, lv, pf.astype(jnp.int32)[None]
+                                  + corners[:, None, :])
+        w = jnp.prod(jnp.where(corners[:, None, :] == 1, frac[None],
+                               1.0 - frac[None]), axis=-1)
+        return jnp.sum(w[..., None] * table[idx], axis=0)
+
+    return np.asarray(level(jnp.asarray(rows), jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("side,rows", [(17, 4920), (17, 4876), (62, 238328),
+                                       (62, 200_003)])
+def test_dense_matches_jax_at_any_row_count(side, rows):
+    """The plain DENSE against the JAX package's level arithmetic on levels
+    whose row count is side³ or not (4920 rows of side 17, as the bound-6
+    spec's level 0; 4876 and 200,003: the rows wrap inside [0,1]³) at
+    samples in [−0.05, 1.05]³ (their uint32 rows wrap too); the samples'
+    x-rows are both even and odd, and both ways the kernel loads an x-pair
+    (one 16-B load, two 8-B loads) occur."""
+    rng = np.random.default_rng(side + rows)
+    table = rng.standard_normal((rows, 2)).astype(np.float32)
+    x = rng.uniform(-0.05, 1.05, (4096, 3)).astype(np.float32)
+    scale = np.float32(side - 1.0 - 0.37)
+    got = thg.dense_level_lookup(torch.from_numpy(table),
+                                 torch.from_numpy(x), float(scale), side)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_dense_level(table, x, scale, side),
+                               atol=ENC_ATOL, rtol=0)
+    r8 = thg.dense_corner_rows(rows, torch.from_numpy(x), float(scale), side)
+    assert (r8[0] % 2 == 0).any() and (r8[0] % 2 == 1).any()
+    # the strided sum before the modulo: some corners wrap the row count
+    g = np.floor(x.astype(np.float64) * scale + 0.5).astype(np.int64)
+    h = (g[:, 0] + g[:, 1] * side + g[:, 2] * side * side) & 0xFFFFFFFF
+    assert (h >= rows).any()
+    pairs = thg.dense_pair_loads(r8, 0)
+    assert pairs.any() and (~pairs).any()
+
+
+def _round32(exact: Fraction) -> float:
+    """The float32 nearest `exact`, ties to even."""
+    f = np.float32(float(exact))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return float(min(cands, key=lambda c: (
+        abs(Fraction(float(c)) - exact), int(np.float32(c).view(np.int32))
+        & 1)))
+
+
+def test_dense_plain_is_the_kernel_arithmetic():
+    """The plain DENSE bit for bit against the kernel's arithmetic restated
+    in exact rationals: pos = x·scale + 0.5 rounded once, t = pos − ⌊pos⌋,
+    w = ((w_x·w_y)·w_z) in fp32, acc = fl(w·v + acc) over corners 0..7
+    from 0 (`dense_sum`'s fmaf chain)."""
+    side, rows = 17, 4920
+    rng = np.random.default_rng(11)
+    table = (rng.standard_normal((rows, 2)) * 1e3).astype(np.float32)
+    x = rng.uniform(-0.05, 1.05, (64, 3)).astype(np.float32)
+    scale = np.float32(15.63)
+    got = thg.dense_level_lookup_reference(
+        torch.from_numpy(table), torch.from_numpy(x), float(scale), side)
+    r8 = thg.dense_corner_rows(rows, torch.from_numpy(x), float(scale),
+                               side).numpy()
+    for i in range(len(x)):
+        pos = [np.float32(_round32(Fraction(float(v)) * Fraction(float(scale))
+                                   + Fraction(1, 2))) for v in x[i]]
+        t = [p - np.floor(p) for p in pos]
+        acc = [Fraction(0), Fraction(0)]
+        for c in range(8):
+            f = [t[d] if (c >> d) & 1 else np.float32(1) - t[d]
+                 for d in range(3)]
+            w = (f[0] * f[1]) * f[2]
+            for k in range(2):
+                acc[k] = Fraction(_round32(
+                    Fraction(float(w)) * Fraction(float(table[r8[c, i], k]))
+                    + acc[k]))
+        assert [float(a) for a in acc] == got[i].tolist(), i
+
+
 # ------------------------------------------------------------- dispatch
 
 
@@ -391,6 +486,10 @@ def test_cuda_gather_out_of_range(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("level", [0, 3])
 def test_cuda_dense_matches_plain(level):
+    """Bit for bit against the plain version (the kernel's arithmetic), on
+    the level as packed and read from its second row (odd rows then 16-B
+    aligned, the row count then not side³), at samples whose rows wrap;
+    the in-bound samples against ENCODE's slice of the level."""
     _needs_card()
     ts, table, _ = _full_case(20, seed=13)
     lv = ts.levels()[level]
@@ -398,13 +497,14 @@ def test_cuda_dense_matches_plain(level):
     # ~7 % of the points outside [0,1]³: DENSE wraps their rows, no mask
     x = (torch.rand((100_003, 3), generator=torch.Generator().manual_seed(
         level)) * 1.05 - 0.025).cuda()
-    before = thg.launches_dense
-    got = thg.dense_level_lookup(rows, x, lv.scale, lv.resolution + 1)
-    torch.cuda.synchronize()
-    assert thg.launches_dense == before + 1
-    ref = thg.dense_level_lookup_reference(rows, x, lv.scale,
-                                           lv.resolution + 1)
-    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    for r in (rows[1:], rows):
+        before = thg.launches_dense
+        got = thg.dense_level_lookup(r, x, lv.scale, lv.resolution + 1)
+        torch.cuda.synchronize()
+        assert thg.launches_dense == before + 1
+        ref = thg.dense_level_lookup_reference(r, x, lv.scale,
+                                               lv.resolution + 1)
+        assert torch.equal(got, ref)
     inb = ((x >= 0) & (x <= 1)).all(-1)
     enc = thg.hashgrid_encode(table, x, ts)[:, 2 * level:2 * level + 2]
     torch.testing.assert_close(got[inb], enc[inb], atol=1e-5, rtol=0)
