@@ -150,10 +150,33 @@ each fatal on failure:
      after: their path. It prints the floor table (mode × way, µs per rep),
      the wrapper's cost step by step, TRI's device time warm and cold beside
      torch.cumsum's, and SCAN per call through the wrapper, bare ctypes and
-     torch.cumsum, timed in turns.
+     torch.cumsum, timed in turns;
+ 16. the hash-grid encoder's backward, BWD and BWD2 (`csrc/hashgrid.cu`),
+     against their plain versions at full width (bound 6, U(±1) table) on
+     131,072 uniform points and a train batch's ray-ordered samples (1024
+     rays × 128), edge points in front of each (0, 1, outside, grid
+     nodes): table grads, d_dy, dx01 and d_x01 within 1e-5 of their
+     largest entry (the atomics' order), the signed mean error against a
+     float64 version, the table grads' run-to-run spread; kernel, plain
+     and `index_add_` (the same pairs) times beside the bound, the
+     reductions by level and the table grads' time over the dense and the
+     hashed levels alone;
+ 17. training the hash-grid model (`nerf_tcnn`) and the flagship (`nerf`)
+     through the train CLI (TRAIN_FLAGS with the model's own --decay_step
+     2 4 8, no --grid_lr_mult) on phase 7's scene, two epochs: finite logs,
+     both stages, parameters and Adam state on the card, TF32 off; for the
+     hash grid ENCODE, BWD and BWD2 launched (counters reset before the CLI
+     and read after) and the plain encoder never called; peak memory; the
+     checkpoint through the eval CLI with --fused_field; a profiled
+     reflection-stage step (`step_profile`: ms a step, rays/s, summed
+     device time, idle share, BWD's and BWD2's shares);
+ 18. the eval CLI without --predict_normal (ROADMAP item [10], the tracer
+     reflecting about ∇σ) for the CP grid (∇σ from the train kernel's
+     forward) and the hash grid (ENCODE, then BWD for dx01): finite PSNRs
+     and the launches.
 
 Each phase prints its wall time. The script prints one JSON line with the
-nineteen kernels' numbers (each with the least time the card could take for
+twenty-one kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
 modes, the train kernels and the flagship's three also with
@@ -2419,6 +2442,449 @@ def phase_probe_kernels(torch, card: str) -> list:
     return entries
 
 
+# BWD and BWD2 against their plain versions, each error scaled to the
+# largest entry: the table grads within 1e-5 of the plain version run in
+# float64 (the kernel's atomics and the fp32 plain version's index_add_
+# both add in an order that changes from run to run, so the two fp32 sums
+# are held to the exact one, not to each other), d_dy, dx01 and d_x01
+# within 1e-5 of the fp32 plain version
+HASH_BWD_REL = 1e-5
+HASH_BWD_POINTS = 131_072
+
+
+def _scale_err(got, ref) -> float:
+    """max|got − ref| / max|ref|."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def _signed_mean(got, ref64) -> float:
+    """The mean error away from zero against a float64 version, over the
+    entries that are not 0 there, scaled by its largest entry (negative:
+    toward zero)."""
+    nz = ref64 != 0
+    d = ((got.double() - ref64) * ref64.sign())[nz]
+    return float(d.mean()) / float(ref64.abs().max()) if d.numel() else 0.0
+
+
+def _hash_bwd_inputs(torch):
+    """The full-width spec (bound 6: 16 levels × 2, 6,616,280 rows), a
+    U(±1) table and the two layouts of 131,072 points: uniform over
+    [−0.02, 1.02]³ and a train batch's ray-ordered samples (1024 strided
+    rays of the 800×800 camera × 128 stratified samples), each with edge
+    points in front: 0 and 1, points outside the cube, and points at grid
+    nodes (on cell faces) of every level. On the card."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.models.ngp import NGPField
+
+    spec = NGPField(bound=6.0).grid_spec
+    g = torch.Generator().manual_seed(21)
+    table = (torch.rand((spec.table_rows, 2), generator=g) * 2 - 1).cuda()
+    edge = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5],
+            [1.0, 0.0, 0.25], [1.5, 0.5, 0.5], [-0.01, 0.5, 0.5],
+            [0.5, 1.0001, 0.5]]
+    for lv in spec.levels():
+        for k in (1, lv.resolution // 2, lv.resolution - 1):
+            c = (k - 0.5) / float(lv.scale)
+            edge += [[c, c, c], [c, 0.37, 0.61]]
+    edge = torch.tensor(edge, dtype=torch.float32)
+    uni = torch.rand((HASH_BWD_POINTS, 3), generator=g) * 1.04 - 0.02
+    rays = torch.from_numpy(_view_rays(800))
+    rays = rays[::rays.shape[0] // 1024][:1024]
+    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 128)
+    xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(
+        -1, 3)
+    ray = (xyz + 6.0) * float(torch.tensor(1 / 12.0, dtype=torch.float32))
+    cases = {}
+    for name, x in (("uniform", uni), ("ray-ordered 1024 x 128", ray)):
+        x = x.clone()
+        x[:edge.shape[0]] = edge
+        n = x.shape[0]
+        cases[name] = (x.cuda().contiguous(),
+                       torch.randn((n, 32), generator=g).cuda(),
+                       torch.randn((n, 3), generator=g).cuda())
+    return spec, table, cases
+
+
+def _hash_pairs(torch, hg, spec, x01, weights_of):
+    """The (row, value) pairs a table-grad scatter adds on these points: for
+    every level and corner of a point in the cube, the row and
+    `weights_of(level, f, sign)` (N·8, 2) values; with the distinct 32-B
+    sectors they touch and, per level, the reductions and distinct rows."""
+    inb = hg._in_cube(x01)
+    rows, vals, split = [], [], []
+    for li, lv in enumerate(spec.levels()):
+        r, f, sign = hg._level_corners(spec, lv, x01)
+        v = weights_of(li, f, sign)  # (8, N, 2)
+        r, v = r[:, inb].reshape(-1), v[:, inb].reshape(-1, 2)
+        rows.append(r)
+        vals.append(v)
+        split.append((r.numel(), int(torch.unique(r).numel())))
+    rows, vals = torch.cat(rows), torch.cat(vals).contiguous()
+    sectors = int(torch.unique(rows * 8 // 32).numel())
+    return rows, vals, sectors, split
+
+
+def _bwd_level_split(torch, hg, spec, table, x, dy) -> dict:
+    """BWD's table grads (no dx01) over a subset of the levels, by bare
+    launches of the C entry on the level table's rows of those levels: all
+    16, the 4 dense ones (the coarse levels, where every sample of a batch
+    adds into a few thousand rows) and the 12 hashed ones; ms a call, the
+    zeroing of d_table included, as the wrapper does it."""
+    words = hg._level_table(spec, x.device)
+    n_dense = sum(not lv.use_hash for lv in spec.levels())
+    d = torch.zeros_like(table)
+    out = {}
+    for key, (lo, hi) in (("16 levels", (0, spec.num_levels)),
+                          (f"the {n_dense} dense", (0, n_dense)),
+                          (f"the {spec.num_levels - n_dense} hashed",
+                           (n_dense, spec.num_levels))):
+        w = words[lo:hi].contiguous()
+        dyl = dy[:, 2 * lo:2 * hi].contiguous()
+
+        def run(w=w, dyl=dyl, k=hi - lo):
+            d.zero_()
+            hg._library.launch(
+                "mnerf_hash_bwd", "hash-grid BWD (levels)", x.device.index,
+                x.data_ptr(), table.data_ptr(), w.data_ptr(), k, 2,
+                x.shape[0], dyl.data_ptr(), d.data_ptr(), None)
+
+        out[key] = _time_ms(torch, run, reps=20, warmup=3)
+    return out
+
+
+def _hash_bwd_case(torch, card, spec, table, name, x, dy, g) -> dict:
+    """BWD and BWD2 on one layout: errors against the plain versions, the
+    signed mean error against float64, the run-to-run spread of the table
+    grads, times beside the bound and `index_add_` on the same pairs."""
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+
+    n = x.shape[0]
+    out = {}
+    with torch.no_grad():
+        # BWD: d_table and dx01
+        got = hg.encode_backward(table, x, dy, spec)
+        again = hg.encode_backward(table, x, dy, spec)
+        torch.cuda.synchronize()
+        ref = hg.encode_backward_reference(table, x, dy, spec)
+        r64 = hg.encode_backward_reference(table.double(), x.double(),
+                                           dy.double(), spec)
+        assert hg._in_cube(x).logical_not().any() and bool(
+            (got[1][~hg._in_cube(x)] == 0).all()), "dx01 outside the cube"
+        e1 = {"d_table": _scale_err(got[0], r64[0]),
+              "dx01": _scale_err(got[1], ref[1])}
+        fp32_t = {"d_table": _scale_err(got[0], ref[0])}
+        m1 = {"d_table": _signed_mean(got[0], r64[0]),
+              "dx01": _signed_mean(got[1], r64[1])}
+        spread = _scale_err(again[0], got[0])
+        # BWD2: d_dy, d_table, d_x01
+        got2 = hg.encode_backward2(table, x, dy, g, spec)
+        torch.cuda.synchronize()
+        ref2 = hg.encode_backward2_reference(table, x, dy, g, spec)
+        r642 = hg.encode_backward2_reference(
+            table.double(), x.double(), dy.double(), g.double(), spec)
+        e2 = {k: _scale_err(a, b) for k, a, b in zip(
+            ("d_table", "d_dy", "d_x01"), got2, (r642[0], *ref2[1:]))}
+        fp32_t["bwd2 d_table"] = _scale_err(got2[0], ref2[0])
+        m2 = {k: _signed_mean(a, b) for k, a, b in zip(
+            ("d_table", "d_dy", "d_x01"), got2, r642)}
+        for v in (*got, *got2):
+            assert v.is_cuda and bool(torch.isfinite(v).all()), name
+        # times: BWD both outputs (the bound's function), table only (the
+        # loss backward's σ path) and dx01 only (the normal pass); BWD2 all
+        ms = _time_ms(torch, lambda: hg.encode_backward(table, x, dy, spec),
+                      reps=20, warmup=3)
+        ms_t = _time_ms(torch, lambda: hg.encode_backward(
+            table, x, dy, spec, True, False), reps=20, warmup=3)
+        ms_x = _time_ms(torch, lambda: hg.encode_backward(
+            table, x, dy, spec, False, True), reps=20, warmup=3)
+        ms2 = _time_ms(torch, lambda: hg.encode_backward2(
+            table, x, dy, g, spec), reps=20, warmup=3)
+        plain = _time_ms(torch, lambda: hg.encode_backward_reference(
+            table, x, dy, spec), reps=2, warmup=1)
+        plain2 = _time_ms(torch, lambda: hg.encode_backward2_reference(
+            table, x, dy, g, spec), reps=2, warmup=1)
+
+        def w_dy(li, f, sign):
+            w = (f[..., 0] * f[..., 1]) * f[..., 2]
+            return w[..., None] * dy[None, :, 2 * li:2 * li + 2]
+
+        def u_dy(li, f, sign):
+            s = float(spec.levels()[li].scale)
+            u = s * (hg._weight_grads(f, sign) * g[None]).sum(-1)
+            return u[..., None] * dy[None, :, 2 * li:2 * li + 2]
+
+        split = _bwd_level_split(torch, hg, spec, table, x, dy)
+        lib = {}
+        for key, fn in (("bwd", w_dy), ("bwd2", u_dy)):
+            rows, vals, sectors, by_level = _hash_pairs(torch, hg, spec, x,
+                                                        fn)
+            d = torch.zeros_like(table)
+            lib[key] = _time_ms(torch, lambda: d.zero_().index_add_(
+                0, rows, vals), reps=20, warmup=3)
+            del rows, vals, d
+    n_red = sum(r for r, _ in by_level)
+    pl = n_red // 8  # (point, level) pairs in the cube
+    # bytes: x, dy and dx01 once, each distinct 32-B table sector twice (the
+    # reductions' read-modify-write); BWD2 adds g, d_dy and one read of
+    # the table's sectors; operations (fp32, a multiply-add 2) per (point,
+    # level) in the cube: pos, floor, fraction and 1 − t (15), per corner
+    # the weight (2), its table grad (2), the dot (3), three weight grads
+    # and their sums (12) for BWD; BWD2 per corner u (12), d_dy (4), the
+    # table grad (2), the dot (3), three mixed second derivatives (6) and
+    # the d_x sums (18)
+    b1 = _bound(pl * (15 + 8 * 19), n * (12 + 128 + 12) + 2 * 32 * sectors)
+    b2 = _bound(pl * (15 + 8 * 45),
+                n * (12 + 128 + 12 + 128 + 12) + 3 * 32 * sectors)
+    log(f"[hash-bwd] {name}, {n} points ({int((~hg._in_cube(x)).sum())} "
+        f"outside the cube) ({card}): BWD max err (scaled to the largest "
+        f"entry; d_table vs float64) " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e1.items())
+        + "; signed mean vs float64 " + ", ".join(
+            f"{k} {v:.2e}" for k, v in m1.items())
+        + f"; the table grads twice differ by {spread:.2e}. BWD2 max err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e2.items())
+        + "; signed mean vs float64 " + ", ".join(
+            f"{k} {v:.2e}" for k, v in m2.items())
+        + "; the table grads vs the fp32 plain version (a figure) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in fp32_t.items()))
+    log(f"[hash-bwd] {name} ({card}): BWD {ms:.4f} ms (table grads only "
+        f"{ms_t:.4f}, dx01 only {ms_x:.4f}), plain {plain:.3f} ms, bound "
+        f"{b1[0]:.4f} ms ({b1[1]}; {sectors} distinct 32-B sectors), "
+        f"index_add_ on the same {n_red} pairs {lib['bwd']:.4f} ms; BWD2 "
+        f"{ms2:.4f} ms, plain {plain2:.3f} ms, bound {b2[0]:.4f} ms "
+        f"({b2[1]}), index_add_ on its {n_red} table pairs "
+        f"{lib['bwd2']:.4f} ms")
+    log(f"[hash-bwd] {name}: {n_red} reductions ({n_red / max(pl // 16, 1):.1f}"
+        f" a point in the cube: 16 levels × 8 corners, a figure); by level "
+        "(reductions / distinct rows): " + ", ".join(
+            f"{li}: {r}/{d}" for li, (r, d) in enumerate(by_level))
+        + f"; the table grads' time by levels, bare launches ({card}): all "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+    for k, v in {**e1, **{"bwd2 " + k: v for k, v in e2.items()}}.items():
+        assert v <= HASH_BWD_REL, (name, k, v)
+    return {"bwd": (ms, plain, b1, lib["bwd"], max(e1.values())),
+            "bwd2": (ms2, plain2, b2, lib["bwd2"], max(e2.values()))}
+
+
+def phase_hash_bwd_kernels(torch, card: str) -> list:
+    """(16) BWD and BWD2 against their plain versions at full width on two
+    layouts. Returns their two JSON entries (launches set from phase 17)."""
+    spec, table, cases = _hash_bwd_inputs(torch)
+    res = {name: _hash_bwd_case(torch, card, spec, table, name, *c)
+           for name, c in cases.items()}
+    entries = []
+    for key, title in (("bwd", "hashgrid_backward"),
+                       ("bwd2", "hashgrid_backward2")):
+        ms, plain, bound, lib, _ = res["ray-ordered 1024 x 128"][key]
+        entries.append({
+            "name": title, "route": "cuda",
+            "source": "mirror_nerf_tpu_torch/csrc/hashgrid.cu",
+            "replaces": "mirror_nerf_tpu/ops/hashgrid.py:137",
+            "launches": 0,
+            "max_abs_err": max(r[key][4] for r in res.values()),
+            "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib,
+            "uniform_ms": res["uniform"][key][0]})
+    return entries
+
+
+def _model_train_flags(model: str) -> list:
+    """TRAIN_FLAGS for another model: its own --decay_step 2 4 8 (run.sh
+    mode 0's for nerf and nerf_tcnn) and no --grid_lr_mult."""
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--model_type") + 1] = model
+    i = flags.index("--decay_step")
+    flags[i + 1:i + 4] = ["2", "4", "8"]
+    i = flags.index("--grid_lr_mult")
+    del flags[i:i + 2]
+    return flags
+
+
+def _count_calls(module, names):
+    """Wrap module functions to count their calls; returns (counts,
+    restore)."""
+    counts = dict.fromkeys(names, 0)
+    real = {k: getattr(module, k) for k in names}
+
+    def wrap(k):
+        def f(*a, **kw):
+            counts[k] += 1
+            return real[k](*a, **kw)
+        return f
+
+    for k in names:
+        setattr(module, k, wrap(k))
+    return counts, lambda: [setattr(module, k, v) for k, v in real.items()]
+
+
+def _train_model(torch, card: str, model: str, eval_flags: list) -> tuple:
+    """(17) One model through the train CLI (two epochs, geometry then
+    reflection) on phase 7's scene, its checkpoint through the eval CLI
+    with --fused_field, then a profiled reflection-stage step. Returns the
+    hash-grid kernels' launches in the train CLI and the rate."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import main as eval_main
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+    from mirror_nerf_tpu_torch.train.checkpoints import tree_leaves
+    from mirror_nerf_tpu_torch.train.cli import main as train_main
+
+    scene = str(WORK / "train" / "scene")
+    work = WORK / f"train_{model}"
+    work.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    plain, restore = _count_calls(hg, ("hashgrid_encode_reference",
+                                       "encode_backward_reference",
+                                       "encode_backward2_reference"))
+    try:
+        hg.launches_encode = hg.launches_bwd = hg.launches_bwd2 = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_main(_model_train_flags(model) + [
+            "--root_dir", scene, "--img_wh", "64", "64", "--exp_name",
+            f"smoke_{model}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = (hg.launches_encode, hg.launches_bwd, hg.launches_bwd2)
+        calls = dict(plain)
+        restore()
+        assert not torch.backends.cuda.matmul.allow_tf32
+        recs = [json.loads(x) for x in open(os.path.join(
+            tr.workdir, "metrics.jsonl"))]
+        vals = [json.loads(x) for x in open(os.path.join(
+            tr.workdir, "val_metrics.jsonl"))]
+        assert {r["stage"] for r in recs} == {"geometry", "full"}, recs
+        for r in recs + vals:
+            for k, v in r.items():
+                if isinstance(v, float):
+                    assert np.isfinite(v), (model, k, r)
+        assert "normal_loss" in recs[-1] and "novel_ray_reg" in recs[-1]
+        for leaf in tree_leaves(tr.params):
+            assert leaf.is_cuda
+        for st in tr.opt.opt.state.values():
+            for k, v in st.items():
+                assert k == "step" or v.is_cuda, k
+        if model == "nerf_tcnn":
+            assert min(launches) > 0, f"hash-grid kernels: {launches}"
+            assert not any(calls.values()), f"plain versions ran: {calls}"
+        log(f"[train-{model}] train CLI wrote {tr.workdir}: {len(recs)} log "
+            f"lines, {tr.global_step} steps, {wall:.1f} s; launches ENCODE "
+            f"{launches[0]}, BWD {launches[1]}, BWD2 {launches[2]}; plain "
+            f"hash-grid calls {calls}; peak memory {peak:.2f} GiB "
+            f"(max_memory_allocated, {card})")
+        for v, stage in zip(vals, ("geometry", "reflection")):
+            log(f"[train-{model}] epoch {v['epoch']} ({stage} stage): loss "
+                f"{v['loss']:.4f}, train psnr {v['psnr']:.2f}, val psnr "
+                f"{v['val_psnr']:.2f}, {v['rays_per_sec']:.1f} rays/s at "
+                f"batch 1024, steady state after the first step ({card})")
+        out = eval_main(eval_flags + [
+            "--root_dir", scene, "--img_wh", "64", "64", "--split", "test",
+            "--ckpt_path", os.path.join(tr.workdir, "last.ckpt.npz"),
+            "--exp_name", f"smoke_{model}_trained"])
+        with open(os.path.join(out, "psnr.json")) as f:
+            table = json.load(f)
+        assert np.isfinite(table["mean_psnr"]), table
+        log(f"[train-{model}] last.ckpt.npz through the eval CLI "
+            f"(--fused_field): test PSNR {table['mean_psnr']:.2f}")
+        sys.path.insert(0, str(ROOT / "tools"))
+        from profile_train_torch import step_profile
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.reset_peak_memory_stats()
+        r = step_profile(tr, tr.cfg, "cuda", acts)
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        dev_ms = r["device_ms_per_step"] * 3
+
+        def share(key):
+            return sum(ms for name, (_, ms) in r["by_name"].items()
+                       if key in name) / max(dev_ms, 1e-9)
+
+        log(f"[train-{model}] reflection-stage step, batch {r['batch']} "
+            f"({card}): {r['ms_per_step']:.2f} ms/step, "
+            f"{r['rays_per_s']:.1f} rays/s (host clock, synchronized); "
+            f"traced: summed device time {r['device_ms_per_step']:.3f} ms a "
+            f"step, idle share {r['idle_share']:.4f}, BWD "
+            f"{100 * share('hash_backward_kernel'):.1f} % and BWD2 "
+            f"{100 * share('hash_backward2_kernel'):.1f} % of the device "
+            f"time, ENCODE {100 * share('hash_encode_kernel'):.1f} %; "
+            f"{r['events_per_step']:.0f} device events a step; peak memory "
+            f"{step_peak:.2f} GiB")
+        for name, (cnt, ms) in sorted(r["by_name"].items(),
+                                      key=lambda kv: -kv[1][1])[:6]:
+            log(f"[train-{model}]   {ms / 3:8.3f} ms a step x{cnt // 3:4d}  "
+                f"{name}")
+        assert r["events_per_step"] > 0, r
+        return launches, vals[-1]["rays_per_sec"], r["rays_per_s"]
+    finally:
+        restore()
+        os.chdir(cwd)
+
+
+def phase_model_training(torch, card: str) -> tuple:
+    """(17) The hash-grid model and the flagship through the train CLI.
+    Returns BWD's and BWD2's launches in the hash-grid run."""
+    ngp = _train_model(torch, card, "nerf_tcnn",
+                       NGP_EVAL_FLAGS + ["--fused_field"])
+    mlp = _train_model(torch, card, "nerf", NERF_EVAL_FLAGS)
+    for model, (_, epoch_rate, step_rate) in (("nerf_tcnn", ngp),
+                                               ("nerf", mlp)):
+        log(f"[train-{model}] reflection-stage train-step rate at batch "
+            f"1024: {step_rate:.1f} rays/s profiled steps, {epoch_rate:.1f} "
+            f"rays/s over the CLI's reflection epoch ({card})")
+    return ngp[0][1], ngp[0][2]
+
+
+def phase_grad_normal_views(torch, card: str) -> None:
+    """(18) The eval CLI without --predict_normal (item [10]: the tracer
+    reflects about ∇σ), the CP grid (∇σ from the train kernel's forward
+    with tangents) and the hash grid (ENCODE then BWD for dx01), seeded
+    all-mirror weights (the hash grid's dense levels ×1e4)."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval import main as eval_main
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import fused_cp_train as fct
+    from mirror_nerf_tpu_torch.ops import hashgrid as hg
+    from mirror_nerf_tpu_torch.train.checkpoints import save_pytree
+
+    scene = str(WORK / "train" / "scene")
+    work = WORK / "grad_normal"
+    work.mkdir(parents=True)
+    for model, flags in (("nerf_tpu", EVAL_FLAGS),
+                         ("nerf_tcnn", NGP_EVAL_FLAGS)):
+        flags = [f for f in flags if f != "--predict_normal"]
+        cfg, _ = get_opt(flags)
+        field = make_field(cfg)
+        weights = {}
+        for k, v in init_params(field, cfg, "cpu").items():
+            v = _all_mirror(v)
+            weights[k] = _dense_scaled(field, v) if model == "nerf_tcnn" \
+                else v
+        npz = str(work / f"{model}.npz")
+        save_pytree(npz, weights)
+        fct.launches_fwd = hg.launches_encode = hg.launches_bwd = 0
+        t0 = time.perf_counter()
+        out = eval_main(flags + [
+            "--root_dir", scene, "--img_wh", "64", "64", "--split", "test",
+            "--ckpt_path", npz, "--exp_name", f"smoke_{model}_grad_normal"])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "psnr.json")) as f:
+            table = json.load(f)
+        n = (fct.launches_fwd, hg.launches_encode, hg.launches_bwd)
+        assert np.isfinite(table["mean_psnr"]), table
+        assert (n[0] > 0) if model == "nerf_tpu" else min(n[1:]) > 0, n
+        log(f"[grad-normal] {model} eval CLI without --predict_normal "
+            f"(reflecting about ∇σ), all-mirror weights: test PSNR "
+            f"{table['mean_psnr']:.2f}, {wall:.1f} s; launches CP train "
+            f"forward {n[0]}, ENCODE {n[1]}, BWD {n[2]} ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -2463,11 +2929,18 @@ def main() -> int:
     hash_entries[1]["launches"], hash_entries[0]["launches"] = timed(
         "hash-grid main path", phase_ngp_main_path, torch, card)
     probe_entries = timed("probe kernels", phase_probe_kernels, torch, card)
+    bwd_entries = timed("hash-grid backward kernels",
+                        phase_hash_bwd_kernels, torch, card)
+    bwd_entries[0]["launches"], bwd_entries[1]["launches"] = timed(
+        "hash-grid and flagship training", phase_model_training, torch,
+        card)
+    timed("views about the σ-gradient normal", phase_grad_normal_views,
+          torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,
                                   *rows_entries, *hash_entries,
-                                  *probe_entries]}))
+                                  *probe_entries, *bwd_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,8 @@
 `mirror_nerf_tpu/eval/apps.py`).
 
 The eval tracer: the mirror mask comes from the thresholded prediction;
+it reflects about the predicted normal, or without `--predict_normal`
+about the σ-gradient normal (`_surface_normal_eval`);
 rendering is deterministic (perturb 0, noise 0) and `test_time` skips the
 coarse rgb pass; secondary rays below level 1 are compacted into a fixed
 capacity picked per view by a low-res prepass. The compaction is the JAX
@@ -60,6 +62,20 @@ def _resolve_pred_mask(results: dict, sel: str):
     return None
 
 
+def _surface_normal_eval(results: dict, sel: str) -> torch.Tensor:
+    """The normal the eval tracer reflects about: the predicted normal's
+    composite, else the σ-gradient normal's (`--predict_normal` off)."""
+    if f"surface_normal_{sel}" in results:
+        return results[f"surface_normal_{sel}"]
+    if f"pred_normal_{sel}" in results:
+        return (results[f"pred_normal_{sel}"]
+                * results[f"weights_{sel}"][..., None]).sum(1)
+    if f"surface_normal_grad_{sel}" in results:
+        return results[f"surface_normal_grad_{sel}"]
+    return (results[f"normal_{sel}"]
+            * results[f"weights_{sel}"][..., None]).sum(1)
+
+
 def eval_trace(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
                app: EvalAppFlags, max_recursive_level: int,
                trace_secondary_rays: bool, level: int = 0,
@@ -87,7 +103,8 @@ def eval_trace(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
     d = rays[:, 3:6]
     far = rays[:, 7:8]
     secondary_o = results[f"x_surface_{sel}"]
-    reflect_dir = reflect(d, l2_normalize(results[f"surface_normal_{sel}"]))
+    reflect_dir = reflect(d, l2_normalize(_surface_normal_eval(results,
+                                                               sel)))
     results["reflect_direction"] = reflect_dir
     results["secondary_rays_o"] = secondary_o
     secondary = torch.cat(
@@ -171,23 +188,26 @@ class AppContext:
             raise NotImplementedError(
                 "multi-GPU eval is not ported yet: ROADMAP.md queue 1, "
                 "item 9 (torch.distributed)")
+        compute_normal = cfg.trace_secondary_rays and not cfg.predict_normal
         rs = RenderSettings(
             N_samples=cfg.N_samples, N_importance=cfg.N_importance,
             use_disp=cfg.use_disp, perturb=0.0, noise_std=0.0,
             white_back=False, test_time=not args.render_coarse_rgb,
-            compute_normal=cfg.trace_secondary_rays and not cfg.predict_normal,
+            compute_normal=compute_normal,
             fine_pass=("fine" if cfg.N_importance > 0
                        and not cfg.only_one_field
                        else ("coarse" if cfg.N_importance > 0 else "none")),
             fused_field=args.fused_field,
             proposal_skip=args.proposal_skip,
             sigma_activation=cfg.sigma_activation,
+            # the σ-gradient normal on the card (∇σ under no_grad): the
+            # renderer takes the CP grid's train kernel forward for the
+            # fields that support it (`supports_fused_train`); the hash
+            # grid goes through ENCODE and BWD, the flagship through
+            # autograd of its cuBLAS products
+            fused_density=(compute_normal
+                           and torch.device(device).type == "cuda"),
         )
-        if rs.compute_normal:
-            raise NotImplementedError(
-                "the eval tracer reflects about the predicted normal: "
-                "tracing without --predict_normal is not ported yet "
-                "(ROADMAP.md queue 1, item 10)")
         rs_sec = None
         sec_ns = args.secondary_N_samples
         sec_ni = args.secondary_N_importance

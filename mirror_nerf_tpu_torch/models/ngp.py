@@ -3,8 +3,8 @@
 nerf_tcnn`).
 
   * 16-level ×2-feature hash grid, log2_hashmap 19, base 16, per-level scale
-    exp2(log2(2048·bound/16)/15) (ops/hashgrid.py; the ENCODE mode of
-    csrc/hashgrid.cu on the card)
+    exp2(log2(2048·bound/16)/15) (ops/hashgrid.py; on the card the ENCODE
+    mode of csrc/hashgrid.cu, its gradient BWD and BWD2)
   * 2×64 bias-free σ-net → (raw σ, 15-d geo_feat); σ has no activation here
   * SH(degree 4) direction encoding + 3×64 bias-free color net + sigmoid
   * normal net: 2×64 bias-free MLP with interior ReLU (unnormalized output)
@@ -144,7 +144,8 @@ class NGPField:
     def density(self, params: dict, xyz: torch.Tensor, encode=None):
         """Raw world coords in [-bound, bound] → (σ raw, geo_feat);
         `encode` the hash-grid encoder (default `hashgrid_encode`, the
-        dispatcher: ENCODE on the card)."""
+        differentiable encoder: ENCODE on the card, its backward BWD and
+        BWD2). x01's chain factor fp32(1/2b) reaches ∂/∂xyz by autograd."""
         # × the fp32 reciprocal of 2·bound, as PyTorch divides a CUDA tensor
         # by a scalar and XLA a traced one by a constant: written out, every
         # device puts a point in the same cell. A point on the +bound face

@@ -45,6 +45,7 @@ from ..core.mathutil import l2_normalize
 from ..render.renderer import sigma_activation
 from ..train.checkpoints import tree_leaves
 from ._build import Library, card_index
+from .segment_scan import exp_plain
 
 _LIB = "fused_cp_composite"
 _ACTS = ("relu", "softplus")
@@ -73,10 +74,11 @@ def prefix_weights(sd: torch.Tensor) -> torch.Tensor:
     w_i = exp(−Σ_{j<i} sd_j)·(1 − exp(−sd_i)). The prefix is EXCLUSIVE by
     construction, never the inclusive sum minus sd_i: each ray's last sd
     carries δ_inf = 1e10, and fp32 (1e10 + prefix) − 1e10 cancels the
-    whole prefix."""
+    whole prefix. The exponentials by `exp_plain` (torch.exp on the card;
+    on the CPU no MKL, whose fp32 exp faults: F5)."""
     excl = torch.cat([torch.zeros_like(sd[:, :1]),
                       torch.cumsum(sd[:, :-1], dim=-1)], dim=-1)
-    return torch.exp(-excl) * (1.0 - torch.exp(-sd))
+    return exp_plain(-excl) * (1.0 - exp_plain(-sd))
 
 
 def cp_rows_reference(field, params: dict, xyz, dirs,

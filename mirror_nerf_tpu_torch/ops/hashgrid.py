@@ -9,11 +9,17 @@ inputs outside [0, 1]³ give zero features. The level layout (`LevelSpec`,
 `HashGridSpec.levels`) is the JAX package's, row for row, so a table trained
 by either package works in the other.
 
-Three functions, each a plain PyTorch version beside a mode of one
-hand-written kernel (`csrc/hashgrid.cu`, sm_90a; see its source note):
+Five kernel modes of one hand-written library (`csrc/hashgrid.cu`, sm_90a;
+see its source note), each with a plain PyTorch version beside it:
 
-  * `hashgrid_encode(table, x01, spec)` (ENCODE): (N, 3) x01 → (N, L·C)
-    features, every level of a point; the hash-grid model's encoder;
+  * ENCODE (`encode_forward`): (N, 3) x01 → (N, L·C) features, every level
+    of a point; the hash-grid model's encoder;
+  * BWD (`encode_backward`), ENCODE's backward: from dy (N, L·C) the table
+    grads (scatter-added) and/or dx01 (N, 3); with dx01 alone the ∇σ of an
+    eval render;
+  * BWD2 (`encode_backward2`), BWD's backward for a cotangent g (N, 3) of
+    dx01, the normal losses' grad-of-grad: d_dy, the table grads and
+    d_x01, any subset;
   * `gather_rows(table, idx)` (GATHER): `table[idx]` for an (R, C) fp32 or
     bf16 table and int32 indices of any shape, copied bit for bit;
   * `dense_level_lookup(level_rows, x01, scale, side)` (DENSE): the
@@ -24,12 +30,20 @@ hand-written kernel (`csrc/hashgrid.cu`, sm_90a; see its source note):
 Each dispatches on the device of its inputs: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (no fallback). The
 kernel's launches are counted per mode in `launches_encode`,
-`launches_gather` and `launches_dense`. Each launch goes through
-`_build.Library` (one fast check, the raw current stream, the device guard
-in C). The kernel is forward-only: on the card, under grad mode, a table or
-an input that requires grad raises (training the hash-grid model is
-ROADMAP.md queue 1, item 11). On the CPU the plain versions are
-differentiable by autograd.
+`launches_bwd`, `launches_bwd2`, `launches_gather` and `launches_dense`.
+Each launch goes through `_build.Library` (one fast check, the raw current
+stream, the device guard in C).
+
+`hashgrid_encode(table, x01, spec)`, the model's encoder, is the
+`HashEncode` autograd Function: its forward is ENCODE, its backward
+`HashEncodeBackward`, whose forward is BWD and whose backward is BWD2 (and,
+for a cotangent on BWD's table grads, ENCODE and BWD with that cotangent
+as the table). Both backwards are differentiable graphs on every device, so
+the CPU tests run the Function graph the card runs. Each mode computes
+only the outputs that the autograd engine will use. GATHER and DENSE are
+probes and forward-only: on the card, under grad mode, an input that
+requires grad raises. `tv_loss` is the JAX package's total-variation loss,
+plain PyTorch (no kernel there either).
 
 pos = x·scale + 0.5 is rounded once, as a fused multiply-add: the JAX
 package's XLA contracts it (on the CPU, as the reference's CUDA encoder
@@ -60,15 +74,16 @@ _MASK32 = 0xFFFFFFFF
 _LIB = "hashgrid"
 # the kernel entries' negative return codes (see csrc/hashgrid.cu)
 _REFUSALS = {-1: "the level count is outside [1, 32]",
-             -2: "the row width C is not 2 (ENCODE, DENSE) or not 1, 2, 4 "
-                 "or 8 (GATHER)",
+             -2: "the row width C is not 2 (ENCODE, BWD, BWD2, DENSE) or "
+                 "not 1, 2, 4 or 8 (GATHER)",
              -3: "the element size is not 2 or 4 bytes",
-             -4: "a level or the table has no rows, or side < 2"}
-_TRAIN_TODO = ("ROADMAP.md queue 1, item 11 (hash-grid training: the "
-               "encoder's backward as a scatter-add kernel)")
+             -4: "a level or the table has no rows, or side < 2",
+             -5: "no output asked for"}
 
 # kernel launches since import (or since a caller last reset them to 0)
 launches_encode = 0
+launches_bwd = 0
+launches_bwd2 = 0
 launches_gather = 0
 launches_dense = 0
 
@@ -229,6 +244,128 @@ def hashgrid_encode_reference(table: torch.Tensor, x01: torch.Tensor,
                                         device=out.device), out)
 
 
+def _in_cube(x01: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: the point lies in [0, 1]³ (ENCODE's mask)."""
+    return ~torch.any((x01 < 0.0) | (x01 > 1.0), dim=-1)
+
+
+def _level_corners(spec: HashGridSpec, lv: LevelSpec, x01: torch.Tensor):
+    """One level's corners as BWD and BWD2 use them: the rows in the flat
+    table (8, N) int64, the factors f (8, N, 3) fp32 (t_d for corner bit d
+    set, else 1 − t_d) and the signs ∂f_d/∂t_d (8, 1, 3)."""
+    corners = _corner_offsets(spec.input_dim, x01.device)
+    pg, t = _grid_pos(x01, lv.scale, 0.5)
+    rows = lv.offset + _corner_indices(spec, lv,
+                                       pg[None] + corners[:, None, :])
+    f = torch.where(corners[:, None, :] == 1, t[None], 1.0 - t[None])
+    return rows, f, (2 * corners - 1).to(torch.float32)[:, None, :]
+
+
+def _weight_grads(f: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """∂w_c/∂t_d = sign_d · (product of the other two factors), (8, N, 3)."""
+    return sign * torch.stack([f[..., 1] * f[..., 2], f[..., 0] * f[..., 2],
+                               f[..., 0] * f[..., 1]], dim=-1)
+
+
+def _check_bwd_spec(spec: HashGridSpec) -> None:
+    if (spec.input_dim != 3 or spec.level_dim != 2 or spec.align_corners
+            or spec.interpolation != "linear"):
+        raise ValueError("the hash-grid backward takes 3-d inputs, 2 "
+                         "features a level, align_corners=False and linear "
+                         "interpolation")
+
+
+def encode_backward_reference(table: torch.Tensor, x01: torch.Tensor,
+                              dy: torch.Tensor, spec: HashGridSpec,
+                              need_table: bool = True,
+                              need_dx: bool = True):
+    """The plain version of BWD (any device), from its formulas: d_table
+    (R, 2) += w_c·dy_l at corner c's row, and dx01 (N, 3) = Σ_l s_l Σ_c
+    ∇_t w_c ⟨T[row_c], dy_l⟩ with s_l = fp32(scale) and ∂w_c/∂t_d =
+    ±(product of the other two factors); a point outside [0, 1]³ adds
+    nothing and gets dx01 = 0. Returns (d_table or None, dx01 or None)."""
+    _check_bwd_spec(spec)
+    inb = _in_cube(x01)
+    dy = torch.where(inb[:, None], dy, torch.zeros((), dtype=dy.dtype))
+    d_table = torch.zeros_like(table) if need_table else None
+    dx = torch.zeros_like(x01) if need_dx else None
+    for li, lv in enumerate(spec.levels()):
+        dyl = dy[:, 2 * li:2 * li + 2]
+        rows, f, sign = _level_corners(spec, lv, x01)
+        if need_table:
+            w = (f[..., 0] * f[..., 1]) * f[..., 2]
+            d_table.index_add_(0, rows.reshape(-1),
+                               (w[..., None] * dyl[None]).reshape(-1, 2))
+        if need_dx:
+            dot = (table[rows] * dyl[None]).sum(-1)
+            dx += (_weight_grads(f, sign) * dot[..., None]).sum(0) * float(
+                np.float32(lv.scale))
+    if need_dx:
+        dx = torch.where(inb[:, None], dx, torch.zeros((), dtype=dx.dtype))
+    return d_table, dx
+
+
+def encode_backward2_reference(table: torch.Tensor, x01: torch.Tensor,
+                               dy: torch.Tensor, g: torch.Tensor,
+                               spec: HashGridSpec, need_table: bool = True,
+                               need_ddy: bool = True, need_dx: bool = True):
+    """The plain version of BWD2 (any device), from its formulas, for the
+    cotangent g (N, 3) of BWD's dx01: with u_c = s_l ∇_t w_c · g,
+    d_dy_l = Σ_c u_c T[row_c], d_table[row_c] += u_c·dy_l and d_x01_e =
+    Σ_l s_l² Σ_c Σ_{d≠e} g_d ∂²w_c/∂t_d∂t_e ⟨T[row_c], dy_l⟩, where
+    ∂²w_c/∂t_d∂t_e = sign_d·sign_e·f_(the third axis); zero outside
+    [0, 1]³. Returns (d_table, d_dy, d_x01), None where not asked for."""
+    _check_bwd_spec(spec)
+    inb = _in_cube(x01)
+    g = torch.where(inb[:, None], g, torch.zeros((), dtype=g.dtype))
+    d_table = torch.zeros_like(table) if need_table else None
+    d_dy = torch.zeros_like(dy) if need_ddy else None
+    d_x = torch.zeros_like(x01) if need_dx else None
+    for li, lv in enumerate(spec.levels()):
+        s = float(np.float32(lv.scale))
+        dyl = dy[:, 2 * li:2 * li + 2]
+        rows, f, sign = _level_corners(spec, lv, x01)
+        u = s * (_weight_grads(f, sign) * g[None]).sum(-1)  # (8, N)
+        if need_table:
+            d_table.index_add_(0, rows.reshape(-1),
+                               (u[..., None] * dyl[None]).reshape(-1, 2))
+        if need_ddy or need_dx:
+            v = table[rows]  # (8, N, 2)
+        if need_ddy:
+            d_dy[:, 2 * li:2 * li + 2] = (u[..., None] * v).sum(0)
+        if need_dx:
+            dot = (v * dyl[None]).sum(-1)
+            h01 = sign[..., 0] * sign[..., 1] * f[..., 2]
+            h02 = sign[..., 0] * sign[..., 2] * f[..., 1]
+            h12 = sign[..., 1] * sign[..., 2] * f[..., 0]
+            e = torch.stack([g[:, 1] * h01 + g[:, 2] * h02,
+                             g[:, 0] * h01 + g[:, 2] * h12,
+                             g[:, 0] * h02 + g[:, 1] * h12], dim=-1)
+            d_x += ((e * dot[..., None]).sum(0) * s) * s
+    return d_table, d_dy, d_x
+
+
+def tv_loss(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec,
+            weight: float = 1e-7) -> torch.Tensor:
+    """Total-variation loss at sampled points (the JAX package's `tv_loss`,
+    the reference's `grad_total_variation`, gridencoder.cu:584-752): per
+    level and axis the squared difference between the row of a point's
+    cell and that of its +1 neighbour (its corner clamped to the resolution
+    on every axis), summed, × weight / N. Plain PyTorch, differentiable by autograd."""
+    loss = table.new_zeros(())
+    for lv in spec.levels():
+        pg, _ = _grid_pos(x01, lv.scale,
+                          0.0 if spec.align_corners else 0.5)
+        base = table[lv.offset + _corner_indices(spec, lv, pg)]
+        for d in range(spec.input_dim):
+            nb = pg.clone()
+            nb[:, d] += 1
+            nb = torch.clamp_max(nb, lv.resolution - 1)  # every axis, as JAX
+            diff = base - table[lv.offset + _corner_indices(spec, lv, nb)]
+            loss = loss + torch.sum(diff * diff)
+    return weight * loss / x01.shape[0]
+
+
 def gather_rows_reference(table: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
     """The plain version of GATHER: table[idx], (*idx.shape, C), with JAX's
@@ -292,11 +429,15 @@ def dense_level_lookup_reference(level_rows: torch.Tensor,
 # ---- the CUDA kernel (csrc/hashgrid.cu) ----
 
 # each entry's arguments before the card and the stream (_build.Library):
-# ENCODE x, table, levels, n_levels, c, n, out; GATHER table, rows, c,
+# ENCODE x, table, levels, n_levels, c, n, out; BWD x, table, levels,
+# n_levels, c, n, dy, d_table, dx; BWD2 x, table, levels, n_levels, c, n,
+# dy, g, d_dy, d_table, d_x (a null output is not computed); GATHER table, rows, c,
 # element size, idx, n, out; DENSE rows, row count, c, x, n, scale, side, out
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _library = Library(_LIB, {
     "mnerf_hash_encode": [_P, _P, _P, _I, _I, _LL, _P],
+    "mnerf_hash_bwd": [_P, _P, _P, _I, _I, _LL, _P, _P, _P],
+    "mnerf_hash_bwd2": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P],
     "mnerf_hash_gather": [_P, _LL, _I, _I, _P, _LL, _P],
     "mnerf_hash_dense": [_P, _LL, _I, _P, _LL, ctypes.c_float, _I, _P]},
     _REFUSALS)
@@ -314,9 +455,9 @@ def _need(name: str, t: torch.Tensor, ndim: int) -> None:
 def _forward_only(mode: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(
-            f"the hash-grid {mode} kernel is forward-only, and an input "
-            "requires grad: run it under torch.no_grad(); training the "
-            f"hash-grid model is not ported yet: {_TRAIN_TODO}")
+            f"the hash-grid {mode} kernel is a forward-only probe, and an "
+            "input requires grad: run it under torch.no_grad() (the "
+            "encoder's gradient is `hashgrid_encode`'s)")
 
 
 def _row_align(t: torch.Tensor) -> int:
@@ -345,14 +486,11 @@ def _level_table(spec: HashGridSpec, device) -> torch.Tensor:
     return _level_words[key]
 
 
-def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
-                         spec: HashGridSpec) -> torch.Tensor:
-    """ENCODE: launch the kernel on CUDA tensors (raises for anything it
-    does not take)."""
-    global launches_encode
-    _forward_only("ENCODE", table, x01)
-    dev = card_index("hash-grid ENCODE", ("x01", x01, _F32, 4),
-                     ("table", table, _F32, _row_align(table)))
+def _check_shapes(spec: HashGridSpec, table: torch.Tensor,
+                  x01: torch.Tensor, *per_point) -> None:
+    """What every ENCODE/BWD/BWD2 launch takes besides `card_index`'s
+    checks: the spec, x01 (N, 3), the table (rows, C) and (name, tensor,
+    width) per-point tensors (N, width)."""
     if (spec.input_dim != 3 or spec.align_corners
             or spec.interpolation != "linear"):
         raise ValueError("the hash-grid kernel takes 3-d inputs, "
@@ -364,6 +502,21 @@ def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
         raise ValueError(f"need x01 (N, 3) and table "
                          f"({spec.table_rows}, {spec.level_dim}), got "
                          f"{tuple(x01.shape)} and {tuple(table.shape)}")
+    for name, t, width in per_point:
+        if tuple(t.shape) != (x01.shape[0], width):
+            raise ValueError(f"{name}: need ({x01.shape[0]}, {width}), got "
+                             f"{tuple(t.shape)}")
+
+
+def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
+                         spec: HashGridSpec) -> torch.Tensor:
+    """ENCODE: launch the kernel on CUDA tensors (raises for anything it
+    does not take). A mode call: its output carries no graph
+    (`hashgrid_encode` is the differentiable encoder)."""
+    global launches_encode
+    dev = card_index("hash-grid ENCODE", ("x01", x01, _F32, 4),
+                     ("table", table, _F32, _row_align(table)))
+    _check_shapes(spec, table, x01)
     n = x01.shape[0]
     out = x01.new_empty((n, spec.output_dim))
     if n == 0:
@@ -374,6 +527,60 @@ def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
                     spec.num_levels, spec.level_dim, n, out.data_ptr())
     launches_encode += 1
     return out
+
+
+def encode_backward_cuda(table: torch.Tensor, x01: torch.Tensor,
+                         dy: torch.Tensor, spec: HashGridSpec,
+                         need_table: bool = True, need_dx: bool = True):
+    """BWD: launch the kernel (a mode call, no graph); (d_table or None,
+    dx01 or None). The table is read only for dx01."""
+    global launches_bwd
+    dev = card_index("hash-grid BWD", ("x01", x01, _F32, 4),
+                     ("table", table, _F32, 8), ("dy", dy, _F32, 8))
+    _check_shapes(spec, table, x01, ("dy", dy, spec.output_dim))
+    if not (need_table or need_dx):
+        raise ValueError("hash-grid BWD: no output asked for")
+    d_table = torch.zeros_like(table) if need_table else None
+    dx = torch.empty_like(x01) if need_dx else None
+    n = x01.shape[0]
+    if n:
+        _library.launch(
+            "mnerf_hash_bwd", "hash-grid BWD", dev, x01.data_ptr(),
+            table.data_ptr(), _level_table(spec, x01.device).data_ptr(),
+            spec.num_levels, spec.level_dim, n, dy.data_ptr(),
+            d_table.data_ptr() if need_table else None,
+            dx.data_ptr() if need_dx else None)
+        launches_bwd += 1
+    return d_table, dx
+
+
+def encode_backward2_cuda(table: torch.Tensor, x01: torch.Tensor,
+                          dy: torch.Tensor, g: torch.Tensor,
+                          spec: HashGridSpec, need_table: bool = True,
+                          need_ddy: bool = True, need_dx: bool = True):
+    """BWD2: launch the kernel (a mode call, no graph); (d_table, d_dy,
+    d_x01), None where not asked for."""
+    global launches_bwd2
+    dev = card_index("hash-grid BWD2", ("x01", x01, _F32, 4),
+                     ("table", table, _F32, 8), ("dy", dy, _F32, 8),
+                     ("g", g, _F32, 4))
+    _check_shapes(spec, table, x01, ("dy", dy, spec.output_dim),
+                  ("g", g, 3))
+    if not (need_table or need_ddy or need_dx):
+        raise ValueError("hash-grid BWD2: no output asked for")
+    d_table = torch.zeros_like(table) if need_table else None
+    d_dy = torch.empty_like(dy) if need_ddy else None
+    d_x = torch.empty_like(x01) if need_dx else None
+    n = x01.shape[0]
+    if n:
+        _library.launch(
+            "mnerf_hash_bwd2", "hash-grid BWD2", dev, x01.data_ptr(),
+            table.data_ptr(), _level_table(spec, x01.device).data_ptr(),
+            spec.num_levels, spec.level_dim, n, dy.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() if t is not None else None
+              for t in (d_dy, d_table, d_x)))
+        launches_bwd2 += 1
+    return d_table, d_dy, d_x
 
 
 def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -422,13 +629,119 @@ def dense_level_lookup_cuda(level_rows: torch.Tensor, x01: torch.Tensor,
     return out
 
 
-def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
-                    spec: HashGridSpec) -> torch.Tensor:
-    """(N, D) positions in [0,1] → (N, L·C). CPU tensors take the plain
-    version, CUDA tensors the ENCODE kernel."""
+def encode_forward(table: torch.Tensor, x01: torch.Tensor,
+                   spec: HashGridSpec) -> torch.Tensor:
+    """ENCODE, a mode call: CPU tensors take the plain version, CUDA
+    tensors the kernel."""
     if x01.is_cuda or on_card("hash-grid encode", table, x01):
         return hashgrid_encode_cuda(table, x01, spec)
     return hashgrid_encode_reference(table, x01, spec)
+
+
+def encode_backward(table, x01, dy, spec, need_table=True, need_dx=True):
+    """BWD, a mode call: CPU tensors take the plain version, CUDA tensors
+    the kernel."""
+    if x01.is_cuda or on_card("hash-grid backward", table, x01, dy):
+        return encode_backward_cuda(table, x01, dy, spec, need_table,
+                                    need_dx)
+    return encode_backward_reference(table, x01, dy, spec, need_table,
+                                     need_dx)
+
+
+def encode_backward2(table, x01, dy, g, spec, need_table=True,
+                     need_ddy=True, need_dx=True):
+    """BWD2, a mode call: CPU tensors take the plain version, CUDA tensors
+    the kernel."""
+    if x01.is_cuda or on_card("hash-grid backward2", table, x01, dy, g):
+        return encode_backward2_cuda(table, x01, dy, g, spec, need_table,
+                                     need_ddy, need_dx)
+    return encode_backward2_reference(table, x01, dy, g, spec, need_table,
+                                      need_ddy, need_dx)
+
+
+def _wanted(ctx, i: int) -> bool:
+    """Whether the backward's gradient for input i will be used: the input
+    requires grad and the engine runs its node in this pass (a
+    `torch.autograd.grad` for x alone, as the σ-gradient normal takes, runs
+    no table node: BWD then skips the table's scatter). The engine's query
+    raises for a leaf whose gradient `torch.autograd.grad` captures as a
+    result: that gradient is wanted. Any other error propagates."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    try:
+        return torch._C._will_engine_execute_node(ctx.next_functions[i][0])
+    except RuntimeError as e:
+        if "leaf node" in str(e) and "autograd.grad()" in str(e):
+            return True
+        raise
+
+
+class HashEncode(torch.autograd.Function):
+    """The differentiable encoder: forward ENCODE, backward
+    `HashEncodeBackward` (BWD, itself differentiable through BWD2)."""
+
+    @staticmethod
+    def forward(ctx, table, x01, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(table, x01)
+        return encode_forward(table, x01, spec)
+
+    @staticmethod
+    def backward(ctx, dy):
+        table, x01 = ctx.saved_tensors
+        need_table, need_dx = _wanted(ctx, 0), _wanted(ctx, 1)
+        if not (need_table or need_dx):
+            return None, None, None
+        d_table, dx = HashEncodeBackward.apply(
+            table, x01, dy.contiguous(), ctx.spec, need_table, need_dx)
+        return d_table, dx, None
+
+
+class HashEncodeBackward(torch.autograd.Function):
+    """BWD as a Function of (table, x01, dy) → (d_table, dx01), either None
+    where not asked for. Its backward takes the cotangents (G, g) of
+    (d_table, dx01): BWD2 for g; for G, d_dy is ENCODE with G as the table
+    and d_x01 BWD's dx01 with G as the table (d_table is linear in dy and
+    does not depend on the table). Past this, a third derivative raises."""
+
+    @staticmethod
+    def forward(ctx, table, x01, dy, spec, need_table, need_dx):
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(table, x01, dy)
+        return encode_backward(table, x01, dy, spec, need_table, need_dx)
+
+    @staticmethod
+    def backward(ctx, big_g, g):
+        table, x01, dy = ctx.saved_tensors
+        spec = ctx.spec
+        if torch.is_grad_enabled() and any(ctx.needs_input_grad[:3]):
+            raise NotImplementedError(
+                "a third derivative of the hash-grid encoder is not "
+                "implemented (create_graph=True through its grad-of-grad)")
+        need_table, need_x, need_dy = (_wanted(ctx, i) for i in range(3))
+        d_table = d_x = d_dy = None
+        if g is not None and (need_table or need_x or need_dy):
+            d_table, d_dy, d_x = encode_backward2(
+                table, x01, dy, g.contiguous(), spec, need_table, need_dy,
+                need_x)
+        if big_g is not None:
+            big_g = big_g.contiguous()
+            if need_dy:
+                enc = encode_forward(big_g, x01, spec)
+                d_dy = enc if d_dy is None else d_dy + enc
+            if need_x:
+                _, dxg = encode_backward(big_g, x01, dy, spec, False, True)
+                d_x = dxg if d_x is None else d_x + dxg
+        return d_table, d_x, d_dy, None, None, None
+
+
+def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor,
+                    spec: HashGridSpec) -> torch.Tensor:
+    """(N, D) positions in [0,1] → (N, L·C), differentiable twice w.r.t.
+    the table and x01 (`HashEncode`). CPU tensors take the plain versions,
+    CUDA tensors the ENCODE, BWD and BWD2 kernels."""
+    return HashEncode.apply(table, x01, spec)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

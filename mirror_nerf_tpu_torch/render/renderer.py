@@ -15,7 +15,9 @@ ops/fused_mlp.py `fused_rays_eval`); the hash grid's σ-noise passes take
 the plain route below (ENCODE and the PyTorch nets); the training kernels
 for density + ∇σ or density alone (`fused_density`,
 ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
-normal by `torch.autograd.grad` (`density_with_grad_reference`).
+normal by `torch.autograd.grad` (`density_with_grad_reference`): the
+route that trains the flagship (cuBLAS on the card) and the hash grid
+(ENCODE, its backward BWD and, for the normal losses' grad-of-grad, BWD2).
 
 σ noise is drawn from `generator` once per pass, after the pass's field and
 before the next draw (the fine pass's pdf samples), on every route alike;
@@ -31,6 +33,7 @@ import torch
 
 from ..core.mathutil import l2_normalize
 from ..core.sampling import merge_fine_z_vals, stratified_z_vals
+from ..ops.segment_scan import exp_plain
 
 @dataclass(frozen=True)
 class RenderSettings:
@@ -91,7 +94,7 @@ def sigma_activation(sigmas: torch.Tensor, act: str) -> torch.Tensor:
     max(x, 0) + log1p(exp(−|x|))."""
     if act == "softplus":
         return torch.clamp_min(sigmas, 0.0) + torch.log1p(
-            torch.exp(-sigmas.abs()))
+            exp_plain(-sigmas.abs()))
     if act != "relu":
         raise ValueError(f"unknown sigma activation {act!r}")
     return torch.clamp_min(sigmas, 0.0)
@@ -99,10 +102,11 @@ def sigma_activation(sigmas: torch.Tensor, act: str) -> torch.Tensor:
 
 def _composite_weights(sigmas, z_vals, noise, act: str = "relu"):
     """α-compositing weights from raw σ (δ_inf = 1e10 on the last sample,
-    transmittance a cumprod of 1 − α + 1e-10)."""
+    transmittance a cumprod of 1 − α + 1e-10); the exponential by
+    `exp_plain`: torch.exp on the card, no MKL on the CPU (F5)."""
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
     deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], -1)
-    alphas = 1.0 - torch.exp(-deltas * sigma_activation(sigmas + noise, act))
+    alphas = 1.0 - exp_plain(-deltas * sigma_activation(sigmas + noise, act))
     shifted = torch.cat(
         [torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1)
     return alphas * torch.cumprod(shifted[:, :-1], dim=-1)

@@ -2,7 +2,10 @@
 
 The same flags as the JAX package's `train.py` (reference `opt.py`), plus
 `--device cuda|cpu` (default `cuda`): a CUDA run trains through the port's
-kernels, a CPU run through their plain versions. A run writes
+kernels, a CPU run through their plain versions. Every `--model_type`
+trains: `nerf_tpu` (the CP grid's train kernels), `nerf` (the flagship
+PE-MLP, plain PyTorch) and `nerf_tcnn` (the hash grid: ENCODE, BWD and
+BWD2); a trained run's `last.ckpt.npz` renders through the eval CLI. A run writes
 `logs/<time>_<exp_name>/`: `config.json`, `metrics.jsonl` (train losses,
 PSNR, lr, every 50 steps), `val_metrics.jsonl` (val PSNR and SSIM, the
 epoch's steady-state rays/s), `val_epoch{e}.png`, `last.ckpt.npz` and

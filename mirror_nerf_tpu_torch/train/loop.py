@@ -10,7 +10,11 @@
   * Adam + the LR schedule with grid-lr groups (train/optim.py), npz train
     checkpoints each epoch, and a chunked render for validation.
 
-One device, one optimizer step per Python call. The JAX package's TPU
+All three models train: the CP grid (`nerf_tpu`, through its train
+kernels on the card), the flagship PE-MLP (`nerf`, plain PyTorch: cuBLAS on
+the card, as the JAX package leaves it to XLA) and the hash grid
+(`nerf_tcnn`: ENCODE, BWD and BWD2 of `csrc/hashgrid.cu` on the card, the
+nets in PyTorch). One device, one optimizer step per Python call. The JAX package's TPU
 workarounds are not carried over: the K-steps-per-dispatch scan
 (`--steps_per_dispatch` is parsed and ignored), `jax.checkpoint`
 (`--use_remat` raises) and the chunk-halving retry.
@@ -161,16 +165,6 @@ class Trainer:
             raise NotImplementedError(
                 "multi-device training is not ported yet: ROADMAP.md queue "
                 "1, item 9 (torch.distributed data parallel)")
-        if cfg.model_type == "nerf":
-            raise NotImplementedError(
-                "training the flagship PE-MLP (--model_type nerf) is not "
-                "ported yet, only rendering it: ROADMAP.md queue 1, item 2 "
-                "(flagship training)")
-        if cfg.model_type == "nerf_tcnn":
-            raise NotImplementedError(
-                "training the hash-grid model (--model_type nerf_tcnn) is "
-                "not ported yet, only rendering it: ROADMAP.md queue 1, "
-                "item 11 (hash-grid training)")
         if cfg.use_remat:
             raise NotImplementedError(
                 "--use_remat is not ported yet: ROADMAP.md queue 1, item 8 "
@@ -282,10 +276,13 @@ class Trainer:
         return loss, {k: v.detach() for k, v in aux.items()}
 
     def train_step(self, statics: EpochStatics, batch: dict) -> dict:
-        """One optimizer step on one batch; returns the aux tensors."""
+        """One optimizer step on one batch; returns the aux tensors. The
+        backward runs for the parameters only: no gradient of the sample
+        positions that the σ-gradient normal differentiated (the hash
+        grid's BWD then skips its dx01)."""
         loss, aux = self.loss_and_aux(statics, batch)
         self.opt.zero_grad()
-        loss.backward()
+        loss.backward(inputs=self.opt.leaves)
         self.opt.step(self.global_step)
         self.global_step += 1
         return aux

@@ -10,8 +10,8 @@ port's plain versions (what CPU tensors run) against the JAX package —
     them;
 
 the CPU/CUDA dispatch contract — and, on a machine with a card only, each
-mode of `csrc/hashgrid.cu` against its plain version and the kernel's
-gradient guard. Tables are the ±1e-4 init ×1e4 (O(1) values), or errors
+mode of `csrc/hashgrid.cu` against its plain version and the encoder's
+graph through the backward kernel. Tables are the ±1e-4 init ×1e4 (O(1) values), or errors
 would hide."""
 
 import importlib.util
@@ -400,15 +400,18 @@ def test_dispatch_contract():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers themselves launch or raise: on CPU tensors they
-    raise before any build, and under grad mode the forward-only guard
-    names the training item of the ROADMAP."""
+    raise before any build, a table that requires grad included (ENCODE
+    has no grad guard since the encoder trains); the differentiable
+    encoder runs that table on the CPU through its plain versions."""
     spec = thg.HashGridSpec(**SMALL)
     table = torch.from_numpy(_table(spec, 11))
     x = torch.rand((16, 3))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         thg.hashgrid_encode_cuda(table, x, spec)
-    with pytest.raises(ValueError, match="queue 1, item 11"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         thg.hashgrid_encode_cuda(table.requires_grad_(True), x, spec)
+    thg.hashgrid_encode(table, x, spec).sum().backward()
+    assert float(table.grad.abs().sum()) > 0
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         thg.gather_rows_cuda(table.detach(), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -512,12 +515,16 @@ def test_cuda_dense_matches_plain(level):
 
 @pytest.mark.gpu
 def test_cuda_grad_guard():
-    """Forward-only: a table requiring grad under grad mode raises (else the
-    outputs would carry no graph: silent zero gradients)."""
+    """A table requiring grad under grad mode no longer raises: the output
+    carries the graph (HashEncode), whose backward launches BWD, never a
+    silent zero gradient; under no_grad ENCODE alone."""
     _needs_card()
     ts, table, x = _full_case(64, seed=14)
     table.requires_grad_(True)
-    with pytest.raises(ValueError, match="forward-only"):
-        thg.hashgrid_encode(table, x, ts)
+    n0 = thg.launches_bwd
+    y = thg.hashgrid_encode(table, x, ts)
+    assert y.requires_grad
+    y.sum().backward()
+    assert thg.launches_bwd == n0 + 1 and float(table.grad.abs().sum()) > 0
     with torch.no_grad():
         assert thg.hashgrid_encode(table, x, ts).shape == (64, 32)

@@ -201,11 +201,11 @@ def test_eval_cli_with_jax_blocked(cli_scene):
 
 
 def test_train_cli_refuses_the_flagship(cli_scene, monkeypatch):
-    from mirror_nerf_tpu_torch.train.cli import main
+    """(Named for the refusal it pinned until the flagship trained.) The
+    flagship trains through the train CLI on the CPU, its checkpoint
+    round-trips and renders (`--fused_field` in the eval CLI)."""
+    from test_torch_port_ngp_slice import train_cli_round_trip
 
     monkeypatch.chdir(cli_scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        main(["--dataset_name", "blender", "--root_dir", "scene",
-              "--img_wh", "16", "16", "--model_type", "nerf",
-              "--N_samples", "8", "--N_importance", "8", "--device", "cpu",
-              "--exp_name", "refused"])
+    train_cli_round_trip(["--model_type", "nerf"], "mlp_train",
+                         ["--fused_field"])
