@@ -2447,9 +2447,12 @@ def phase_probe_kernels(torch, card: str) -> list:
 # float64 (the kernel's atomics and the fp32 plain version's index_add_
 # both add in an order that changes from run to run, so the two fp32 sums
 # are held to the exact one, not to each other), d_dy, dx01 and d_x01
-# within 1e-5 of the fp32 plain version
+# within 1e-5 of the fp32 plain version; on the layout with every point in
+# one level-0 cell the table grads' bar grows with the reductions its
+# busiest row takes, as fp32's rounding does (`exp_hash_diag.table_bar`)
 HASH_BWD_REL = 1e-5
-HASH_BWD_POINTS = 131_072
+# runs of BWD and BWD2 whose table grads' error is logged (its spread)
+HASH_BWD_REPS = 10
 
 
 def _scale_err(got, ref) -> float:
@@ -2467,70 +2470,12 @@ def _signed_mean(got, ref64) -> float:
     return float(d.mean()) / float(ref64.abs().max()) if d.numel() else 0.0
 
 
-def _hash_bwd_inputs(torch):
-    """The full-width spec (bound 6: 16 levels × 2, 6,616,280 rows), a
-    U(±1) table and the two layouts of 131,072 points: uniform over
-    [−0.02, 1.02]³ and a train batch's ray-ordered samples (1024 strided
-    rays of the 800×800 camera × 128 stratified samples), each with edge
-    points in front: 0 and 1, points outside the cube, and points at grid
-    nodes (on cell faces) of every level. On the card."""
-    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
-    from mirror_nerf_tpu_torch.models.ngp import NGPField
-
-    spec = NGPField(bound=6.0).grid_spec
-    g = torch.Generator().manual_seed(21)
-    table = (torch.rand((spec.table_rows, 2), generator=g) * 2 - 1).cuda()
-    edge = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5],
-            [1.0, 0.0, 0.25], [1.5, 0.5, 0.5], [-0.01, 0.5, 0.5],
-            [0.5, 1.0001, 0.5]]
-    for lv in spec.levels():
-        for k in (1, lv.resolution // 2, lv.resolution - 1):
-            c = (k - 0.5) / float(lv.scale)
-            edge += [[c, c, c], [c, 0.37, 0.61]]
-    edge = torch.tensor(edge, dtype=torch.float32)
-    uni = torch.rand((HASH_BWD_POINTS, 3), generator=g) * 1.04 - 0.02
-    rays = torch.from_numpy(_view_rays(800))
-    rays = rays[::rays.shape[0] // 1024][:1024]
-    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 128)
-    xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(
-        -1, 3)
-    ray = (xyz + 6.0) * float(torch.tensor(1 / 12.0, dtype=torch.float32))
-    cases = {}
-    for name, x in (("uniform", uni), ("ray-ordered 1024 x 128", ray)):
-        x = x.clone()
-        x[:edge.shape[0]] = edge
-        n = x.shape[0]
-        cases[name] = (x.cuda().contiguous(),
-                       torch.randn((n, 32), generator=g).cuda(),
-                       torch.randn((n, 3), generator=g).cuda())
-    return spec, table, cases
-
-
-def _hash_pairs(torch, hg, spec, x01, weights_of):
-    """The (row, value) pairs a table-grad scatter adds on these points: for
-    every level and corner of a point in the cube, the row and
-    `weights_of(level, f, sign)` (N·8, 2) values; with the distinct 32-B
-    sectors they touch and, per level, the reductions and distinct rows."""
-    inb = hg._in_cube(x01)
-    rows, vals, split = [], [], []
-    for li, lv in enumerate(spec.levels()):
-        r, f, sign = hg._level_corners(spec, lv, x01)
-        v = weights_of(li, f, sign)  # (8, N, 2)
-        r, v = r[:, inb].reshape(-1), v[:, inb].reshape(-1, 2)
-        rows.append(r)
-        vals.append(v)
-        split.append((r.numel(), int(torch.unique(r).numel())))
-    rows, vals = torch.cat(rows), torch.cat(vals).contiguous()
-    sectors = int(torch.unique(rows * 8 // 32).numel())
-    return rows, vals, sectors, split
-
-
 def _bwd_level_split(torch, hg, spec, table, x, dy) -> dict:
     """BWD's table grads (no dx01) over a subset of the levels, by bare
     launches of the C entry on the level table's rows of those levels: all
     16, the 4 dense ones (the coarse levels, where every sample of a batch
-    adds into a few thousand rows) and the 12 hashed ones; ms a call, the
-    zeroing of d_table included, as the wrapper does it."""
+    adds into a few thousand rows) and the 12 hashed ones; ms a call, the zeroing of d_table included, as the wrapper
+    does it."""
     words = hg._level_table(spec, x.device)
     n_dense = sum(not lv.use_hash for lv in spec.levels())
     d = torch.zeros_like(table)
@@ -2553,14 +2498,38 @@ def _bwd_level_split(torch, hg, spec, table, x, dy) -> dict:
     return out
 
 
-def _hash_bwd_case(torch, card, spec, table, name, x, dy, g) -> dict:
+def _hash_bwd_code() -> dict:
+    """The SASS of BWD's and BWD2's instances: kind -> opcode counts summed
+    over its instances. A table grad must leave as a no-return reduction
+    (REDG or RED), never as an atomic that returns the old value (ATOMG or
+    ATOM)."""
+    from mirror_nerf_tpu_torch.ops import _build
+
+    ops = ("REDG", "RED", "ATOMG", "ATOM", "SHFL", "LDG")
+    counts = _build.sass_counts(_build.library_path("hashgrid"),
+                                "hash_backward", ops)
+    out = {}
+    for name, c in counts.items():
+        kind = "BWD2" if "hash_backward2" in name else "BWD"
+        for k, v in c.items():
+            out.setdefault(kind, dict.fromkeys(ops, 0))[k] += v
+    return out
+
+
+def _hash_bwd_case(torch, card, spec, table, name, x, dy, g,
+                   full: bool) -> dict:
     """BWD and BWD2 on one layout: errors against the plain versions, the
     signed mean error against float64, the run-to-run spread of the table
-    grads, times beside the bound and `index_add_` on the same pairs."""
+    grads (twice, and their error over HASH_BWD_REPS + 1 runs each), the
+    reductions the kernels send (`reduction_plan`) and times;
+    with `full`, also the table-only and dx01-only times, the plain
+    versions', the level split, the bound and `index_add_` on the same
+    pairs."""
     from mirror_nerf_tpu_torch.ops import hashgrid as hg
+    from mirror_nerf_tpu_torch.tools.exp_hash_diag import (ONE_CELL,
+                                                           table_bar)
 
     n = x.shape[0]
-    out = {}
     with torch.no_grad():
         # BWD: d_table and dx01
         got = hg.encode_backward(table, x, dy, spec)
@@ -2569,14 +2538,19 @@ def _hash_bwd_case(torch, card, spec, table, name, x, dy, g) -> dict:
         ref = hg.encode_backward_reference(table, x, dy, spec)
         r64 = hg.encode_backward_reference(table.double(), x.double(),
                                            dy.double(), spec)
-        assert hg._in_cube(x).logical_not().any() and bool(
-            (got[1][~hg._in_cube(x)] == 0).all()), "dx01 outside the cube"
+        outside = ~hg._in_cube(x)
+        assert (name == ONE_CELL or bool(outside.any())) and bool(
+            (got[1][outside] == 0).all()), "dx01 outside the cube"
         e1 = {"d_table": _scale_err(got[0], r64[0]),
               "dx01": _scale_err(got[1], ref[1])}
         fp32_t = {"d_table": _scale_err(got[0], ref[0])}
         m1 = {"d_table": _signed_mean(got[0], r64[0]),
               "dx01": _signed_mean(got[1], r64[1])}
         spread = _scale_err(again[0], got[0])
+        runs1 = [e1["d_table"], _scale_err(again[0], r64[0])] + [
+            _scale_err(hg.encode_backward(table, x, dy, spec)[0], r64[0])
+            for _ in range(HASH_BWD_REPS - 1)]
+        del again, r64
         # BWD2: d_dy, d_table, d_x01
         got2 = hg.encode_backward2(table, x, dy, g, spec)
         torch.cuda.synchronize()
@@ -2586,58 +2560,50 @@ def _hash_bwd_case(torch, card, spec, table, name, x, dy, g) -> dict:
         e2 = {k: _scale_err(a, b) for k, a, b in zip(
             ("d_table", "d_dy", "d_x01"), got2, (r642[0], *ref2[1:]))}
         fp32_t["bwd2 d_table"] = _scale_err(got2[0], ref2[0])
+        runs2 = [e2["d_table"]] + [
+            _scale_err(hg.encode_backward2(table, x, dy, g, spec)[0],
+                       r642[0]) for _ in range(HASH_BWD_REPS)]
         m2 = {k: _signed_mean(a, b) for k, a, b in zip(
             ("d_table", "d_dy", "d_x01"), got2, r642)}
+        del r642
         for v in (*got, *got2):
             assert v.is_cuda and bool(torch.isfinite(v).all()), name
+        assert bool((got2[1][outside] == 0).all()) and bool(
+            (got2[2][outside] == 0).all()), "BWD2 outside the cube"
         # times: BWD both outputs (the bound's function), table only (the
         # loss backward's σ path) and dx01 only (the normal pass); BWD2 all
         ms = _time_ms(torch, lambda: hg.encode_backward(table, x, dy, spec),
                       reps=20, warmup=3)
-        ms_t = _time_ms(torch, lambda: hg.encode_backward(
-            table, x, dy, spec, True, False), reps=20, warmup=3)
-        ms_x = _time_ms(torch, lambda: hg.encode_backward(
-            table, x, dy, spec, False, True), reps=20, warmup=3)
         ms2 = _time_ms(torch, lambda: hg.encode_backward2(
             table, x, dy, g, spec), reps=20, warmup=3)
-        plain = _time_ms(torch, lambda: hg.encode_backward_reference(
-            table, x, dy, spec), reps=2, warmup=1)
-        plain2 = _time_ms(torch, lambda: hg.encode_backward2_reference(
-            table, x, dy, g, spec), reps=2, warmup=1)
 
-        def w_dy(li, f, sign):
-            w = (f[..., 0] * f[..., 1]) * f[..., 2]
-            return w[..., None] * dy[None, :, 2 * li:2 * li + 2]
-
-        def u_dy(li, f, sign):
-            s = float(spec.levels()[li].scale)
-            u = s * (hg._weight_grads(f, sign) * g[None]).sum(-1)
-            return u[..., None] * dy[None, :, 2 * li:2 * li + 2]
-
-        split = _bwd_level_split(torch, hg, spec, table, x, dy)
-        lib = {}
-        for key, fn in (("bwd", w_dy), ("bwd2", u_dy)):
-            rows, vals, sectors, by_level = _hash_pairs(torch, hg, spec, x,
-                                                        fn)
-            d = torch.zeros_like(table)
-            lib[key] = _time_ms(torch, lambda: d.zero_().index_add_(
-                0, rows, vals), reps=20, warmup=3)
-            del rows, vals, d
-    n_red = sum(r for r, _ in by_level)
-    pl = n_red // 8  # (point, level) pairs in the cube
-    # bytes: x, dy and dx01 once, each distinct 32-B table sector twice (the
-    # reductions' read-modify-write); BWD2 adds g, d_dy and one read of
-    # the table's sectors; operations (fp32, a multiply-add 2) per (point,
-    # level) in the cube: pos, floor, fraction and 1 − t (15), per corner
-    # the weight (2), its table grad (2), the dot (3), three weight grads
-    # and their sums (12) for BWD; BWD2 per corner u (12), d_dy (4), the
-    # table grad (2), the dot (3), three mixed second derivatives (6) and
-    # the d_x sums (18)
-    b1 = _bound(pl * (15 + 8 * 19), n * (12 + 128 + 12) + 2 * 32 * sectors)
-    b2 = _bound(pl * (15 + 8 * 45),
-                n * (12 + 128 + 12 + 128 + 12) + 3 * 32 * sectors)
-    log(f"[hash-bwd] {name}, {n} points ({int((~hg._in_cube(x)).sum())} "
-        f"outside the cube) ({card}): BWD max err (scaled to the largest "
+        sent_rows, _, by_level = hg.reduction_plan(spec, x,
+                                                   hg.pair_values(spec, dy))
+        busiest = int(torch.bincount(sent_rows).max())
+        del sent_rows
+        if full:
+            ms_t = _time_ms(torch, lambda: hg.encode_backward(
+                table, x, dy, spec, True, False), reps=20, warmup=3)
+            ms_x = _time_ms(torch, lambda: hg.encode_backward(
+                table, x, dy, spec, False, True), reps=20, warmup=3)
+            plain = _time_ms(torch, lambda: hg.encode_backward_reference(
+                table, x, dy, spec), reps=2, warmup=1)
+            plain2 = _time_ms(torch, lambda: hg.encode_backward2_reference(
+                table, x, dy, g, spec), reps=2, warmup=1)
+            split = _bwd_level_split(torch, hg, spec, table, x, dy)
+            lib = {}
+            for key, gk in (("bwd", None), ("bwd2", g)):
+                rows, vals = hg.table_grad_pairs(spec, x, hg.pair_values(
+                    spec, dy, gk))
+                sectors = int(torch.unique(rows * 8 // 32).numel())
+                d = torch.zeros_like(table)
+                lib[key] = _time_ms(torch, lambda: d.zero_().index_add_(
+                    0, rows, vals), reps=20, warmup=3)
+                del rows, vals, d
+    n_red = sum(p for p, _, _ in by_level)
+    sent = sum(r for _, r, _ in by_level)
+    log(f"[hash-bwd] {name}, {n} points ({int(outside.sum())} outside the "
+        f"cube) ({card}): BWD max err (scaled to the largest "
         f"entry; d_table vs float64) " + ", ".join(
             f"{k} {v:.3e}" for k, v in e1.items())
         + "; signed mean vs float64 " + ", ".join(
@@ -2648,31 +2614,72 @@ def _hash_bwd_case(torch, card, spec, table, name, x, dy, g) -> dict:
             f"{k} {v:.2e}" for k, v in m2.items())
         + "; the table grads vs the fp32 plain version (a figure) "
         + ", ".join(f"{k} {v:.3e}" for k, v in fp32_t.items()))
+    log(f"[hash-bwd] {name}: {n_red} (row, value) pairs, {sent} global "
+        f"reductions sent ({sent / max(n_red, 1):.3f} a pair; "
+        "`reduction_plan`); by level (pairs / reductions / distinct rows a "
+        "warp of 32 consecutive points): " + ", ".join(
+            f"{li}: {p}/{r}/{t:.1f}" for li, (p, r, t) in
+            enumerate(by_level)))
+    bar = table_bar(name, busiest)
+    log(f"[hash-bwd] {name} ({card}): the table grads' error vs float64 "
+        f"(scaled) over {len(runs1)} runs: BWD min {min(runs1):.3e}, median "
+        f"{sorted(runs1)[len(runs1) // 2]:.3e}, max {max(runs1):.3e}; BWD2 "
+        f"min {min(runs2):.3e}, median {sorted(runs2)[len(runs2) // 2]:.3e}, "
+        f"max {max(runs2):.3e}; the busiest row takes {busiest} reductions "
+        f"(2^-24·sqrt of it {2.0**-24 * busiest**0.5:.3e}); bar {bar:.3e}")
+    for k, v in {**e1, **{"bwd2 " + k: v for k, v in e2.items()}}.items():
+        assert v <= (bar if k.endswith("d_table") else HASH_BWD_REL), (
+            name, k, v)
+    assert max(runs1 + runs2) <= bar, (name, max(runs1 + runs2), bar)
+    if not full:
+        log(f"[hash-bwd] {name} ({card}): BWD {ms:.4f} ms, BWD2 {ms2:.4f} ms")
+        return {"bwd": (ms, None, None, None, max(e1.values())),
+                "bwd2": (ms2, None, None, None, max(e2.values()))}
+    pl = n_red // 8  # (point, level) pairs in the cube
+    dense_out = table.numel() * 4  # d_table, zeroed and written whole
+    # bytes: x, dy and dx01 once, the table's distinct 32-B sectors that
+    # dx01 reads once, d_table written once (52.9 MB: the wrapper zeroes it
+    # and the reductions add into it); BWD2 adds g, d_dy and d_x01;
+    # operations (fp32, a multiply-add 2) per (point, level) in the cube:
+    # pos, floor, fraction and 1 − t (15), per corner the weight (2), its
+    # table grad (2), the dot (3), three weight grads and their sums (12)
+    # for BWD; BWD2 per corner u (12), d_dy (4), the table grad (2), the dot
+    # (3), three mixed second derivatives (6) and the d_x sums (18)
+    b1 = _bound(pl * (15 + 8 * 19),
+                n * (12 + 128 + 12) + 32 * sectors + dense_out)
+    b2 = _bound(pl * (15 + 8 * 45),
+                n * (12 + 128 + 12 + 128 + 12) + 32 * sectors + dense_out)
     log(f"[hash-bwd] {name} ({card}): BWD {ms:.4f} ms (table grads only "
         f"{ms_t:.4f}, dx01 only {ms_x:.4f}), plain {plain:.3f} ms, bound "
-        f"{b1[0]:.4f} ms ({b1[1]}; {sectors} distinct 32-B sectors), "
-        f"index_add_ on the same {n_red} pairs {lib['bwd']:.4f} ms; BWD2 "
-        f"{ms2:.4f} ms, plain {plain2:.3f} ms, bound {b2[0]:.4f} ms "
-        f"({b2[1]}), index_add_ on its {n_red} table pairs "
-        f"{lib['bwd2']:.4f} ms")
-    log(f"[hash-bwd] {name}: {n_red} reductions ({n_red / max(pl // 16, 1):.1f}"
-        f" a point in the cube: 16 levels × 8 corners, a figure); by level "
-        "(reductions / distinct rows): " + ", ".join(
-            f"{li}: {r}/{d}" for li, (r, d) in enumerate(by_level))
-        + f"; the table grads' time by levels, bare launches ({card}): all "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
-    for k, v in {**e1, **{"bwd2 " + k: v for k, v in e2.items()}}.items():
-        assert v <= HASH_BWD_REL, (name, k, v)
+        f"{b1[0]:.4f} ms ({b1[1]}; {sectors} distinct 32-B sectors read, "
+        f"d_table's {dense_out} B written), index_add_ on the same {n_red} "
+        f"pairs {lib['bwd']:.4f} ms; BWD2 {ms2:.4f} ms, plain {plain2:.3f} "
+        f"ms, bound {b2[0]:.4f} ms ({b2[1]}), index_add_ on its {n_red} "
+        f"table pairs {lib['bwd2']:.4f} ms; the table grads' time by "
+        "levels, bare launches: all " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items()))
     return {"bwd": (ms, plain, b1, lib["bwd"], max(e1.values())),
             "bwd2": (ms2, plain2, b2, lib["bwd2"], max(e2.values()))}
 
 
 def phase_hash_bwd_kernels(torch, card: str) -> list:
-    """(16) BWD and BWD2 against their plain versions at full width on two
-    layouts. Returns their two JSON entries (launches set from phase 17)."""
-    spec, table, cases = _hash_bwd_inputs(torch)
-    res = {name: _hash_bwd_case(torch, card, spec, table, name, *c)
+    """(16) BWD and BWD2 against their plain versions at full width on four
+    layouts (timed in full on two). Returns their two JSON entries
+    (launches set from phase 17)."""
+    from mirror_nerf_tpu_torch.tools.exp_hash_diag import bwd_cases
+
+    spec, table, cases = bwd_cases()
+    full = ("uniform", "ray-ordered 1024 x 128")
+    res = {name: _hash_bwd_case(torch, card, spec, table, name, *c,
+                                full=name in full)
            for name, c in cases.items()}
+    code = _hash_bwd_code()
+    log("[hash-bwd] SASS (cuobjdump, summed over the instances): " + "; ".join(
+        f"{kind} " + ", ".join(f"{k} {v}" for k, v in c.items())
+        for kind, c in code.items()))
+    for kind, c in code.items():
+        assert c["ATOMG"] + c["ATOM"] == 0 and c["REDG"] + c["RED"] > 0, (
+            kind, c)
     entries = []
     for key, title in (("bwd", "hashgrid_backward"),
                        ("bwd2", "hashgrid_backward2")):

@@ -61,17 +61,30 @@
 //     (DENSE: a 16-B access for an aligned x-pair);
 //   * nothing is staged in shared memory, no tensor-core work: gathers and
 //     the FMAs of the interpolation on the CUDA cores.
-// BWD and BWD2, a first design: one thread per (point, level slot), the
-// slots of a point a power of two P ≥ L (16 at the model's spec), so that a
-// point's slots are P aligned lanes of one warp and its dx01 is summed over
-// its levels by warp shuffles, without atomics; a point outside [0, 1]³
-// adds nothing and gets dx01 = 0. The table grads go out as 8-B vector
-// reductions (atomicAdd on float2) into a d_table the wrapper zeroes. What
-// bounds them: the same gathers as ENCODE plus a read-modify-write of each
-// table sector they touch; at the coarse levels (level 0 is dense, 4,913
-// rows) every sample of a batch adds into the same few thousand rows, and
-// those same-row reductions are likely the pace-setter (measured in
-// chip_smoke.py with the reductions' count and the level split).
+// BWD and BWD2, redesigned for the table grads' reductions (the first
+// design ran one thread a (point, level) with a point's levels as 16 lanes,
+// so a warp held two points of a level and every corner of every sample
+// went to L2 as its own reduction; at a train batch's coarse levels those
+// landed on a few thousand rows and cost ~2× a hashed level's):
+//   * a warp holds 32 consecutive points of one level (a block of 16 warps
+//     takes one tile of 32 points, warp w level w): neighbouring samples
+//     of a ray sit in neighbouring lanes;
+//   * a run of lanes in one cell (so at the same eight rows) sums its
+//     corners by segmented shuffles and sends one 8-B no-return reduction a
+//     corner from its first lane (`scatter_level`); where no two
+//     neighbouring lanes share a cell (hashed levels of uniform points) no
+//     shuffle runs;
+//   * BWD sends a level's reductions, then issues its 8 corner loads for
+//     dx01 (loads first measured ~2 % slower); BWD2 loads first (either
+//     order measured the same);
+//   * x, g and the tile's dy and d_dy rows move through shared memory as
+//     whole rows; dx01 and d_x01 are summed over the levels there, in level
+//     order, with no atomics. A point outside [0, 1]³ adds nothing and gets
+//     zeros.
+// The wrapper zeroes d_table. What bounds them on the H100: the reductions
+// that remain (12.76M of a 1024 × 128 ray batch's 16.46M pairs,
+// `ops/hashgrid.py reduction_plan`), most at the 12 hashed levels, where
+// L2's atomic units take them at ~55 G/s; then the gathers.
 
 #include <cuda_runtime.h>
 
@@ -178,12 +191,48 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// The slot count of a point: the power of two P = 2^lp ≥ n_levels.
-int slots_log2(int n_levels) {
-  int lp = 0;
-  while ((1 << lp) < n_levels) ++lp;
-  return lp;
+// ---- BWD and BWD2 ----
+//
+// A block of BWD_WARPS warps takes one tile of TILE = 32 consecutive points:
+// lane i takes point i and warp w levels w, w + 16, … (one level a warp at
+// the model's 16), so that the 32 lanes of a warp hold 32 consecutive
+// samples of one level. x (and g), the tile's dy rows and, for BWD2, its
+// d_dy rows go through shared memory as whole coalesced rows; each warp's
+// dx01 (d_x01) partial goes to shared memory and one thread a coordinate
+// sums the levels in order.
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TILE = 32;
+constexpr int BWD_WARPS = 16;
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+
+// The block's shared memory, in floats: x (and g) of the tile, its dy rows
+// (and d_dy rows) at a row stride of 2L + 2 floats (conflict-free 8-B reads
+// down a level) and the warps' dx01 partials.
+struct BwdSmem {
+  int xs, gs, dys, ddys, part, total;
+};
+
+__host__ __device__ constexpr BwdSmem bwd_smem(int n_levels, bool two) {
+  BwdSmem s{};
+  int o = 0;
+  const int row = 2 * n_levels + 2;
+  s.xs = o;
+  o += 3 * TILE;
+  s.gs = o;
+  o += two ? 3 * TILE : 0;
+  s.dys = o;
+  o += TILE * row;
+  s.ddys = o;
+  o += two ? TILE * row : 0;
+  s.part = o;
+  o += BWD_WARPS * 3 * TILE;
+  s.total = o;
+  return s;
 }
+// sized to the launch's level count, within the 48 KB a launch gets
+// without raising the kernel's attribute
+static_assert(bwd_smem(MAX_LEVELS, true).total * sizeof(float) <= 48 * 1024,
+              "BWD2's shared memory at MAX_LEVELS passes 48 KB");
 
 // One level of one point, as BWD and BWD2 need it: the fraction t, the
 // integer cell and the fp32 scale s (pos = x·s + 0.5 is ENCODE's FMA).
@@ -207,12 +256,16 @@ __device__ __forceinline__ Cell cell_of(const Level& L, float x0, float x1,
   return k;
 }
 
-// Corner c's row in the flat table and its three factors f_d (t_d for bit d
-// set, else 1 − t_d); ∂f_d/∂t_d = +1 for bit d set, else −1.
-__device__ __forceinline__ unsigned corner_of(const Level& L, const Cell& k,
-                                              int c, float (&f)[3]) {
+// Corner c's three factors f_d (t_d for bit d set, else 1 − t_d);
+// ∂f_d/∂t_d = +1 for bit d set, else −1.
+__device__ __forceinline__ void factors(const Cell& k, int c, float (&f)[3]) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) f[d] = ((c >> d) & 1) ? k.t[d] : 1.f - k.t[d];
+}
+
+// Corner c's row in the flat table.
+__device__ __forceinline__ unsigned corner_of(const Level& L, const Cell& k,
+                                              int c) {
   return L.offset + corner_row(L, k.g[0] + (c & 1), k.g[1] + ((c >> 1) & 1),
                                k.g[2] + ((c >> 2) & 1));
 }
@@ -221,140 +274,275 @@ __device__ __forceinline__ float sgn(int c, int d) {
   return ((c >> d) & 1) ? 1.f : -1.f;
 }
 
-// Sum v over the P = 2^lp aligned lanes of a point's slots; every lane of
-// the warp calls it (inactive slots hold zeros).
-__device__ __forceinline__ float slot_sum(float v, int lp) {
-  for (int o = (1 << lp) >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// One level's table grads from one warp, `val(c)` corner c's value of a
+// live lane. A run is a lane and the lanes after it that are live and in
+// the same cell (so at the same eight rows); each run's sums leave from its
+// first lane, one 8-B no-return reduction a corner into L2. The sums are
+// segmented suffix sums by shuffles, as many steps as the warp's longest
+// run needs: none where no two neighbouring lanes share a cell (a hashed
+// level of uniform points).
+template <typename Val>
+__device__ __forceinline__ void scatter_level(const Cell& k, bool live,
+                                              const unsigned (&row)[8],
+                                              Val val,
+                                              float2* __restrict__ d_table) {
+  const int lane = threadIdx.x & 31;
+  const unsigned q0 = __shfl_up_sync(FULL, k.g[0], 1),
+                 q1 = __shfl_up_sync(FULL, k.g[1], 1),
+                 q2 = __shfl_up_sync(FULL, k.g[2], 1);
+  const int qlive = __shfl_up_sync(FULL, (int)live, 1);
+  const bool head = lane == 0 || !live || !qlive || q0 != k.g[0] ||
+                    q1 != k.g[1] || q2 != k.g[2];
+  const unsigned later = __ballot_sync(FULL, head) & (0xFFFFFFFEu << lane);
+  const int end = later ? __ffs(later) - 1 : 32;
+  const unsigned longest = __reduce_max_sync(FULL, (unsigned)(end - lane));
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float2 a = live ? val(c) : make_float2(0.f, 0.f);
+    for (unsigned o = 1; o < longest; o <<= 1) {
+      const float ax = __shfl_down_sync(FULL, a.x, o),
+                  ay = __shfl_down_sync(FULL, a.y, o);
+      if (lane + (int)o < end) {
+        a.x += ax;
+        a.y += ay;
+      }
+    }
+    if (head && live) atomicAdd(d_table + row[c], a);
+  }
 }
 
-// BWD: thread t is slot l = t mod P of point p = t / P; slots l ≥ L and
-// points past n compute nothing but join the shuffles.
+// The tile's inputs into shared memory: x (and g) as 96 floats each, zero
+// past n; the tile's dy rows, one coalesced 8-B load a (point, level).
+__device__ __forceinline__ void stage_tile(const float* __restrict__ x,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ dy,
+                                           long long p0, int np, int n_levels,
+                                           float* sm, const BwdSmem& S) {
+  const int tid = threadIdx.x;
+  if (tid < 3 * TILE)
+    sm[S.xs + tid] = tid < 3 * np ? __ldg(x + 3 * p0 + tid) : 0.f;
+  else if (g && tid < 6 * TILE)
+    sm[S.gs + tid - 3 * TILE] =
+        tid - 3 * TILE < 3 * np ? __ldg(g + 3 * p0 + tid - 3 * TILE) : 0.f;
+  const int row = 2 * n_levels + 2;
+  const float2* src = reinterpret_cast<const float2*>(dy) + p0 * n_levels;
+  for (int i = tid; i < np * n_levels; i += BWD_THREADS) {
+    const int p = i / n_levels, l = i - p * n_levels;
+    *reinterpret_cast<float2*>(sm + S.dys + p * row + 2 * l) = __ldg(src + i);
+  }
+}
+
+// The warps' partials of a tile's dx01 (or d_x01) summed over the warps in
+// order (level order at ≤ 16 levels), one thread a coordinate.
+__device__ __forceinline__ void sum_parts(const float* part, long long p0,
+                                          int np, float* __restrict__ out) {
+  const int tid = threadIdx.x;
+  if (tid < 3 * np) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < BWD_WARPS; ++w) s += part[w * 3 * TILE + tid];
+    out[3 * p0 + tid] = s;
+  }
+}
+
+// BWD. Per level a lane sends its table grads, then loads its eight
+// corner rows (dx01) and uses them (the loads first measured ~2 % slower).
 template <bool TABLE, bool DX>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_THREADS, 2)
     hash_backward_kernel(const float* __restrict__ x,
-                    const float* __restrict__ table,
-                    const Level* __restrict__ levels, int n_levels, int lp,
-                    long long n, const float* __restrict__ dy,
-                    float* __restrict__ d_table, float* __restrict__ dx) {
-  const long long t = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const long long p = t >> lp;
-  const int l = (int)(t & ((1 << lp) - 1));
+                         const float* __restrict__ table,
+                         const Level* __restrict__ levels, int n_levels,
+                         long long n, const float* __restrict__ dy,
+                         float* __restrict__ d_table, float* __restrict__ dx) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const BwdSmem S = bwd_smem(n_levels, false);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row_w = 2 * n_levels + 2;
+  float2* dt = reinterpret_cast<float2*>(d_table);
+  const float2* t2 = reinterpret_cast<const float2*>(table);
+  const long long p0 = (long long)blockIdx.x * TILE;
+  const int np = (int)(n - p0 < TILE ? n - p0 : TILE);
+  stage_tile(x, nullptr, dy, p0, np, n_levels, sm, S);
+  __syncthreads();
+  const float x0 = sm[S.xs + 3 * lane], x1 = sm[S.xs + 3 * lane + 1],
+              x2 = sm[S.xs + 3 * lane + 2];
+  const bool live = lane < np && in_unit_cube(x0, x1, x2);
   float gx[3] = {0.f, 0.f, 0.f};
-  if (p < n && l < n_levels) {
-    const float x0 = __ldg(x + 3 * p), x1 = __ldg(x + 3 * p + 1),
-                x2 = __ldg(x + 3 * p + 2);
-    if (in_unit_cube(x0, x1, x2)) {
-      const Level L = load_level(levels, l);
-      const float2 dyl = __ldg(reinterpret_cast<const float2*>(
-          dy + 2 * (p * n_levels + l)));
-      const Cell k = cell_of(L, x0, x1, x2);
+  for (int l = warp; l < n_levels; l += BWD_WARPS) {
+    const Level L = load_level(levels, l);
+    const float2 dyl =
+        *reinterpret_cast<const float2*>(sm + S.dys + lane * row_w + 2 * l);
+    const Cell k = cell_of(L, x0, x1, x2);
+    unsigned row[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) row[c] = corner_of(L, k, c);
+    if (TABLE)
+      scatter_level(k, live, row, [&](int c) {
+        float f[3];
+        factors(k, c, f);
+        const float w = __fmul_rn(__fmul_rn(f[0], f[1]), f[2]);
+        return make_float2(w * dyl.x, w * dyl.y);
+      }, dt);
+    float2 v[8];
+    if (DX) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        v[c] = live ? __ldg(t2 + row[c]) : make_float2(0.f, 0.f);
+    }
+    if (DX && live) {
+      float gl[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         float f[3];
-        const unsigned row = corner_of(L, k, c, f);
-        if (TABLE) {
-          const float w = __fmul_rn(__fmul_rn(f[0], f[1]), f[2]);
-          atomicAdd(reinterpret_cast<float2*>(d_table) + row,
-                    make_float2(w * dyl.x, w * dyl.y));
-        }
-        if (DX) {
-          const float2 v =
-              __ldg(reinterpret_cast<const float2*>(table) + row);
-          const float dot = fmaf(v.y, dyl.y, v.x * dyl.x);
-          gx[0] = fmaf(sgn(c, 0) * (f[1] * f[2]), dot, gx[0]);
-          gx[1] = fmaf(sgn(c, 1) * (f[0] * f[2]), dot, gx[1]);
-          gx[2] = fmaf(sgn(c, 2) * (f[0] * f[1]), dot, gx[2]);
-        }
+        factors(k, c, f);
+        const float dot = fmaf(v[c].y, dyl.y, v[c].x * dyl.x);
+        gl[0] = fmaf(sgn(c, 0) * (f[1] * f[2]), dot, gl[0]);
+        gl[1] = fmaf(sgn(c, 1) * (f[0] * f[2]), dot, gl[1]);
+        gl[2] = fmaf(sgn(c, 2) * (f[0] * f[1]), dot, gl[2]);
       }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) gx[d] *= L.scale;
+      for (int d = 0; d < 3; ++d) gx[d] += gl[d] * L.scale;
     }
   }
+  float* part = sm + S.part;
   if (DX) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) gx[d] = slot_sum(gx[d], lp);
-    if (l == 0 && p < n) {
-      dx[3 * p] = gx[0];
-      dx[3 * p + 1] = gx[1];
-      dx[3 * p + 2] = gx[2];
-    }
+    for (int d = 0; d < 3; ++d) part[warp * 3 * TILE + 3 * lane + d] = gx[d];
   }
+  __syncthreads();
+  if (DX) sum_parts(part, p0, np, dx);
 }
 
 // BWD2, the same threads: u_c = s ∇_t w_c · g; d_dy (N, L·2) is written for
-// every level of every point (zero outside [0, 1]³).
+// every level of every point (zero outside [0, 1]³), staged in shared
+// memory and stored as the tile's whole rows.
 template <bool TABLE, bool DDY, bool DX>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_THREADS, 2)
     hash_backward2_kernel(const float* __restrict__ x,
-                     const float* __restrict__ table,
-                     const Level* __restrict__ levels, int n_levels, int lp,
-                     long long n, const float* __restrict__ dy,
-                     const float* __restrict__ g, float* __restrict__ d_dy,
-                     float* __restrict__ d_table, float* __restrict__ d_x) {
-  const long long t = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const long long p = t >> lp;
-  const int l = (int)(t & ((1 << lp) - 1));
-  const bool live = p < n && l < n_levels;
+                          const float* __restrict__ table,
+                          const Level* __restrict__ levels, int n_levels,
+                          long long n, const float* __restrict__ dy,
+                          const float* __restrict__ g,
+                          float* __restrict__ d_dy,
+                          float* __restrict__ d_table,
+                          float* __restrict__ d_x) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const BwdSmem S = bwd_smem(n_levels, true);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row_w = 2 * n_levels + 2;
+  float2* dt = reinterpret_cast<float2*>(d_table);
+  const float2* t2 = reinterpret_cast<const float2*>(table);
+  const long long p0 = (long long)blockIdx.x * TILE;
+  const int np = (int)(n - p0 < TILE ? n - p0 : TILE);
+  stage_tile(x, g, dy, p0, np, n_levels, sm, S);
+  __syncthreads();
+  const float x0 = sm[S.xs + 3 * lane], x1 = sm[S.xs + 3 * lane + 1],
+              x2 = sm[S.xs + 3 * lane + 2];
+  const float g0 = sm[S.gs + 3 * lane], g1 = sm[S.gs + 3 * lane + 1],
+              g2 = sm[S.gs + 3 * lane + 2];
+  const bool live = lane < np && in_unit_cube(x0, x1, x2);
   float ex[3] = {0.f, 0.f, 0.f};
-  float2 ddy = make_float2(0.f, 0.f);
-  if (live) {
-    const float x0 = __ldg(x + 3 * p), x1 = __ldg(x + 3 * p + 1),
-                x2 = __ldg(x + 3 * p + 2);
-    if (in_unit_cube(x0, x1, x2)) {
-      const Level L = load_level(levels, l);
-      const float s = L.scale;
-      const float g0 = __ldg(g + 3 * p), g1 = __ldg(g + 3 * p + 1),
-                  g2 = __ldg(g + 3 * p + 2);
-      const float2 dyl = __ldg(reinterpret_cast<const float2*>(
-          dy + 2 * (p * n_levels + l)));
-      const Cell k = cell_of(L, x0, x1, x2);
+  for (int l = warp; l < n_levels; l += BWD_WARPS) {
+    const Level L = load_level(levels, l);
+    const float s = L.scale;
+    const float2 dyl =
+        *reinterpret_cast<const float2*>(sm + S.dys + lane * row_w + 2 * l);
+    const Cell k = cell_of(L, x0, x1, x2);
+    unsigned row[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) row[c] = corner_of(L, k, c);
+    float2 v[8];
+    if (DDY || DX) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        v[c] = live ? __ldg(t2 + row[c]) : make_float2(0.f, 0.f);
+    }
+    // u_c = s (g0 ∂w/∂t0 + g1 ∂w/∂t1 + g2 ∂w/∂t2)
+    auto u_of = [&](int c) {
+      float f[3];
+      factors(k, c, f);
+      return s * fmaf(g2, sgn(c, 2) * (f[0] * f[1]),
+                      fmaf(g1, sgn(c, 1) * (f[0] * f[2]),
+                           g0 * (sgn(c, 0) * (f[1] * f[2]))));
+    };
+    if (TABLE)
+      scatter_level(k, live, row, [&](int c) {
+        const float u = u_of(c);
+        return make_float2(u * dyl.x, u * dyl.y);
+      }, dt);
+    float2 ddy = make_float2(0.f, 0.f);
+    if ((DDY || DX) && live) {
+      float el[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        float f[3];
-        const unsigned row = corner_of(L, k, c, f);
-        const float s0 = sgn(c, 0), s1 = sgn(c, 1), s2 = sgn(c, 2);
-        // u_c = s (g0 ∂w/∂t0 + g1 ∂w/∂t1 + g2 ∂w/∂t2)
-        const float u =
-            s * fmaf(g2, s2 * (f[0] * f[1]),
-                     fmaf(g1, s1 * (f[0] * f[2]), g0 * (s0 * (f[1] * f[2]))));
-        if (TABLE)
-          atomicAdd(reinterpret_cast<float2*>(d_table) + row,
-                    make_float2(u * dyl.x, u * dyl.y));
-        if (DDY || DX) {
-          const float2 v =
-              __ldg(reinterpret_cast<const float2*>(table) + row);
-          if (DDY) {
-            ddy.x = fmaf(u, v.x, ddy.x);
-            ddy.y = fmaf(u, v.y, ddy.y);
-          }
-          if (DX) {
-            const float dot = fmaf(v.y, dyl.y, v.x * dyl.x);
-            // ∂²w/∂t_d∂t_e = s_d s_e f_other for d ≠ e
-            const float h01 = s0 * s1 * f[2], h02 = s0 * s2 * f[1],
-                        h12 = s1 * s2 * f[0];
-            ex[0] = fmaf(fmaf(g2, h02, g1 * h01), dot, ex[0]);
-            ex[1] = fmaf(fmaf(g2, h12, g0 * h01), dot, ex[1]);
-            ex[2] = fmaf(fmaf(g1, h12, g0 * h02), dot, ex[2]);
-          }
+        const float u = u_of(c);
+        if (DDY) {
+          ddy.x = fmaf(u, v[c].x, ddy.x);
+          ddy.y = fmaf(u, v[c].y, ddy.y);
+        }
+        if (DX) {
+          float f[3];
+          factors(k, c, f);
+          const float s0 = sgn(c, 0), s1 = sgn(c, 1), s2 = sgn(c, 2);
+          const float dot = fmaf(v[c].y, dyl.y, v[c].x * dyl.x);
+          // ∂²w/∂t_d∂t_e = s_d s_e f_other for d ≠ e
+          const float h01 = s0 * s1 * f[2], h02 = s0 * s2 * f[1],
+                      h12 = s1 * s2 * f[0];
+          el[0] = fmaf(fmaf(g2, h02, g1 * h01), dot, el[0]);
+          el[1] = fmaf(fmaf(g2, h12, g0 * h01), dot, el[1]);
+          el[2] = fmaf(fmaf(g1, h12, g0 * h02), dot, el[2]);
         }
       }
+      if (DX) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) ex[d] = (ex[d] * s) * s;
+        for (int d = 0; d < 3; ++d) ex[d] += (el[d] * s) * s;
+      }
     }
+    if (DDY)
+      *reinterpret_cast<float2*>(sm + S.ddys + lane * row_w + 2 * l) = ddy;
   }
-  if (DDY && live)
-    reinterpret_cast<float2*>(d_dy)[p * n_levels + l] = ddy;
+  float* part = sm + S.part;
   if (DX) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) ex[d] = slot_sum(ex[d], lp);
-    if (l == 0 && p < n) {
-      d_x[3 * p] = ex[0];
-      d_x[3 * p + 1] = ex[1];
-      d_x[3 * p + 2] = ex[2];
+    for (int d = 0; d < 3; ++d) part[warp * 3 * TILE + 3 * lane + d] = ex[d];
+  }
+  __syncthreads();
+  if (DX) sum_parts(part, p0, np, d_x);
+  if (DDY) {
+    float2* dst = reinterpret_cast<float2*>(d_dy) + p0 * n_levels;
+    for (int i = threadIdx.x; i < np * n_levels; i += BWD_THREADS) {
+      const int p = i / n_levels, l = i - p * n_levels;
+      dst[i] = *reinterpret_cast<const float2*>(sm + S.ddys + p * row_w +
+                                                2 * l);
     }
   }
+}
+
+unsigned bwd_blocks(long long n) {
+  return (unsigned)((n + TILE - 1) / TILE);
+}
+
+template <bool TABLE, bool DX>
+int launch_bwd(const float* x, const float* table, const Level* lv,
+               int n_levels, long long n, const float* dy, float* d_table,
+               float* dx, cudaStream_t s) {
+  const size_t smem = bwd_smem(n_levels, false).total * sizeof(float);
+  hash_backward_kernel<TABLE, DX><<<bwd_blocks(n), BWD_THREADS, smem, s>>>(
+      x, table, lv, n_levels, n, dy, d_table, dx);
+  return (int)cudaGetLastError();
+}
+
+template <bool TABLE, bool DDY, bool DX>
+int launch_bwd2(const float* x, const float* table, const Level* lv,
+                int n_levels, long long n, const float* dy, const float* g,
+                float* d_dy, float* d_table, float* d_x, cudaStream_t s) {
+  const size_t smem = bwd_smem(n_levels, true).total * sizeof(float);
+  hash_backward2_kernel<TABLE, DDY, DX>
+      <<<bwd_blocks(n), BWD_THREADS, smem, s>>>(x, table, lv, n_levels, n,
+                                                dy, g, d_dy, d_table, d_x);
+  return (int)cudaGetLastError();
 }
 
 unsigned blocks(long long threads) {
@@ -406,19 +594,15 @@ int mnerf_hash_bwd(const float* x, const float* table, const int* levels,
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const Level* lv = reinterpret_cast<const Level*>(levels);
-  const int lp = slots_log2(n_levels);
-  const unsigned b = blocks(n << lp);
   cudaStream_t s = (cudaStream_t)stream;
   if (d_table && dx)
-    hash_backward_kernel<true, true><<<b, BLOCK, 0, s>>>(x, table, lv, n_levels,
-                                                    lp, n, dy, d_table, dx);
-  else if (d_table)
-    hash_backward_kernel<true, false><<<b, BLOCK, 0, s>>>(
-        x, table, lv, n_levels, lp, n, dy, d_table, dx);
-  else
-    hash_backward_kernel<false, true><<<b, BLOCK, 0, s>>>(
-        x, table, lv, n_levels, lp, n, dy, d_table, dx);
-  return (int)cudaGetLastError();
+    return launch_bwd<true, true>(x, table, lv, n_levels, n, dy, d_table, dx,
+                                  s);
+  if (d_table)
+    return launch_bwd<true, false>(x, table, lv, n_levels, n, dy, d_table,
+                                   dx, s);
+  return launch_bwd<false, true>(x, table, lv, n_levels, n, dy, d_table, dx,
+                                 s);
 }
 
 // BWD2: d_dy (N × L·2), d_table (rows × 2, zeroed by the caller) and d_x
@@ -434,23 +618,20 @@ int mnerf_hash_bwd2(const float* x, const float* table, const int* levels,
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const Level* lv = reinterpret_cast<const Level*>(levels);
-  const int lp = slots_log2(n_levels);
-  const unsigned b = blocks(n << lp);
   cudaStream_t s = (cudaStream_t)stream;
-#define MNERF_BWD2(T, D, X)                                                  \
-  hash_backward2_kernel<T, D, X><<<b, BLOCK, 0, s>>>(x, table, lv, n_levels, lp, \
-                                                n, dy, g, d_dy, d_table, d_x)
+#define MNERF_BWD2(T, D, X)                                                \
+  return launch_bwd2<T, D, X>(x, table, lv, n_levels, n, dy, g, d_dy,      \
+                              d_table, d_x, s)
   switch (which) {
-    case 1: MNERF_BWD2(false, false, true); break;
-    case 2: MNERF_BWD2(false, true, false); break;
-    case 3: MNERF_BWD2(false, true, true); break;
-    case 4: MNERF_BWD2(true, false, false); break;
-    case 5: MNERF_BWD2(true, false, true); break;
-    case 6: MNERF_BWD2(true, true, false); break;
-    default: MNERF_BWD2(true, true, true); break;
+    case 1: MNERF_BWD2(false, false, true);
+    case 2: MNERF_BWD2(false, true, false);
+    case 3: MNERF_BWD2(false, true, true);
+    case 4: MNERF_BWD2(true, false, false);
+    case 5: MNERF_BWD2(true, false, true);
+    case 6: MNERF_BWD2(true, true, false);
+    default: MNERF_BWD2(true, true, true);
   }
 #undef MNERF_BWD2
-  return (int)cudaGetLastError();
 }
 
 int mnerf_hash_gather(const void* table, long long rows, int c,

@@ -27,6 +27,10 @@ see its source note), each with a plain PyTorch version beside it:
     x + y·side + z·side², modulo the row count), without the out-of-bound
     mask.
 
+BWD's and BWD2's table grads leave a warp as one reduction a run of lanes
+in one cell and corner; `reduction_plan` is that plan in plain PyTorch
+(which pairs are summed on chip before a reduction goes to L2).
+
 Each dispatches on the device of its inputs: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (no fallback). The
 kernel's launches are counted per mode in `launches_encode`,
@@ -343,6 +347,80 @@ def encode_backward2_reference(table: torch.Tensor, x01: torch.Tensor,
                              g[:, 0] * h02 + g[:, 1] * h12], dim=-1)
             d_x += ((e * dot[..., None]).sum(0) * s) * s
     return d_table, d_dy, d_x
+
+
+# BWD's and BWD2's tile, as csrc/hashgrid.cu sets it (TILE): a block's
+# consecutive points, a warp's lanes at one level
+BWD_TILE = 32
+
+
+def pair_values(spec: HashGridSpec, dy: torch.Tensor,
+                g: Optional[torch.Tensor] = None):
+    """The table-grad values of each corner pair, as a `values_of(level,
+    f, sign)` → (8, N, 2) for `table_grad_pairs` and `reduction_plan`:
+    BWD's w_c·dy_l, or with the cotangent g BWD2's u_c·dy_l, u_c =
+    s_l ∇_t w_c · g."""
+    def values(li, f, sign):
+        if g is None:
+            w = (f[..., 0] * f[..., 1]) * f[..., 2]
+        else:
+            w = float(np.float32(spec.levels()[li].scale)) * (
+                _weight_grads(f, sign) * g[None]).sum(-1)
+        return w[..., None] * dy[None, :, 2 * li:2 * li + 2]
+    return values
+
+
+def table_grad_pairs(spec: HashGridSpec, x01: torch.Tensor, values_of):
+    """Every (row, value) pair the table grads add: corner c of every
+    level of every point in [0, 1]³; (rows (P,) int64, values (P, 2))."""
+    inb = _in_cube(x01)
+    rows, vals = [], []
+    for li, lv in enumerate(spec.levels()):
+        r, f, sign = _level_corners(spec, lv, x01)
+        rows.append(r[:, inb].reshape(-1))
+        vals.append(values_of(li, f, sign)[:, inb].reshape(-1, 2))
+    return torch.cat(rows), torch.cat(vals)
+
+
+def reduction_plan(spec: HashGridSpec, x01: torch.Tensor, values_of):
+    """The table-grad reductions that BWD and BWD2 send to L2, in plain
+    PyTorch: per level, the (row, value) pairs of a tile's lanes (corner c
+    of every point in [0, 1]³, `values_of(level, f, sign)` → (8, N, 2), as
+    `pair_values` makes it) are summed over each run (a lane and the
+    following lanes of its tile that are in the cube and in the same cell:
+    the same eight rows), one reduction a run and corner. Returns (rows
+    (R,) int64, values (R, 2), per level (pairs, reductions, distinct rows
+    a tile)); `index_add_` of the plan into zeros equals `index_add_` of
+    every pair."""
+    _check_bwd_spec(spec)
+    n = x01.shape[0]
+    idx = torch.arange(n, device=x01.device)
+    tile = idx // BWD_TILE
+    live = _in_cube(x01)
+    rows_out, vals_out, by_level = [], [], []
+    for li, lv in enumerate(spec.levels()):
+        rows, f, sign = _level_corners(spec, lv, x01)
+        vals = values_of(li, f, sign)  # (8, N, 2)
+        cell, _ = _grid_pos(x01, lv.scale, 0.5)
+        head = torch.ones(n, dtype=torch.bool, device=x01.device)
+        head[1:] = ~((cell[1:] == cell[:-1]).all(-1) & live[1:] & live[:-1])
+        head |= idx % BWD_TILE == 0
+        run = torch.cumsum(head.long(), 0) - 1
+        sums = vals.new_zeros((8, int(head.sum()), 2)).index_add_(
+            1, run, torch.where(live[None, :, None], vals,
+                                vals.new_zeros(())))
+        keep = live[head]
+        r = rows[:, head][:, keep].reshape(-1)
+        v = sums[:, keep].reshape(-1, 2)
+        pairs = rows[:, live]
+        per_tile = torch.unique(tile[live].expand(8, -1) * spec.table_rows
+                                + pairs).numel()
+        by_level.append((pairs.numel(), r.numel(),
+                         per_tile / max(int(torch.unique(tile[live])
+                                            .numel()), 1)))
+        rows_out.append(r)
+        vals_out.append(v)
+    return torch.cat(rows_out), torch.cat(vals_out), by_level
 
 
 def tv_loss(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec,

@@ -28,6 +28,19 @@ rows, `exp_hash_inkernel` DENSE_*) and on a level read from one row in
 bit for bit against the plain version; 100 calls a round, best of 5
 rounds in turns.
 
+With `--bwd`, BWD and BWD2 of `csrc/hashgrid.cu` (`mnerf_hash_bwd`,
+`mnerf_hash_bwd2`) instead: the kernels beside copies without the runs'
+on-chip sums (`no_runs`: one reduction a corner and lane, as the first
+design), with BWD's corner loads before the table grads' reductions
+(`loads_first`) and BWD2's after them (`loads_after2`), on chip_smoke.py
+phase 16's four layouts (`bwd_cases`); every build held to the plain versions (the table
+grads against float64, the rest against fp32, 1e-5 of scale), timed in
+turns on the uniform and ray-ordered layouts (BWD with both outputs, table
+grads only, dx01 only; BWD2 with all three), 20 calls a round, best of 5.
+With `--bwd_spread N`, the real kernels alone, N runs of each on every
+layout: the spread (min, median, max) of the table grads' error against
+float64, scaled, beside each layout's bar (`table_bar`).
+
 Inputs (`cases`, also chip_smoke.py phase 13's): the hash-grid model at
 full width (16 levels × 2, 2¹⁹ rows a level, bound 6; seeded weights with
 the table's dense levels ×1e4 and the σ column |w|·5, and a saturating
@@ -247,6 +260,247 @@ def dense_main(rounds: int) -> dict:
     return {"ms": res, "differ": differ}
 
 
+BWD_ENTRIES = ("mnerf_hash_bwd", "mnerf_hash_bwd2")
+BWD_REL = 1e-5  # chip_smoke.py HASH_BWD_REL
+# Where one row takes ~10⁵ global reductions (every point in one level-0
+# cell, in no order: the few level-1 cells it spans are shared by points
+# that are not neighbours, so their rows take one reduction a point),
+# fp32's rounding over k sums in a run-dependent order is ~2⁻²⁴·√k of
+# scale; that layout's table grads are held to BWD_ROOM times it. A lost
+# reduction there reads ~1/(3√k) (dy of either sign: a row's sum grows as
+# √k), a sum in bf16, fp16 or TF32 2¹³–2¹⁵ times the rounding: both far
+# above the bar.
+BWD_ROOM = 4
+ONE_CELL = "one level-0 cell"
+BWD_POINTS = 131_072
+_BWD_LOADS = ("    float2 v[8];\n    if (DX) {\n#pragma unroll\n"
+              "      for (int c = 0; c < 8; ++c)\n"
+              "        v[c] = live ? __ldg(t2 + row[c]) : "
+              "make_float2(0.f, 0.f);\n    }\n")
+_BWD_SCATTER = ("    if (TABLE)\n      scatter_level(k, live, row, "
+                "[&](int c) {\n        float f[3];\n")
+_BWD2_LOADS = ("    float2 v[8];\n    if (DDY || DX) {\n#pragma unroll\n"
+               "      for (int c = 0; c < 8; ++c)\n"
+               "        v[c] = live ? __ldg(t2 + row[c]) : "
+               "make_float2(0.f, 0.f);\n    }\n")
+_BWD2_SCATTERED = ("      }, dt);\n"
+                   "    float2 ddy = make_float2(0.f, 0.f);\n")
+BWD_PATCHES = {
+    "no_runs": [("  const bool head = lane == 0 || !live",
+                 "  const bool head = true || !live")],
+    "loads_first": [(_BWD_LOADS, ""),
+                    (_BWD_SCATTER, _BWD_LOADS + _BWD_SCATTER)],
+    "loads_after2": [
+        (_BWD2_LOADS, "    float2 v[8];\n"),
+        (_BWD2_SCATTERED, _BWD2_SCATTERED.replace(
+            "    float2 ddy", _BWD2_LOADS.replace(
+                "    float2 v[8];\n", "") + "    float2 ddy"))]}
+
+
+def bwd_cases():
+    """chip_smoke.py phase 16's inputs on the card: the full-width spec
+    (bound 6: 16 levels × 2, 6,616,280 rows), a U(±1) table and four
+    layouts of ~131,072 points with dy (N, 32) and g (N, 3): uniform over
+    [−0.02, 1.02]³ and a train batch's ray-ordered samples (1024 strided
+    rays of the 800×800 camera × 128 stratified samples), each with edge
+    points in front (0 and 1, points outside the cube, points at grid
+    nodes of every level); every point in one level-0 cell (pos = x·15 +
+    0.5 in [7, 8)³: a corner's row takes every sum); and the ray-ordered
+    batch cut to 131,072 − 91 points (no multiple of a tile's 32) with
+    every fifth point moved outside the cube, inside the
+    runs. Returns (spec, table, {layout: (x, dy, g)})."""
+    from ..core.sampling import stratified_z_vals
+    from ..models.ngp import NGPField
+    from .exp_launch_ab import camera_rays
+
+    spec = NGPField(bound=6.0).grid_spec
+    g = torch.Generator().manual_seed(21)
+    table = (torch.rand((spec.table_rows, 2), generator=g) * 2 - 1).cuda()
+    edge = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5],
+            [1.0, 0.0, 0.25], [1.5, 0.5, 0.5], [-0.01, 0.5, 0.5],
+            [0.5, 1.0001, 0.5]]
+    for lv in spec.levels():
+        for k in (1, lv.resolution // 2, lv.resolution - 1):
+            c = (k - 0.5) / float(lv.scale)
+            edge += [[c, c, c], [c, 0.37, 0.61]]
+    edge = torch.tensor(edge, dtype=torch.float32)
+    uni = torch.rand((BWD_POINTS, 3), generator=g) * 1.04 - 0.02
+    rays = torch.from_numpy(camera_rays(800))
+    rays = rays[::rays.shape[0] // 1024][:1024]
+    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], 128)
+    xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(
+        -1, 3)
+    ray = (xyz + 6.0) * float(torch.tensor(1 / 12.0, dtype=torch.float32))
+    cell = torch.rand((BWD_POINTS, 3), generator=g) * 0.05 + 0.44
+    ragged = ray[:BWD_POINTS - 91].clone()
+    ragged[3::5, 1] = 1.25
+    cases = {}
+    for name, x in (("uniform", uni), ("ray-ordered 1024 x 128", ray),
+                    (ONE_CELL, cell),
+                    ("ragged, outside points in the runs", ragged)):
+        x = x.clone()
+        if name != ONE_CELL:
+            x[:edge.shape[0]] = edge
+        n = x.shape[0]
+        cases[name] = (x.cuda().contiguous(),
+                       torch.randn((n, 32), generator=g).cuda(),
+                       torch.randn((n, 3), generator=g).cuda())
+    return spec, table, cases
+
+
+def table_bar(layout: str, busiest: int) -> float:
+    """The table grads' bar (scaled, against float64) on `layout`, whose
+    busiest row takes `busiest` global reductions: BWD_REL but on the
+    one-cell layout."""
+    if layout != ONE_CELL:
+        return BWD_REL
+    bar = max(BWD_REL, BWD_ROOM * 2.0**-24 * busiest**0.5)
+    assert bar <= 1 / (16 * busiest**0.5), (busiest, bar)  # sees a lost one
+    return bar
+
+
+def busiest_row(spec, x, dy) -> int:
+    """The most global reductions BWD sends to one row
+    (`reduction_plan`)."""
+    from ..ops import hashgrid as hg
+
+    rows, _, _ = hg.reduction_plan(spec, x, hg.pair_values(spec, dy))
+    return int(torch.bincount(rows).max())
+
+
+def _bwd_build(name: str) -> dict:
+    """A variant of BWD and BWD2 built into build/kernels/diag/: entry ->
+    ctypes function, typed as the wrapper's."""
+    import ctypes
+
+    from ..ops import hashgrid
+
+    src = (_build.CSRC / "hashgrid.cu").read_text()
+    tag = "hash_" + name.replace("+", "_")
+    patches = [pt for part in name.split("+") for pt in BWD_PATCHES[part]]
+    fn, _ = exp_cp_diag.build(tag, {tag: patches}, BWD_ENTRIES[0],
+                              hashgrid._library, source=src)
+    lib = ctypes.CDLL(str(_build.BUILD_DIR / "diag" / f"{tag}.so"))
+    fn2 = getattr(lib, BWD_ENTRIES[1])
+    fn2.argtypes = hashgrid._library.entries[BWD_ENTRIES[1]]
+    fn2.restype = ctypes.c_int
+    return {BWD_ENTRIES[0]: fn, BWD_ENTRIES[1]: fn2}
+
+
+def _scaled(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def bwd_main(rounds: int, names=None) -> dict:
+    """BWD and BWD2 beside their variants: held to the plain versions on
+    the four layouts, timed in turns on two."""
+    from ..ops import hashgrid as hg
+
+    hg._library()
+    names = list(names or BWD_PATCHES)
+    fns = {"real": {e: hg._library._fns[e] for e in BWD_ENTRIES}}
+    with ThreadPoolExecutor(len(names)) as pool:
+        fns.update(zip(names, pool.map(_bwd_build, names)))
+    real = hg._library._fns
+
+    def swapped(name, call):
+        real.update(fns[name])
+        try:
+            return call()
+        finally:
+            real.update(fns["real"])
+
+    spec, table, layouts = bwd_cases()
+    worst = {name: 0.0 for name in fns}
+    calls = {}
+    with torch.no_grad():
+        for layout, (x, dy, g) in layouts.items():
+            r1 = hg.encode_backward_reference(table, x, dy, spec)
+            r1t = hg.encode_backward_reference(
+                table.double(), x.double(), dy.double(), spec, True, False)
+            r2 = hg.encode_backward2_reference(table, x, dy, g, spec)
+            r2t = hg.encode_backward2_reference(
+                table.double(), x.double(), dy.double(), g.double(), spec,
+                True, False, False)
+            bar = table_bar(layout, busiest_row(spec, x, dy))
+            for name in fns:
+                a = swapped(name, lambda: hg.encode_backward(table, x, dy,
+                                                             spec))
+                b = swapped(name, lambda: hg.encode_backward2(
+                    table, x, dy, g, spec))
+                errs = [_scaled(a[1], r1[1])] + [
+                    _scaled(u, v) for u, v in zip(b[1:], r2[1:])]
+                table_errs = [_scaled(a[0], r1t[0]), _scaled(b[0], r2t[0])]
+                assert max(errs) <= BWD_REL and max(table_errs) <= bar, (
+                    name, layout, errs, table_errs, bar)
+                worst[name] = max(worst[name], *errs, *table_errs)
+            del r1, r1t, r2, r2t
+            if layout in ("uniform", "ray-ordered 1024 x 128"):
+                calls.update({
+                    f"{layout}: BWD": lambda x=x, dy=dy: hg.encode_backward(
+                        table, x, dy, spec),
+                    f"{layout}: BWD table": lambda x=x, dy=dy:
+                        hg.encode_backward(table, x, dy, spec, True, False),
+                    f"{layout}: BWD dx01": lambda x=x, dy=dy:
+                        hg.encode_backward(table, x, dy, spec, False, True),
+                    f"{layout}: BWD2": lambda x=x, dy=dy, g=g:
+                        hg.encode_backward2(table, x, dy, g, spec)})
+        res = {name: {} for name in fns}
+        for rnd in range(rounds):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for name in order:
+                for case, call in calls.items():
+                    ms = swapped(name, lambda c=call: _ms(c, 20))
+                    res[name][case] = min(res[name].get(case, 1e9), ms)
+    print(f"device: {torch.cuda.get_device_name(0)}; BWD / BWD2 ms per "
+          f"call, best of {rounds} rounds in turns; the largest error "
+          "against the plain versions over the four layouts, scaled to the "
+          f"largest entry (bar {BWD_REL:.0e}; the one-cell layout's table "
+          "grads `table_bar`)")
+    for name in fns:
+        print(f"{name:12s} " + ", ".join(
+            f"{case} {ms:.4f}" for case, ms in res[name].items())
+            + f" (max err {worst[name]:.3e})")
+    return {"ms": res, "max_err": worst}
+
+
+def bwd_spread(reps: int) -> dict:
+    """BWD (both outputs) and BWD2 (all outputs) `reps` times on each of
+    the four layouts: the table grads' error against float64 (scaled to
+    its largest entry) each run, and the layout's bar."""
+    from ..ops import hashgrid as hg
+
+    spec, table, layouts = bwd_cases()
+    out = {}
+    with torch.no_grad():
+        for layout, (x, dy, g) in layouts.items():
+            bar = table_bar(layout, busiest := busiest_row(spec, x, dy))
+            errs = {}
+            for kind in ("BWD", "BWD2"):
+                want = (hg.encode_backward_reference(
+                    table.double(), x.double(), dy.double(), spec, True,
+                    False) if kind == "BWD" else
+                    hg.encode_backward2_reference(
+                        table.double(), x.double(), dy.double(), g.double(),
+                        spec, True, False, False))[0]
+                errs[kind] = sorted(
+                    _scaled((hg.encode_backward(table, x, dy, spec)
+                             if kind == "BWD" else hg.encode_backward2(
+                                 table, x, dy, g, spec))[0], want)
+                    for _ in range(reps))
+                del want
+            out[layout] = {"bar": bar, "busiest": busiest, **errs}
+            print(f"{layout}: busiest row {busiest} reductions, bar "
+                  f"{bar:.3e}; " + "; ".join(
+                      f"{k} min {e[0]:.3e}, median {e[len(e) // 2]:.3e}, "
+                      f"max {e[-1]:.3e}" for k, e in errs.items())
+                  + f" ({reps} runs; {torch.cuda.get_device_name(0)})",
+                  flush=True)
+            assert max(errs["BWD"][-1], errs["BWD2"][-1]) <= bar, layout
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+", choices=list(PATCHES),
@@ -254,11 +508,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--dense", action="store_true",
                     help="DENSE's variants instead of the fused kernel's")
+    ap.add_argument("--bwd", nargs="*",
+                    help="BWD's and BWD2's variants (all without names; "
+                         "a+b applies both patches) instead of the fused "
+                         "kernel's")
+    ap.add_argument("--bwd_spread", type=int, metavar="N",
+                    help="N runs of BWD and BWD2 on each layout: the "
+                         "table grads' error spread")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on a card")
     if args.dense:
         return dense_main(max(args.rounds, 5))
+    if args.bwd_spread:
+        return bwd_spread(args.bwd_spread)
+    if args.bwd is not None:
+        for name in args.bwd:
+            for part in name.split("+"):
+                if part not in BWD_PATCHES:
+                    ap.error(f"--bwd: no variant {part!r} (of "
+                             f"{', '.join(BWD_PATCHES)})")
+        return bwd_main(max(args.rounds, 5), args.bwd)
     torch.backends.cuda.matmul.allow_tf32 = False
     built = builds(args.variants)
     fns = {k: v[0] for k, v in built.items()}

@@ -53,6 +53,12 @@ tables × (64, 512) @ (512, 1024)). With `--groups hash`: DENSE (262,144
 samples of a side-62 level), ENCODE (2,097,152 points of the bound-6 spec)
 and the fused NGP composite (16384 rays, S = 128 full and S = 64 σ-only),
 the kernels that share `csrc/hashgrid.cuh` (20 calls a round, best of 3).
+With `--groups hash_bwd`: BWD (both outputs, table grads only, dx01
+only) and BWD2 (all outputs) on chip_smoke.py phase 16's uniform and
+ray-ordered layouts (`exp_hash_diag.bwd_cases`), and `index_add_` of the
+same (row, value) pairs into a zeroed table (20 calls a round, best of 5);
+each tree's outputs are held to the plain versions first (the table grads
+against float64, the rest against fp32, within phase 16's 1e-5 of scale).
 Each group is also checked: the two trees' outputs agree (GATHER, DENSE,
 ENCODE, the fused NGP composite, int8 table products and the floor bit for
 bit, the views and the train backward within 1e-3, the rest
@@ -86,7 +92,7 @@ from .timing import per_call_ms
 LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
         "fused_cp_train", "fused_mlp_t", "table_mma")
 GROUPS = ("launch", "composite", "view", "flagship", "train", "tables",
-          "hash")
+          "hash", "hash_bwd")
 KERNEL_BAR = 1e-4  # the composite's bar against its plain version
 VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
@@ -410,6 +416,62 @@ def _hash_groups(other: dict) -> dict:
     return out
 
 
+def _hash_bwd_groups(other: dict) -> dict:
+    """BWD and BWD2 on phase 16's uniform and ray-ordered layouts, both
+    trees on the same inputs, and `index_add_` of the same pairs. Each
+    tree's outputs are held to the plain versions (phase 16's bars); the
+    two trees then agree within twice that, each output scaled to its
+    plain version's largest entry."""
+    from .exp_hash_diag import BWD_REL, _scaled, bwd_cases
+
+    ohg = other["hashgrid"]
+    spec, table, layouts = bwd_cases()
+    out = {}
+    for layout in ("uniform", "ray-ordered 1024 x 128"):
+        x, dy, g = layouts[layout]
+        ref = (*hashgrid.encode_backward_reference(
+                   table.double(), x.double(), dy.double(), spec),
+               *hashgrid.encode_backward2_reference(
+                   table.double(), x.double(), dy.double(), g.double(),
+                   spec))
+        scale = [float(r.abs().max()) for r in ref]
+        for mod in (hashgrid, ohg):
+            got = (*mod.encode_backward(table, x, dy, spec),
+                   *mod.encode_backward2(table, x, dy, g, spec))
+            for a, b in zip(got, ref):
+                assert _scaled(a, b) <= BWD_REL, (layout, mod.__name__)
+        del ref
+
+        def flat(res, k0=0):
+            return torch.cat([v.reshape(-1) / scale[k0 + i]
+                              for i, v in enumerate(res) if v is not None])
+
+        rows, vals = hashgrid.table_grad_pairs(
+            spec, x, hashgrid.pair_values(spec, dy))
+        d = torch.zeros_like(table)
+        tag = "uniform" if layout == "uniform" else "ray"
+        for key, fn in (
+                ("bwd", lambda m, x=x, dy=dy: m.encode_backward(
+                    table, x, dy, spec)),
+                ("bwd_table", lambda m, x=x, dy=dy: m.encode_backward(
+                    table, x, dy, spec, True, False)),
+                ("bwd_dx", lambda m, x=x, dy=dy: m.encode_backward(
+                    table, x, dy, spec, False, True))):
+            fns = {"this": lambda fn=fn: fn(hashgrid),
+                   "other": lambda fn=fn: fn(ohg)}
+            if key == "bwd":
+                fns["library"] = (lambda d=d, rows=rows, vals=vals:
+                                  d.zero_().index_add_(0, rows, vals))
+            out[f"hash_{key}_{tag}"] = (fns, 2 * BWD_REL, flat)
+        out[f"hash_bwd2_{tag}"] = (
+            {"this": lambda x=x, dy=dy, g=g: hashgrid.encode_backward2(
+                table, x, dy, g, spec),
+             "other": lambda x=x, dy=dy, g=g: ohg.encode_backward2(
+                 table, x, dy, g, spec)},
+            2 * BWD_REL, lambda res: flat(res, 2))
+    return out
+
+
 def composite_code(other: dict) -> dict:
     """Each tree's composite library: ptxas' registers and spills, and the
     SASS counts of every `cp_field_kernel` instance."""
@@ -466,6 +528,9 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
         if "hash" in groups:
             todo.update((k, (v, 20, 3)) for k, v in
                         _hash_groups(other).items())
+        if "hash_bwd" in groups:
+            todo.update((k, (v, 20, 5)) for k, v in
+                        _hash_bwd_groups(other).items())
         for group, ((fns, bar, *flat), reps, rounds) in todo.items():
             diff = _agree(fns, bar, *flat)
             us = {k: v * 1e3 for k, v in
@@ -585,7 +650,8 @@ def main(argv=None) -> dict:
                          "their main path's shapes; tables: the table "
                          "products at the probe's defaults; hash: DENSE, "
                          "ENCODE and the fused NGP composite at their main "
-                         "paths' shapes")
+                         "paths' shapes; hash_bwd: BWD and BWD2 on phase "
+                         "16's layouts")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

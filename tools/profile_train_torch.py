@@ -4,9 +4,12 @@
     python3 tools/profile_train_torch.py            # on a CUDA card
     python3 tools/profile_train_torch.py --cpu      # CPU rehearsal
     python3 tools/profile_train_torch.py --other build/other  # in turns
+    python3 tools/profile_train_torch.py --model_type nerf_tcnn --other DIR
 
 Builds the `chip_smoke.py` training configuration (run.sh mode-0 nerf_tpu
-flags, full width, batch 1024, novel-ray reg on) on a generated 64×64
+flags, full width, batch 1024, novel-ray reg on; with `--model_type
+nerf_tcnn` or `nerf` that model's, as chip_smoke.py phase 17 trains it:
+its own `--decay_step 2 4 8`, no `--grid_lr_mult`) on a generated 64×64
 procedural scene, takes reflection-stage steps through `Trainer.train_step`:
 three warm steps, ten timed ones (host clock, synchronized), then three
 under `torch.profiler` (`step_profile`, which chip_smoke.py phase 7 uses
@@ -30,6 +33,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
@@ -37,6 +42,10 @@ sys.path.insert(0, str(ROOT / "tools"))
 from profile_view_torch import busy_union, profile  # noqa: E402
 
 TRAIN_KERNELS = ("fwd_kernel", "bwd_kernel")  # csrc/fused_cp_train.cu
+# the hash grid's kernels (csrc/hashgrid.cu), each share printed
+HASH_KERNELS = (("BWD", "hash_backward_kernel"),
+                ("BWD2", "hash_backward2_kernel"),
+                ("ENCODE", "hash_encode_kernel"))
 
 
 def step_breakdown(events, steps: int) -> dict:
@@ -66,12 +75,17 @@ def step_breakdown(events, steps: int) -> dict:
             "events_per_step": len(dev_ev) / steps, "by_name": dict(by_name)}
 
 
+def kernel_ms(r: dict, key: str) -> float:
+    """The device ms of the kernels whose name holds `key`, over a
+    breakdown's steps."""
+    return sum(ms for name, (_, ms) in r["by_name"].items() if key in name)
+
+
 def stepper(trainer, cfg, dev: str, loop=None):
     """One reflection-stage step of `trainer` a call, on its dataset's rays
     (batch cfg.batch_size, a seeded permutation); returns the loss, which
     waits for the step. `loop`: the train.loop module of the trainer's
     tree (default this checkout's)."""
-    import numpy as np
     import torch
 
     if loop is None:
@@ -124,12 +138,16 @@ def step_profile(trainer, cfg, dev: str, activities, steps: int = 3,
 
 
 def step_ab(other_root: str, cfg, root: str, workdir: str, dev: str,
-            rounds: int = 5, steps: int = 10) -> dict:
+            rounds: int = 5, steps: int = 10, activities=None) -> dict:
     """This checkout's and another's (`exp_launch_ab.load_other`) Trainer
     on the same scene and initial weights, their reflection-stage steps
     timed in turns: `rounds` rounds of `steps` synchronized steps each
     (the order reversed every other round), after three warm steps; ms a
-    step of each round and the best."""
+    step of each round, the best and the median, and for this tree each
+    round's difference from the other's (this − other). With `activities`, then three steps
+    of each tree under torch.profiler (`step_breakdown`): the summed
+    device time of a step, the idle share and the hash grid's kernels'
+    shares."""
     import importlib
 
     from mirror_nerf_tpu_torch.tools.exp_launch_ab import OTHER, load_other
@@ -156,9 +174,23 @@ def step_ab(other_root: str, cfg, root: str, workdir: str, dev: str,
             for _ in range(steps):
                 steps_of[tree]()
             runs[tree].append((time.perf_counter() - t0) / steps * 1e3)
-    return {tree: {"ms": ms, "best_ms": min(ms),
-                   "rays_per_s": cfg.batch_size / min(ms) * 1e3}
-            for tree, ms in runs.items()}
+    out = {tree: {"ms": ms, "best_ms": min(ms),
+                  "median_ms": float(np.median(ms)),
+                  "rays_per_s": cfg.batch_size / min(ms) * 1e3}
+           for tree, ms in runs.items()}
+    out["this"]["minus_other_ms"] = [a - b for a, b in zip(runs["this"],
+                                                            runs["other"])]
+    for tree in (steps_of if activities else ()):
+        _, events = profile(lambda t=tree: [steps_of[t]() for _ in range(3)],
+                            activities)
+        b = step_breakdown(events, 3)
+        out[tree].update(
+            device_ms_per_step=b["device_ms_per_step"],
+            idle_share=b["idle_share"],
+            shares={label: kernel_ms(b, key)
+                    / max(3 * b["device_ms_per_step"], 1e-9)
+                    for label, key in HASH_KERNELS})
+    return out
 
 
 def main(argv=None) -> int:
@@ -167,6 +199,11 @@ def main(argv=None) -> int:
                     help="rehearse on the CPU with small levels")
     ap.add_argument("--other", help="another checkout of the repository: "
                     "its step and this one's, timed in turns")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="rounds in turns with --other (10 steps each)")
+    ap.add_argument("--model_type", default="nerf_tpu",
+                    choices=("nerf_tpu", "nerf_tcnn", "nerf"),
+                    help="the model trained (default the CP grid)")
     opt = ap.parse_args(argv)
 
     import torch
@@ -193,15 +230,20 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         root = str(Path(tmp) / "scene")
         generate_scene(root, n_train=6, n_val=1, n_test=1, img_wh=(64, 64))
-        flags = cs.TRAIN_FLAGS + ["--root_dir", root, "--img_wh", "64", "64",
-                                  "--device", dev]
+        flags = (cs.TRAIN_FLAGS if opt.model_type == "nerf_tpu" else
+                 cs._model_train_flags(opt.model_type)) + [
+            "--root_dir", root, "--img_wh", "64", "64", "--device", dev]
         if opt.cpu:
-            flags += ["--grid_levels", "16:8,32:8", "--batch_size", "256"]
+            flags += ["--batch_size", "256"]
+            if opt.model_type == "nerf_tpu":
+                flags += ["--grid_levels", "16:8,32:8"]
         cfg, _ = get_opt(flags)
         ds = BlenderDataset(root, "train", cfg.img_wh, cfg)
         trainer = Trainer(cfg, ds, str(Path(tmp) / "run"), dev)
         r = step_profile(trainer, cfg, dev, acts)
-        ab = (step_ab(opt.other, cfg, root, str(Path(tmp) / "ab"), dev)
+        ab = (step_ab(opt.other, cfg, root, str(Path(tmp) / "ab"), dev,
+                      rounds=opt.rounds,
+                      activities=None if opt.cpu else acts)
               if opt.other else None)
 
     device = ("device: not measured" if opt.cpu else
@@ -215,6 +257,12 @@ def main(argv=None) -> int:
           f"{r['span_ms']:.1f} ms, {device}; train kernel launches fwd "
           f"{r['launches'][0]}, bwd {r['launches'][1]}; device events "
           f"{r['events_per_step']:.0f} a step ({card})", flush=True)
+    if opt.model_type == "nerf_tcnn" and not opt.cpu:
+        dev_ms = r["device_ms_per_step"] * 3  # the 3 profiled steps
+        print("=== the hash grid's kernels' shares of the summed device "
+              "time: " + ", ".join(
+                  f"{label} {100 * kernel_ms(r, key) / dev_ms:.1f} %"
+                  for label, key in HASH_KERNELS) + f" ({card})", flush=True)
     for name, (cnt, ms) in sorted(r["by_name"].items(),
                                   key=lambda kv: -kv[1][1])[:16]:
         print(f"  {ms:9.2f} ms {100 * ms / max(r['span_ms'], 1e-9):5.1f}% "
@@ -224,8 +272,22 @@ def main(argv=None) -> int:
             print(f"=== in turns, {tree} tree"
                   + (f" ({opt.other})" if tree == "other" else "")
                   + f": ms a step by round {[round(m, 2) for m in v['ms']]}"
-                  f", best {v['best_ms']:.2f} -> {v['rays_per_s']:.1f} rays/s "
-                  f"({card})", flush=True)
+                  f", best {v['best_ms']:.2f} -> {v['rays_per_s']:.1f} rays/s"
+                  f", median {v['median_ms']:.2f}, range "
+                  f"{min(v['ms']):.2f}–{max(v['ms']):.2f}"
+                  + ("" if "minus_other_ms" not in v else
+                     f"; this − other by round "
+                     f"{[round(d, 2) for d in v['minus_other_ms']]}, median "
+                     f"{float(np.median(v['minus_other_ms'])):.2f}, slower "
+                     f"in {sum(d > 0 for d in v['minus_other_ms'])} of "
+                     f"{len(v['minus_other_ms'])}")
+                  + ("" if "device_ms_per_step" not in v else
+                     f"; traced after the rounds: summed device time "
+                     f"{v['device_ms_per_step']:.3f} ms a step, idle share "
+                     f"{v['idle_share']:.4f}, " + ", ".join(
+                         f"{k} {100 * x:.1f} %" for k, x in
+                         v["shares"].items()))
+                  + f" ({card})", flush=True)
     return 0
 
 
