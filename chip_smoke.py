@@ -173,7 +173,25 @@ each fatal on failure:
  18. the eval CLI without --predict_normal (ROADMAP item [10], the tracer
      reflecting about ∇σ) for the CP grid (∇σ from the train kernel's
      forward) and the hash grid (ENCODE, then BWD for dx01): finite PSNRs
-     and the launches.
+     and the launches;
+ 19. the four applications (run.sh modes 3, 4 with a D-NeRF and a nerf_pl
+     guest, 5, 52, 6) on the CP grid at full width with --fused_field, from
+     phase 7's last.ckpt.npz and scene, named livingroom for its presets
+     (mode 6 substitutes the same checkpoint; the
+     guests' files seeded at full width: D-NeRF 8×256, posenc 10/4, 64
+     samples; nerf_pl the flagship without heads): the eval CLI for each
+     mode on phase 7's scene, then one 800×800 view per mode through
+     run_view (rays/s, the COMPOSITE launches and the deep trace's levels)
+     and a 128×128 one without --predict_normal (the train forward's
+     launches: ∇σ), the counters reset before each view and read after;
+     then each mode on 256 rays on the card against the plain version on
+     the CPU with the same injected roughness noise (RENDER_ATOL; mode 3
+     held at 5 levels, at 50 its error logged and the levels reached
+     equal: 50 bounces make its last colour ill-conditioned); then
+     mode 3 for the flagship (a 400×300 view, its kernel) and the hash
+     grid (--fused_field, the eval CLI at 64×64, the fused NGP composite).
+     The applications' launches join the four kernels' counts in the
+     kernels line.
 
 Each phase prints its wall time. The script prints one JSON line with the
 twenty-one kernels' numbers (each with the least time the card could take for
@@ -246,6 +264,29 @@ NGP_EVAL_FLAGS = ["--dataset_name", "blender", "--near", "0.05", "--far",
                   "--trace_secondary_rays", "--bound", "6",
                   "--N_importance", "64", "--chunk", "16384",
                   "--max_recursive_level", "2"]
+# run.sh modes 3-6 (the four applications): their flags after EVAL_FLAGS,
+# whose --max_recursive_level 2 each replaces (50 for mode 3, the default 1
+# for the others); GUESTS and CKPT are filled in by phase 19
+APP_MODES = {
+    "3": ["--max_recursive_level", "50", "--app_place_new_mirror",
+          "--plane_pos", "plane_x"],
+    "4_d_nerf": ["--max_recursive_level", "1",
+                 "--app_reflect_newly_placed_objects", "--obj_ckpt_path",
+                 "GUESTS/dnerf.tar"],
+    "4_nerf_pl": ["--max_recursive_level", "1",
+                  "--app_reflect_newly_placed_objects", "--obj_ckpt_path",
+                  "GUESTS/nerf_pl.ckpt", "--obj_model_type", "nerf_pl"],
+    "5": ["--max_recursive_level", "1", "--app_control_mirror_roughness",
+          "--trace_ray_times", "64", "--normal_noise_std", "0.0025"],
+    "52": ["--max_recursive_level", "1", "--app_control_mirror_roughness",
+           "--trace_ray_times", "64", "--normal_noise_std", "0.01",
+           "--normal_noise_std_changes"],
+    "6": ["--max_recursive_level", "1", "--app_reflection_substitution",
+          "--substitution_ckpt_path", "CKPT"],
+}
+# the view's progress in phase 19's 800×800 views: the guest's frame time
+# and, for mode 52, half of its noise std
+APP_PROGRESS = {"4_d_nerf": 0.5, "52": 0.25}
 # the least time the card could take (`bound_ms`): operations over the fp32
 # peak of the CUDA cores, bytes over the memory rate (NVIDIA H100 SXM data
 # sheet, dense, at 700 W). Operations count multiply-adds as 2 and leave out
@@ -2892,6 +2933,249 @@ def phase_grad_normal_views(torch, card: str) -> None:
             f"forward {n[0]}, ENCODE {n[1]}, BWD {n[2]} ({card})")
 
 
+def _write_guests(torch, path: Path) -> None:
+    """(19) The guest objects' files: a seeded full-width D-NeRF .tar (8×256,
+    posenc 10/4, 64 samples, no fine net; the α bias +20: an opaque shell
+    at the object's near plane, 2 from each ray's origin in its frame, 1 in
+    the livingroom scene's)
+    with its config.txt, and a nerf_pl Lightning .ckpt (the flagship
+    without heads, the σ column |w|·5)."""
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.models.guests import (DNeRFField,
+                                                     dnerf_state_dict)
+    from mirror_nerf_tpu_torch.train.checkpoints import save_torch_ckpt
+
+    path.mkdir(parents=True)
+    dp = DNeRFField().init(torch.Generator().manual_seed(31))
+    dp["alpha"]["b"] = dp["alpha"]["b"] + 20.0
+    torch.save({"global_step": 0,
+                "network_fn_state_dict": dnerf_state_dict(dp),
+                "network_fine_state_dict": None}, path / "dnerf.tar")
+    (path / "config.txt").write_text(
+        "netdepth = 8\nnetwidth = 256\nmultires = 10\nmultires_views = 4\n"
+        "N_samples = 64\nN_importance = 0\nuse_viewdirs = True\n")
+    field = MirrorNeRFField(predict_normal=False, predict_mirror_mask=False)
+    g = torch.Generator().manual_seed(32)
+    save_torch_ckpt(str(path / "nerf_pl.ckpt"),
+                    {k: _sigma_scaled(field.init(g), 5.0)
+                     for k in ("coarse", "fine")})
+
+
+def _app_ctx(torch, flags: list, device: str):
+    """An eval context for `flags` on `device`, its weights from the
+    flags' --ckpt_path."""
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.apps import AppContext
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+
+    cfg, args = get_opt(flags)
+    field = make_field(cfg)
+    return AppContext.build(cfg, args, field,
+                            init_params(field, cfg, device), device)
+
+
+def _app_noises(torch, ctx, n: int, progress: float):
+    """The roughness bundles' normal perturbations for n rays, drawn on the
+    CPU from a fixed seed (the same for the card and the plain version)."""
+    import numpy as np
+
+    if not ctx.app.roughness:
+        return None
+    a = ctx.args
+    cycle = progress * 2 if progress < 0.5 else 1 - (progress - 0.5) * 2
+    std = a.normal_noise_std * (cycle if a.normal_noise_std_changes else 1)
+    z = np.random.default_rng(19).normal(
+        size=(a.trace_ray_times + 1, n, 3)).astype(np.float32) * std
+    return [torch.from_numpy(v) for v in z]
+
+
+def _app_vs_plain(torch, mode: str, flags: list, rays_np, progress: float,
+                  n: int = 256) -> None:
+    """(19) One application on the card against the plain version on the
+    CPU, n strided rays of the view, the same weights and injected noise:
+    the level-0 mirror mask agrees on ≥ 99 % of the rays, and where it does
+    every output is within RENDER_ATOL. The deep trace is held so at 5
+    levels. At its 50 the error is logged and the levels reached must
+    agree: a ray that is a mirror at every level (phase 7's checkpoint
+    makes every ray one) follows a 50-bounce path on which fp32 differences
+    grow bounce by bounce, so its last level's colour is ill-conditioned."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval.apps import render_chunk
+
+    sub = torch.from_numpy(rays_np[::len(rays_np) // n][:n].copy())
+
+    def run(fl):
+        out = {}
+        with torch.no_grad():
+            for dev in ("cuda", "cpu"):
+                ctx = _app_ctx(torch, fl, dev)
+                noises = _app_noises(torch, ctx, n, progress)
+                res = render_chunk(ctx, sub.to(ctx.device), 1.0, progress,
+                                   noises and [z.to(ctx.device)
+                                               for z in noises])
+                out[dev] = {k: (v.cpu().numpy() if torch.is_tensor(v)
+                                else v) for k, v in res.items()}
+        return out, ctx.deep
+
+    def compare(out, what):
+        g, c = out["cuda"], out["cpu"]
+        same = g["mirror_mask_resolved"] == c["mirror_mask_resolved"]
+        assert same.any(), (mode, what)
+        errs = {}
+        for k in ("rgb_fine", "depth_fine", "rgb_fine_reflect",
+                  "depth_fine_reflect"):
+            errs[k] = np.abs(g[k] - c[k]).reshape(n, -1).max(-1)[same]
+        log(f"[apps] mode {mode}{what} card vs plain CPU, {n} rays: "
+            f"level-0 mirror mask agrees on {100 * same.mean():.2f}% "
+            f"(mirror fraction {float(c['mirror_mask_resolved'].mean()):.3f}"
+            f"); there max abs err " + ", ".join(
+                f"{k} {e.max():.2e} (median {np.median(e):.1e}, "
+                f"{100 * (e <= RENDER_ATOL).mean():.1f}% within "
+                f"{RENDER_ATOL})" for k, e in errs.items()))
+        assert same.mean() >= 0.99, (mode, what, same.mean())
+        return max(float(e.max()) for e in errs.values())
+
+    out, deep = run(flags)
+    err = compare(out, "")
+    if not deep:
+        assert err <= RENDER_ATOL, (mode, err)
+        return
+    levels = (out["cuda"]["_deep_levels"], out["cpu"]["_deep_levels"])
+    log(f"[apps] mode {mode}: deep trace to level {levels[0]} on the card, "
+        f"{levels[1]} on the CPU")
+    assert levels[0] == levels[1], levels
+    out5, _ = run(flags + ["--max_recursive_level", "5"])
+    err = compare(out5, " at 5 levels")
+    assert err <= RENDER_ATOL, (mode, err)
+
+
+def phase_applications(torch, card: str) -> dict:
+    """(19) The four applications (run.sh modes 3, 4 with both guests, 5,
+    52, 6) on the CP grid at full width with --fused_field, from phase 7's
+    trained last.ckpt.npz. Returns each kernel's launches on this path."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import main as eval_main
+    from mirror_nerf_tpu_torch.eval.apps import run_view
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_hash, fused_mlp_t
+    from mirror_nerf_tpu_torch.ops import fused_cp_train as fct
+    from mirror_nerf_tpu_torch.train.checkpoints import save_pytree
+
+    train_dir = WORK / "train"
+    ckpt = str(next(train_dir.glob("logs/*_smoke/last.ckpt.npz")))
+    work = WORK / "apps"
+    _write_guests(torch, work / "guests")
+    # phase 7's scene under the name of run.sh's default scene, whose
+    # presets the applications take: the new mirror the plane x = 0, the
+    # guest object at scale 2
+    scene = work / "livingroom"
+    scene.symlink_to(train_dir / "scene", target_is_directory=True)
+
+    def flags(mode, normal=True):
+        fl = EVAL_FLAGS + [a.replace("GUESTS", str(work / "guests"))
+                           .replace("CKPT", ckpt) for a in APP_MODES[mode]]
+        fl += ["--ckpt_path", ckpt, "--root_dir", str(scene)]
+        return fl if normal else [f for f in fl if f != "--predict_normal"]
+
+    counts = {"composite": 0, "train_fwd": 0, "flagship": 0, "hash": 0}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # the eval CLI, run.sh's flags at phase 7's 64×64 scene
+        for mode in APP_MODES:
+            fused_cp.launches = 0
+            t0 = time.perf_counter()
+            out = eval_main(flags(mode) + ["--img_wh", "64", "64", "--split",
+                                           "test", "--exp_name",
+                                           f"smoke_app{mode}"])
+            n = fused_cp.launches
+            with open(os.path.join(out, "psnr.json")) as f:
+                table = json.load(f)
+            assert np.isfinite(table["psnrs"]).all(), (mode, table)
+            assert "rgb_fine_000.png" in os.listdir(out), mode
+            assert n > 0, f"mode {mode}: the eval CLI never launched"
+            counts["composite"] += n
+            log(f"[apps] eval CLI mode {mode}: test PSNR "
+                f"{table['mean_psnr']:.2f} (phase 7's checkpoint), "
+                f"COMPOSITE launches {n}, {time.perf_counter() - t0:.1f} s")
+        # one 800×800 view per application (COMPOSITE), then a 128×128 one
+        # without --predict_normal (∇σ: the train forward)
+        rays_np = _view_rays(800)
+        small_np = _view_rays(128)
+        for mode in APP_MODES:
+            progress = APP_PROGRESS.get(mode, 0.0)
+            for normal, rays, size in ((True, rays_np, "800x800"),
+                                       (False, small_np, "128x128")):
+                ctx = _app_ctx(torch, flags(mode, normal) + [
+                    "--img_wh", size.split("x")[0], size.split("x")[1]],
+                    "cuda")
+                fused_cp.launches = fct.launches_fwd = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run_view(ctx, {"rays": rays}, progress, 0)
+                wall = time.perf_counter() - t0
+                n = (fused_cp.launches, fct.launches_fwd)
+                for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved",
+                          "rgb_fine_reflect"):
+                    assert res[k].shape[0] == len(rays), (mode, k)
+                    assert np.isfinite(res[k]).all(), (mode, k)
+                assert n[0 if normal else 1] > 0, (mode, normal, n)
+                counts["composite"] += n[0]
+                counts["train_fwd"] += n[1]
+                log(f"[apps] mode {mode}, {size} view"
+                    + ("" if normal else " without --predict_normal (∇σ)")
+                    + f", progress {progress}: {wall:.3f} s -> "
+                    f"{len(rays) / wall:.1f} rays/s ({card}); launches "
+                    f"COMPOSITE {n[0]}, train forward {n[1]}; mirror "
+                    f"fraction {float(res['mirror_mask_resolved'].mean()):.4f}"
+                    + (f"; deep trace to level {ctx.deep_levels}"
+                       if ctx.deep else ""))
+        for mode in APP_MODES:
+            _app_vs_plain(torch, mode, flags(mode), rays_np,
+                          APP_PROGRESS.get(mode, 0.0))
+
+        # mode 3 for the flagship at 400×300 and the hash grid (fused) at
+        # 64×64, seeded weights
+        mode3 = APP_MODES["3"] + ["--root_dir", str(scene)]
+        cfg_flags = NERF_EVAL_FLAGS + mode3 + ["--img_wh", "400", "300"]
+        ctx = _app_ctx(torch, cfg_flags, "cuda")
+        ctx.params = {k: _sigma_scaled(v, 5.0) for k, v in
+                      ctx.params.items()}
+        fused_mlp_t.launches = 0
+        t0 = time.perf_counter()
+        rays = _view_rays(400, 300)
+        res = run_view(ctx, {"rays": rays})
+        wall = time.perf_counter() - t0
+        counts["flagship"] = fused_mlp_t.launches
+        assert counts["flagship"] > 0 and np.isfinite(res["rgb_fine"]).all()
+        log(f"[apps] mode 3, flagship 400x300 view (seeded, σ column "
+            f"|w|·5): {wall:.3f} s -> {len(rays) / wall:.1f} rays/s "
+            f"({card}); "
+            f"flagship kernel launches {counts['flagship']}; deep trace to "
+            f"level {ctx.deep_levels}")
+        ngp = _app_ctx(torch, NGP_EVAL_FLAGS + ["--fused_field"] + mode3,
+                       "cpu")
+        save_pytree("ngp.npz", {k: _dense_scaled(ngp.field, _all_mirror(v))
+                                for k, v in ngp.params.items()})
+        fused_hash.launches = 0
+        out = eval_main(NGP_EVAL_FLAGS + ["--fused_field"] + mode3 + [
+            "--img_wh", "64", "64", "--split", "test", "--ckpt_path",
+            "ngp.npz", "--exp_name", "smoke_app3_ngp"])
+        counts["hash"] = fused_hash.launches
+        with open(os.path.join(out, "psnr.json")) as f:
+            table = json.load(f)
+        assert counts["hash"] > 0 and np.isfinite(table["mean_psnr"]), table
+        log(f"[apps] mode 3, hash grid --fused_field eval CLI (all-mirror, "
+            f"dense levels ×1e4): test PSNR {table['mean_psnr']:.2f}, fused "
+            f"NGP composite launches {counts['hash']}")
+        log(f"[apps] launches on the applications' path: {counts}")
+        return counts
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     import torch
 
@@ -2943,6 +3227,11 @@ def main() -> int:
         card)
     timed("views about the σ-gradient normal", phase_grad_normal_views,
           torch, card)
+    apps = timed("applications", phase_applications, torch, card)
+    # the applications' launches join each kernel's count
+    for e, k in ((entry, "composite"), (fwd_entry, "train_fwd"),
+                 (mlp_entry, "flagship"), (hash_entries[0], "hash")):
+        e["launches"] += apps[k]
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,

@@ -17,9 +17,18 @@ compositing in PyTorch, as the JAX package runs them on XLA. `--ckpt_path`
 takes an npz (either package's) or a reference torch Lightning `.ckpt` of
 the PE-MLP or the hash-grid (MirrorNeRFTcnn) layout. `--device` (default
 `cuda`) picks where parameters and rays live; a CUDA run goes through the
-port's kernels, a CPU run through their plain versions. Not ported yet: the
-four applications, `--megabatch` and `--proposal_drop_levels` (TPU
-workarounds) and LPIPS (weights absent).
+port's kernels, a CPU run through their plain versions.
+
+The four applications run with the reference's flags (eval/apps.py):
+`--app_place_new_mirror --plane_pos plane_x|plane_y` (run.sh mode 3, a
+50-level trace through `eval_trace_deep`), `--app_reflect_newly_placed_objects
+--obj_ckpt_path <D-NeRF .tar | nerf_pl .ckpt> --obj_model_type d_nerf|nerf_pl`
+(mode 4; the guest's time is the view's index over the split's size),
+`--app_control_mirror_roughness --trace_ray_times T --normal_noise_std s
+[--normal_noise_std_changes]` (modes 5, 52) and
+`--app_reflection_substitution --substitution_ckpt_path <ckpt>` (mode 6).
+Not ported: `--megabatch` and `--proposal_drop_levels` (TPU workarounds)
+and LPIPS (weights absent).
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ def get_opt(argv=None):
     parser.add_argument("--secondary_N_samples", type=int, default=-1)
     parser.add_argument("--secondary_N_importance", type=int, default=-1)
     parser.add_argument("--device", type=str, default="cuda")
-    # applications (not ported yet: each raises)
+    # applications
     parser.add_argument("--app_control_mirror_roughness", default=False,
                         action="store_true")
     parser.add_argument("--trace_ray_times", type=int, default=4)
@@ -150,8 +159,9 @@ def main(argv=None):
         if args.only_eval_idx >= 0 and i != args.only_eval_idx:
             continue
         sample = dataset.get_image(i)
+        progress = i / max(n_views, 1)
         t0 = time.perf_counter()
-        results = run_view(ctx, sample)  # numpy: synchronized
+        results = run_view(ctx, sample, progress, i)  # numpy: synchronized
         view_secs.append(time.perf_counter() - t0)
         if "compact_dropped" in results:
             n_drop = float(np.sum(results["compact_dropped"]))

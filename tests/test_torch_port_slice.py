@@ -144,9 +144,11 @@ def test_unported_paths_raise():
     from mirror_nerf_tpu_torch.eval.cli import get_opt
     from mirror_nerf_tpu_torch.models.fields import make_field
 
+    # (named for the refusals it pinned until the applications were
+    # ported) an application without its checkpoint exits as JAX's does
     cfg, args = get_opt(["--model_type", "nerf_tpu", "--predict_normal",
-                         "--app_place_new_mirror"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                         "--app_reflection_substitution"])
+    with pytest.raises(SystemExit, match="substitution_ckpt_path required"):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
     # multi-GPU eval is ROADMAP queue 1, item 9 (torch.distributed)
     cfg, args = get_opt(["--model_type", "nerf_tpu", "--predict_normal",
