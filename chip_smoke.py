@@ -191,7 +191,27 @@ each fatal on failure:
      mode 3 for the flagship (a 400×300 view, its kernel) and the hash
      grid (--fused_field, the eval CLI at 64×64, the fused NGP composite).
      The applications' launches join the four kernels' counts in the
-     kernels line.
+     kernels line. Check C1: mode 3 to level 50 on the same 256 rays on
+     the card, on the CPU in fp32 and in float64, T and the rendered rgb
+     level by level against float64's; check C2: the D-NeRF guest at scale
+     8 (its near plane in front of the scene) drawn on some rays, card
+     against CPU there;
+ 20. a real capture and the mesh (run.sh mode 2): an ARKit-layout capture
+     at the lounge preset's geometry (480×360, near 0.05, far 8, bound 6)
+     through the train CLI (real_arkit, run.sh mode 0's nerf_tpu flags,
+     one geometry epoch), its checkpoint through the mesh CLI with mode 2's
+     flags at --N_grid 256 in both color modes (the box ±0.15 around the
+     room's wall a view's centre pixel outside the mirror sees, or, if
+     the one-epoch field has no surface there, its densest point on that
+     ray; --sigma_threshold 20, or the σ quantile that gives 1e5–5e6
+     faces); the σ query's time, points/s and train forward launches, the
+     host's marching tetrahedra, cluster and PLY times, the color passes'
+     rays/s and COMPOSITE launches, vertex and face counts, peak host and
+     device memory; the CP σ grid (32³), the hash grid's (ENCODE) and the
+     flagship's (points mode) at 128³ from seeded weights, card against
+     CPU within 1e-4 scaled above 1, and the vertex-normal colors of 256
+     vertices within 1e-3; a COLMAP capture's view through the eval CLI.
+     Its launches join rows 1, 2, 3, 6 and 9's (ENCODE) counts.
 
 Each phase prints its wall time. The script prints one JSON line with the
 twenty-one kernels' numbers (each with the least time the card could take for
@@ -2990,6 +3010,125 @@ def _app_noises(torch, ctx, n: int, progress: float):
     return [torch.from_numpy(v) for v in z]
 
 
+def _cast_tree(torch, tree, dtype):
+    return torch.utils._pytree.tree_map(
+        lambda t: t.to(dtype) if torch.is_tensor(t) else t, tree)
+
+
+def _deep_vs_float64(torch, flags: list, sub) -> dict:
+    """(19, C1) Mode 3's deep trace on the same rays to level 50: the card
+    (fp32 kernels), the plain version on the CPU in fp32 and in float64,
+    the same weights (no noise in mode 3). Per level: the rays whose
+    throughput T differs from float64's, and the largest |rgb − float64's|
+    over the rays float64 still carries into that level; then the final
+    rgb_fine's distance to float64, the card's beside the CPU's."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval.apps import eval_trace_deep
+
+    runs = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32),
+                             ("cpu", "cpu", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+        ctx = _app_ctx(torch, flags, dev)
+        levels = []
+        with torch.no_grad():
+            res = eval_trace_deep(
+                ctx.field, {k: _cast_tree(torch, v, dtype)
+                            for k, v in ctx.params.items()},
+                sub.to(dev, dtype), ctx.rs, ctx.app,
+                ctx.cfg.max_recursive_level, ctx.cfg.trace_secondary_rays,
+                rs_secondary=ctx.rs_sec, levels=levels)
+        runs[name] = ([(t.double().cpu().numpy(), r.double().cpu().numpy())
+                       for t, r in levels],
+                      res["rgb_fine"].double().cpu().numpy())
+    ref = runs["f64"][0]
+    n = min(len(ref), *(len(runs[k][0]) for k in ("card", "cpu")))
+    first_apart = None
+    for lv in range(n):
+        alive = (np.ones(len(sub), bool) if lv == 0 else ref[lv - 1][0] > 0)
+        row = {}
+        for k in ("card", "cpu"):
+            t, rgb = runs[k][0][lv]
+            row[k] = (int((t != ref[lv][0]).sum()),
+                      float(np.abs(rgb - ref[lv][1]).max(-1)[alive].max()
+                            if alive.any() else 0.0))
+        if first_apart is None and row["card"][1] > 2 * row["cpu"][1] + 1e-6:
+            first_apart = lv
+        if lv < 3 or lv % 10 == 0 or lv == n - 1 or row["card"][0] \
+                or row["cpu"][0]:
+            log(f"[apps] C1 level {lv}: T differs from float64 on card "
+                f"{row['card'][0]} / CPU {row['cpu'][0]} rays; rendered rgb "
+                f"max |Δ| card {row['card'][1]:.3e}, CPU {row['cpu'][1]:.3e}")
+    errs = {k: np.abs(runs[k][1] - runs["f64"][1]).max(-1)
+            for k in ("card", "cpu")}
+    out = {k: float(e.max()) for k, e in errs.items()}
+    lv0 = {k: float(np.abs(runs[k][0][0][1] - ref[0][1]).max())
+           for k in ("card", "cpu")}
+    out["ratio0"] = lv0["card"] / max(lv0["cpu"], 1e-12)
+    log(f"[apps] C1 mode 3 to level 50, {len(sub)} rays, levels rendered "
+        f"card {len(runs['card'][0]) - 1}, CPU {len(runs['cpu'][0]) - 1}, "
+        f"float64 {len(ref) - 1}: rgb_fine max |Δ| to float64 card "
+        f"{out['card']:.3e} (median {np.median(errs['card']):.1e}), CPU "
+        f"fp32 {out['cpu']:.3e} (median {np.median(errs['cpu']):.1e}); "
+        f"first level where the card's rendered rgb is over 2x the CPU's "
+        f"distance: {first_apart}")
+    return out
+
+
+def _guest_drawn(torch, flags: list, rays_np, n: int = 256) -> int:
+    """(19, C2) The D-NeRF guest, scaled so that its opaque shell lies at
+    the median depth of the scene on these rays: the preset's scale 2 puts
+    it at ~1, behind every depth of phase 7's checkpoint, and it is drawn
+    on none. On n strided rays, the rays where it is drawn at level 0 (the
+    composited depth is the guest's, its opacity above 0.8): the card's
+    and the CPU's sets agree on ≥ 99 % and the card is within RENDER_ATOL
+    of the plain version there. Returns the count."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval.apps import render_chunk
+
+    sub = torch.from_numpy(rays_np[::len(rays_np) // n][:n].copy())
+    t = APP_PROGRESS["4_d_nerf"]
+    with torch.no_grad():
+        ctx = _app_ctx(torch, flags, "cpu")
+        (_, s0) = ctx.obj_render_fn.transform
+        scene = render_chunk(ctx, sub, 1.0, t)["depth_fine"]
+        rays_obj = sub.clone()
+        rays_obj[:, 0:3] = sub[:, 0:3] * s0
+        shell = ctx.obj_render_fn(rays_obj, t)["depth"]
+        scale = float(shell.median() / scene.median())
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ctx = _app_ctx(torch, flags, dev)
+            fn = ctx.obj_render_fn
+            fn.transform = ((0.0, 0.0, 0.0), scale)
+            rays = sub.to(dev)
+            res = render_chunk(ctx, rays, 1.0, t)
+            rays_obj = rays.clone()
+            rays_obj[:, 0:3] = rays[:, 0:3] * scale
+            obj = fn(rays_obj, t)
+            drawn = ((res["depth_fine"] == obj["depth"] / scale)
+                     & (obj["opacity"] > 0.8))
+            out[dev] = {k: res[k].cpu().numpy() for k in (
+                "rgb_fine", "depth_fine", "mirror_mask_resolved")}
+            out[dev]["drawn"] = drawn.cpu().numpy()
+    g, c = out["cuda"], out["cpu"]
+    both = g["drawn"] & c["drawn"]
+    errs = {k: float(np.abs(g[k] - c[k]).reshape(n, -1).max(-1)[both].max())
+            for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved")} \
+        if both.any() else {}
+    log(f"[apps] C2 D-NeRF guest at scale {scale:.4f} (its shell at the "
+        f"scene's median depth {float(scene.median()):.4f}; the preset's "
+        f"scale {s0}): drawn on {int(g['drawn'].sum())} of {n} rays on the "
+        f"card, {int(c['drawn'].sum())} on the CPU, {int(both.sum())} on "
+        f"both; there card vs plain CPU max abs err {errs}")
+    assert both.any() and (g["drawn"] == c["drawn"]).mean() >= 0.99, (
+        g["drawn"].sum(), c["drawn"].sum())
+    assert max(errs.values()) <= RENDER_ATOL, errs
+    return int(both.sum())
+
+
 def _app_vs_plain(torch, mode: str, flags: list, rays_np, progress: float,
                   n: int = 256) -> None:
     """(19) One application on the card against the plain version on the
@@ -3041,7 +3180,7 @@ def _app_vs_plain(torch, mode: str, flags: list, rays_np, progress: float,
     err = compare(out, "")
     if not deep:
         assert err <= RENDER_ATOL, (mode, err)
-        return
+        return None
     levels = (out["cuda"]["_deep_levels"], out["cpu"]["_deep_levels"])
     log(f"[apps] mode {mode}: deep trace to level {levels[0]} on the card, "
         f"{levels[1]} on the CPU")
@@ -3049,6 +3188,7 @@ def _app_vs_plain(torch, mode: str, flags: list, rays_np, progress: float,
     out5, _ = run(flags + ["--max_recursive_level", "5"])
     err = compare(out5, " at 5 levels")
     assert err <= RENDER_ATOL, (mode, err)
+    return _deep_vs_float64(torch, flags, sub)
 
 
 def phase_applications(torch, card: str) -> dict:
@@ -3132,9 +3272,17 @@ def phase_applications(torch, card: str) -> dict:
                     f"fraction {float(res['mirror_mask_resolved'].mean()):.4f}"
                     + (f"; deep trace to level {ctx.deep_levels}"
                        if ctx.deep else ""))
+        c1 = {}
         for mode in APP_MODES:
-            _app_vs_plain(torch, mode, flags(mode), rays_np,
-                          APP_PROGRESS.get(mode, 0.0))
+            c1[mode] = _app_vs_plain(torch, mode, flags(mode), rays_np,
+                                     APP_PROGRESS.get(mode, 0.0))
+        # C1: the card's distance to float64 at level 50 grows no more than
+        # the CPU's: its kernels start ~3x the CPU's fp32 distance at level
+        # 0 (both ~1e-7), and a fault of the card's would widen that ratio
+        # bounce by bounce
+        d = c1["3"]
+        assert d["card"] <= max(d["ratio0"], 1.0) * 1.5 * d["cpu"], d
+        _guest_drawn(torch, flags("4_d_nerf"), rays_np)
 
         # mode 3 for the flagship at 400×300 and the hash grid (fused) at
         # 64×64, seeded weights
@@ -3171,6 +3319,312 @@ def phase_applications(torch, card: str) -> dict:
             f"dense levels ×1e4): test PSNR {table['mean_psnr']:.2f}, fused "
             f"NGP composite launches {counts['hash']}")
         log(f"[apps] launches on the applications' path: {counts}")
+        return counts
+    finally:
+        os.chdir(cwd)
+
+
+# run.sh's lounge preset (real_arkit, near 0.05, far 8, 480×360, bound 6;
+# scale_factor 1 for nerf_tpu) and mode 2's flags, the box filled in by
+# phase 20
+LOUNGE = ["--dataset_name", "real_arkit", "--near", "0.05", "--far", "8",
+          "--scale_factor", "1", "--img_wh", "480", "360", "--bound", "6"]
+MESH_FLAGS = ["--model_type", "nerf_tpu", "--predict_normal",
+              "--predict_mirror_mask", "--trace_secondary_rays",
+              "--N_importance", "64", "--N_grid", "256", "--color_mesh"]
+# the mesh's face counts phase 20 accepts at --sigma_threshold 20; outside
+# them it takes the σ quantile that gives a count inside (host memory of
+# the numpy marching tetrahedra)
+MESH_FACES = (1e5, 5e6)
+
+
+def _with(flags: list, **values) -> list:
+    """`flags` with each --name's value replaced."""
+    out = list(flags)
+    for k, v in values.items():
+        out[out.index(f"--{k}") + 1] = v
+    return out
+
+
+def _faces_estimate(sigma, thr: float) -> float:
+    """Faces of the iso-surface at thr, from the grid edges it crosses
+    (about two faces an edge crossing on the 6-tetrahedra split)."""
+    import numpy as np
+
+    inside = sigma > thr
+    return 2.0 * sum(float((np.diff(inside, axis=a) != 0).sum())
+                     for a in range(3))
+
+
+def _pick_threshold(sigma):
+    """(threshold, why): run.sh's --sigma_threshold 20 when its mesh has
+    MESH_FACES faces, else the first quantile of the positive σ, from the
+    top, whose mesh has; None when none has."""
+    import numpy as np
+
+    if MESH_FACES[0] <= _faces_estimate(sigma, 20.0) <= MESH_FACES[1]:
+        return 20.0, "run.sh's 20"
+    pos = sigma[sigma > 0]
+    for q in (0.999, 0.995, 0.99, 0.98, 0.95, 0.9, 0.8, 0.7, 0.6, 0.5,
+              0.4, 0.3, 0.2, 0.1):
+        thr = float(np.quantile(pos, q)) if pos.size else 0.0
+        if MESH_FACES[0] <= _faces_estimate(sigma, thr) <= MESH_FACES[1]:
+            return thr, f"the positive σ's quantile {q}"
+    return None
+
+
+class _HostPeak:
+    """The largest resident set of this process while the `with` block
+    runs, sampled every 20 ms from /proc/self/status (the kernel's own
+    peak, VmHWM, can only be reset through /proc/self/clear_refs, which a
+    container may refuse)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while True:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        self.peak = max(self.peak, int(line.split()[1]))
+            if self._stop.wait(0.02):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    @property
+    def gib(self) -> float:
+        return self.peak / 2 ** 20
+
+
+def _sigma_card_vs_cpu(torch, field, params: dict, n: int, box, chunk: int,
+                       tag: str) -> float:
+    """A σ grid through `query_sigma_grid` on the card against the same on
+    the CPU (the plain version), max|Δ| / max(1, max|σ|)."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval.mesh import query_sigma_grid
+
+    got = query_sigma_grid(field, params, n, *box, chunk=chunk,
+                           device="cuda")
+    want = query_sigma_grid(field, torch.utils._pytree.tree_map(
+        lambda t: t.cpu(), params), n, *box, chunk=chunk, device="cpu")
+    err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want)
+                                                           .max()))
+    log(f"[mesh] {tag}: σ grid {n}³ card vs plain CPU, max |Δ| / "
+        f"max(1, max σ) {err:.2e} (bar {KERNEL_ATOL}); σ in "
+        f"[{want.min():.3g}, {want.max():.3g}], {100 * (want > 0).mean():.1f}"
+        f" % above 0")
+    assert err <= KERNEL_ATOL, (tag, err)
+    return err
+
+
+def phase_real_capture_and_mesh(torch, card: str) -> dict:
+    """(20) A generated capture in the ARKit layout at the lounge preset's
+    geometry through the train CLI (real_arkit, one short epoch), its
+    checkpoint through the mesh CLI with mode 2's flags at --N_grid 256 in
+    both color modes, a COLMAP capture through the eval CLI, and the σ
+    routes and the vertex colors card against CPU. Returns each kernel's
+    launches on this path."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.data.real_arkit import RealDatasetARKit
+    from mirror_nerf_tpu_torch.data.synthetic import (generate_scene_arkit,
+                                                      generate_scene_colmap,
+                                                      trace_gt)
+    from mirror_nerf_tpu_torch.eval import main as eval_main
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.eval.mesh import (query_sigma_grid, read_ply,
+                                                 sigma_route, vertex_normals)
+    from mirror_nerf_tpu_torch.mesh import cli as mesh_cli
+    from mirror_nerf_tpu_torch.models.fields import (MirrorNeRFField,
+                                                     make_field)
+    from mirror_nerf_tpu_torch.models.ngp import NGPField
+    from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp, hashgrid
+    from mirror_nerf_tpu_torch.ops import fused_cp_train as fct
+    from mirror_nerf_tpu_torch.train.cli import main as train_main
+
+    work = WORK / "mesh"
+    work.mkdir(parents=True)
+    counts = {"composite": 0, "train_fwd": 0, "train_bwd": 0, "points": 0,
+              "encode": 0}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        generate_scene_arkit("lounge", n_train=3, n_val=1, n_test=1,
+                             img_wh=(480, 360))
+        generate_scene_colmap("colmap", n_images=3, img_wh=(64, 48))
+        log(f"[mesh] captures written (ARKit 3 + 1 + 1 frames at 480x360, "
+            f"COLMAP 3 at 64x48): {time.perf_counter() - t0:.1f} s")
+
+        # train: run.sh mode 0's nerf_tpu flags, one (geometry) epoch
+        flags = _with(TRAIN_FLAGS, dataset_name="real_arkit", num_epochs="1")
+        fct.launches_fwd = fct.launches_bwd = 0
+        t0 = time.perf_counter()
+        tr = train_main(flags + ["--root_dir", "lounge", "--img_wh", "480",
+                                 "360", "--scale_factor", "1",
+                                 "--exp_name", "lounge"])
+        wall = time.perf_counter() - t0
+        vals = [json.loads(x) for x in open(os.path.join(
+            tr.workdir, "val_metrics.jsonl"))]
+        assert np.isfinite(vals[-1]["loss"]) and fct.launches_bwd > 0
+        counts["train_fwd"] += fct.launches_fwd
+        counts["train_bwd"] += fct.launches_bwd
+        log(f"[mesh] train CLI on the real_arkit capture (3 views at "
+            f"480x360, one geometry epoch, {tr.global_step} steps): "
+            f"{wall:.1f} s, {vals[-1]['rays_per_sec']:.1f} rays/s at batch "
+            f"1024 ({card}); val psnr {vals[-1]['val_psnr']:.2f}; train "
+            f"kernel launches fwd {fct.launches_fwd}, bwd {fct.launches_bwd}")
+        ckpt = os.path.join(tr.workdir, "last.ckpt.npz")
+
+        # the box: ±0.15 (mode 2's size) around the room's wall where the
+        # ray of the val view's pixel nearest its centre outside the mirror
+        # (GT mask 0) meets it (the generator's exact depth), in the
+        # capture's centred frame; if the trained field has no surface
+        # there yet (one epoch), around the field's densest point on that
+        # ray
+        ds = RealDatasetARKit("lounge", "val", (480, 360),
+                              mesh_cli.get_opt(LOUNGE)[0])
+        cfg, _ = mesh_cli.get_opt(LOUNGE + MESH_FLAGS + ["--ckpt_path",
+                                                         ckpt])
+        field = make_field(cfg)
+        params = init_params(field, cfg, "cuda")
+        val = ds.get_image(0)
+        yx = np.argwhere(val["mirror_mask"].reshape(360, 480) == 0)
+        px = yx[np.argmin(((yx - [180, 240]) ** 2).sum(-1))]
+        ray = val["rays"][px[0] * 480 + px[1]]
+        avg = np.eye(4)
+        avg[:3] = ds.pose_avg
+        wall_depth = float(trace_gt((avg @ np.append(ray[:3], 1.0))[None, :3],
+                                    (avg[:3, :3] @ ray[3:6])[None])[2][0])
+        t = np.linspace(ray[6], ray[7], 4096, dtype=np.float32)
+        pts = ray[None, :3] + t[:, None] * ray[None, 3:6]
+        with torch.no_grad():
+            on_ray = sigma_route(field, params["fine"], "cuda")[1](
+                torch.from_numpy(pts).cuda()).cpu().numpy()
+        picked = None
+        for where, depth in (("the room's wall", wall_depth),
+                             ("the field's densest point on the ray",
+                              float(t[int(np.argmax(on_ray))]))):
+            c = ray[:3] + ray[3:6] * depth
+            box = [(float(v - 0.15), float(v + 0.15)) for v in c]
+            sigma = query_sigma_grid(field, params["fine"], 256, *box,
+                                     chunk=cfg.chunk, device="cuda")
+            picked = _pick_threshold(sigma)
+            log(f"[mesh] val view pixel {tuple(int(v) for v in px)} "
+                f"(outside the mirror): {where} at depth {depth:.4f} (the "
+                f"wall's {wall_depth:.4f}), {c.round(4)}: σ in the box "
+                f"[{sigma.min():.3g}, {sigma.max():.3g}], "
+                f"{'a' if picked else 'no'} threshold for "
+                f"{MESH_FACES[0]:.0e}–{MESH_FACES[1]:.0e} faces")
+            if picked:
+                break
+        assert picked, "no box on the ray holds a surface of the field"
+        thr, which = picked
+        base = LOUNGE + MESH_FLAGS + [
+            "--root_dir", "lounge", "--ckpt_path", ckpt, "--exp_name",
+            "lounge_mesh"] + sum(([f"--{a}_range", str(lo), str(hi)]
+                                  for a, (lo, hi) in zip("xyz", box)), [])
+        log(f"[mesh] box {[tuple(round(v, 4) for v in b) for b in box]}: σ "
+            f"in [{sigma.min():.3g}, {sigma.max():.3g}], median "
+            f"{np.median(sigma):.3g}; --sigma_threshold {thr:.6g} "
+            f"({which}; an estimated {_faces_estimate(sigma, thr):.0f} "
+            f"faces)")
+        mesh_dir = None
+        for normal in (True, False):
+            fused_cp.launches = fct.launches_fwd = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _HostPeak() as host:
+                r = mesh_cli.extract(*mesh_cli.get_opt(
+                    base + ["--sigma_threshold", str(thr)]
+                    + (["--use_vertex_normal"] if normal else [])))
+            wall = time.perf_counter() - t0
+            mesh_dir = r["dir"]
+            n = (fct.launches_fwd, fused_cp.launches)
+            assert r["vertices"] > 0 and r["faces"] > 0, r
+            assert n[0] > 0 and n[1] > 0, n
+            assert r["routes"] == {"sigma": "CP train forward, density only",
+                                   "colors_fused": True}, r["routes"]
+            for f in ("lounge_mesh.ply", "noise_free.ply",
+                      "lounge_mesh_colored.ply"):
+                assert os.path.getsize(os.path.join(mesh_dir, f)) > 0, f
+            counts["train_fwd"] += n[0]
+            counts["composite"] += n[1]
+            mode = "vertex-normal" if normal else "multi-view"
+            log(f"[mesh] mesh CLI, {mode} colors, --N_grid 256: "
+                f"{wall:.1f} s; σ query "
+                f"{r['sigma_s']:.3f} s, {r['points_per_s']:.4g} points/s, "
+                f"train forward launches {n[0]}; marching tetrahedra "
+                f"{r['marching_s']:.2f} s, largest cluster "
+                f"{r['cluster_s']:.2f} s, PLY {r['ply_s']:.2f} s (host); "
+                f"colors {r['color_s']:.2f} s, {r['color_rays']} rays, "
+                f"{r['color_rays_per_s']:.4g} rays/s, COMPOSITE launches "
+                f"{n[1]}; {r['vertices']} vertices, {r['faces']} faces; "
+                f"peak host {host.gib:.2f} GiB (resident), device "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                f"({card})")
+
+        # card against CPU: the CP σ grid on a 32³ box, the hash grid
+        # (ENCODE) and the flagship (points mode) at 128³ from seeded
+        # weights (their card runs drive those models' σ route through the
+        # mesh's entry, `query_sigma_grid`: the launches count), the
+        # vertex-normal colors on 256 vertices
+        _sigma_card_vs_cpu(torch, field, params["fine"], 32, box, cfg.chunk,
+                           "CP grid (train forward), phase 20's checkpoint")
+        g = torch.Generator().manual_seed(20)
+        hf = NGPField(bound=6.0)
+        hp = _dense_scaled(hf, hf.init(g))
+        hp = torch.utils._pytree.tree_map(lambda t: t.cuda(), hp)
+        hashgrid.launches_encode = 0
+        _sigma_card_vs_cpu(torch, hf, hp, 128, box, cfg.chunk,
+                           "hash grid (ENCODE), seeded, dense levels x1e4")
+        counts["encode"] = hashgrid.launches_encode
+        mf = MirrorNeRFField()
+        mp = _sigma_scaled(mf.init(g), 5.0)
+        mp = torch.utils._pytree.tree_map(lambda t: t.cuda(), mp)
+        fused_mlp.launches_points = 0
+        _sigma_card_vs_cpu(torch, mf, mp, 128, box, cfg.chunk,
+                           "flagship (points mode), seeded, σ column |w|·5")
+        counts["points"] = fused_mlp.launches_points
+        assert counts["encode"] > 0 and counts["points"] > 0, counts
+        verts, tris, _ = read_ply(os.path.join(mesh_dir, "noise_free.ply"))
+        normals = vertex_normals(verts, tris)
+        sel = np.arange(0, len(verts), max(len(verts) // 256, 1))[:256]
+        rays = mesh_cli.vertex_normal_rays(verts[sel], normals[sel], ds.near,
+                                           ds.far, 1.0)
+        rgb = {dev: mesh_cli.vertex_normal_rgb(
+            cfg, field, init_params(field, cfg, dev), rays, dev)
+            for dev in ("cuda", "cpu")}
+        err = float(np.abs(rgb["cuda"] - rgb["cpu"]).max())
+        log(f"[mesh] vertex-normal colors on {len(sel)} vertices, card "
+            f"(fused composite) vs plain CPU: max abs err {err:.2e} (bar "
+            f"{RENDER_ATOL})")
+        assert err <= RENDER_ATOL, err
+
+        # a COLMAP capture through the eval CLI: one view of its test path
+        fused_cp.launches = 0
+        t0 = time.perf_counter()
+        out = eval_main(_with(EVAL_FLAGS, dataset_name="real_colmap") + [
+            "--root_dir", "colmap", "--img_wh", "64", "48", "--ckpt_path",
+            ckpt, "--split", "test", "--only_eval_idx", "0", "--exp_name",
+            "colmap_view"])
+        assert "rgb_fine_000.png" in os.listdir(out), out
+        assert fused_cp.launches > 0
+        counts["composite"] += fused_cp.launches
+        log(f"[mesh] eval CLI on the real_colmap capture (its spheric test "
+            f"path, one 64x48 view): {time.perf_counter() - t0:.1f} s, "
+            f"COMPOSITE launches {fused_cp.launches}")
+        log(f"[mesh] launches on the real-capture and mesh path: {counts}")
         return counts
     finally:
         os.chdir(cwd)
@@ -3232,6 +3686,14 @@ def main() -> int:
     for e, k in ((entry, "composite"), (fwd_entry, "train_fwd"),
                  (mlp_entry, "flagship"), (hash_entries[0], "hash")):
         e["launches"] += apps[k]
+    mesh = timed("real capture and mesh", phase_real_capture_and_mesh,
+                 torch, card)
+    # and the real capture's and the mesh's: rows 1, 2, 3 (its train
+    # CLI), 6 and 9 (ENCODE)
+    for e, k in ((entry, "composite"), (fwd_entry, "train_fwd"),
+                 (bwd_entry, "train_bwd"), (rows_entries[3], "points"),
+                 (hash_entries[1], "encode")):
+        e["launches"] += mesh[k]
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,

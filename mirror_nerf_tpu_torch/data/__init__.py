@@ -9,10 +9,13 @@ def register(name):
 
 
 def get_dataset(name: str):
-    # populate registry lazily
-    from . import blender  # noqa: F401
+    # populate the registry: every loader of the JAX package is ported
+    from . import blender, real_arkit, real_colmap  # noqa: F401
     if name not in DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md queue 1, item 5: "
-            "real-capture loaders); only 'blender' is")
+            f"unknown dataset {name!r}: the port loads {sorted(DATASETS)}, "
+            "as the JAX package does. Still unported (ROADMAP.md queue 1): "
+            "item 5's LPIPS, visualization, profiling, native and encoder "
+            "parts; items 7 (radam, ranger), 12 (bf16), 9 (multi-device) "
+            "and 8 (remat)")
     return DATASETS[name]

@@ -11,7 +11,8 @@ Serves two purposes:
     so the dataset loaders can be exercised without external downloads.
 
 A copy of the JAX package's `data/synthetic.py` that writes its PNGs with
-PIL; the COLMAP-layout writer comes with the real-capture loaders.
+PIL, plus an ARKit-layout writer (`generate_scene_arkit`) for the
+`real_arkit` loader.
 """
 
 from __future__ import annotations
@@ -133,6 +134,19 @@ def render_image(c2w: np.ndarray, H: int, W: int, focal: float):
     return (rgb.reshape(H, W, 3), mask.reshape(H, W), depth.reshape(H, W))
 
 
+def _split_rings(n_train: int, n_val: int, n_test: int) -> dict:
+    """The splits' poses. Val/test stay on the train camera shell (same
+    radius, interleaved angles) — the NVS protocol of the reference's real
+    scenes, whose test_interpolation split slerps between train poses
+    (real_arkit.py:170-200). Poses off the shell start in space no train
+    ray ever traversed, where any NeRF's density is unconstrained fog."""
+    return {
+        "train": camera_ring(n_train),
+        "val": camera_ring(n_val, radius=1.3, height=0.12, phase=0.41),
+        "test": camera_ring(n_test, radius=1.3, height=0.09, phase=0.23),
+    }
+
+
 def generate_scene(
     root_dir: str,
     n_train: int = 12,
@@ -151,16 +165,7 @@ def generate_scene(
     # (blender.py:33-39); store camera_angle_x so that round-trips match.
     focal_at_this_res = 0.5 * W / np.tan(0.5 * camera_angle_x)
 
-    # Val/test stay on the train camera shell (same radius, interleaved
-    # angles) — the NVS protocol of the reference's real scenes, whose
-    # test_interpolation split slerps between train poses
-    # (real_arkit.py:170-200). Poses off the shell start in space no train
-    # ray ever traversed, where any NeRF's density is unconstrained fog.
-    splits = {
-        "train": camera_ring(n_train),
-        "val": camera_ring(n_val, radius=1.3, height=0.12, phase=0.41),
-        "test": camera_ring(n_test, radius=1.3, height=0.09, phase=0.23),
-    }
+    splits = _split_rings(n_train, n_val, n_test)
     idx = 0
     for split, poses in splits.items():
         frames = []
@@ -184,4 +189,105 @@ def generate_scene(
         meta = {"camera_angle_x": camera_angle_x, "frames": frames}
         with open(os.path.join(root_dir, f"transforms_{split}.json"), "w") as f:
             json.dump(meta, f)
+    return root_dir
+
+
+def generate_scene_colmap(
+    root_dir: str,
+    n_images: int = 24,
+    img_wh=(64, 64),
+    camera_angle_x: float = 0.9,
+) -> str:
+    """Write the procedural scene to disk in COLMAP-reconstruction layout
+    (`sparse/cameras.bin` + `sparse/images.bin` + `images/` + `masks/`, the
+    format `RealDatasetColmap` parses — reference
+    `datasets/real_colmap.py:105-258`). Closes the parser→trainer seam for
+    the real-capture path without external data: w2c extrinsics are derived
+    by inverting the generator's c2w poses through the same axis-convention
+    flip the loader undoes ("right up back" -> "right down front").
+    """
+    from PIL import Image as PILImage
+
+    from .colmap_utils import Camera, Image, rotmat2qvec, \
+        write_cameras_binary, write_images_binary
+
+    W, H = img_wh
+    os.makedirs(os.path.join(root_dir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root_dir, "masks"), exist_ok=True)
+    os.makedirs(os.path.join(root_dir, "sparse"), exist_ok=True)
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+
+    cameras = {1: Camera(1, "SIMPLE_PINHOLE", W, H,
+                         np.array([focal, W / 2.0, H / 2.0]))}
+    write_cameras_binary(cameras,
+                         os.path.join(root_dir, "sparse", "cameras.bin"))
+
+    poses = camera_ring(n_images)
+    images = {}
+    for i, c2w in enumerate(poses):
+        name = f"img_{i:04d}.png"
+        rgb, mask, _ = render_image(c2w, H, W, focal)
+        PILImage.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(root_dir, "images", name))
+        PILImage.fromarray((mask * 255).astype(np.uint8)).save(
+            os.path.join(root_dir, "masks", name))
+        # generator convention is the Blender/NeRF one ("right up back");
+        # COLMAP stores w2c in "right down front" -> flip cols 1:3 then
+        # invert (the loader inverts and flips back, real_colmap.py:57-69)
+        c2w_cv = np.concatenate(
+            [c2w[:, 0:1], -c2w[:, 1:3], c2w[:, 3:4]], axis=1)
+        m = np.eye(4)
+        m[:3] = c2w_cv
+        w2c = np.linalg.inv(m)
+        images[i + 1] = Image(
+            i + 1, rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
+            np.zeros((0, 2)), np.zeros((0,), np.int64))
+    write_images_binary(images, os.path.join(root_dir, "sparse", "images.bin"))
+    return root_dir
+
+
+def generate_scene_arkit(
+    root_dir: str,
+    n_train: int = 12,
+    n_val: int = 2,
+    n_test: int = 3,
+    img_wh=(64, 64),
+    camera_angle_x: float = 0.9,
+) -> str:
+    """Write the procedural scene to disk in the ARKit capture layout that
+    `RealDatasetARKit` parses (reference `datasets/real_arkit.py`):
+    `transforms.json` holding every frame (the loader centers all poses
+    on their average), `transforms_{train,val,test}.json`, images under
+    `images/` whose `file_path` keeps its extension, and `masks/` named
+    after the image files. The focal is stored as `camera_angle_x`, which
+    the loader reads against a 1920-px sensor and rescales to the width."""
+    from PIL import Image
+
+    W, H = img_wh
+    os.makedirs(os.path.join(root_dir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root_dir, "masks"), exist_ok=True)
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+    splits = _split_rings(n_train, n_val, n_test)
+    idx = 0
+    every = []
+    for split, poses in splits.items():
+        frames = []
+        for pose in poses:
+            name = f"frame_{idx:05d}.png"
+            rgb, mask, _ = render_image(pose, H, W, focal)
+            Image.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(root_dir, "images", name))
+            Image.fromarray((mask * 255).astype(np.uint8)).save(
+                os.path.join(root_dir, "masks", name))
+            pose44 = np.eye(4, dtype=np.float64)
+            pose44[:3] = pose
+            frames.append({"file_path": f"images/{name}",
+                           "transform_matrix": pose44.tolist()})
+            idx += 1
+        every += frames
+        with open(os.path.join(root_dir, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+    with open(os.path.join(root_dir, "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": camera_angle_x, "frames": every}, f)
     return root_dir

@@ -356,7 +356,8 @@ def eval_trace(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
 def eval_trace_deep(field, params: dict, rays: torch.Tensor,
                     rs: RenderSettings, app: EvalAppFlags,
                     max_recursive_level: int, trace_secondary_rays: bool,
-                    rs_secondary: Optional[RenderSettings] = None) -> dict:
+                    rs_secondary: Optional[RenderSettings] = None,
+                    levels: Optional[list] = None) -> dict:
     """The deep Whitted trace (e.g. the new-mirror app's 50 levels,
     run.sh mode 3), front to back: carry the rays, the throughput T = Π of
     the mirror masks so far and the accumulated rgb; each level renders the
@@ -371,7 +372,8 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
     every level, so inter-reflections happen. The reflect outputs are the
     blended secondary colour and the level-1 depth, both masked by the
     level-0 mirror mask; `_deep_levels` the deepest level rendered (guest
-    objects never take this trace)."""
+    objects never take this trace). `levels`, a list, receives each
+    level's (T after it, its rendered rgb), level 0 first."""
     check_secondary_render(rs, rs_secondary)
     sel = "fine" if rs.fine_pass == "fine" else "coarse"
     n = rays.shape[0]
@@ -395,6 +397,8 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
     results["secondary_rays_o"] = sec_o0
     results["reflect_direction"] = refl0
     base0 = res0[f"rgb_{sel}"]
+    if levels is not None:
+        levels.append((m0, base0))
 
     if not ((trace_secondary_rays or app.place_new_mirror is not None)
             and max_recursive_level > 0):
@@ -418,6 +422,8 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
         if level == 1:  # the level-1 depth feeds the reflect visualization
             ref_depth = res[f"depth_{sel}"]
         T = T * m
+        if levels is not None:
+            levels.append((T, res[f"rgb_{sel}"]))
         rays_l = nxt
         level += 1
 

@@ -1,6 +1,8 @@
 """Image quality metrics: PSNR and SSIM (numpy; a copy of the JAX
-package's `eval/metrics.py`). LPIPS waits for its pretrained weights, which
-are not in the repository (ROADMAP.md queue 1, item 5).
+package's `eval/metrics.py`). Still unported (ROADMAP.md queue 1, item 5):
+the LPIPS forward (`eval/lpips_jax.py`; its pretrained weights are not in
+the repository), with the rest of item 5 (visualization's remainder,
+profiling, `native.py`, SH degrees 5–8).
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ from their reference checkpoint files, each against the JAX package on the
 same numpy inputs; and the eval CLI for run.sh modes 3, 4 (both guests),
 5, 52 and 6 on a generated scene."""
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -251,6 +252,31 @@ def test_eval_trace_deep_matches_jax(scene, case):
                        "depth_fine_reflect", "depth_fine",
                        "mirror_mask_resolved", "secondary_rays_o",
                        "reflect_direction"), TRACE_ATOL)
+
+
+def test_eval_trace_deep_records_each_level(scene):
+    """`eval_trace_deep(levels=...)` (chip_smoke phase 19's float64 check)
+    receives each level's (T after it, rendered rgb): the recursive blend
+    rebuilt from them is rgb_fine, and the record leaves the trace as it
+    was."""
+    _, tf, p, rays = scene
+    args = (tf, params_from_numpy(p), torch.from_numpy(rays),
+            RenderSettings(**RS), apps.EvalAppFlags(), 5, True)
+    levels = []
+    got = apps.eval_trace_deep(*args, levels=levels)
+    assert len(levels) == got["_deep_levels"] + 1 >= 3
+    rebuilt, t_prev = torch.zeros_like(got["rgb_fine"]), torch.ones(len(rays))
+    for t, rgb in levels:
+        # T after a level is T before it × its mirror mask m: the level
+        # adds T_before · (1 − m) · rgb
+        rebuilt += (t_prev - t)[:, None] * rgb
+        t_prev = t
+    assert torch.equal(levels[0][0], got["mirror_mask_resolved"])
+    np.testing.assert_allclose(rebuilt.numpy(), got["rgb_fine"].numpy(),
+                               atol=1e-6, rtol=0)
+    plain = apps.eval_trace_deep(*args)
+    for k in ("rgb_fine", "depth_fine_reflect"):
+        assert torch.equal(plain[k], got[k]), k
 
 
 # ---- roughness ----
@@ -575,13 +601,40 @@ MODES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(MODES))
+# modes 3 (50 levels) and 5 (64 bundles) are the slowest cases: each runs
+# from a module of its own (test_torch_port_apps_mode3.py, _mode5.py), so
+# that `--dist loadfile` gives it a worker of its own
+SLOW_MODES = ("3", "5")
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m not in SLOW_MODES])
 def test_eval_cli_applications(cli_scene, guest_files, mode, monkeypatch):
+    eval_cli_application(cli_scene, guest_files, mode, monkeypatch)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread. A 12×12 view through the applications
+    is thousands of tiny ops; under `pytest -n 6` every core is busy, and
+    each op's OpenMP team waits for threads the other workers hold: the
+    mode-3 CLI case took 179–257 s in tier-1 runs, 6 s alone, and 79 s
+    against 16.6 s with one thread beside five busy processes (8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def eval_cli_application(cli_scene, guest_files, mode, monkeypatch):
+    """The eval CLI for one run.sh mode: the result tree of two views."""
     from mirror_nerf_tpu_torch.eval import main
 
     monkeypatch.chdir(cli_scene)
     extra = [a.replace("GUESTS", str(guest_files)) for a in MODES[mode]]
-    out = main(CLI + extra + ["--exp_name", f"mode{mode}"])
+    with one_thread():
+        out = main(CLI + extra + ["--exp_name", f"mode{mode}"])
     files = set(os.listdir(out))
     for name in ("rgb_fine_000.png", "rgb_fine_001.png", "psnr.json",
                  f"mode{mode}_rgb_fine.gif"):

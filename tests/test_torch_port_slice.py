@@ -163,6 +163,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1, item 12"):
         make_field(cfg)
+    # every dataset of the JAX package loads (queue 1, item 5's loaders
+    # are ported); another name raises and cites what is still unported
+    from mirror_nerf_tpu_torch.data import get_dataset
+
+    with pytest.raises(NotImplementedError,
+                       match=r"unknown dataset 'colmap_dense'.*ROADMAP.md "
+                             r"queue 1\): item 5's LPIPS"):
+        get_dataset("colmap_dense")
 
 
 def test_port_runs_with_jax_blocked():
