@@ -211,7 +211,32 @@ each fatal on failure:
      flagship's (points mode) at 128³ from seeded weights, card against
      CPU within 1e-4 scaled above 1, and the vertex-normal colors of 256
      vertices within 1e-3; a COLMAP capture's view through the eval CLI.
-     Its launches join rows 1, 2, 3, 6 and 9's (ENCODE) counts.
+     Its launches join rows 1, 2, 3, 6 and 9's (ENCODE) counts;
+ 21. the remaining options, on a generated 64×64 scene (3 train views) at
+     config.py widths: RAdam and Ranger (--grid_lr_mult 20, coarse 1)
+     updates 1–12 of the CP field on the card against the CPU from the
+     same state and gradients, within 1e-6 of scale at updates 1, 5, 6 and
+     12; the CP train CLI (run.sh mode 0's nerf_tpu flags) with
+     --optimizer radam and with ranger --grid_lr_mult 1, two epochs each,
+     then ranger resumed from its last.ckpt.npz for a third, the state on
+     the card, and that checkpoint through the eval CLI; each field's bf16
+     modules on the card against the CPU (4·2⁻⁷ of scale; RMS from fp32
+     within 1.5× the CPU's); the train CLI with --compute_dtype bfloat16
+     for the CP grid (its train kernels), the hash grid and the flagship,
+     each with and without --fp32_sigma_grad, the bf16 CP and flagship
+     checkpoints through the eval CLI (--fused_field: the kernels stay
+     fp32); reflection-stage step profiles of the flagship and the hash
+     grid in fp32, bf16 and bf16 with --fp32_sigma_grad in turns (ms a
+     step, summed device time, GEMM share, idle share); LPIPS on seeded
+     weights in both layouts, an 800×800 pair on the card against the CPU
+     within 1e-5 and its ms, and the eval CLI in a subprocess with
+     torch's default flags and $LPIPS_WEIGHTS (each score and mean_lpips
+     within 1e-5 of the CPU's on the same images); sh_encode degree 8,
+     get_encoder("hashgrid"/"tiledgrid") through ENCODE (its counter read
+     around each, against the plain version), a 2-d hash grid raising;
+     the native library built and its three bindings against numpy;
+     utils/profiling.trace around a train step holding CUDA kernels. Its
+     launches join rows 1, 2, 3, 4, 9 (ENCODE), 9c and 9d.
 
 Each phase prints its wall time. The script prints one JSON line with the
 twenty-one kernels' numbers (each with the least time the card could take for
@@ -3630,6 +3655,567 @@ def phase_real_capture_and_mesh(torch, card: str) -> dict:
         os.chdir(cwd)
 
 
+# ---- phase 21: the remaining optimizer, precision and metric options ----
+
+# RAdam / Ranger: the updates compared card against CPU (ρ crosses 5
+# between 5 and 6; lookahead syncs at 6 and 12)
+OPT_STEPS = (1, 5, 6, 12)
+# bf16 outputs on two devices: within 4·2⁻⁷ of the output's scale, and the
+# card's RMS distance from the fp32 evaluation within 1.5× the CPU's; where
+# the CPU's is bf16's (over 10× the card's fp32 field's), at least 0.5× the
+# CPU's and over 10× the card's fp32 field's (a card that skipped the casts
+# fails there)
+BF16_BAR = 4 * 2.0 ** -7
+BF16_RATIO = 1.5
+BF16_FLOOR = 0.5
+BF16_SEEN = 10.0
+# LPIPS: the card against the CPU, both fp32 (cuDNN's TF32 pinned off)
+LPIPS_ATOL = 1e-5
+# phase 21's generated scene: 3 train views of this size
+OPTIONS_WH = ("64", "64")
+# the kernels whose launches phase 21's paths add, by the counters that
+# count them
+OPTION_COUNTERS = {"composite": ("fused_cp", "launches"),
+                   "train_fwd": ("fused_cp_train", "launches_fwd"),
+                   "train_bwd": ("fused_cp_train", "launches_bwd"),
+                   "flagship": ("fused_mlp_t", "launches"),
+                   "encode": ("hashgrid", "launches_encode"),
+                   "bwd": ("hashgrid", "launches_bwd"),
+                   "bwd2": ("hashgrid", "launches_bwd2")}
+
+
+def _counted(totals: dict, fn, *a, **kw):
+    """fn(*a, **kw) as a path run: each counter of OPTION_COUNTERS set to 0
+    just before it and read just after, into `totals`."""
+    import importlib
+
+    mods = {k: importlib.import_module(f"mirror_nerf_tpu_torch.ops.{m}")
+            for k, (m, _) in OPTION_COUNTERS.items()}
+    for k, (_, attr) in OPTION_COUNTERS.items():
+        setattr(mods[k], attr, 0)
+    out = fn(*a, **kw)
+    for k, (_, attr) in OPTION_COUNTERS.items():
+        totals[k] += getattr(mods[k], attr)
+    return out
+
+
+def _opt_tensors(opt) -> list:
+    """The optimizer state's tensors (radam/ranger: μ, ν, slow weights;
+    adam, sgd: torch's per-parameter state)."""
+    if opt.opt is None:
+        return opt.mu + opt.nu + (opt.slow or [])
+    return [v for st in opt.opt.state.values() for k, v in st.items()
+            if k != "step"]
+
+
+def _optim_card_vs_cpu(torch) -> None:
+    """(21) RAdam and Ranger (--grid_lr_mult 20, coarse 1) on the CP
+    field's parameters at config.py widths: updates 1–12 on the card and
+    on the CPU, each from the same state (the CPU's, copied to the card)
+    and gradients; after updates 1, 5, 6 and 12 every parameter and state
+    array within 1e-6 of its scale."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.config import Config
+    from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
+    from mirror_nerf_tpu_torch.train.checkpoints import (params_from_numpy,
+                                                         params_to_numpy,
+                                                         tree_leaves)
+    from mirror_nerf_tpu_torch.train.optim import Optimizer
+
+    f = TPUGridField(bound=6.0)
+    g = torch.Generator().manual_seed(0)
+    p0 = params_to_numpy({"coarse": f.init(g), "fine": f.init(g)})
+    for name in ("radam", "ranger"):
+        cfg = Config(optimizer=name, lr=5e-4, grid_lr_mult=20.0,
+                     coarse_grid_lr_mult=1.0)
+        trees, opts = {}, {}
+        for dev in ("cpu", "cuda"):
+            trees[dev] = params_from_numpy(p0, dev)
+            for x in tree_leaves(trees[dev]):
+                x.requires_grad_(True)
+            opts[dev] = Optimizer(cfg, trees[dev], 24)
+        gen = torch.Generator().manual_seed(1)
+        worst = []
+        for step in range(1, 13):
+            with torch.no_grad():
+                for a, b in zip(tree_leaves(trees["cuda"]),
+                                tree_leaves(trees["cpu"])):
+                    a.copy_(b)
+            opts["cuda"].load_state_arrays(opts["cpu"].state_arrays(step - 1))
+            grads = [torch.randn(x.shape, generator=gen)
+                     for x in tree_leaves(trees["cpu"])]
+            for dev, opt in opts.items():
+                opt.zero_grad()
+                for x, gr in zip(tree_leaves(trees[dev]), grads):
+                    x.grad = gr.to(dev)
+                opt.step(step - 1)
+            if step not in OPT_STEPS:
+                continue
+            got = opts["cuda"].state_arrays(step)
+            want = opts["cpu"].state_arrays(step)
+            err = max(float(np.abs(np.asarray(got[k], np.float64)
+                                   - want[k]).max())
+                      / max(float(np.abs(want[k]).max()), 1e-30)
+                      for k in want)
+            err = max([err] + [_rel(b, a.detach().cpu()) for a, b in zip(
+                tree_leaves(trees["cuda"]), tree_leaves(trees["cpu"]))])
+            worst.append(err)
+            assert all(x.is_cuda for x in _opt_tensors(opts["cuda"]))
+        log(f"[options] {name} update card vs CPU at updates "
+            f"{list(OPT_STEPS)} (CP field, config.py widths, grid_lr_mult "
+            f"20, coarse 1): max|a−b|/scale {[f'{e:.1e}' for e in worst]}")
+        assert max(worst) <= 1e-6, (name, worst)
+
+
+def _train_run(torch, totals: dict, flags: list, tag: str):
+    """(21) One train CLI run on phase 21's scene: finite logs, parameters
+    and optimizer state on the card. Returns the Trainer and its
+    reflection epoch's rate."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.train.checkpoints import tree_leaves
+    from mirror_nerf_tpu_torch.train.cli import main as train_main
+
+    t0 = time.perf_counter()
+    before = dict(totals)
+    tr = _counted(totals, train_main, flags)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(x) for x in open(os.path.join(tr.workdir,
+                                                     "metrics.jsonl"))]
+    vals = [json.loads(x) for x in open(os.path.join(tr.workdir,
+                                                     "val_metrics.jsonl"))]
+    for r in recs + vals:
+        for k, v in r.items():
+            if isinstance(v, float):
+                assert np.isfinite(v), (tag, k, r)
+    assert all(x.is_cuda for x in tree_leaves(tr.params))
+    assert all(x.is_cuda for x in _opt_tensors(tr.opt)), tag
+    run = {k: totals[k] - before[k] for k in totals if totals[k] > before[k]}
+    log(f"[options] {tag}: {tr.global_step} steps, {wall:.1f} s; losses "
+        f"{[round(v['loss'], 4) for v in vals]}, val psnr "
+        f"{[round(v['val_psnr'], 2) for v in vals]}, "
+        f"{vals[-1]['rays_per_sec']:.1f} rays/s at batch 1024 (the last "
+        f"epoch after its first step); launches {run}")
+    return tr, vals[-1]["rays_per_sec"]
+
+
+def _eval_run(torch, totals: dict, flags: list, tag: str) -> dict:
+    """(21) One eval CLI run: a finite PSNR; returns its launches."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import main as eval_main
+
+    before = dict(totals)
+    out = _counted(totals, eval_main, flags)
+    with open(os.path.join(out, "psnr.json")) as f:
+        table = json.load(f)
+    assert np.isfinite(table["mean_psnr"]), table
+    run = {k: totals[k] - before[k] for k in totals if totals[k] > before[k]}
+    log(f"[options] {tag} through the eval CLI: test PSNR "
+        f"{table['mean_psnr']:.2f}; launches {run}")
+    return run
+
+
+def _bf16_fields_card_vs_cpu(torch, card: str) -> None:
+    """(21) Each field's bf16 density, color and heads at config.py widths
+    on 65,536 points: the card against the CPU within BF16_BAR of the
+    output's scale, and the card's RMS distance from the fp32 evaluation
+    within BF16_RATIO of the CPU's and, where the CPU rounds the output to
+    bf16, at least BF16_FLOOR of it and over BF16_SEEN × the card's fp32
+    field's."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.models.ngp import NGPField
+    from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
+    from mirror_nerf_tpu_torch.train.checkpoints import _map
+
+    rng = np.random.default_rng(5)
+    n = 65536
+    x = torch.from_numpy(rng.uniform(-5.9, 5.9, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    for name, cls, kw in (("nerf", MirrorNeRFField, {}),
+                          ("nerf_tcnn", NGPField, dict(bound=6.0)),
+                          ("nerf_tpu", TPUGridField, dict(bound=6.0))):
+        f32, f16 = cls(**kw), cls(**kw, compute_dtype="bfloat16")
+        params = f32.init(torch.Generator().manual_seed(2))
+        if name == "nerf_tcnn":
+            params["grid"] = params["grid"] * 1e4
+        geo = torch.from_numpy(rng.normal(size=(n, 256 if name == "nerf"
+                                                else 15)).astype(np.float32))
+
+        def outs(field, dev):
+            p = _map(params, lambda _, v: v.to(dev))
+            s, gf = field.density(p, x.to(dev))
+            o = {"sigma": s, "geo": gf.float(),
+                 "color": field.color(p, geo.to(dev), d.to(dev)),
+                 "normal": field.normal_head(p, geo.to(dev)),
+                 "mirror": field.mirror_head(p, geo.to(dev))}
+            return {k: v.detach().cpu().double() for k, v in o.items()}
+
+        dev, cpu, ref = outs(f16, "cuda"), outs(f16, "cpu"), outs(f32, "cpu")
+        dev32 = outs(f32, "cuda")
+        msg = []
+        for k in ref:
+            scale = float(cpu[k].abs().max()) + 1e-30
+            dist = float((dev[k] - cpu[k]).abs().max()) / scale
+            e_card = float(((dev[k] - ref[k]) ** 2).mean().sqrt())
+            e_cpu = float(((cpu[k] - ref[k]) ** 2).mean().sqrt())
+            e_32 = float(((dev32[k] - ref[k]) ** 2).mean().sqrt())
+            msg.append(f"{k} {dist:.1e} ({e_card:.2e}/{e_cpu:.2e}/"
+                       f"{e_32:.2e})")
+            assert dist <= BF16_BAR, (name, k, dist)
+            assert e_card <= BF16_RATIO * e_cpu + 1e-7 * scale, (
+                name, k, e_card, e_cpu)
+            if e_cpu > BF16_SEEN * e_32:  # the CPU rounds this output
+                assert e_card >= max(BF16_FLOOR * e_cpu, BF16_SEEN * e_32), (
+                    name, k, e_card, e_cpu, e_32)
+        log(f"[options] bf16 {name} fields, card vs CPU ({card}): max|a−b|"
+            f"/scale (RMS from fp32, card/CPU/card fp32): "
+            + ", ".join(msg))
+
+
+def _bf16_step_profiles(torch, card: str, root: str) -> dict:
+    """(21) Reflection-stage steps (`step_profile`) of the flagship and the
+    hash grid in fp32, bf16 and bf16 with --fp32_sigma_grad, in turns
+    (fp32, bf16, fsg, fsg, bf16, fp32) from the same seeded weights: ms a
+    step, rays/s, summed device time, GEMM share, idle share. Returns a
+    hash-grid Trainer (bf16) for the profiling check."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from profile_train_torch import gemm_share, step_profile
+
+    from mirror_nerf_tpu_torch.data.blender import BlenderDataset
+    from mirror_nerf_tpu_torch.train.cli import get_opt
+    from mirror_nerf_tpu_torch.train.loop import Trainer
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    variants = {"fp32": [], "bf16": ["--compute_dtype", "bfloat16"],
+                "bf16+fp32_sigma_grad": ["--compute_dtype", "bfloat16",
+                                         "--fp32_sigma_grad"]}
+    order = ["fp32", "bf16", "bf16+fp32_sigma_grad",
+             "bf16+fp32_sigma_grad", "bf16", "fp32"]
+    keep = None
+    for model in ("nerf", "nerf_tcnn"):
+        trainers = {}
+        for v, extra in variants.items():
+            cfg, _ = get_opt(_model_train_flags(model) + extra + [
+                "--root_dir", root, "--img_wh", *OPTIONS_WH])
+            ds = BlenderDataset(root, "train", cfg.img_wh, cfg)
+            trainers[v] = (Trainer(cfg, ds, str(WORK / "options" / "prof"
+                                                / f"{model}_{v}"), "cuda"),
+                           cfg)
+        runs = {v: [] for v in variants}
+        for v in order:
+            tr, cfg = trainers[v]
+            runs[v].append(step_profile(tr, cfg, "cuda", acts))
+        for v, rs in runs.items():
+            log(f"[options] {model} reflection-stage step, {v}, batch 1024 "
+                f"({card}), two runs in turns: "
+                + "; ".join(f"{r['ms_per_step']:.2f} ms/step "
+                            f"({r['rays_per_s']:.1f} rays/s), summed device "
+                            f"{r['device_ms_per_step']:.3f} ms, GEMMs "
+                            f"{100 * gemm_share(r):.1f} %, idle "
+                            f"{r['idle_share']:.4f}" for r in rs))
+            assert all(r["events_per_step"] > 0 for r in rs)
+        if model == "nerf_tcnn":
+            keep = trainers["bf16"]
+    return keep
+
+
+def _lpips_weights(torch, path_npz: Path, path_pth: Path) -> None:
+    """Seeded AlexNet and lin weights (He scale) in the npz layout and as a
+    torch state dict with torchvision and lpips keys."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    w, sd = {}, {}
+    for i, (fi, cin, cout, k) in enumerate(
+            ((0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3),
+             (8, 384, 256, 3), (10, 256, 256, 3))):
+        w[f"conv{i}/w"] = (rng.normal(size=(cout, cin, k, k))
+                           * np.sqrt(2.0 / (cin * k * k))).astype(np.float32)
+        w[f"conv{i}/b"] = (rng.normal(size=cout) * 0.05).astype(np.float32)
+        w[f"lin{i}/w"] = rng.uniform(0, 0.5, size=cout).astype(np.float32)
+        sd[f"features.{fi}.weight"] = w[f"conv{i}/w"]
+        sd[f"features.{fi}.bias"] = w[f"conv{i}/b"]
+        sd[f"lin{i}.model.1.weight"] = w[f"lin{i}/w"].reshape(1, -1, 1, 1)
+    np.savez(path_npz, **w)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path_pth)
+
+
+def _lpips_check(torch, card: str, work: Path, scene: str, ckpt: str):
+    """(21) LPIPS on seeded weights in both layouts: an 800×800 pair on the
+    card (the process's TF32 flags turned on around it: the module pins
+    fp32) against the CPU within LPIPS_ATOL, its ms; `metrics.lpips` with
+    no device argument on the card; then the eval CLI in a
+    subprocess with torch's default backend flags and $LPIPS_WEIGHTS set:
+    each view's score, and mean_lpips, equal the CPU's on the same images
+    within LPIPS_ATOL."""
+    import textwrap
+
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import lpips as tl
+
+    npz, pth = work / "lpips.npz", work / "alex.pth"
+    _lpips_weights(torch, npz, pth)
+    rng = np.random.default_rng(8)
+    a = rng.uniform(size=(800, 800, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(size=a.shape) * 0.1, 0, 1).astype(np.float32)
+    for path in (npz, pth):
+        cpu = tl.lpips_from_file(a, b, str(path), "cpu")
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = tl.lpips_from_file(a, b, str(path), "cuda")
+            w = tl._CACHE[(os.path.abspath(path), "cuda")]
+            ms = _time_ms(torch, lambda: tl.lpips_forward(w, a, b), 5, 2)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        log(f"[options] LPIPS 800x800 ({path.suffix}): card {got:.7f}, CPU "
+            f"{cpu:.7f}, |a−b| {abs(got - cpu):.1e}; {ms:.2f} ms a pair "
+            f"on the card (host images in, score out; {card})")
+        assert np.isfinite(got) and abs(got - cpu) <= LPIPS_ATOL, (got, cpu)
+    # a call with no device argument scores on the card
+    from mirror_nerf_tpu_torch.eval.metrics import lpips as lpips_metric
+
+    tl._CACHE.clear()
+    got = lpips_metric(a, b, str(npz))
+    assert [k[1] for k in tl._CACHE] == ["cuda"], list(tl._CACHE)
+    assert next(iter(tl._CACHE.values()))["conv0/w"].is_cuda
+    assert abs(got - tl.lpips_from_file(a, b, str(npz), "cpu")) \
+        <= LPIPS_ATOL, got
+    log(f"[options] LPIPS with no device argument: weights on "
+        f"{next(iter(tl._CACHE.values()))['conv0/w'].device}, score {got:.7f}")
+    out_json = work / "lpips_cli.json"
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        import torch
+        assert torch.backends.cudnn.allow_tf32  # torch's default flags
+        from mirror_nerf_tpu_torch.eval import cli, metrics
+        real, seen = metrics.lpips, []
+        def spy(pred, gt, weights_path=None, device="cuda"):
+            v = real(pred, gt, weights_path, device)
+            seen.append([v, real(pred, gt, weights_path, "cpu"),
+                         str(device)])
+            return v
+        metrics.lpips = spy
+        out = cli.main({EVAL_FLAGS + ["--root_dir", scene, "--img_wh",
+                                      *OPTIONS_WH, "--split", "test",
+                                      "--ckpt_path", ckpt, "--exp_name",
+                                      "lpips"]!r})
+        json.dump({{"out": out, "seen": seen}}, open({str(out_json)!r}, "w"))
+    """)
+    env = dict(os.environ, LPIPS_WEIGHTS=str(npz))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(work), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    res = json.load(open(out_json))
+    table = json.load(open(work / res["out"] / "psnr.json"))
+    cpu = [s[1] for s in res["seen"]]
+    assert all(s[2].startswith("cuda") for s in res["seen"]), res["seen"]
+    assert len(table["lpips"]) == len(cpu) >= 1, (table, res)
+    diff = max(abs(x - y) for x, y in zip(table["lpips"], cpu))
+    mean_diff = abs(table["mean_lpips"] - float(np.mean(cpu)))
+    log(f"[options] the eval CLI in a subprocess (torch's default flags, "
+        f"$LPIPS_WEIGHTS): mean_lpips {table['mean_lpips']:.7f}, CPU "
+        f"{np.mean(cpu):.7f} on the same images, max |a−b| a view "
+        f"{diff:.1e}; {time.perf_counter() - t0:.1f} s")
+    assert diff <= LPIPS_ATOL and mean_diff <= LPIPS_ATOL, (table, cpu)
+
+
+def _encoders_check(torch, card: str, totals: dict) -> None:
+    """(21) sh_encode at degree 8 on the card against the CPU;
+    get_encoder("hashgrid") and ("tiledgrid") at their defaults (16 levels,
+    2¹⁹ rows, 2048) through ENCODE on 262,144 points, the launch counter
+    read around each, against the plain version within 1e-5 scaled above
+    1; an encoder ENCODE lacks (input_dim 2) raises on the card."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.models.encoding import get_encoder
+    from mirror_nerf_tpu_torch.ops.hashgrid import hashgrid_encode_reference
+    from mirror_nerf_tpu_torch.ops.sh import sh_encode
+
+    rng = np.random.default_rng(9)
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(1 << 20, 3)).astype(np.float32)), dim=-1)
+    err = float((sh_encode(d.cuda(), 8).cpu() - sh_encode(d, 8)).abs().max())
+    log(f"[options] sh_encode degree 8 on 1,048,576 directions, card vs "
+        f"CPU: max|a−b| {err:.1e}")
+    assert err <= 1e-5, err
+    x = torch.from_numpy(rng.uniform(-1, 1, (1 << 18, 3)).astype(np.float32))
+    for name in ("hashgrid", "tiledgrid"):
+        enc, dim = get_encoder(name)
+        table = enc.init(torch.Generator().manual_seed(3)) * 1e4
+        before = totals["encode"]
+        got = _counted(totals, lambda: enc(table.cuda(), x.cuda()))
+        n = totals["encode"] - before
+        x01 = (x + 1.0) * 0.5
+        want = hashgrid_encode_reference(table, x01, enc.spec)
+        scale = max(float(want.abs().max()), 1.0)
+        e = float((got.cpu() - want).abs().max()) / scale
+        log(f"[options] get_encoder({name!r}) (dim {dim}, "
+            f"{enc.spec.table_rows} rows) through ENCODE: {n} launch(es), "
+            f"max|a−b|/scale {e:.1e} against the plain version")
+        assert n >= 1 and e <= 1e-5, (name, n, e)
+    enc2, _ = get_encoder("hashgrid", input_dim=2, num_levels=4,
+                          log2_hashmap_size=10)
+    table2 = enc2.init(torch.Generator().manual_seed(4)).cuda()
+    try:
+        enc2(table2, torch.zeros(8, 2, device="cuda"))
+    except NotImplementedError as e:
+        assert "item 15" in str(e), e
+    else:
+        raise AssertionError("a 2-d hash grid did not raise on the card")
+
+
+def _native_check() -> None:
+    """(21) The port's native library is built and used; its three
+    bindings against numpy."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch import native
+    from mirror_nerf_tpu_torch.core.rays import (get_ray_directions,
+                                                 get_rays, make_ray_buffer)
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    assert lib is not None, "native library not built"
+    rng = np.random.default_rng(10)
+    c2w = np.eye(4, dtype=np.float32)[:3]
+    c2w[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    c2w[:, 3] = [0.3, -0.2, 1.1]
+    o, dd = get_rays(get_ray_directions(600, 800, 700.0), c2w)
+    np.testing.assert_allclose(native.generate_rays(c2w, 600, 800, 700.0,
+                                                    0.05, 8.0),
+                               make_ray_buffer(o, dd, 0.05, 8.0),
+                               rtol=1e-5, atol=1e-6)
+    rays = rng.normal(size=(100000, 8)).astype(np.float32)
+    rgbs = rng.normal(size=(100000, 3)).astype(np.float32)
+    masks = rng.normal(size=100000).astype(np.float32)
+    idx = rng.integers(0, 100000, 1024)
+    for a, b in zip(native.gather_batch(rays, rgbs, masks, idx),
+                    (rays[idx], rgbs[idx], masks[idx])):
+        np.testing.assert_array_equal(a, b)
+    img = rng.integers(0, 256, (480000, 4)).astype(np.uint8)
+    rgb, valid = native.blend_rgba(img)
+    f = img.astype(np.float32) / 255.0
+    np.testing.assert_allclose(rgb, f[:, :3] * f[:, 3:4] + (1 - f[:, 3:4]),
+                               atol=1e-6)
+    np.testing.assert_array_equal(valid, img[:, 3] > 0)
+    log(f"[options] native library {native.library_path().name} built and "
+        f"loaded; generate_rays (800x600), gather_batch, blend_rgba match "
+        f"numpy ({time.perf_counter() - t0:.1f} s, the build included)")
+
+
+def _profiling_check(torch, trainer_cfg, work: Path) -> None:
+    """(21) utils/profiling.trace around one train step writes a Chrome
+    trace holding the card's kernels."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from profile_train_torch import stepper
+
+    from mirror_nerf_tpu_torch.utils.profiling import trace
+
+    tr, cfg = trainer_cfg
+    step = stepper(tr, cfg, "cuda")
+    step()
+    with trace(str(work / "trace")):
+        step()
+    events = json.load(open(work / "trace" / "trace.json"))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"[options] utils/profiling.trace around one hash-grid train step: "
+        f"{len(events)} events, {len(kernels)} CUDA kernel events")
+    assert kernels, "no CUDA kernel event in the trace"
+
+
+def phase_remaining_options(torch, card: str) -> dict:
+    """(21) RAdam and Ranger, --compute_dtype bfloat16 with and without
+    --fp32_sigma_grad for the three models, LPIPS, the encoders, native
+    and profiling, on a generated 64×64 scene at config.py widths. Returns
+    each kernel's launches on these paths."""
+    from mirror_nerf_tpu_torch.data.synthetic import generate_scene
+
+    t_start = time.perf_counter()
+    work = WORK / "options"
+    work.mkdir(parents=True)
+    totals = dict.fromkeys(OPTION_COUNTERS, 0)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        generate_scene("scene", n_train=3, n_val=1, n_test=1,
+                       img_wh=tuple(int(v) for v in OPTIONS_WH))
+        scene = ["--root_dir", "scene", "--img_wh", *OPTIONS_WH]
+        _optim_card_vs_cpu(torch)
+
+        # RAdam, Ranger (--grid_lr_mult 1) and its resume: the CP train CLI
+        # with run.sh mode 0's nerf_tpu flags
+        tr, _ = _train_run(torch, totals, _with(
+            TRAIN_FLAGS, optimizer="radam") + scene + ["--exp_name", "radam"],
+            "radam, CP grid, 2 epochs")
+        ranger = _with(TRAIN_FLAGS, optimizer="ranger",
+                       grid_lr_mult="1") + scene
+        tr, _ = _train_run(torch, totals, ranger + ["--exp_name", "ranger"],
+                           "ranger, CP grid, --grid_lr_mult 1, 2 epochs")
+        ckpt = os.path.join(tr.workdir, "last.ckpt.npz")
+        steps = tr.global_step
+        tr, _ = _train_run(torch, totals, _with(ranger, num_epochs="3") + [
+            "--ckpt_path", ckpt, "--exp_name", "ranger_resumed"],
+            "ranger resumed from its last.ckpt.npz, epoch 3")
+        assert tr.global_step > steps and tr.opt.count == tr.global_step
+        ckpt = os.path.join(tr.workdir, "last.ckpt.npz")
+        _eval_run(torch, totals, EVAL_FLAGS + scene + [
+            "--split", "test", "--ckpt_path", ckpt, "--exp_name", "ranger"],
+            "the resumed ranger checkpoint")
+
+        # bf16: the fields, then the train CLI for each model
+        _bf16_fields_card_vs_cpu(torch, card)
+        bf = ["--compute_dtype", "bfloat16"]
+        before = dict(totals)
+        tr, _ = _train_run(torch, totals, TRAIN_FLAGS + bf + scene + [
+            "--exp_name", "cp_bf16"], "bf16 CP grid, 2 epochs")
+        assert totals["train_fwd"] > before["train_fwd"] and \
+            totals["train_bwd"] > before["train_bwd"], totals
+        _eval_run(torch, totals, EVAL_FLAGS + bf + scene + [
+            "--split", "test", "--ckpt_path",
+            os.path.join(tr.workdir, "last.ckpt.npz"), "--exp_name",
+            "cp_bf16"], "the bf16 CP checkpoint")
+        for model in ("nerf_tcnn", "nerf"):
+            for fsg in ([], ["--fp32_sigma_grad"]):
+                before = dict(totals)
+                tr, _ = _train_run(torch, totals, _model_train_flags(
+                    model) + bf + fsg + scene + [
+                    "--exp_name", f"{model}_bf16{'_fsg' if fsg else ''}"],
+                    f"bf16 {model}{' --fp32_sigma_grad' if fsg else ''}, "
+                    "2 epochs")
+                if model == "nerf_tcnn":
+                    assert all(totals[k] > before[k]
+                               for k in ("encode", "bwd", "bwd2")), totals
+        run = _eval_run(torch, totals, NERF_EVAL_FLAGS + bf + scene + [
+            "--split", "test", "--ckpt_path",
+            os.path.join(tr.workdir, "last.ckpt.npz"), "--exp_name",
+            "nerf_bf16"], "the bf16 flagship checkpoint (--fused_field)")
+        assert run.get("flagship", 0) > 0, run
+        keep = _bf16_step_profiles(torch, card, str(work / "scene"))
+
+        _lpips_check(torch, card, work, str(work / "scene"), ckpt)
+        _encoders_check(torch, card, totals)
+        _native_check()
+        _profiling_check(torch, keep, work)
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t_start
+    log(f"[options] phase 21 launches {totals}; wall {wall:.1f} s ({card})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3694,6 +4280,13 @@ def main() -> int:
                  (bwd_entry, "train_bwd"), (rows_entries[3], "points"),
                  (hash_entries[1], "encode")):
         e["launches"] += mesh[k]
+    opts = timed("remaining options", phase_remaining_options, torch, card)
+    # phase 21's paths: rows 1-4, ENCODE, BWD and BWD2
+    for e, k in ((entry, "composite"), (fwd_entry, "train_fwd"),
+                 (bwd_entry, "train_bwd"), (mlp_entry, "flagship"),
+                 (hash_entries[1], "encode"), (bwd_entries[0], "bwd"),
+                 (bwd_entries[1], "bwd2")):
+        e["launches"] += opts[k]
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,

@@ -15,7 +15,6 @@ def get_dataset(name: str):
         raise NotImplementedError(
             f"unknown dataset {name!r}: the port loads {sorted(DATASETS)}, "
             "as the JAX package does. Still unported (ROADMAP.md queue 1): "
-            "item 5's LPIPS, visualization, profiling, native and encoder "
-            "parts; items 7 (radam, ranger), 12 (bf16), 9 (multi-device) "
-            "and 8 (remat)")
+            "items 9 (multi-device), 8 (remat) and 15 (the hash-grid "
+            "kernel for encoders with input_dim != 3 or align_corners)")
     return DATASETS[name]

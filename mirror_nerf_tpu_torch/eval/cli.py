@@ -27,8 +27,11 @@ The four applications run with the reference's flags (eval/apps.py):
 `--app_control_mirror_roughness --trace_ray_times T --normal_noise_std s
 [--normal_noise_std_changes]` (modes 5, 52) and
 `--app_reflection_substitution --substitution_ckpt_path <ckpt>` (mode 6).
-Not ported: `--megabatch` and `--proposal_drop_levels` (TPU workarounds)
-and LPIPS (weights absent).
+With `$LPIPS_WEIGHTS` naming a weight file (eval/lpips.py), LPIPS(alex)
+joins PSNR and SSIM: each finite per-view score is kept, `Mean LPIPS` is
+printed and `mean_lpips` / `lpips` go into `psnr.json`, as the JAX
+package's eval.py writes them; without a usable file there is no score.
+Not ported: `--megabatch` and `--proposal_drop_levels` (TPU workarounds).
 """
 
 from __future__ import annotations
@@ -128,6 +131,7 @@ def main(argv=None):
     from ..models.fields import make_field
     from ..utils.visualization import visualize_depth
     from .apps import AppContext, run_view
+    from .metrics import lpips as lpips_metric
     from .metrics import psnr as psnr_metric
     from .metrics import ssim as ssim_metric
 
@@ -152,7 +156,7 @@ def main(argv=None):
     n_views = len(dataset)
     imgs, masks_u8, depth_maps, depth_reflect_maps, masks_float = (
         [], [], [], [], [])
-    psnrs, ssims = [], []
+    psnrs, ssims, lpipss = [], [], []
     typ_final = "coarse"
     view_secs = []  # wall seconds per view (the first carries the build)
     for i in range(n_views):
@@ -185,6 +189,10 @@ def main(argv=None):
                     gt_img = sample["rgbs"].reshape(h, w, 3)
                     psnrs.append(psnr_metric(gt_img, img))
                     ssims.append(ssim_metric(img, gt_img))
+                    # NaN without weights
+                    lp = lpips_metric(img, gt_img, device=device)
+                    if np.isfinite(lp):
+                        lpipss.append(lp)
             if not args.not_save_depth and f"depth_{t}" in results:
                 dep = results[f"depth_{t}"].reshape(h, w)
                 if t == typ:
@@ -273,6 +281,10 @@ def main(argv=None):
                  "psnrs": [float(p) for p in psnrs],
                  "mean_ssim": float(np.mean(ssims)),
                  "ssims": [float(s) for s in ssims]}
+        if lpipss:
+            print(f"Mean LPIPS ({typ_final}): {np.mean(lpipss):.4f}")
+            table["mean_lpips"] = float(np.mean(lpipss))
+            table["lpips"] = [float(v) for v in lpipss]
         with open(os.path.join(dir_name, "psnr.json"), "w") as f:
             json.dump(table, f)
     if len(view_secs) > 1:

@@ -1,8 +1,6 @@
-"""Image quality metrics: PSNR and SSIM (numpy; a copy of the JAX
-package's `eval/metrics.py`). Still unported (ROADMAP.md queue 1, item 5):
-the LPIPS forward (`eval/lpips_jax.py`; its pretrained weights are not in
-the repository), with the rest of item 5 (visualization's remainder,
-profiling, `native.py`, SH degrees 5–8).
+"""Image quality metrics (torch counterpart of the JAX package's
+`eval/metrics.py`): PSNR and SSIM in numpy, and LPIPS(alex) through
+`eval/lpips.py` when a weight file is given (`$LPIPS_WEIGHTS`), else NaN.
 """
 
 from __future__ import annotations
@@ -59,3 +57,32 @@ def ssim(pred: np.ndarray, gt: np.ndarray, window: int = 11,
     num = (2 * mu_p * mu_g + c1) * (2 * cov + c2)
     den = (mu_p ** 2 + mu_g ** 2 + c1) * (var_p + var_g + c2)
     return float(np.mean(num / den))
+
+
+def lpips(pred: np.ndarray, gt: np.ndarray, weights_path: str = None,
+          device="cuda") -> float:
+    """LPIPS(alex) (`eval/lpips.py`) on `device`, the card unless the caller
+    passes "cpu". Needs the weights on disk (`weights_path` or
+    $LPIPS_WEIGHTS); NaN when the file is absent, and NaN with a warning
+    when it is unreadable or incompatible (e.g. a torchscript archive): a
+    metrics run must not abort on a bad perceptual-weights file. A card
+    that is not there raises: the score never moves to the host."""
+    import os
+    import warnings
+
+    import torch
+
+    from .lpips import lpips_from_file
+
+    weights_path = weights_path or os.environ.get("LPIPS_WEIGHTS", "")
+    if not weights_path or not os.path.exists(weights_path):
+        return float("nan")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("LPIPS on the card needs CUDA; pass device='cpu' "
+                           "to score on the host")
+    try:
+        return lpips_from_file(pred, gt, weights_path, device)
+    except Exception as e:  # noqa: BLE001 - incompatible/corrupt weights
+        warnings.warn(f"LPIPS weights unusable ({type(e).__name__}: {e}); "
+                      "reporting NaN")
+        return float("nan")

@@ -9,6 +9,15 @@ mirror head (linear, LeakyReLU(0.01), linear, sigmoid). Its parameters are
 a dict of tensors with the JAX package's leaf names and (in, out) layout, so
 an npz written by either package loads in the other.
 
+With `compute_dtype="bfloat16"` (`--compute_dtype bfloat16`) it casts as
+the JAX field's `_cast` and `_lin` do: the posenc, weights and biases in
+bf16, so every product, bias and activation of the trunk and heads rounds to
+bf16; σ, rgb, the normal and the mirror probability come back fp32, the
+trunk feature that `density` returns stays bf16; the rgb and each head's
+last linear leave their bias add unrounded, as XLA does right before a cast
+(`linear_out`), while σ, sliced before its cast, rounds as any bf16 linear.
+The parameters stay fp32.
+
 `make_field` builds it, the hash-grid model (`nerf_tcnn`, models/ngp.py)
 or the CP-grid model (`nerf_tpu`, models/tpugrid.py).
 """
@@ -20,9 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops._dtype import cast, compute_dtype
 from .embedding import posenc, posenc_dim
 from .ngp import NGPField
-from .nn import init_linear, leaky_relu, linear, relu, sigmoid
+from .nn import init_linear, leaky_relu, linear, linear_out, relu, sigmoid
 from .tpugrid import TPUGridField
 
 
@@ -35,6 +45,7 @@ class MirrorNeRFField:
     skips: Tuple[int, ...] = (4,)
     predict_normal: bool = True
     predict_mirror_mask: bool = True
+    compute_dtype: str = "float32"
 
     @property
     def in_xyz(self) -> int:
@@ -78,33 +89,46 @@ class MirrorNeRFField:
             p["is_mirror"] = [lin(W, W // 2), lin(W // 2, 1)]
         return p
 
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return cast(x, compute_dtype(self.compute_dtype))
+
+    def _lin(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return linear(p, x, compute_dtype(self.compute_dtype))
+
+    def _lin_out(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """A head's last linear, fp32 out (`linear_out`)."""
+        return linear_out(p, x, compute_dtype(self.compute_dtype))
+
     def density(self, params: dict, xyz: torch.Tensor):
-        """(N, 3) raw world coords -> (σ raw (N,), trunk features (N, W))."""
-        h0 = posenc(xyz, self.N_emb_xyz)
+        """(N, 3) raw world coords -> (σ raw (N,), trunk features (N, W) in
+        the compute dtype)."""
+        h0 = self._cast(posenc(xyz, self.N_emb_xyz))
         h = h0
         for i, layer in enumerate(params["trunk"]):
             if i in self.skips:
                 h = torch.cat([h0, h], dim=-1)
-            h = relu(linear(layer, h))
-        return linear(params["sigma"], h)[..., 0], h
+            h = relu(self._lin(layer, h))
+        sigma = self._lin(params["sigma"], h)[..., 0]
+        return (sigma if self.compute_dtype == "float32" else sigma.float()), h
 
     def color(self, params: dict, geo_feat: torch.Tensor,
               dirs: torch.Tensor) -> torch.Tensor:
         """(N, W) trunk features + (N, 3) view dirs (as given) -> (N, 3)."""
-        d = posenc(dirs, self.N_emb_dir)
-        h = linear(params["xyz_final"], geo_feat)
-        h = relu(linear(params["dir_enc"], torch.cat([h, d], dim=-1)))
-        return sigmoid(linear(params["rgb"], h))
+        d = self._cast(posenc(dirs, self.N_emb_dir))
+        h = self._lin(params["xyz_final"], self._cast(geo_feat))
+        h = relu(self._lin(params["dir_enc"], torch.cat([h, d], dim=-1)))
+        return sigmoid(self._lin_out(params["rgb"], h))
 
     def normal_head(self, params: dict, geo_feat: torch.Tensor):
         """Predicted (unnormalized) normal, (N, 3): two linears, no act."""
-        return linear(params["normal"][1],
-                      linear(params["normal"][0], geo_feat))
+        h = self._lin(params["normal"][0], self._cast(geo_feat))
+        return self._lin_out(params["normal"][1], h)
 
     def mirror_head(self, params: dict, geo_feat: torch.Tensor):
         """Per-point mirror probability, (N,)."""
-        h = leaky_relu(linear(params["is_mirror"][0], geo_feat))
-        return sigmoid(linear(params["is_mirror"][1], h))[..., 0]
+        h = leaky_relu(self._lin(params["is_mirror"][0],
+                                 self._cast(geo_feat)))
+        return sigmoid(self._lin_out(params["is_mirror"][1], h))[..., 0]
 
 
 def parse_grid_levels(spec: str):
@@ -117,16 +141,14 @@ def make_field(cfg):
     """Build the field described by a Config (model_type dispatch)."""
     if cfg.model_type not in ("nerf", "nerf_tcnn", "nerf_tpu"):
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the port computes in float32 only; bf16 is ROADMAP.md queue 1, "
-            "item 12")
+    compute_dtype(cfg.compute_dtype)  # float32 or bfloat16
     if cfg.model_type == "nerf":
         return MirrorNeRFField(
             N_emb_xyz=cfg.N_emb_xyz,
             N_emb_dir=cfg.N_emb_dir,
             predict_normal=cfg.predict_normal,
             predict_mirror_mask=cfg.predict_mirror_mask,
+            compute_dtype=cfg.compute_dtype,
         )
     if cfg.model_type == "nerf_tcnn":
         return NGPField(

@@ -11,6 +11,14 @@ nerf_tcnn`).
   * mirror net: Linear(15,32) + LeakyReLU(0.01) + Linear(32,1) + sigmoid
   * world coords scaled (x + bound)·fp32(1/(2·bound)) before encoding
 
+With `compute_dtype="bfloat16"` the σ-net and the color net run in bf16, as
+the JAX field's do: the encoder's fp32 features (ENCODE, BWD and BWD2 keep
+fp32 inputs and outputs; autograd's casts carry the gradients back) and the
+SH/geo concatenation are cast to bf16, each product and ReLU rounds to
+bf16, and the last product of each net comes out fp32 unrounded, as XLA
+computes it (`linear_out`): σ, geo and rgb are fp32. The normal and mirror
+heads stay fp32.
+
 `supports_fused_hash` says whether the fused NGP composite
 (ops/fused_hash.py) takes the field: the renderer's noise-free passes with
 `fused_field` then run the whole field and the compositing in one kernel.
@@ -30,9 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops._dtype import cast, compute_dtype
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
 from ..ops.sh import sh_encode
-from .nn import _uniform, init_linear, leaky_relu, linear, relu, sigmoid
+from .nn import (_uniform, init_linear, leaky_relu, linear, linear_out, relu,
+                 sigmoid)
 
 
 def _init_linear_nobias(generator, in_dim, out_dim, device) -> dict:
@@ -135,10 +145,11 @@ class NGPField:
     # ---- forward pieces (Field protocol) ----
 
     def _sigma_net(self, params: dict, h: torch.Tensor):
-        for i, layer in enumerate(params["sigma_net"]):
-            h = h @ layer["w"]
-            if i != self.num_layers - 1:
-                h = relu(h)
+        dt = compute_dtype(self.compute_dtype)
+        h = cast(h, dt)
+        for layer in params["sigma_net"][:-1]:
+            h = relu(h @ cast(layer["w"], dt))
+        h = linear_out(params["sigma_net"][-1], h, dt)
         return h[..., 0], h[..., 1:]
 
     def density(self, params: dict, xyz: torch.Tensor, encode=None):
@@ -157,12 +168,12 @@ class NGPField:
 
     def color(self, params: dict, geo_feat: torch.Tensor,
               dirs: torch.Tensor) -> torch.Tensor:
-        h = torch.cat([sh_encode(dirs, self.sh_degree), geo_feat], dim=-1)
-        for i, layer in enumerate(params["color_net"]):
-            h = h @ layer["w"]
-            if i != self.num_layers_color - 1:
-                h = relu(h)
-        return sigmoid(h)
+        dt = compute_dtype(self.compute_dtype)
+        h = cast(torch.cat([sh_encode(dirs, self.sh_degree), geo_feat],
+                           dim=-1), dt)
+        for layer in params["color_net"][:-1]:
+            h = relu(h @ cast(layer["w"], dt))
+        return sigmoid(linear_out(params["color_net"][-1], h, dt))
 
     def normal_head(self, params: dict, geo_feat: torch.Tensor):
         h = geo_feat

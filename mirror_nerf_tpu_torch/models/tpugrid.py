@@ -1,6 +1,8 @@
 """CP-grid field: CP-factorized grid encoder + the NGP heads (torch
 counterpart of `mirror_nerf_tpu/models/tpugrid.py`; `--model_type
-nerf_tpu`)."""
+nerf_tpu`). With `compute_dtype="bfloat16"` the encoder's lerps, products
+and fold run in bf16 (`cpgrid_encode`), then the NGP nets as in
+models/ngp.py."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops._dtype import compute_dtype
 from ..ops.cpgrid import CPGridSpec, cpgrid_encode, init_cpgrid
 from .ngp import NGPField
 
@@ -57,6 +60,6 @@ class TPUGridField(NGPField):
         # train kernel. ∇σ jumps across cell boundaries, so a sample within
         # an ulp of a node must not switch cells between devices.
         x01 = (xyz + self.bound) * self.inv_2b
-        return self._sigma_net(params,
-                               cpgrid_encode(params["grid"], x01,
-                                             self.cp_spec))
+        return self._sigma_net(params, cpgrid_encode(
+            params["grid"], x01, self.cp_spec,
+            compute_dtype(self.compute_dtype)))

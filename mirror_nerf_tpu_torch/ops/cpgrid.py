@@ -6,6 +6,8 @@ is the rank-wise product of three linearly interpolated rows, the scales'
 ranks concatenated and folded to `n_features` by a dense matmul. The lookup
 is the paired-gather lerp (`_lerp_rows`); on a GPU a gather is the natural
 primitive, so the JAX package's hat-basis matmul form is not carried over.
+`compute_dtype` bf16 casts the lerp weights and table rows, so the lerps,
+the per-axis product and the fold matmul round to bf16, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from ._dtype import cast
 
 
 @dataclass(frozen=True)
@@ -48,30 +52,33 @@ def init_cpgrid(generator: Optional[torch.Generator], spec: CPGridSpec,
     return {"axes": axes, "fold": ((u * 2.0 - 1.0) * bound).to(device)}
 
 
-def _lerp_rows(table: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+def _lerp_rows(table: torch.Tensor, x01: torch.Tensor,
+               dtype=None) -> torch.Tensor:
     """Linearly interpolated rows of a (G, R) table at x01 ∈ [0,1]: (N, R).
-    Inputs are clamped to [0, 1]; the left index is min(floor, G-2)."""
+    Inputs are clamped to [0, 1]; the left index is min(floor, G-2). With
+    `dtype`, the weights and rows are cast to it before the lerp."""
     g = table.shape[0]
     xf = torch.clamp(x01, 0.0, 1.0) * (g - 1)
     xi = torch.clamp_max(torch.floor(xf).to(torch.int64), g - 2)
-    w = (xf - xi.to(xf.dtype))[:, None]
-    a = table[xi]
-    b = table[xi + 1]
+    w = cast((xf - xi.to(xf.dtype))[:, None], dtype)
+    a = cast(table[xi], dtype)
+    b = cast(table[xi + 1], dtype)
     return a * (1.0 - w) + b * w
 
 
-def cpgrid_encode(params: dict, x01: torch.Tensor,
-                  spec: CPGridSpec) -> torch.Tensor:
-    """(N, input_dim) in [0,1] -> (N, n_features)."""
+def cpgrid_encode(params: dict, x01: torch.Tensor, spec: CPGridSpec,
+                  dtype=None) -> torch.Tensor:
+    """(N, input_dim) in [0,1] -> (N, n_features), in `dtype` (None: the
+    inputs' dtype)."""
     per_level = []
     for li in range(len(spec.levels)):
         prod = None
         for a in range(spec.input_dim):
-            rows = _lerp_rows(params["axes"][a][li], x01[:, a])
+            rows = _lerp_rows(params["axes"][a][li], x01[:, a], dtype)
             prod = rows if prod is None else prod * rows
         per_level.append(prod)
     feats = torch.cat(per_level, dim=-1)
-    return feats @ params["fold"]
+    return feats @ cast(params["fold"], dtype)
 
 
 def cpgrid_tv_loss(params: dict) -> torch.Tensor:

@@ -33,6 +33,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._dtype import float32_field
 from ._build import Library, card_index
 
 _LIB = "fused_cp_train"
@@ -316,8 +317,9 @@ def _device_of(xyz: torch.Tensor) -> str:
 def density_with_grad_fused(field, params: dict, xyz_flat: torch.Tensor):
     """(T, 3) raw coords → (σ, geo, ∇σ). CPU tensors take the plain version,
     CUDA tensors the kernels."""
-    if _device_of(xyz_flat) == "cpu":
-        return density_with_grad_reference(field, params, xyz_flat)
+    if _device_of(xyz_flat) == "cpu":  # the kernels compute in fp32
+        return density_with_grad_reference(float32_field(field), params,
+                                           xyz_flat)
     return DensityWithGradFn.apply(field, xyz_flat.contiguous(),
                                    *_param_args(params))
 
@@ -327,8 +329,8 @@ def density_fused(field, params: dict, xyz_flat: torch.Tensor,
     """(T, 3) raw coords → (σ, geo), differentiable w.r.t. params and, when
     need_dx, xyz. CPU tensors take the plain version, CUDA tensors the
     kernels."""
-    if _device_of(xyz_flat) == "cpu":
-        return density_reference(field, params,
+    if _device_of(xyz_flat) == "cpu":  # the kernels compute in fp32
+        return density_reference(float32_field(field), params,
                                  xyz_flat if need_dx else xyz_flat.detach())
     return DensityFn.apply(field, need_dx, xyz_flat.contiguous(),
                            *_param_args(params))

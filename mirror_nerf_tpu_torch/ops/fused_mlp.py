@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.mathutil import l2_normalize
+from ._dtype import float32_field
 from .fused_cp import check_ray_inputs, on_cpu, prep
 from .fused_mlp_t import check_kernel_call, launch_kernel
 
@@ -109,8 +110,9 @@ def fused_packed_eval(field, params: dict, xyz, dirs=None,
     global launches_points
     if not sigma_only and dirs is None:
         raise ValueError("fused_packed_eval needs view dirs unless σ-only")
-    if on_cpu(xyz.device, "fused PE-MLP rows"):
-        return mlp_rows_reference(field, params, xyz, dirs, sigma_only)
+    if on_cpu(xyz.device, "fused PE-MLP rows"):  # fp32, as the kernel
+        return mlp_rows_reference(float32_field(field), params, xyz, dirs,
+                                  sigma_only)
     x = prep(xyz)
     zeros = torch.zeros_like(x)
     rows = fused_rows_cuda(field, params, x, zeros,

@@ -19,6 +19,14 @@ normal by `torch.autograd.grad` (`density_with_grad_reference`): the
 route that trains the flagship (cuBLAS on the card) and the hash grid
 (ENCODE, its backward BWD and, for the normal losses' grad-of-grad, BWD2).
 
+With `--compute_dtype bfloat16` the plain route runs the field's bf16
+modules; the fused kernels compute in fp32 whatever the field's dtype (as
+the JAX package's do), so a bf16 field reaches them as its fp32 self
+(`float32_field`; their plain versions on the CPU likewise).
+`fp32_sigma_grad` rebuilds a bf16 field's σ-gradient pass in fp32 when the
+train kernels do not take it (JAX `renderer.py:190-215`); that pass's σ and
+geometry feature feed the composite and the heads in fp32.
+
 σ noise is drawn from `generator` once per pass, after the pass's field and
 before the next draw (the fine pass's pdf samples), on every route alike;
 `render_rays(sigma_noise=...)` takes pre-drawn noise instead.
@@ -33,6 +41,7 @@ import torch
 
 from ..core.mathutil import l2_normalize
 from ..core.sampling import merge_fine_z_vals, stratified_z_vals
+from ..ops._dtype import float32_field
 from ..ops.segment_scan import exp_plain
 
 @dataclass(frozen=True)
@@ -64,6 +73,9 @@ class RenderSettings:
     # the training kernels for density + ∇σ (compute_normal) or density
     # alone, differentiable incl. grad-of-grad (ops/fused_cp_train.py)
     fused_density: bool = False
+    # a bf16 field's σ-gradient (analytic normal) pass in fp32 when the
+    # train kernels do not take it (--fp32_sigma_grad)
+    fp32_sigma_grad: bool = False
     # eval-only: no coarse proposal pass; one fine pass on
     # N_samples + N_importance stratified samples
     proposal_skip: bool = False
@@ -140,8 +152,10 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
         def pass_noise(sigmas):
             return _sigma_noise(rs, sigmas, generator, noise)
 
+        kfield = float32_field(field)  # what the kernels compute
+
         if getattr(field, "supports_fused_cp", False):
-            return _inference_fused_cp(field, params, typ, z_vals, dirs, rs,
+            return _inference_fused_cp(kfield, params, typ, z_vals, dirs, rs,
                                        results, sigma_only, rays_o, rays_d,
                                        pass_noise)
         if getattr(field, "supports_fused_hash", False):
@@ -149,7 +163,7 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                 from ..ops.fused_hash import fused_hash_rays_composite
 
                 return _inference_in_kernel(
-                    fused_hash_rays_composite, field, params, typ, z_vals,
+                    fused_hash_rays_composite, kfield, params, typ, z_vals,
                     dirs, rs, results, sigma_only, rays_o, rays_d)
             # σ-noise passes: ENCODE and the PyTorch nets below (a rows
             # mode of the fused kernel is ROADMAP.md queue 2, item 13)
@@ -165,9 +179,9 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                 from ..ops.fused_mlp_t import fused_t_rays_composite
 
                 return _inference_in_kernel(
-                    fused_t_rays_composite, field, params, typ, z_vals, dirs,
-                    rs, results, sigma_only, rays_o, rays_d)
-            return _inference_fused(field, params, typ, z_vals, dirs, rs,
+                    fused_t_rays_composite, kfield, params, typ, z_vals,
+                    dirs, rs, results, sigma_only, rays_o, rays_d)
+            return _inference_fused(kfield, params, typ, z_vals, dirs, rs,
                                     results, sigma_only, rays_o, rays_d,
                                     pass_noise)
         if hasattr(field, "supports_fused") and z_vals.device.type != "cpu":
@@ -187,10 +201,14 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                                           density_with_grad_reference)
 
         # the plain version is the JAX package's _density_with_grad: ∇σ by
-        # autograd, differentiable (grad-of-grad) for the normal losses
+        # autograd, differentiable (grad-of-grad) for the normal losses;
+        # under fp32_sigma_grad a bf16 field's pass is rebuilt in fp32 (the
+        # train kernels compute in fp32 already)
+        f_grad = (float32_field(field) if rs.fp32_sigma_grad and not fused
+                  else field)
         sigma_flat, geo_flat, grad_flat = (
             density_with_grad_fused if fused else
-            density_with_grad_reference)(field, params, xyz_flat)
+            density_with_grad_reference)(f_grad, params, xyz_flat)
         normals = l2_normalize(-grad_flat).reshape(n, s, 3)
     elif fused:
         from ..ops.fused_cp_train import density_fused

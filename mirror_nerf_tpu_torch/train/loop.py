@@ -86,6 +86,7 @@ def make_trace_settings(cfg, epoch: int, geometry_stage: bool,
         detach_density_for_mask_loss=cfg.detach_density_for_mask_loss,
         detach_density_for_normal_loss=cfg.detach_density_for_normal_loss,
         fused_density=fused_density,
+        fp32_sigma_grad=cfg.fp32_sigma_grad,
         proposal_skip=cfg.train_proposal_skip,
         sigma_activation=cfg.sigma_activation,
     )

@@ -156,20 +156,24 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1, item 9 "):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    # the port computes in float32 only (bf16 is ROADMAP queue 1, item
-    # 12), for every model, the hash-grid one included
-    cfg, _ = get_opt(["--model_type", "nerf_tcnn", "--compute_dtype",
-                      "bfloat16"])
+    # --use_remat is ROADMAP.md queue 1, item 8 (torch.utils.checkpoint)
+    from mirror_nerf_tpu_torch.config import Config
+    from mirror_nerf_tpu_torch.train.loop import Trainer
+
+    class _Rays:
+        all_rays = [0] * 8
+
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 12"):
-        make_field(cfg)
+                       match="ROADMAP.md queue 1, item 8 "):
+        Trainer(Config(use_remat=True), _Rays(), "unused", "cpu")
     # every dataset of the JAX package loads (queue 1, item 5's loaders
     # are ported); another name raises and cites what is still unported
     from mirror_nerf_tpu_torch.data import get_dataset
 
     with pytest.raises(NotImplementedError,
                        match=r"unknown dataset 'colmap_dense'.*ROADMAP.md "
-                             r"queue 1\): item 5's LPIPS"):
+                             r"queue 1\): items 9 \(multi-device\), 8 "
+                             r"\(remat\) and 15"):
         get_dataset("colmap_dense")
 
 

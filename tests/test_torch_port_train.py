@@ -106,12 +106,6 @@ def test_lr_schedules_match(sched):
         np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6)
 
 
-def test_radam_and_ranger_raise():
-    for name in ("radam", "ranger"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Optimizer(Config(optimizer=name), {"w": torch.zeros(1)}, 1)
-
-
 # ---- (d) trace_rays in training settings ----
 
 

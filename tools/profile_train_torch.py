@@ -81,6 +81,17 @@ def kernel_ms(r: dict, key: str) -> float:
     return sum(ms for name, (_, ms) in r["by_name"].items() if key in name)
 
 
+# cuBLAS's and CUTLASS's GEMM kernels, by name (nvjet: cuBLAS on Hopper)
+GEMM_KEYS = ("gemm", "cutlass", "xmma", "nvjet")
+
+
+def gemm_share(r: dict) -> float:
+    """The GEMM kernels' share of a breakdown's summed device time."""
+    gemm = sum(ms for name, (_, ms) in r["by_name"].items()
+               if any(k in name.lower() for k in GEMM_KEYS))
+    return gemm / max(sum(ms for _, ms in r["by_name"].values()), 1e-9)
+
+
 def stepper(trainer, cfg, dev: str, loop=None):
     """One reflection-stage step of `trainer` a call, on its dataset's rays
     (batch cfg.batch_size, a seeded permutation); returns the loss, which
