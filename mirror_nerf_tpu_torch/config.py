@@ -35,7 +35,7 @@ class Config:
     batch_size: int = 1024
     chunk: int = 32 * 1024
     num_epochs: int = 16
-    num_gpus: int = 1  # kept for CLI parity; maps to number of mesh devices
+    num_gpus: int = 1  # data-parallel ranks (parallel/mesh.py)
 
     # checkpoints
     ckpt_path: Optional[str] = None

@@ -15,6 +15,6 @@ def get_dataset(name: str):
         raise NotImplementedError(
             f"unknown dataset {name!r}: the port loads {sorted(DATASETS)}, "
             "as the JAX package does. Still unported (ROADMAP.md queue 1): "
-            "items 9 (multi-device), 8 (remat) and 15 (the hash-grid "
-            "kernel for encoders with input_dim != 3 or align_corners)")
+            "item 15 (the hash-grid kernel for encoders with input_dim != 3 "
+            "or align_corners)")
     return DATASETS[name]

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.mathutil import l2_normalize, reflect
+from ..parallel.mesh import compact_slots, pad_to_multiple
 from ..render.renderer import (RenderSettings, check_secondary_render,
                                render_rays)
 from ..render.tracer import RAY_FORWARD_OFFSET
@@ -247,12 +248,17 @@ def eval_trace(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
                subst_params: Optional[dict] = None, subst_field=None,
                obj_render_fn: Optional[Callable] = None,
                frame_time: float = 0.0,
-               normal_noise: Optional[torch.Tensor] = None) -> dict:
+               normal_noise: Optional[torch.Tensor] = None, group=None,
+               n_global: Optional[int] = None,
+               real: Optional[torch.Tensor] = None) -> dict:
     """One eval render level + (optionally) the traced reflection below it.
     `normal_noise` (N, 3) perturbs the level-0 normal (roughness);
     `subst_params` / `subst_field` render the level-0 secondary rays in
     the substituted field; `obj_render_fn` composites a guest object at
-    `frame_time` into every level."""
+    `frame_time` into every level. With a `group` the rays are this rank's
+    rows of the chunk, and the compaction's slots are the whole chunk's
+    (`n_global` rays at this level; `real`, which rows hold one), as in
+    `render/tracer.py trace_rays`."""
     if level > 0 and rs_secondary is not None:
         rs = rs_secondary
     results = render_rays(field, params, rays, rs)
@@ -302,24 +308,30 @@ def eval_trace(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
                           level + 1, compact_frac, compact_from_level,
                           rs_secondary, subst_params=subst_params,
                           subst_field=subst_field,
-                          obj_render_fn=obj_render_fn, frame_time=frame_time)
+                          obj_render_fn=obj_render_fn, frame_time=frame_time,
+                          group=group, n_global=n_next, real=real_next)
 
     n = rays.shape[0]
+    n_all = n if group is None else (n_global or n * group.world)
+    n_next, real_next = n_all, real
     if (compact_frac < 1.0 and level >= compact_from_level
-            and int(n * compact_frac) < n):
+            and int(n_all * compact_frac) < n_all):
         # fixed-capacity compaction: mirror rays land in cumsum-assigned
-        # slots (slot `cap` takes the overflow and is dropped), results
+        # slots (slot `size` takes the overflow and is dropped), results
         # scatter back; non-mirror rays are never traced (blend weight 0)
-        cap = min(max((int(n * compact_frac) + 127) // 128 * 128, 128), n)
+        cap = min(max((int(n_all * compact_frac) + 127) // 128 * 128, 128),
+                  n_all)
         keep = mirror_mask > 0.5
-        pos = torch.cumsum(keep.to(torch.int64), dim=0) - 1
-        valid = keep & (pos < cap)
-        slot = torch.where(valid, pos, torch.full_like(pos, cap))
-        buf = torch.zeros((cap + 1,) + secondary.shape[1:],
+        if real is not None:
+            keep = keep & real
+        pos, valid, size, real_next = compact_slots(keep, cap, group)
+        n_next = cap
+        slot = torch.where(valid, pos, torch.full_like(pos, size))
+        buf = torch.zeros((size + 1,) + secondary.shape[1:],
                           dtype=secondary.dtype, device=secondary.device)
         buf[slot] = secondary
-        sec_sub = _trace_bundle(buf[:cap])
-        pos_c = torch.clamp(pos, 0, cap - 1)
+        sec_sub = _trace_bundle(buf[:size])
+        pos_c = torch.clamp(pos, 0, size - 1)
 
         def _expand(v):
             mask = valid.reshape((n,) + (1,) * (v.ndim - 1))
@@ -357,7 +369,7 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
                     rs: RenderSettings, app: EvalAppFlags,
                     max_recursive_level: int, trace_secondary_rays: bool,
                     rs_secondary: Optional[RenderSettings] = None,
-                    levels: Optional[list] = None) -> dict:
+                    levels: Optional[list] = None, group=None) -> dict:
     """The deep Whitted trace (e.g. the new-mirror app's 50 levels,
     run.sh mode 3), front to back: carry the rays, the throughput T = Π of
     the mirror masks so far and the accumulated rgb; each level renders the
@@ -373,7 +385,9 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
     blended secondary colour and the level-1 depth, both masked by the
     level-0 mirror mask; `_deep_levels` the deepest level rendered (guest
     objects never take this trace). `levels`, a list, receives each
-    level's (T after it, its rendered rgb), level 0 first."""
+    level's (T after it, its rendered rgb), level 0 first. With a `group`
+    the rays are this rank's rows of the chunk, and the trace goes on while
+    any rank's rays have throughput."""
     check_secondary_render(rs, rs_secondary)
     sel = "fine" if rs.fine_pass == "fine" else "coarse"
     n = rays.shape[0]
@@ -414,7 +428,12 @@ def eval_trace_deep(field, params: dict, rays: torch.Tensor,
     rgb_acc = (1.0 - m0[:, None]) * base0
     ref_depth = torch.zeros_like(m0)
     level = 1
-    while level <= max_recursive_level and bool((T > 0.0).any()):
+
+    def alive():
+        left = (T > 0.0).any()
+        return bool(left if group is None else group.any(left))
+
+    while level <= max_recursive_level and alive():
         res, m, nxt, _, _ = render_level(rays_l, rs_loop)
         if level >= max_recursive_level:
             m = torch.zeros_like(m)  # cutoff: contributes unblended
@@ -458,6 +477,9 @@ class AppContext:
     obj_render_fn: Optional[Callable] = None
     # the deepest level `eval_trace_deep` rendered in this context's views
     deep_levels: int = 0
+    # the data-parallel group whose ranks render a view's chunks together
+    # (parallel/mesh.py), None on one device
+    group: object = None
 
     @property
     def deep(self) -> bool:
@@ -469,11 +491,10 @@ class AppContext:
             or self.app.roughness)
 
     @classmethod
-    def build(cls, cfg, args, field, params, device) -> "AppContext":
-        if cfg.num_gpus > 1:
-            raise NotImplementedError(
-                "multi-GPU eval is not ported yet: ROADMAP.md queue 1, "
-                "item 9 (torch.distributed)")
+    def build(cls, cfg, args, field, params, device,
+              group=None) -> "AppContext":
+        """The context of an eval run; with a `group` of more than one
+        rank every view is rendered by all of them (`run_view`)."""
         compute_normal = cfg.trace_secondary_rays and not cfg.predict_normal
         rs = RenderSettings(
             N_samples=cfg.N_samples, N_importance=cfg.N_importance,
@@ -519,7 +540,9 @@ class AppContext:
                              "mirror rays: add --trace_secondary_rays and "
                              "--max_recursive_level >= 1")
         ctx = cls(cfg=cfg, field=field, params=params, rs=rs, app=app,
-                  device=torch.device(device), rs_sec=rs_sec, args=args)
+                  device=torch.device(device), rs_sec=rs_sec, args=args,
+                  group=group if group is not None and group.world > 1
+                  else None)
         if app.substitution:
             if not args.substitution_ckpt_path:
                 raise SystemExit("[Error] substitution_ckpt_path required "
@@ -601,7 +624,7 @@ def _trace_chunk(ctx: AppContext, rays: torch.Tensor, compact_frac: float,
                       rs_secondary=ctx.rs_sec, subst_params=ctx.subst_params,
                       subst_field=ctx.subst_field,
                       obj_render_fn=ctx.obj_render_fn, frame_time=frame_time,
-                      normal_noise=normal_noise)
+                      normal_noise=normal_noise, group=ctx.group)
 
 
 def roughness_bundle(ctx: AppContext, secondary_o: torch.Tensor,
@@ -652,7 +675,9 @@ def render_chunk(ctx: AppContext, rays: torch.Tensor,
                  noises=None) -> dict:
     """One chunk of a view through the context's trace: the roughness
     bundles' mean (`noises`, one (N, 3) normal perturbation a bundle), the
-    deep trace, or `eval_trace` with the context's applications."""
+    deep trace, or `eval_trace` with the context's applications. With the
+    context's group, `rays` (and `noises`) are this rank's rows of the
+    chunk."""
     cfg = ctx.cfg
     if ctx.app.roughness:
         # the base chunk once, then the perturbed-normal bundles from
@@ -664,7 +689,7 @@ def render_chunk(ctx: AppContext, rays: torch.Tensor,
         res = eval_trace_deep(ctx.field, ctx.params, rays, ctx.rs, ctx.app,
                               cfg.max_recursive_level,
                               cfg.trace_secondary_rays,
-                              rs_secondary=ctx.rs_sec)
+                              rs_secondary=ctx.rs_sec, group=ctx.group)
         ctx.deep_levels = max(ctx.deep_levels, res["_deep_levels"])
         return res
     return _trace_chunk(ctx, rays, compact_frac, frame_time)
@@ -677,12 +702,17 @@ def run_view(ctx: AppContext, sample: dict, progress: float = 0.0,
     `progress` (the view's index over the split's size) is the guest
     objects' frame time and sets the roughness with
     `--normal_noise_std_changes`; the roughness noise of a chunk is drawn
-    from a generator seeded from `view_index` and the chunk's start."""
-    cfg, args = ctx.cfg, ctx.args
+    from a generator seeded from `view_index` and the chunk's start. With
+    the context's group every rank renders its rows of each chunk (the
+    chunk rounded up to a multiple of the ranks, as the JAX package's
+    sharded chunks are) and every rank gets the whole view."""
+    cfg, args, group = ctx.cfg, ctx.args, ctx.group
     rays_all = torch.as_tensor(np.asarray(sample["rays"], np.float32),
                                device=ctx.device)
     n = rays_all.shape[0]
     chunk = min(cfg.chunk, n)
+    if group is not None:
+        chunk = pad_to_multiple(chunk, group.world)
     # adaptive secondary-ray capacity (exact while mirror pixels fit; the
     # new-mirror app changes the mask after level 0, so it traces
     # everything; the deep trace does not compact)
@@ -706,10 +736,16 @@ def run_view(ctx: AppContext, sample: dict, progress: float = 0.0,
                 [view_index, start]).generate_state(1)[0]))
             noises = roughness_noises(chunk, args.trace_ray_times + 1,
                                       noise_std, gen, ctx.device)
-        res = render_chunk(ctx, _pad(rays_all[start:start + chunk], chunk),
-                           compact_frac, float(progress), noises)
+        rays = _pad(rays_all[start:start + chunk], chunk)
+        if group is not None:
+            rays = group.shard_rows(rays)
+            if noises is not None:
+                noises = (group.shard_rows(z) for z in noises)
+        res = render_chunk(ctx, rays, compact_frac, float(progress), noises)
         valid = min(chunk, n - start)
         for kk, vv in res.items():
             if _keep_eval_key(kk):
+                if group is not None:
+                    vv = group.all_gather(vv)
                 outs.setdefault(kk, []).append(vv[:valid])
     return {kk: torch.cat(v, 0).cpu().numpy() for kk, v in outs.items()}

@@ -32,6 +32,12 @@ joins PSNR and SSIM: each finite per-view score is kept, `Mean LPIPS` is
 printed and `mean_lpips` / `lpips` go into `psnr.json`, as the JAX
 package's eval.py writes them; without a usable file there is no score.
 Not ported: `--megabatch` and `--proposal_drop_levels` (TPU workarounds).
+
+`--num_gpus N` renders every view on N ranks, each its rows of every chunk
+(eval/apps.py `run_view`, parallel/mesh.py): N cards over NCCL (more than
+the machine has raises) or, with `--device cpu`, N processes over gloo; the
+CLI starts ranks 1 … N−1 itself, and under `torchrun` each process joins
+instead. Rank 0 writes the images, `psnr.json` and LPIPS.
 """
 
 from __future__ import annotations
@@ -122,8 +128,15 @@ def init_params(field, cfg, device) -> dict:
 
 
 def main(argv=None):
+    """Evaluate; returns the result directory."""
     cfg, args = get_opt(argv)
+    from ..parallel.mesh import launch
 
+    return launch(evaluate, cfg.num_gpus, args.device, (cfg, args))
+
+
+def evaluate(group, cfg, args):
+    """The views on one device (`group` None) or on one rank of a group."""
     import torch
 
     from ..data import get_dataset
@@ -135,23 +148,25 @@ def main(argv=None):
     from .metrics import psnr as psnr_metric
     from .metrics import ssim as ssim_metric
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if group is None else group.device
+    main_rank = group is None or group.is_main
     w, h = cfg.img_wh
     dataset = get_dataset(cfg.dataset_name)(cfg.root_dir, args.split,
                                             cfg.img_wh, cfg)
     field = make_field(cfg)
     params = init_params(field, cfg, device)
-    ctx = AppContext.build(cfg, args, field, params, device)
+    ctx = AppContext.build(cfg, args, field, params, device, group)
 
     dir_name = f"results/{cfg.dataset_name}/{cfg.exp_name}"
-    os.makedirs(dir_name, exist_ok=True)
     sub = {}
     for name in ("depth", "depth_unified_normalization", "mirror_mask",
                  "normal", "depth_reflect",
                  "depth_reflect_unified_normalization", "x_surface"):
         sub[name] = os.path.join(dir_name, name)
-        os.makedirs(sub[name], exist_ok=True)
-    print(f"[info] Results saved to dir {dir_name}.")
+        if main_rank:
+            os.makedirs(sub[name], exist_ok=True)
+    if main_rank:
+        print(f"[info] Results saved to dir {dir_name}.")
 
     n_views = len(dataset)
     imgs, masks_u8, depth_maps, depth_reflect_maps, masks_float = (
@@ -167,6 +182,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         results = run_view(ctx, sample, progress, i)  # numpy: synchronized
         view_secs.append(time.perf_counter() - t0)
+        if not main_rank:
+            continue
         if "compact_dropped" in results:
             n_drop = float(np.sum(results["compact_dropped"]))
             if n_drop > 0:
@@ -241,6 +258,8 @@ def main(argv=None):
         print(f"[{i + 1}/{n_views}] rendered"
               + (f", psnr={psnrs[-1]:.2f}" if psnrs else ""))
 
+    if not main_rank:
+        return dir_name
     if imgs:
         _save_gif(os.path.join(dir_name,
                                f"{cfg.exp_name}_rgb_{typ_final}.gif"), imgs)

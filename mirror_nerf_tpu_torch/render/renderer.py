@@ -370,7 +370,8 @@ def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
                 generator: Optional[torch.Generator] = None,
                 mirror_mask_gt: Optional[torch.Tensor] = None,
                 view_dirs: Optional[torch.Tensor] = None,
-                sigma_noise: Optional[dict] = None) -> dict:
+                sigma_noise: Optional[dict] = None,
+                gt_valid: Optional[torch.Tensor] = None) -> dict:
     """Render a (N, 8) = [o, d, near, far] ray batch through the
     coarse(+fine) fields; result keys suffixed _coarse/_fine. `generator`
     draws the perturbation and σ noise when `rs` asks for them;
@@ -379,12 +380,13 @@ def render_rays(field, params: dict, rays: torch.Tensor, rs: RenderSettings,
     replaces the generator's σ-noise draws with pre-drawn standard-normal
     ones (× noise_std): "coarse" (N, N_samples) for the proposal pass,
     "fine" for the pass on the merged samples (or the one proposal-skip
-    pass) — the JAX package's k_noise_c and k_noise_f."""
+    pass) — the JAX package's k_noise_c and k_noise_f. `gt_valid`, a
+    boolean scalar, says whether the batch's GT masks are all valid when
+    these rays are one rank's rows of it (by default: all of these are)."""
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     dirs = rays_d if view_dirs is None else view_dirs
-    gt_valid = None
-    if mirror_mask_gt is not None:
+    if mirror_mask_gt is not None and gt_valid is None:
         gt_valid = (mirror_mask_gt >= 0).all()
 
     def infer(typ, z, sigma_only, pass_name):

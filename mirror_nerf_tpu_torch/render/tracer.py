@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..core.mathutil import l2_normalize, reflect
+from ..parallel.mesh import compact_slots
 from .renderer import RenderSettings, render_rays
 
 # offset pushing secondary-ray origins off the mirror surface
@@ -74,9 +75,12 @@ class TraceSettings:
 
 
 def _resolve_mirror_mask(results: dict, gt_mask: torch.Tensor,
-                         level: int) -> torch.Tensor:
+                         level: int,
+                         gt_valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Hard {0,1} mirror mask for this bounce: the GT mask at level 0 when
-    it is valid, else the thresholded detached prediction."""
+    it is valid (`gt_valid`, the whole batch's, when these rays are one
+    rank's rows), else the thresholded detached prediction."""
     sel = None
     for typ in ("fine", "coarse"):
         if f"mirror_mask_{typ}" in results:
@@ -87,6 +91,8 @@ def _resolve_mirror_mask(results: dict, gt_mask: torch.Tensor,
     pred = (sel.detach() > 0.5).to(gt_mask.dtype)
     if level > 0:
         return pred
+    if gt_valid is not None:
+        return torch.where(gt_valid, gt_mask, pred)
     return torch.where((gt_mask < 0).any(), pred, gt_mask)
 
 
@@ -132,17 +138,30 @@ def trace_rays(field, params: dict, rays: torch.Tensor,
                mirror_mask_gt: torch.Tensor, ts: TraceSettings,
                generator: Optional[torch.Generator] = None, level: int = 0,
                mirror_mask_prev: Optional[torch.Tensor] = None,
-               sigma_noise: Optional[list] = None) -> dict:
+               sigma_noise: Optional[list] = None, group=None,
+               n_global: Optional[int] = None,
+               real: Optional[torch.Tensor] = None) -> dict:
     """Render `rays` (N, 8) with GT masks (N,) (−1 = none) and trace their
     reflections; `generator` draws the perturbation and σ noise, or
     `sigma_noise` holds pre-drawn noise, one `render_rays` dict per level
-    (shaped for the rays that level renders)."""
+    (shaped for the rays that level renders).
+
+    With a `group` (parallel/mesh.py) `rays` are this rank's rows of the
+    batch and what couples rays is taken over the whole batch, as one
+    device holding it computes it: the GT masks' validity and the
+    compaction's slots. `n_global` is the batch's size at this level (the
+    one-device buffer's), `real` which of this rank's rows hold a ray
+    (None: all)."""
+    gt_valid = None
+    if group is not None:
+        gt_valid = group.all((mirror_mask_gt >= 0).all())
     results = render_rays(field, params, rays, ts.render, generator,
                           mirror_mask_gt=mirror_mask_gt,
                           sigma_noise=None if sigma_noise is None
-                          else sigma_noise[level])
+                          else sigma_noise[level], gt_valid=gt_valid)
     sel = ts.select_type
-    mirror_mask = _resolve_mirror_mask(results, mirror_mask_gt, level)
+    mirror_mask = _resolve_mirror_mask(results, mirror_mask_gt, level,
+                                       gt_valid)
     if (not ts.only_in_mirrors(level) and level > 0
             and mirror_mask_prev is not None):
         mirror_mask = mirror_mask * mirror_mask_prev.detach()
@@ -173,25 +192,29 @@ def trace_rays(field, params: dict, rays: torch.Tensor,
     ts_next = next_level_settings(field, ts)
 
     n = rays.shape[0]
+    n_all = n if group is None else (n_global or n * group.world)
     if (ts.compact_frac < 1.0 and ts.compact_at(level)
-            and int(n * ts.compact_frac) < n):
+            and int(n_all * ts.compact_frac) < n_all):
         # mirror rays keep their order and land in cumsum-assigned slots;
-        # slot `cap` takes the overflow and is dropped. Exact while the
+        # slot `size` takes the overflow and is dropped. Exact while the
         # mirror rays fit; non-mirror rays are never traced (blend weight 0)
-        cap = min(max((int(n * ts.compact_frac) + 127) // 128 * 128, 128), n)
+        cap = min(max((int(n_all * ts.compact_frac) + 127) // 128 * 128,
+                      128), n_all)
         keep = mirror_mask.detach() > 0.5
-        pos = torch.cumsum(keep.to(torch.int64), dim=0) - 1
-        valid = keep & (pos < cap)
-        slot = torch.where(valid, pos, torch.full_like(pos, cap))
+        if real is not None:
+            keep = keep & real
+        pos, valid, size, real_next = compact_slots(keep, cap, group)
+        slot = torch.where(valid, pos, torch.full_like(pos, size))
 
         def _compact(arr):
-            buf = arr.new_zeros((cap + 1,) + arr.shape[1:])
-            return buf.index_put((slot,), arr)[:cap]
+            buf = arr.new_zeros((size + 1,) + arr.shape[1:])
+            return buf.index_put((slot,), arr)[:size]
 
         sec_sub = trace_rays(field, params, _compact(secondary),
                              _compact(mirror_mask_gt), ts_next, generator,
-                             level + 1, _compact(mirror_mask), sigma_noise)
-        pos_c = torch.clamp(pos, 0, cap - 1)
+                             level + 1, _compact(mirror_mask), sigma_noise,
+                             group, cap, real_next)
+        pos_c = torch.clamp(pos, 0, size - 1)
 
         def _expand(v):
             mask = valid.reshape((n,) + (1,) * (v.ndim - 1))
@@ -207,7 +230,8 @@ def trace_rays(field, params: dict, rays: torch.Tensor,
         results["compact_dropped"] = dropped
     else:
         sec = trace_rays(field, params, secondary, mirror_mask_gt, ts_next,
-                         generator, level + 1, mirror_mask, sigma_noise)
+                         generator, level + 1, mirror_mask, sigma_noise,
+                         group, n_all, real)
         if "compact_dropped" in sec:
             results["compact_dropped"] = sec["compact_dropped"]
 

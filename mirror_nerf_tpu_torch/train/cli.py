@@ -11,6 +11,12 @@ PSNR, lr, every 50 steps), `val_metrics.jsonl` (val PSNR and SSIM, the
 epoch's steady-state rays/s), `val_epoch{e}.png`, `last.ckpt.npz` and
 `epoch={e}.ckpt.npz` (npz train checkpoints that resume in either package).
 TensorBoard and the source snapshot of the JAX entry point are left out.
+
+`--num_gpus N` (default 1, one card) trains data parallel on N ranks
+(train/loop.py, parallel/mesh.py): N cards over NCCL, `cuda:0` … `cuda:N−1`
+(more than the machine has raises), or with `--device cpu` N processes
+over gloo. The CLI starts ranks 1 … N−1 itself; under `torchrun`
+(WORLD_SIZE set) each process joins instead. Rank 0 writes the run.
 """
 
 from __future__ import annotations
@@ -41,9 +47,17 @@ def get_opt(argv=None):
 
 
 def main(argv=None):
-    """Train; returns the Trainer (its `workdir` holds the run)."""
+    """Train; returns the Trainer (its `workdir` holds the run), rank 0's
+    when several ranks train."""
     cfg, args = get_opt(argv)
+    from ..parallel.mesh import launch
 
+    return launch(train, cfg.num_gpus, args.device, (cfg, args),
+                  batch_size=cfg.batch_size)
+
+
+def train(group, cfg, args):
+    """The run on one device (`group` None) or on one rank of a group."""
     import torch
 
     from ..data import get_dataset
@@ -52,18 +66,23 @@ def main(argv=None):
     from ..utils.visualization import save_image, visualize_val_image
     from .loop import Trainer, make_trace_settings, render_image_chunked
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if group is None else group.device
+    main_rank = group is None or group.is_main
     log_path = os.path.join("logs", time.strftime("%Y%m%d-%H%M%S") + "_"
                             + cfg.exp_name)
-    os.makedirs(log_path, exist_ok=True)
-    print(f"Start with exp_name: {os.path.basename(log_path)}.")
-    with open(os.path.join(log_path, "config.json"), "w") as f:
-        json.dump({k: str(v) for k, v in cfg.__dict__.items()}, f, indent=1)
+    if group is not None:
+        log_path = group.broadcast_object(log_path)
+    if main_rank:
+        os.makedirs(log_path, exist_ok=True)
+        print(f"Start with exp_name: {os.path.basename(log_path)}.")
+        with open(os.path.join(log_path, "config.json"), "w") as f:
+            json.dump({k: str(v) for k, v in cfg.__dict__.items()}, f,
+                      indent=1)
 
     ds_cls = get_dataset(cfg.dataset_name)
     train_ds = ds_cls(cfg.root_dir, "train", cfg.img_wh, cfg)
     val_ds = ds_cls(cfg.root_dir, "val", cfg.img_wh, cfg)
-    trainer = Trainer(cfg, train_ds, log_path, device=device)
+    trainer = Trainer(cfg, train_ds, log_path, device=device, group=group)
     cfg = trainer.cfg  # the schedule may have been rescaled
 
     def on_epoch_end(tr, epoch, aux):
@@ -76,7 +95,10 @@ def main(argv=None):
         gen.manual_seed(cfg.seed + epoch)
         res = render_image_chunked(tr.field, tr.params, sample["rays"],
                                    sample["mirror_mask"], ts, cfg.chunk,
-                                   device, gen, keys=VAL_KEYS)
+                                   device, gen, keys=VAL_KEYS,
+                                   group=tr.group)
+        if not main_rank:
+            return
         typ = "fine" if "rgb_fine" in res else "coarse"
         rgbs = sample["rgbs"]
         if geometry_stage and (sample["mirror_mask"] >= 0).all() \

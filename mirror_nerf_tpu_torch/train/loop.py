@@ -14,10 +14,19 @@ All three models train: the CP grid (`nerf_tpu`, through its train
 kernels on the card), the flagship PE-MLP (`nerf`, plain PyTorch: cuBLAS on
 the card, as the JAX package leaves it to XLA) and the hash grid
 (`nerf_tcnn`: ENCODE, BWD and BWD2 of `csrc/hashgrid.cu` on the card, the
-nets in PyTorch). One device, one optimizer step per Python call. The JAX package's TPU
+nets in PyTorch). One optimizer step per Python call. The JAX package's TPU
 workarounds are not carried over: the K-steps-per-dispatch scan
-(`--steps_per_dispatch` is parsed and ignored), `jax.checkpoint`
-(`--use_remat` raises) and the chunk-halving retry.
+(`--steps_per_dispatch` is parsed and ignored) and the chunk-halving retry.
+
+Data parallel (`group`, parallel/mesh.py): every rank holds the global
+batch, renders its rows of it, and joins the render's outputs
+(`gather_rows`), so that each computes the global batch's loss as one
+device does (several losses couple the batch's rays: the GT-mask gate,
+the plane tuples, the normal loss's gate); the terms on the parameters
+themselves (the novel-ray prior, `cp_tv`) count on rank 0 only, and the
+gradients are summed over the ranks. `--use_remat` rematerializes the
+traced render (`checkpointed`, the counterpart of `jax.checkpoint`): the
+backward renders it again from the generator's state it started from.
 """
 
 from __future__ import annotations
@@ -36,9 +45,10 @@ from ..core.mathutil import psnr as psnr_fn
 from ..core.sampling import stratified_z_vals
 from ..models.fields import make_field
 from ..ops.cpgrid import cpgrid_tv_loss
+from ..parallel.mesh import generator_seed, pad_to_multiple
 from ..render.renderer import RenderSettings
 from ..render.tracer import TraceSettings, trace_rays
-from .checkpoints import (load_optimizer_state, load_pytree_nonstrict,
+from .checkpoints import (_map, load_optimizer_state, load_pytree_nonstrict,
                           load_train_ckpt, params_from_numpy, params_to_numpy,
                           save_train_ckpt, tree_leaves)
 from .losses import (draw_plane_tuples, make_loss_settings,
@@ -153,23 +163,103 @@ class EpochStatics:
         )
 
 
+def checkpointed(fn, params: dict, generator: torch.Generator, *args):
+    """`fn(params, *args)` rematerialized, as `jax.checkpoint` does: the
+    forward keeps none of its graph, the backward renders it again and
+    differentiates that (one recompute). The recompute draws from
+    `generator` what the forward drew: the generator is set back to the
+    state the forward started from, then restored. Returns `fn`'s dict of
+    tensors.
+
+    `torch.utils.checkpoint` (non-reentrant) does not do here: the σ-
+    gradient normal's `autograd.grad` inside the region unpacks the
+    region's saved tensors, and each such unpack recomputes the region
+    (three recomputes a CP step on the CPU)."""
+    leaves, keys = tree_leaves(params), []
+    vals = _Remat.apply(fn, params, _Replay(generator), keys, len(leaves),
+                        *leaves, *args)
+    return dict(zip(keys, vals))
+
+
+class _Replay:
+    """Around each recompute: the generator at the state the region's
+    forward started from, then back where it was."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.start = generator.get_state()
+        self.after = None
+
+    def __enter__(self):
+        self.after = self.generator.get_state()
+        self.generator.set_state(self.start)
+
+    def __exit__(self, *exc):
+        self.generator.set_state(self.after)
+        return False
+
+
+class _Remat(torch.autograd.Function):
+    @staticmethod
+    def _run(fn, params, n, inputs):
+        """`fn` on fresh leaves of `inputs` (grad on where they had it)."""
+        fresh = [x.detach().requires_grad_(x.requires_grad) for x in inputs]
+        sub = {id(old): new for old, new in zip(tree_leaves(params),
+                                                fresh[:n])}
+        with torch.enable_grad():
+            out = fn(_map(params, lambda _, v: sub[id(v)]), *fresh[n:])
+        return fresh, out
+
+    @staticmethod
+    def forward(ctx, fn, params, replay, keys, n, *inputs):
+        _, out = _Remat._run(fn, params, n, inputs)
+        ctx.fn, ctx.params, ctx.replay, ctx.n = fn, params, replay, n
+        ctx.keys = list(out)
+        keys[:] = ctx.keys
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        vals = tuple(out[k].detach() for k in ctx.keys)
+        ctx.mark_non_differentiable(*[v for v in vals
+                                      if not v.is_floating_point()])
+        return vals
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.replay:
+            fresh, out = _Remat._run(ctx.fn, ctx.params, ctx.n,
+                                     ctx.saved_tensors)
+        pairs = [(out[k], g) for k, g in zip(ctx.keys, grads)
+                 if g is not None and out[k].requires_grad]
+        want = [x for x in fresh if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       want, [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs else [None] * len(want))
+        return (None, None, None, None, None,
+                *[next(got) if x.requires_grad else None for x in fresh])
+
+
 class Trainer:
-    """Data shuffling, stage flips and train steps on one device.
+    """Data shuffling, stage flips and train steps on one device, or on
+    one rank of a data-parallel `group` (parallel/mesh.py).
 
     `params` (optional) are the initial parameters as a tree of arrays or
     tensors (e.g. another run's, carried over by the npz bridge); by default
-    they are drawn from a generator seeded with `cfg.seed`."""
+    they are drawn from a generator seeded with `cfg.seed`. With a group
+    every rank starts from rank 0's parameters, draws its render's
+    perturbation and σ noise from a stream of its own (rank 0's is the
+    one-device stream), and only rank 0 writes checkpoints and
+    `metrics.jsonl`."""
 
     def __init__(self, cfg, dataset, workdir: str, device="cuda",
-                 params: Optional[dict] = None):
-        if cfg.num_gpus > 1:
-            raise NotImplementedError(
-                "multi-device training is not ported yet: ROADMAP.md queue "
-                "1, item 9 (torch.distributed data parallel)")
-        if cfg.use_remat:
-            raise NotImplementedError(
-                "--use_remat is not ported yet: ROADMAP.md queue 1, item 8 "
-                "(torch.utils.checkpoint around the traced render)")
+                 params: Optional[dict] = None, group=None):
+        self.group = group if group is not None and group.world > 1 \
+            else None
+        if self.group is not None and cfg.batch_size % self.group.world:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by "
+                f"{self.group.world} devices")
+        self.is_main = self.group is None or self.group.is_main
         self.device = torch.device(device)
         self.dataset = dataset
         self.workdir = workdir
@@ -199,9 +289,12 @@ class Trainer:
         self.opt = Optimizer(cfg, self.params, self.steps_per_epoch)
         if cfg.ckpt_path:
             load_optimizer_state(cfg.ckpt_path, self.opt)
+        if self.group is not None:
+            self.group.broadcast_params(self.opt.leaves)
         # draws the perturbation, σ noise, plane tuples, novel-ray jitter
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
+        self.generator.manual_seed(generator_seed(
+            cfg.seed, 0 if self.group is None else self.group.rank))
         self._buffers: dict = {}
         self._metrics_path = os.path.join(workdir, "metrics.jsonl")
 
@@ -226,9 +319,12 @@ class Trainer:
 
     def loss_and_aux(self, statics: EpochStatics, batch: dict):
         """The scheduled loss of one batch (differentiable) and its aux
-        values (detached tensors on the device)."""
-        cfg, field, params, g = self.cfg, self.field, self.params, \
-            self.generator
+        values (detached tensors on the device). With a group `batch` is the
+        global batch; each rank renders its rows, and the loss is the
+        global one (on ranks other than 0 without the terms on the
+        parameters themselves, which rank 0 adds)."""
+        cfg, field, params, g, group = self.cfg, self.field, self.params, \
+            self.generator, self.group
         ts, ls = self.settings(statics)
         rays, rgbs, mask = batch["rays"], batch["rgbs"], batch["mirror_mask"]
         mask_all_valid = (mask >= 0).all()
@@ -238,12 +334,30 @@ class Trainer:
                                torch.zeros_like(rgbs), rgbs)
         batch_in = {**batch, "rgbs": rgbs}
 
-        results = trace_rays(field, params, rays, mask, ts, g)
+        def render(params_, rays_, mask_):
+            return trace_rays(field, params_, rays_, mask_, ts, g,
+                              group=group)
+
+        rays_r, mask_r = rays, mask
+        if group is not None:
+            rays_r, mask_r = group.shard_rows(rays), group.shard_rows(mask)
+        if cfg.use_remat:
+            results = checkpointed(render, params, g, rays_r, mask_r)
+        else:
+            results = render(params, rays_r, mask_r)
+        if group is not None:
+            results = {k: group.gather_rows(v) for k, v in results.items()}
         plane_idx = None
         if ls.enable_plane_loss and ls.use_plane_consistent_loss:
-            plane_idx = draw_plane_tuples(mask, ls.plane_n_tuples, g)
+            if group is None or group.is_main:
+                plane_idx = draw_plane_tuples(mask, ls.plane_n_tuples, g)
+            else:
+                plane_idx = torch.empty((ls.plane_n_tuples, 4),
+                                        dtype=torch.int64, device=mask.device)
+            if group is not None:
+                group.broadcast_(plane_idx)
         loss, loss_dict = total_loss(ls, results, batch_in, plane_idx)
-        if statics.enable_novel_reg:
+        if statics.enable_novel_reg and self.is_main:
             nr = rays[:cfg.novel_ray_batch]
             o_noise = torch.randn(nr[:, 0:3].shape, generator=g,
                                   dtype=nr.dtype, device=nr.device)
@@ -255,7 +369,8 @@ class Trainer:
                 sigma_act=ts.render.sigma_activation)
             loss = loss + nv
             loss_dict["novel_ray_reg"] = nv
-        if cfg.cp_tv_loss_weight > 0 and cfg.model_type == "nerf_tpu":
+        if cfg.cp_tv_loss_weight > 0 and cfg.model_type == "nerf_tpu" \
+                and self.is_main:
             tv = cfg.cp_tv_loss_weight * sum(
                 cpgrid_tv_loss(params[m]["grid"]) for m in params)
             loss = loss + tv
@@ -280,10 +395,13 @@ class Trainer:
         """One optimizer step on one batch; returns the aux tensors. The
         backward runs for the parameters only: no gradient of the sample
         positions that the σ-gradient normal differentiated (the hash
-        grid's BWD then skips its dx01)."""
+        grid's BWD then skips its dx01). With a group the gradients are
+        summed over the ranks before the step."""
         loss, aux = self.loss_and_aux(statics, batch)
         self.opt.zero_grad()
         loss.backward(inputs=self.opt.leaves)
+        if self.group is not None:
+            self.group.all_reduce_grads(self.opt.leaves)
         self.opt.step(self.global_step)
         self.global_step += 1
         return aux
@@ -343,7 +461,9 @@ class Trainer:
 
     def save(self, epoch: int) -> None:
         """`last.ckpt.npz` and `epoch={epoch}.ckpt.npz` (resume at
-        epoch + 1)."""
+        epoch + 1); rank 0's only."""
+        if not self.is_main:
+            return
         for name in ("last.ckpt.npz", f"epoch={epoch}.ckpt.npz"):
             save_train_ckpt(os.path.join(self.workdir, name), self.params,
                             self.opt, self.global_step, epoch + 1)
@@ -359,6 +479,8 @@ class Trainer:
         return final
 
     def _log(self, record: dict) -> None:
+        if not self.is_main:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -369,11 +491,17 @@ def render_image_chunked(field, params: dict, rays: np.ndarray,
                          ts: TraceSettings, chunk: int, device,
                          generator: Optional[torch.Generator] = None,
                          keys=("rgb_fine", "rgb_coarse", "depth_fine",
-                               "depth_coarse", "mirror_mask_resolved")
-                         ) -> dict:
+                               "depth_coarse", "mirror_mask_resolved"),
+                         group=None) -> dict:
     """Render any number of rays through fixed-size chunks of `trace_rays`
-    (the tail chunk padded by repeating its last ray); numpy out."""
+    (the tail chunk padded by repeating its last ray); numpy out. With a
+    `group` every rank renders its rows of each chunk (the chunk rounded
+    up to a multiple of the ranks) and every rank gets the whole image."""
     n = rays.shape[0]
+    if group is not None and group.world > 1:
+        chunk = pad_to_multiple(chunk, group.world)
+    else:
+        group = None
     if mirror_mask is None:
         mirror_mask = np.full((n,), -1.0, np.float32)
     rays_t = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(
@@ -388,8 +516,11 @@ def render_image_chunked(field, params: dict, rays: np.ndarray,
         if pad:
             r = torch.cat([r, r[-1:].expand(pad, -1)])
             m = torch.cat([m, m[-1:].expand(pad)])
-        res = trace_rays(field, params, r, m, ts, generator)
+        if group is not None:
+            r, m = group.shard_rows(r), group.shard_rows(m)
+        res = trace_rays(field, params, r, m, ts, generator, group=group)
         for k in keys:
             if k in res:
-                outs.setdefault(k, []).append(res[k][:end - start])
+                v = res[k] if group is None else group.all_gather(res[k])
+                outs.setdefault(k, []).append(v[:end - start])
     return {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}

@@ -139,10 +139,11 @@ def test_eval_cli_writes_result_tree(tmp_path, monkeypatch):
     assert len(table["psnrs"]) == 2 and np.isfinite(table["mean_psnr"])
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     from mirror_nerf_tpu_torch.eval.apps import AppContext
     from mirror_nerf_tpu_torch.eval.cli import get_opt
     from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.parallel.mesh import DataGroup
 
     # (named for the refusals it pinned until the applications were
     # ported) an application without its checkpoint exits as JAX's does
@@ -150,30 +151,31 @@ def test_unported_paths_raise():
                          "--app_reflection_substitution"])
     with pytest.raises(SystemExit, match="substitution_ckpt_path required"):
         AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    # multi-GPU eval is ROADMAP queue 1, item 9 (torch.distributed)
+    # multi-GPU eval (ROADMAP queue 1, item 9) is ported: the context
+    # builds, and renders with the ranks' group it is given
     cfg, args = get_opt(["--model_type", "nerf_tpu", "--predict_normal",
                          "--num_gpus", "2"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 9 "):
-        AppContext.build(cfg, args, make_field(cfg), {}, "cpu")
-    # --use_remat is ROADMAP.md queue 1, item 8 (torch.utils.checkpoint)
+    group = DataGroup(rank=0, world=2, device=torch.device("cpu"),
+                      backend="gloo")
+    assert AppContext.build(cfg, args, make_field(cfg), {}, "cpu",
+                            group).group is group
+    # --use_remat (item 8) is ported: the Trainer builds
     from mirror_nerf_tpu_torch.config import Config
     from mirror_nerf_tpu_torch.train.loop import Trainer
 
     class _Rays:
         all_rays = [0] * 8
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 8 "):
-        Trainer(Config(use_remat=True), _Rays(), "unused", "cpu")
+    tr = Trainer(Config(use_remat=True, grid_levels="16:8,32:8"), _Rays(),
+                 str(tmp_path), "cpu")
+    assert tr.cfg.use_remat and tr.group is None
     # every dataset of the JAX package loads (queue 1, item 5's loaders
     # are ported); another name raises and cites what is still unported
     from mirror_nerf_tpu_torch.data import get_dataset
 
     with pytest.raises(NotImplementedError,
                        match=r"unknown dataset 'colmap_dense'.*ROADMAP.md "
-                             r"queue 1\): items 9 \(multi-device\), 8 "
-                             r"\(remat\) and 15"):
+                             r"queue 1\): item 15 \(the hash-grid"):
         get_dataset("colmap_dense")
 
 
