@@ -9,7 +9,7 @@ each fatal on failure:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether nvcc and triton are present; TF32 off for the plain versions;
-  2. build the seven kernel libraries at once (one nvcc each), print the
+  2. build the nine kernel libraries at once (one nvcc each), print the
      build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
@@ -235,7 +235,8 @@ each fatal on failure:
      torch's default flags and $LPIPS_WEIGHTS (each score and mean_lpips
      within 1e-5 of the CPU's on the same images); sh_encode degree 8,
      get_encoder("hashgrid"/"tiledgrid") through ENCODE (its counter read
-     around each, against the plain version), a 2-d hash grid raising;
+     around each, against the plain version), a 2-d hash grid through the
+     general ENCODE;
      the native library built and its three bindings against numpy;
      utils/profiling.trace around a train step holding CUDA kernels. Its
      launches join rows 1, 2, 3, 4, 9 (ENCODE), 9c and 9d;
@@ -258,14 +259,39 @@ each fatal on failure:
      and σ noise on, within REMAT_GRAD_RTOL (beside the same step twice),
      the generator's state equal; the flagship's steps with and without
      it in turns, ms and peak memory. Its launches join rows 1, 2, 3, 9
-     (ENCODE), 9c and 9d.
+     (ENCODE), 9c and 9d;
+ 23. the two kernels over the whole range of specs the JAX package calls
+     them with (`phase_spec_range`). The general PE-MLP rows kernel
+     (csrc/fused_mlp_rows.cu) against `mlp_rows_reference` for a width-512
+     (depth 8, skip 4) and a width-128 (depth 6, skips 2 and 4) flagship
+     trunk: 16384 strided rays of the 400×300 camera at S = 128, full and
+     σ-only, and 2,097,152 points, within 1e-4 scaled above 1, times
+     beside the 3×TF32 and the fp32 CUDA-core bound; its main path: each
+     trunk's all-mirror seeded weights through a 400×300 level-2 view by
+     run_view with --fused_field, noise-free and with σ noise 1, the width-512
+     σ grid at 128³ through query_sigma_grid, the counters set to 0 before
+     and read after (the default trunk's kernels must not launch); each
+     view on 4096 rays against the plain route within 1e-3 (the same σ
+     noise), the σ grid against the plain σ. The general ENCODE, BWD and
+     BWD2 (csrc/hashgrid_any.cu) against their plain versions for five
+     specs of 16 levels × 2¹⁹ rows (2-d C 2, 3-d align_corners, 3-d
+     smoothstep, 4-d C 4, 7-d C 1 at 8 levels): ENCODE on 2,097,152 points
+     within 1e-5, BWD and BWD2 on 131,072 within 1e-3 of scale, times
+     beside the bound from the distinct 32-B table sectors or the
+     operations of a product tree over the corners; their main
+     path: 5 Adam steps of two `get_encoder` tables with a loss on ∇x
+     (grad-of-grad) on the card against the CPU. A hash-grid field the
+     fused NGP composite does not take (20 levels) through a 400×300
+     level-2 view by run_view with --fused_field: the route (ENCODE and the
+     nets, the composite never launched) logged from the counters, and 4096
+     rays against fused_field off within 1e-3.
 
 Each phase prints its wall time. The script prints one JSON line with the
-twenty-one kernels' numbers (each with the least time the card could take for
+twenty-six kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
 modes, the train kernels and the flagship's three also with
-`bound_fp32_ms`, and the segmented
+`bound_fp32_ms`, the general rows kernel's too, and the segmented
 prefix's with `cold_device_ms` after an L2 flush), the nvidia-smi name and
 power limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -399,18 +425,23 @@ def phase_environment(torch):
 
 def phase_build():
     from mirror_nerf_tpu_torch.ops import (_build, fused_cp, fused_cp_train,
-                                           fused_hash, fused_mlp_t, hashgrid,
-                                           invoke_floor, segment_scan,
-                                           table_mma)
+                                           fused_hash, fused_mlp, fused_mlp_t,
+                                           hashgrid, invoke_floor,
+                                           segment_scan, table_mma)
 
     mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid, invoke_floor,
             segment_scan, table_mma)
-    names = [m._LIB for m in mods]
+    # and phase 23's two: the general rows kernel and the general ENCODE,
+    # BWD and BWD2
+    names = [m._LIB for m in mods] + [fused_mlp._ROWS_LIB,
+                                      hashgrid._ANY_LIB]
     t0 = time.perf_counter()
     _build.build_libraries(names)
     for m in mods:
         m._library()
     fused_hash._library()  # the fused NGP composite's entry, same library
+    fused_mlp._rows_library()
+    hashgrid._any_library()
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} "
         "s wall")
     for name in names:
@@ -4080,7 +4111,8 @@ def _encoders_check(torch, card: str, totals: dict) -> None:
     get_encoder("hashgrid") and ("tiledgrid") at their defaults (16 levels,
     2¹⁹ rows, 2048) through ENCODE on 262,144 points, the launch counter
     read around each, against the plain version within 1e-5 scaled above
-    1; an encoder ENCODE lacks (input_dim 2) raises on the card."""
+    1; a 2-d encoder through the general ENCODE (csrc/hashgrid_any.cu)
+    likewise."""
     import numpy as np
 
     from mirror_nerf_tpu_torch.models.encoding import get_encoder
@@ -4109,15 +4141,22 @@ def _encoders_check(torch, card: str, totals: dict) -> None:
             f"{enc.spec.table_rows} rows) through ENCODE: {n} launch(es), "
             f"max|a−b|/scale {e:.1e} against the plain version")
         assert n >= 1 and e <= 1e-5, (name, n, e)
+    from mirror_nerf_tpu_torch.ops import hashgrid
+
     enc2, _ = get_encoder("hashgrid", input_dim=2, num_levels=4,
                           log2_hashmap_size=10)
-    table2 = enc2.init(torch.Generator().manual_seed(4)).cuda()
-    try:
-        enc2(table2, torch.zeros(8, 2, device="cuda"))
-    except NotImplementedError as e:
-        assert "item 15" in str(e), e
-    else:
-        raise AssertionError("a 2-d hash grid did not raise on the card")
+    table2 = enc2.init(torch.Generator().manual_seed(4)) * 1e4
+    x2 = x[:, :2].contiguous()
+    before = hashgrid.launches_general_encode
+    got = enc2(table2.cuda(), x2.cuda())
+    n = hashgrid.launches_general_encode - before
+    want = hashgrid_encode_reference(table2, (x2 + 1.0) * 0.5, enc2.spec)
+    e = float((got.cpu() - want).abs().max()) / max(
+        float(want.abs().max()), 1.0)
+    log(f"[options] get_encoder('hashgrid', input_dim=2) through the "
+        f"general ENCODE: {n} launch(es), max|a−b|/scale {e:.1e} against "
+        "the plain version")
+    assert n == 1 and e <= 1e-5, (n, e)
 
 
 def _native_check() -> None:
@@ -4669,6 +4708,586 @@ def phase_data_parallel(torch, card: str) -> dict:
     return totals
 
 
+# ---- phase 23: the two kernels over their whole range of specs ----
+
+# the trunks of phase 23's views (the flagship's heads, posenc 10/4)
+SPEC_TRUNKS = {"width 512": dict(width=512, depth=8, skips=(4,)),
+               "width 128": dict(width=128, depth=6, skips=(2, 4))}
+# phase 23's hash specs: get_encoder's defaults (16 levels, 2¹⁹ rows a
+# level at most, base 16, desired resolution 2048) with these changes
+SPEC_HASH = {"2-d, C 2": dict(input_dim=2),
+             "3-d, align_corners": dict(align_corners=True),
+             "3-d, smoothstep": dict(interpolation="smoothstep"),
+             "4-d, C 4": dict(input_dim=4, level_dim=4),
+             "7-d, C 1, 8 levels": dict(input_dim=7, level_dim=1,
+                                        num_levels=8)}
+SPEC_ENCODE_POINTS = 2_097_152
+SPEC_BWD_POINTS = 131_072
+# the general hash kernels against their plain versions: features (scaled
+# above 1) and gradients (of their scale; sums in another order, the table
+# grads with atomics)
+SPEC_FEATURE_ATOL = 1e-5
+SPEC_GRAD_RTOL = 1e-3
+
+
+def _trunk_macs(field, sigma_only: bool) -> int:
+    """Multiply-adds a sample of a PE-MLP trunk and its heads (the rows
+    kernels' products; MLP_MACS for the default trunk)."""
+    w, pe, dpe = field.width, field.in_xyz, field.in_dir
+    macs = pe * w + w + sum((w + (pe if i in field.skips else 0)) * w
+                            for i in range(1, field.depth))
+    if not sigma_only:
+        macs += w * w + (w + dpe) * (w // 2) + (w // 2) * 3
+        if field.predict_normal:
+            macs += w * (w // 2) + (w // 2) * 3
+        if field.predict_mirror_mask:
+            macs += w * (w // 2) + w // 2
+    return macs
+
+
+def _trunk_bound(field, samples: int, sigma_only: bool, nbytes: float):
+    """(bound_ms, bound_by, bound_fp32_ms) of a PE-MLP trunk's rows: as
+    `_mlp_bound`, the products at fp32 accuracy as 3×TF32 on the tensor
+    cores, and bound_fp32_ms on the fp32 CUDA cores (the general rows
+    kernel's route)."""
+    flop = 2 * samples * _trunk_macs(field, sigma_only)
+    t_ops = 3 * flop / PEAK_TF32 * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", _bound(flop, nbytes)[0])
+
+
+def _spec_field(torch, kw: dict):
+    """A flagship field of the trunk `kw` and its seeded all-mirror params
+    (coarse seed 0, fine seed 1) on the card."""
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+
+    field = MirrorNeRFField(**kw)
+    return field, {k: _all_mirror(field.init(
+        torch.Generator().manual_seed(i), "cuda"))
+        for i, k in enumerate(("coarse", "fine"))}
+
+
+def _spec_case(torch, tag: str, kern, plain, card: str) -> tuple:
+    """One kernel case against its plain version (errors scaled above 1,
+    within KERNEL_ATOL): the check's call warms the kernel, then 2 timed
+    launches; the plain version timed once. Returns (worst, ms, plain_ms)."""
+    with torch.no_grad():
+        got = kern()
+        ms = _time_ms(torch, kern, reps=2, warmup=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = plain()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for k, v in got.items():
+            assert v.is_cuda and bool(torch.isfinite(v).all()), (tag, k)
+        errs = _scaled_errs(got, ref)
+    log(f"[spec-rows] {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"({card}); max abs err (scaled above 1) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert max(errs.values()) <= KERNEL_ATOL, (tag, errs)
+    return max(errs.values()), ms, plain_ms
+
+
+def _spec_rows_kernel(torch, card: str) -> list:
+    """(23) The general rows kernel against `mlp_rows_reference` on the
+    card: each trunk of SPEC_TRUNKS on 16384 strided rays of the 400×300
+    camera at S = 128 (full and σ-only) and on 2,097,152 points (full), 1e-4
+    scaled above 1; times beside the fp32 CUDA-core bound. Returns the
+    rays' and the points' entries (the width-512 trunk's numbers)."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+
+    rays = torch.from_numpy(_view_rays(400, 300)).cuda()
+    sub = rays[::rays.shape[0] // 16384][:16384]
+    o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
+    z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    pts = (torch.rand((SPEC_ENCODE_POINTS, 3), generator=gen,
+                      device="cuda") * 12.0 - 6.0)
+    dirs = torch.nn.functional.normalize(torch.randn(
+        (SPEC_ENCODE_POINTS, 3), generator=gen, device="cuda"), dim=-1)
+    entries = []
+    for name, kw in SPEC_TRUNKS.items():
+        field, params = _spec_field(torch, kw)
+        p = params["fine"]
+        assert field.supports_fused and not field.supports_fused_t
+        weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(
+            field, p)[0])
+        for sigma_only in (False, True):
+            tag = (f"{name} rays, 16384 × 128, "
+                   f"{'σ-only' if sigma_only else 'full'}")
+            worst, ms, plain_ms = _spec_case(
+                torch, tag,
+                lambda: _row_groups(fused_mlp.fused_rays_eval(
+                    field, p, o, d, d, z, sigma_only=sigma_only)),
+                lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
+                    field, p, o, d, d, z, sigma_only=sigma_only)), card)
+            n = z.numel()
+            nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
+                      + weights + n * 4 * (1 if sigma_only else 8))
+            bound = _trunk_bound(field, n, sigma_only, nbytes)
+            _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+            if name == "width 512" and not sigma_only:
+                entries.append(_spec_entry(
+                    "PE-MLP rows, any trunk (rays)", "fused_mlp_rows.cu",
+                    "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 "
+                    "_kernel_rays", worst, ms, plain_ms, bound))
+        tag = f"{name} points, {SPEC_ENCODE_POINTS}, full"
+        worst, ms, plain_ms = _spec_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_packed_eval(field, p, pts,
+                                                            dirs)),
+            lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
+                                                             dirs)), card)
+        nbytes = _nbytes(pts, dirs) + weights + SPEC_ENCODE_POINTS * 32
+        bound = _trunk_bound(field, SPEC_ENCODE_POINTS, False, nbytes)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+        if name == "width 512":
+            entries.append(_spec_entry(
+                "PE-MLP rows, any trunk (points)", "fused_mlp_rows.cu",
+                "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst,
+                ms, plain_ms, bound))
+    return entries
+
+
+def _spec_rows_bound_log(tag: str, bound: tuple, ms: float,
+                         plain_ms: float, card: str) -> None:
+    log(f"[spec-rows] {tag}: bound 3×TF32 {bound[0]:.3f} ms ({bound[1]}), "
+        f"kernel at {bound[0] / ms * 100:.1f} % of it; fp32 CUDA cores "
+        f"{bound[2]:.3f} ms, kernel at {bound[2] / ms * 100:.1f} %; the "
+        f"kernel at {plain_ms / ms:.2f}× the plain version's speed ({card})")
+
+
+def _spec_entry(name: str, source: str, replaces: str, worst: float,
+                ms: float, plain_ms: float, bound: tuple) -> dict:
+    entry = {"name": name, "route": "cuda",
+             "source": f"mirror_nerf_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": 0, "max_abs_err": worst,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None}
+    if len(bound) > 2:
+        entry["bound_fp32_ms"] = bound[2]
+    return entry
+
+
+def _spec_views(torch, card: str) -> tuple:
+    """(23) The main path of the general rows kernel: each trunk of
+    SPEC_TRUNKS, all-mirror seeded weights, one 400×300 level-2 view through
+    `run_view` with --fused_field (run.sh mode 1's nerf flags) noise-free
+    and one with σ noise 1, and the width-512 trunk's σ grid at 128³ through
+    `query_sigma_grid`; the rows kernels' counters set to 0 just before and
+    read just after (the composite and the tuned rows mode must not
+    launch). Then, on 4096 strided rays, each view against the plain
+    route (fused_field off, the same σ-noise draws) within RENDER_ATOL, and
+    a strided 1/64 of the σ grid against the plain σ. Returns the rays' and
+    the points' launches."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
+    from mirror_nerf_tpu_torch.eval.mesh import query_sigma_grid
+    from mirror_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
+
+    cfg, args = get_opt(NERF_EVAL_FLAGS + ["--img_wh", "400", "300"])
+    rays_np = _view_rays(400, 300)
+    sub_np = rays_np[::len(rays_np) // 4096][:4096]
+    box = ((-1.0, 1.0),) * 3
+    ctxs = {}
+    for name, kw in SPEC_TRUNKS.items():
+        field, params = _spec_field(torch, kw)
+        ctx = AppContext.build(cfg, args, field, params, "cuda")
+        ctxs[name] = (ctx, replace(ctx, rs=replace(ctx.rs, noise_std=1.0)))
+        run_view(ctxs[name][0], {"rays": sub_np[:1024]})  # warm
+    fused_mlp.launches_general_rays = fused_mlp.launches_general_points = 0
+    fused_mlp.launches_rays = fused_mlp.launches_points = 0
+    fused_mlp_t.launches = 0
+    walls, views = {}, {}
+    for name, (quiet, noisy) in ctxs.items():
+        for label, ctx in (("noise-free", quiet), ("σ noise 1", noisy)):
+            torch.manual_seed(5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            views[name, label] = run_view(ctx, {"rays": rays_np})
+            walls[name, label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = ctxs["width 512"][0]
+    sigma = query_sigma_grid(wide.field, wide.params["fine"], 128, *box,
+                             device="cuda")
+    grid_wall = time.perf_counter() - t0
+    launches = (fused_mlp.launches_general_rays,
+                fused_mlp.launches_general_points)
+    other = (fused_mlp.launches_rays + fused_mlp.launches_points
+             + fused_mlp_t.launches)
+    log(f"[spec-views] general rows kernel launches on the main path: rays "
+        f"{launches[0]}, points {launches[1]}; the default trunk's "
+        f"kernels {other}")
+    assert min(launches) > 0 and other == 0, (launches, other)
+    for (name, label), res in views.items():
+        for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved"):
+            assert np.isfinite(res[k]).all() and len(res[k]) == len(rays_np)
+        log(f"[spec-views] {name} (all-mirror), 400x300 level-2 view, "
+            f"{label}: {walls[name, label]:.3f} s -> "
+            f"{len(rays_np) / walls[name, label]:.1f} rays/s ({card}); "
+            f"mirror fraction {res['mirror_mask_resolved'].mean():.4f}, "
+            f"mean depth {res['depth_fine'].mean():.3f}")
+    log(f"[spec-views] width 512 σ grid 128³ through query_sigma_grid: "
+        f"{grid_wall:.3f} s -> {128 ** 3 / grid_wall:.1f} points/s "
+        f"({card}); σ > 0 at {(sigma > 0).mean() * 100:.1f} % of points")
+    for name, (quiet, noisy) in ctxs.items():
+        for label, ctx in (("noise-free", quiet), ("σ noise 1", noisy)):
+            got = {}
+            for fused in (True, False):
+                torch.manual_seed(6)
+                got[fused] = run_view(replace(ctx, rs=replace(
+                    ctx.rs, fused_field=fused)), {"rays": sub_np})
+            errs = {k: float(np.abs(got[True][k] - got[False][k]).max())
+                    for k in ("rgb_fine", "depth_fine",
+                              "mirror_mask_resolved")}
+            log(f"[spec-views] {name}, {label}: the rows route vs the plain "
+                f"route on 4096 rays, max abs err "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            assert max(errs.values()) <= RENDER_ATOL, (name, label, errs)
+    xs = np.linspace(*box[0], 128)
+    xyz = np.stack(np.meshgrid(xs, xs, xs), -1).reshape(-1, 3)[::64]
+    with torch.no_grad():
+        want = torch.clamp_min(fused_mlp.mlp_rows_reference(
+            wide.field, wide.params["fine"],
+            torch.from_numpy(xyz.astype(np.float32)).cuda(),
+            sigma_only=True)[:, 0], 0).cpu().numpy()
+    err = float(np.abs(sigma.reshape(-1)[::64] - want).max()) / max(
+        1.0, float(np.abs(want).max()))
+    log(f"[spec-views] width 512 σ grid vs the plain σ on 1/64 of its "
+        f"points: max abs err (scaled above 1) {err:.2e}")
+    assert err <= KERNEL_ATOL, err
+    return launches
+
+
+def _spec_hash(kw: dict):
+    from mirror_nerf_tpu_torch.ops.hashgrid import HashGridSpec
+
+    return HashGridSpec(**{**dict(num_levels=16, level_dim=2,
+                                  base_resolution=16, log2_hashmap_size=19,
+                                  desired_resolution=2048), **kw})
+
+
+def _spec_points(torch, spec, n: int, seed: int):
+    """n points in [0, 1]^D, ~2 % with x_0 = 1.25 (outside)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((n, spec.input_dim), generator=gen, device="cuda")
+    out = torch.rand(n, generator=gen, device="cuda") < 0.02
+    x[out, 0] = 1.25
+    return x.contiguous()
+
+
+def _spec_sectors(torch, spec, x) -> int:
+    """Distinct 32-B sectors of the table that the corners of the points
+    in the box touch, summed over the levels (each level's rows are its
+    own)."""
+    from mirror_nerf_tpu_torch.ops import hashgrid as thg
+
+    live = x[thg._in_cube(x)]
+    corners = thg._corner_offsets(spec.input_dim, x.device)
+    row_bytes = spec.level_dim * 4
+    total = 0
+    for lv in spec.levels():
+        ids = []
+        for i in range(0, live.shape[0], 1 << 17):
+            pg, _ = thg._grid_pos(live[i:i + (1 << 17)], lv.scale,
+                                  0.0 if spec.align_corners else 0.5)
+            rows = lv.offset + thg._corner_indices(
+                spec, lv, pg[None] + corners[:, None, :])
+            first = rows * row_bytes // 32
+            last = (rows * row_bytes + row_bytes - 1) // 32
+            ids.append(torch.unique(torch.cat([first.reshape(-1),
+                                               last.reshape(-1)])))
+        total += int(torch.unique(torch.cat(ids)).numel())
+    return total
+
+
+def _spec_hash_ops(mode: str, spec, n: int) -> float:
+    """The least operations of one general hash-grid kernel call on n
+    points, counted as fp32 operations (a multiply or an add 1, a
+    multiply-add 2; the integer index work not counted), per (point,
+    level) with D = input_dim, C = level_dim, K = 2^D corners and W =
+    2^(D+1) − 4 multiplies for all K corner weights by a product tree over
+    the axes:
+    - ENCODE: per axis pos (FMA), floor, fraction, 1 − t: 5 (smoothstep
+      4 more); W; a row of C multiply-adds a corner: 5D + W + 2CK;
+    - BWD: ENCODE's axis work and W; per corner the dot of dy with its row
+      (2C) and d_table = w·dy (C); the tree's reverse, a multiply to the
+      child and a multiply-add to the axis factor a node (3W); per axis
+      the chain to dx01 (3, smoothstep's S'(t) 4 more): 8D + 4W + 3CK;
+    - BWD2: the tree (W), its directional derivative along g (a multiply
+      and a multiply-add a node, 3W), its reverse through both (10W); per
+      corner the dot (2C), d_table (C) and d_dy (2C); per axis 10
+      (smoothstep 10 more): 10D + 14W + 5CK."""
+    d, c = spec.input_dim, spec.level_dim
+    k, w = 2 ** d, 2 ** (d + 1) - 4
+    smooth = spec.interpolation == "smoothstep"
+    per = {"encode": (5 + 4 * smooth) * d + w + 2 * c * k,
+           "bwd": (8 + 8 * smooth) * d + 4 * w + 3 * c * k,
+           "bwd2": (10 + 10 * smooth) * d + 14 * w + 5 * c * k}[mode]
+    return float(n) * spec.num_levels * per
+
+
+def _spec_rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def _spec_hash_kernels(torch, card: str) -> list:
+    """(23) The general ENCODE, BWD and BWD2 against their plain versions on
+    the card, for each spec of SPEC_HASH (table init ×1e4): ENCODE on
+    2,097,152 points (the plain version in chunks of 131072) within 1e-5
+    scaled above 1; BWD and BWD2 (every output) on 131,072 within 1e-3 of
+    each output's scale; times with CUDA events, bounds from the bytes
+    (x, the outputs and the distinct 32-B table sectors the corners
+    touch) or the operations (`_spec_hash_ops`). Returns the three
+    entries, each summed over the five specs."""
+    from mirror_nerf_tpu_torch.ops import hashgrid as thg
+
+    sums = {m: dict(err=0.0, ms=0.0, plain_ms=0.0, bound=0.0, ops=0.0,
+                    nbytes=0.0) for m in ("encode", "bwd", "bwd2")}
+    for si, (name, kw) in enumerate(SPEC_HASH.items()):
+        spec = _spec_hash(kw)
+        assert not thg.tuned_spec(spec)
+        table = (thg.init_hashgrid(torch.Generator().manual_seed(si), spec)
+                 * 1e4).cuda()
+        x = _spec_points(torch, spec, SPEC_ENCODE_POINTS, 30 + si)
+        ld = spec.output_dim
+        with torch.no_grad():
+            got = thg.encode_forward(table, x, spec)
+            ms = _time_ms(torch, lambda: thg.encode_forward(table, x, spec),
+                          reps=5, warmup=0)
+            parts = []
+            plain_ms = _time_ms(torch, lambda: parts.extend(
+                thg.hashgrid_encode_reference(table, x[i:i + (1 << 17)],
+                                              spec)
+                for i in range(0, x.shape[0], 1 << 17)), reps=1, warmup=0)
+            want = torch.cat(parts)
+            err = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+        sectors = _spec_sectors(torch, spec, x)
+        nbytes = _nbytes(x, got) + 32 * sectors
+        ops = _spec_hash_ops("encode", spec, SPEC_ENCODE_POINTS)
+        _spec_log("ENCODE", name, SPEC_ENCODE_POINTS, err, ms, plain_ms,
+                  ops, nbytes, sectors, card)
+        assert err <= SPEC_FEATURE_ATOL, (name, err)
+        _spec_add(sums["encode"], err, ms, plain_ms, ops, nbytes)
+
+        xb = x[:SPEC_BWD_POINTS].contiguous()
+        gen = torch.Generator(device="cuda").manual_seed(40 + si)
+        dy = torch.randn((SPEC_BWD_POINTS, ld), generator=gen,
+                         device="cuda")
+        g = torch.randn((SPEC_BWD_POINTS, spec.input_dim), generator=gen,
+                        device="cuda")
+        sectors_b = _spec_sectors(torch, spec, xb)
+        with torch.no_grad():
+            for mode, kern, plain, extra in (
+                    ("bwd", lambda: thg.encode_backward(table, xb, dy, spec),
+                     lambda: thg.encode_backward_reference(table, xb, dy,
+                                                           spec),
+                     _nbytes(xb, dy, xb)),
+                    ("bwd2",
+                     lambda: thg.encode_backward2(table, xb, dy, g, spec),
+                     lambda: thg.encode_backward2_reference(table, xb, dy, g,
+                                                            spec),
+                     _nbytes(xb, dy, g, dy, xb))):
+                got = kern()
+                ms = _time_ms(torch, kern, reps=5, warmup=0)
+                want = []
+                plain_ms = _time_ms(torch, lambda: want.extend(plain()),
+                                    reps=1, warmup=0)
+                errs = [_spec_rel(a, b) for a, b in zip(got, want)]
+                # the table's sectors read (the dot with dy) and its grads'
+                # sectors written
+                nbytes = extra + 2 * 32 * sectors_b
+                ops = _spec_hash_ops(mode, spec, SPEC_BWD_POINTS)
+                _spec_log(mode.upper(), name, SPEC_BWD_POINTS, max(errs), ms,
+                          plain_ms, ops, nbytes, sectors_b, card)
+                assert max(errs) <= SPEC_GRAD_RTOL, (name, mode, errs)
+                _spec_add(sums[mode], max(errs), ms, plain_ms, ops, nbytes)
+    entries = []
+    for mode, label in (("encode", "ENCODE"), ("bwd", "BWD"),
+                        ("bwd2", "BWD2")):
+        s = sums[mode]
+        bound = _bound(s["ops"], s["nbytes"])
+        log(f"[spec-hash] general {label}, the five specs summed: kernel "
+            f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, bound "
+            f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
+            f"{bound[0] / s['ms'] * 100:.1f} % of it ({card})")
+        entries.append(_spec_entry(
+            f"hash-grid {label}, any spec", "hashgrid_any.cu",
+            "mirror_nerf_tpu/ops/hashgrid.py:137 hashgrid_encode (XLA"
+            + (")" if mode == "encode" else " autodiff)"), s["err"],
+            s["ms"], s["plain_ms"], bound))
+    return entries
+
+
+def _spec_add(s: dict, err, ms, plain_ms, ops, nbytes) -> None:
+    s["err"] = max(s["err"], err)
+    s["ms"] += ms
+    s["plain_ms"] += plain_ms
+    s["ops"] += ops
+    s["nbytes"] += nbytes
+
+
+def _spec_log(mode, name, n, err, ms, plain_ms, ops, nbytes, sectors,
+              card) -> None:
+    bound = _bound(ops, nbytes)
+    log(f"[spec-hash] {mode} {name}, {n} points: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms ({card}); max err {err:.2e}; {sectors} distinct "
+        f"32-B table sectors, bound {bound[0]:.3f} ms ({bound[1]}), kernel "
+        f"at {bound[0] / ms * 100:.1f} % of it")
+
+
+def _spec_hash_training(torch, card: str) -> dict:
+    """(23) The general kernels' main path: 5 Adam steps (lr 1e-3) of a
+    table through `get_encoder`'s `GridEncoder` (2-d "hashgrid" and 3-d
+    "tiledgrid" with align_corners, 16 levels, 2¹⁹) on 4096 points, the
+    loss ⟨y, w⟩/N + |∇x ⟨y, v⟩|²/N (its backward runs BWD and BWD2), on
+    the card (the general counters set to 0 just before and read just
+    after) and on the CPU from the same table; the losses within 1e-4 of
+    each other, the tables after the steps within 1e-4 at all but 1e-4 of
+    the entries. Returns the launches."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.models.encoding import get_encoder
+    from mirror_nerf_tpu_torch.ops import hashgrid as thg
+
+    encoders = [get_encoder("hashgrid", input_dim=2)[0],
+                get_encoder("tiledgrid", align_corners=True)[0]]
+    cases = []
+    for i, enc in enumerate(encoders):
+        rng = np.random.default_rng(50 + i)
+        d = enc.spec.input_dim
+        arrays = [rng.uniform(-1, 1, (4096, d)),
+                  rng.standard_normal((4096, enc.output_dim)),
+                  rng.standard_normal((4096, enc.output_dim))]
+        cases.append((enc, enc.init(torch.Generator().manual_seed(i)) * 1e4,
+                      [torch.from_numpy(a.astype(np.float32))
+                       for a in arrays]))
+
+    def run(device):
+        out = []
+        for enc, table0, (x, w, v) in cases:
+            table = table0.clone().to(device).requires_grad_(True)
+            x, w, v = (t.to(device) for t in (x, w, v))
+            opt = torch.optim.Adam([table], lr=1e-3)
+            losses = []
+            for _ in range(5):
+                xr = x.clone().requires_grad_(True)
+                y = enc(table, xr)
+                (gx,) = torch.autograd.grad((y * v).sum(), xr,
+                                            create_graph=True)
+                loss = ((y * w).sum() + (gx * gx).sum()) / x.shape[0]
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+            out.append((losses, table.detach().cpu()))
+        return out
+
+    names = ("launches_general_encode", "launches_general_bwd",
+             "launches_general_bwd2")
+    for k in names:
+        setattr(thg, k, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_runs = run("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("encode", "bwd", "bwd2"),
+                        (getattr(thg, k) for k in names)))
+    log(f"[spec-train] 5 Adam steps each of two GridEncoders on the card: "
+        f"{wall:.3f} s ({card}); general launches {launches}")
+    assert min(launches.values()) >= 10, launches
+    for (enc, table0, _), (lc, tc), (lp, tp) in zip(cases, card_runs,
+                                                    run("cpu")):
+        lrel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
+        diff = (tc - tp).abs()
+        far = float((diff > 1e-4).float().mean())
+        log(f"[spec-train] {enc.spec.input_dim}-d "
+            f"{'tiled, align_corners' if enc.spec.align_corners else 'hash'}"
+            f": losses card {lc[0]:.6g} → {lc[-1]:.6g}, CPU {lp[0]:.6g} → "
+            f"{lp[-1]:.6g} (max rel diff {lrel:.2e}); table max |card − "
+            f"CPU| {float(diff.max()):.2e}, {far * 100:.4f} % of entries "
+            f"above 1e-4; the steps moved it by up to "
+            f"{float((tp - table0).abs().max()):.1e}")
+        assert lrel <= 1e-4 and far <= 1e-4, (lrel, far)
+    return launches
+
+
+def _spec_ngp_outside(torch, card: str) -> None:
+    """(23) A hash-grid field the fused NGP composite does not take (the
+    model's flags at 20 levels: 40 features, above the composite's 32),
+    all-mirror seeded weights with the dense levels ×1e4, through one
+    400×300 level-2 view by run_view with --fused_field; the counters set
+    to 0 just before and read just after name the route (ENCODE and the
+    PyTorch nets; the composite must not launch). Then 4096 strided rays
+    with fused_field on against off within RENDER_ATOL."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
+    from mirror_nerf_tpu_torch.eval.cli import init_params
+    from mirror_nerf_tpu_torch.models.fields import make_field
+    from mirror_nerf_tpu_torch.ops import fused_hash, hashgrid
+
+    cfg, args = get_opt(NGP_EVAL_FLAGS + ["--fused_field", "--img_wh", "400",
+                                          "300"])
+    field = replace(make_field(cfg), n_levels=20)
+    assert not field.supports_fused_hash
+    params = {k: _dense_scaled(field, _all_mirror(v)) for k, v in
+              init_params(field, cfg, "cuda").items()}
+    ctx = AppContext.build(cfg, args, field, params, "cuda")
+    assert ctx.rs.fused_field
+    rays_np = _view_rays(400, 300)
+    sub_np = rays_np[::len(rays_np) // 4096][:4096]
+    run_view(ctx, {"rays": sub_np[:1024]})  # warm
+    hashgrid.launches_encode = hashgrid.launches_general_encode = 0
+    fused_hash.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_view(ctx, {"rays": rays_np})
+    wall = time.perf_counter() - t0
+    route = {"ENCODE (tuned)": hashgrid.launches_encode,
+             "ENCODE (general)": hashgrid.launches_general_encode,
+             "fused NGP composite": fused_hash.launches}
+    log(f"[spec-ngp] 20-level hash-grid field, 400x300 level-2 view with "
+        f"--fused_field: {wall:.3f} s -> {len(rays_np) / wall:.1f} rays/s "
+        f"({card}); the route's launches {route}: ENCODE and the PyTorch "
+        f"nets; mirror fraction {res['mirror_mask_resolved'].mean():.4f}")
+    assert route["ENCODE (tuned)"] > 0 and route["fused NGP composite"] == 0
+    for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved"):
+        assert np.isfinite(res[k]).all() and len(res[k]) == len(rays_np)
+    got = {f: run_view(replace(ctx, rs=replace(ctx.rs, fused_field=f)),
+                       {"rays": sub_np}) for f in (True, False)}
+    errs = {k: float(np.abs(got[True][k] - got[False][k]).max())
+            for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved")}
+    log(f"[spec-ngp] fused_field on vs off on 4096 rays: max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= RENDER_ATOL, errs
+
+
+def phase_spec_range(torch, card: str) -> list:
+    """(23) The two kernels over the whole range of specs the JAX package
+    calls them with: the general PE-MLP rows kernel (csrc/
+    fused_mlp_rows.cu) and the general ENCODE, BWD and BWD2 (csrc/
+    hashgrid_any.cu). Returns their five entries, launches filled in."""
+    rows = _spec_rows_kernel(torch, card)
+    rows[0]["launches"], rows[1]["launches"] = _spec_views(torch, card)
+    hashes = _spec_hash_kernels(torch, card)
+    counts = _spec_hash_training(torch, card)
+    for e, k in zip(hashes, ("encode", "bwd", "bwd2")):
+        e["launches"] = counts[k]
+    _spec_ngp_outside(torch, card)
+    return rows + hashes
+
+
 def main() -> int:
     import torch
 
@@ -4746,11 +5365,13 @@ def main() -> int:
                  (bwd_entry, "train_bwd"), (hash_entries[1], "encode"),
                  (bwd_entries[0], "bwd"), (bwd_entries[1], "bwd2")):
         e["launches"] += dp[k]
+    spec_entries = timed("spec range", phase_spec_range, torch, card)
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     assert "jax" not in sys.modules and "mirror_nerf_tpu" not in sys.modules
     print(json.dumps({"kernels": [entry, fwd_entry, bwd_entry, mlp_entry,
                                   *rows_entries, *hash_entries,
-                                  *probe_entries, *bwd_entries]}))
+                                  *probe_entries, *bwd_entries,
+                                  *spec_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,5 @@ def get_dataset(name: str):
     if name not in DATASETS:
         raise NotImplementedError(
             f"unknown dataset {name!r}: the port loads {sorted(DATASETS)}, "
-            "as the JAX package does. Still unported (ROADMAP.md queue 1): "
-            "item 15 (the hash-grid kernel for encoders with input_dim != 3 "
-            "or align_corners)")
+            "the loaders of the JAX package")
     return DATASETS[name]

@@ -9,10 +9,11 @@ encoders are `GridEncoder`s, which hold the static `HashGridSpec`, make
 their tables with `init(generator)` and encode world coordinates in
 [-bound, bound] through the port's `hashgrid_encode`: on the card ENCODE,
 with BWD and BWD2 as its backward (x01 = (x + bound)·fp32(1/(2·bound)), as
-`NGPField` takes it). ENCODE takes 3-d inputs, 2 features a
-level, align_corners=False and linear interpolation; any other spec raises
-on the card (ROADMAP.md queue 1, item 15) and runs on the CPU through the
-plain version, differentiable by autograd, as the JAX package runs it.
+`NGPField` takes it), for every spec the JAX encoder takes (input_dim
+1..7, any level_dim and level count, align_corners, linear or smoothstep,
+hashed or tiled): the model's spec on the tuned kernels of
+csrc/hashgrid.cu, any other on csrc/hashgrid_any.cu; on the CPU their plain
+versions, through the same autograd graph.
 """
 
 from __future__ import annotations
@@ -23,16 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.hashgrid import (HashGridSpec, hashgrid_encode,
-                            hashgrid_encode_reference, init_hashgrid)
+from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
 from ..ops.sh import sh_encode
 from .embedding import posenc, posenc_dim
-
-
-def kernel_takes(spec: HashGridSpec) -> bool:
-    """Whether ENCODE, BWD and BWD2 take the spec."""
-    return (spec.input_dim == 3 and spec.level_dim == 2
-            and not spec.align_corners and spec.interpolation == "linear")
 
 
 @dataclass(frozen=True)
@@ -52,15 +46,7 @@ class GridEncoder:
         # × the fp32 reciprocal of 2·bound, as PyTorch divides a CUDA tensor
         # by a scalar: every device puts a point in the same cell
         x01 = (x + bound) * float(np.float32(1.0) / np.float32(2.0 * bound))
-        if kernel_takes(self.spec):
-            return hashgrid_encode(table, x01, self.spec)
-        if x01.is_cuda or table.is_cuda:
-            raise NotImplementedError(
-                f"the hash-grid kernel has no mode for {self.spec} (it "
-                "takes 3-d inputs, 2 features a level, align_corners=False "
-                "and linear interpolation): ROADMAP.md queue 1, item 15. "
-                "The CPU runs it through the plain version")
-        return hashgrid_encode_reference(table, x01, self.spec)
+        return hashgrid_encode(table, x01, self.spec)
 
 
 def get_encoder(

@@ -57,17 +57,26 @@ class MirrorNeRFField:
 
     @property
     def supports_fused(self) -> bool:
-        """Whether the CUDA eval kernel (csrc/fused_mlp_t.cu) takes this
-        architecture: the default trunk — width 256, depth 8, the skip at
-        layer 4 — with at most 20 posenc frequencies each for positions and
-        view dirs (≤ 123 rows, as the JAX kernel's 128 lanes), and with or
-        without the normal and the mirror head. (The JAX property accepts
-        any width that is a multiple of 128, though its kernel adapter
-        always builds the 256-wide spec.) With `--fused_field` on the card,
-        a field outside this set raises (render/renderer.py)."""
-        return (self.width == 256 and self.depth == 8
-                and tuple(self.skips) == (4,)
+        """Whether the per-sample rows kernels (ops/fused_mlp.py) take this
+        architecture, the JAX property's range: a width that is a multiple
+        of 128, any depth and skips, at most 20 posenc frequencies each for
+        positions and view dirs (≤ 123 rows, the JAX kernel's 128 lanes),
+        with or without the normal and the mirror head. The default trunk
+        runs on the tuned rows mode of csrc/fused_mlp_t.cu, every other one
+        on csrc/fused_mlp_rows.cu. With `--fused_field` on the card, a
+        field outside this set raises (render/renderer.py)."""
+        return (self.width > 0 and self.width % 128 == 0 and self.depth >= 1
                 and 0 <= self.N_emb_xyz <= 20 and 0 <= self.N_emb_dir <= 20)
+
+    @property
+    def supports_fused_t(self) -> bool:
+        """Whether the composite mode of csrc/fused_mlp_t.cu (and its tuned
+        rows mode) takes this architecture: the default trunk — width 256,
+        depth 8, the skip at layer 4 — within `supports_fused`. Another
+        trunk's noise-free passes take the rows kernel and composite
+        outside it, JAX's `_inference_fused` route."""
+        return (self.supports_fused and self.width == 256
+                and self.depth == 8 and tuple(self.skips) == (4,))
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> dict:

@@ -1,12 +1,15 @@
-"""Fused flagship PE-MLP field, per-sample rows (the σ-noise passes and the
-point queries).
+"""Fused flagship PE-MLP field, per-sample rows (the σ-noise passes, the
+passes with `fused_t` off or a trunk the composite kernel does not take,
+and the point queries).
 
-Torch counterpart of `mirror_nerf_tpu/ops/pallas/fused_mlp.py`: the same
-8×256 trunk and heads as ops/fused_mlp_t.py, but one row per sample out and
-no compositing, so that a σ-noise pass can add its noise to raw σ first.
-A row is 8 float32 values: lane 0 raw σ, 1:4 sigmoid rgb, 4:7 the unit
-predicted normal, 7 the sigmoid mirror probability, 0 where the field lacks
-the head (as the JAX packing gives); a σ-only row is raw σ alone.
+Torch counterpart of `mirror_nerf_tpu/ops/pallas/fused_mlp.py`: the trunk
+and heads of `MirrorNeRFField` for any `FusedSpec` the JAX adapters build
+(width a multiple of 128, any depth and skips, ≤ 20 posenc frequencies
+each, either head), one row per sample out and no compositing, so that a
+σ-noise pass can add its noise to raw σ first. A row is 8 float32 values:
+lane 0 raw σ, 1:4 sigmoid rgb, 4:7 the unit predicted normal, 7 the sigmoid
+mirror probability, 0 where the field lacks the head (as the JAX packing
+gives); a σ-only row is raw σ alone.
 
   * `fused_rays_eval`: per-ray o, d, view dir (N, 3) and depths z (N, S) ->
     (N·S, 8) rows, ray-major (JAX `fused_rays_eval`).
@@ -15,10 +18,13 @@ the head (as the JAX packing gives); a σ-only row is raw σ alone.
     (σ, rgb, normal | None, mirror | None), or (σ,) when σ-only.
   * `mlp_rows_reference` (points) and `mlp_rays_rows_reference` (rays) are
     the plain PyTorch version (the field modules of models/fields.py). CPU
-    tensors take it; CUDA tensors launch the rows
-    mode of the hand-written kernel `csrc/fused_mlp_t.cu` (sm_90a; see its
-    source note), counted in `launches_rays` and `launches_points`. There is
-    no fallback: a kernel that fails to build or launch raises.
+    tensors take it; CUDA tensors launch a hand-written kernel (sm_90a; see
+    each source note): the default trunk (`supports_fused_t`) the rows
+    mode of `csrc/fused_mlp_t.cu`, counted in `launches_rays` and
+    `launches_points`; every other trunk of the range
+    `csrc/fused_mlp_rows.cu`, counted in `launches_general_rays` and
+    `launches_general_points`. There is no fallback: a kernel that fails to
+    build or launch raises, and so does a trunk outside the range.
 
 The view dirs go to the posenc as given (the color head of
 `MirrorNeRFField` does not normalize them either). Forward-only.
@@ -26,19 +32,26 @@ The view dirs go to the posenc as given (the color head of
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+import torch.nn.functional as F
 
 from ..core.mathutil import l2_normalize
+from ._build import Library, card_index
 from ._dtype import float32_field
 from .fused_cp import check_ray_inputs, on_cpu, prep
-from .fused_mlp_t import check_kernel_call, launch_kernel
+from .fused_mlp_t import check_forward_call, check_kernel_call, launch_kernel
 
 ROW = 8  # σ, rgb (3), normal (3), mirror
 
 # kernel launches since import (or since a caller last reset them to 0):
-# rays (JAX `_kernel_rays`) and points (JAX `_kernel`)
+# rays (JAX `_kernel_rays`) and points (JAX `_kernel`), the default trunk
+# on csrc/fused_mlp_t.cu and every other trunk on csrc/fused_mlp_rows.cu
 launches_rays = 0
 launches_points = 0
+launches_general_rays = 0
+launches_general_points = 0
 
 
 def mlp_rows_reference(field, params: dict, xyz, dirs=None,
@@ -70,11 +83,15 @@ def mlp_rays_rows_reference(field, params: dict, rays_o, rays_d, view_dirs,
 
 def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                     sigma_only: bool) -> torch.Tensor:
-    """Launch the rows mode on the current stream. Inputs must be float32,
-    contiguous, on one CUDA device: rays_o/rays_d/view_dirs (N, 3), z (N, S).
-    Returns (N·S, 8) rows, or (N·S, 1) raw σ when σ-only."""
-    check_kernel_call(field, params, (rays_o, rays_d, view_dirs, z_vals),
-                      "relu", "rows")
+    """Launch the rows kernel of the field's trunk on the current stream:
+    the default trunk the rows mode of `csrc/fused_mlp_t.cu`, any other
+    `csrc/fused_mlp_rows.cu`. Inputs must be float32, contiguous, on one
+    CUDA device: rays_o/rays_d/view_dirs (N, 3), z (N, S). Returns (N·S, 8)
+    rows, or (N·S, 1) raw σ when σ-only."""
+    inputs = (rays_o, rays_d, view_dirs, z_vals)
+    if not field.supports_fused_t:
+        return general_rows_cuda(field, params, *inputs, sigma_only)
+    check_kernel_call(field, params, inputs, "relu", "rows")
     n, s = z_vals.shape
     check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
     rows = torch.empty((n * s, 1 if sigma_only else ROW),
@@ -85,12 +102,129 @@ def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
     return rows
 
 
+# ---- the rows kernel for any trunk (csrc/fused_mlp_rows.cu) ----
+
+_ROWS_LIB = "fused_mlp_rows"
+MAX_FREQS = 20  # posenc frequencies, x or v (the JAX kernel's 128 lanes)
+# the entry's negative return codes (see mnerf_mlp_rows)
+_ROWS_REFUSALS = {
+    -2: "S < 1",
+    -3: f"a posenc frequency count is outside [0, {MAX_FREQS}]",
+    -4: "the width is not a positive multiple of 128, or the depth < 1",
+    -6: "no rays",
+    -7: "the block's samples do not fit the card's shared memory"}
+# the offsets table's head slots after the trunk's 3·depth (H_* in the .cu)
+_HEADS = (("sigma",), ("xyz_final",), ("dir_enc",), ("rgb",),
+          ("normal", 0), ("normal", 1), ("is_mirror", 0), ("is_mirror", 1))
+
+# the entry's arguments before the card and the stream (_build.Library):
+# rays_o, rays_d, view_dirs, z_vals, nets, offs, width, depth, n_emb_xyz,
+# n_emb_dir, has_normal, has_mirror, sigma_only, n_rays, n_samples, T,
+# rows; the tile query: width, n_emb_xyz, n_emb_dir
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F32 = (torch.float32,)
+_rows_library = Library(_ROWS_LIB, {
+    "mnerf_mlp_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _LL, _I, _I, _P],
+    "mnerf_mlp_rows_tile": [_I, _I, _I]}, _ROWS_REFUSALS)
+
+
+def rows_layout(field, params: dict) -> tuple:
+    """The general rows kernel's view of the parameters: the leaf tensors
+    in packing order (trunk (w, b) per layer, then σ,
+    xyz_final, dir_enc, rgb, normal 0/1 and is_mirror 0/1 where present)
+    and the offsets table (3·depth + 16 int64): per trunk layer i (w, b,
+    skip) with skip 1 for i ≥ 1 in `field.skips`, then (w, b) of each head
+    slot of `_HEADS`, −1 for a head the field lacks. Each leaf starts at a
+    multiple of 4 floats."""
+    leaves, table, at = [], [], 0
+
+    def take(t) -> int:
+        nonlocal at
+        leaves.append(t)
+        start = at
+        at += -(-t.numel() // 4) * 4
+        return start
+
+    for i, lin in enumerate(params["trunk"]):
+        table += [take(lin["w"]), take(lin["b"]),
+                  int(i > 0 and i in field.skips)]
+    for slot in _HEADS:
+        lin = params.get(slot[0])
+        if lin is not None and len(slot) == 2:
+            lin = lin[slot[1]]
+        table += [take(lin["w"]), take(lin["b"])] if lin is not None \
+            else [-1, -1]
+    return leaves, table
+
+
+_rows_offsets: dict = {}  # (layout key, device) -> the offsets on the card
+_rows_tiles: dict = {}  # (width, frequencies, card) -> samples a block
+
+
+def _rows_nets(field, params: dict, device):
+    """(nets, offs): every leaf flattened into one float32 buffer, each
+    padded to 4 floats, and the offsets table on `device` (cached per
+    layout)."""
+    leaves, table = rows_layout(field, params)
+    nets = torch.cat([F.pad(t.reshape(-1).to(torch.float32),
+                            (0, -t.numel() % 4)) for t in leaves])
+    key = (tuple(table), str(device))
+    if key not in _rows_offsets:
+        _rows_offsets[key] = torch.tensor(table, dtype=torch.int64,
+                                          device=device)
+    return nets.contiguous(), _rows_offsets[key]
+
+
+def rows_tile(field, device: int) -> int:
+    """Samples a block of the general rows kernel takes for this field on
+    card `device`: the largest power of two ≤ 64 whose activations fit
+    its shared memory (0: none fits, the launch refuses)."""
+    key = (field.width, field.N_emb_xyz, field.N_emb_dir, device)
+    if key not in _rows_tiles:
+        _rows_tiles[key] = _rows_library.entry("mnerf_mlp_rows_tile")(
+            field.width, field.N_emb_xyz, field.N_emb_dir, device, None)
+    return _rows_tiles[key]
+
+
+def general_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs,
+                      z_vals, sigma_only: bool) -> torch.Tensor:
+    """Launch `csrc/fused_mlp_rows.cu` on the current stream, for any trunk
+    of `supports_fused`. Inputs as `fused_rows_cuda` takes them."""
+    check_forward_call(params, (rays_o, rays_d, view_dirs, z_vals), "rows")
+    if not field.supports_fused:
+        raise ValueError(
+            "the PE-MLP rows kernel takes a width that is a positive "
+            "multiple of 128, a depth ≥ 1 and at most 20 posenc frequencies "
+            f"each (the JAX kernels' range); got width {field.width}, depth "
+            f"{field.depth}, frequencies {field.N_emb_xyz}/"
+            f"{field.N_emb_dir}")
+    n, s = z_vals.shape
+    check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
+    rows = torch.empty((n * s, 1 if sigma_only else ROW),
+                       dtype=torch.float32, device=z_vals.device)
+    if n == 0:
+        return rows
+    with torch.no_grad():
+        nets, offs = _rows_nets(field, params, z_vals.device)
+    dev = card_index("PE-MLP rows", ("z_vals", z_vals, _F32, 4),
+                     ("nets", nets, _F32, 16))
+    _rows_library.launch(
+        "mnerf_mlp_rows", "PE-MLP rows", dev, rays_o.data_ptr(),
+        rays_d.data_ptr(), None if sigma_only else view_dirs.data_ptr(),
+        z_vals.data_ptr(), nets.data_ptr(), offs.data_ptr(), field.width,
+        field.depth, field.N_emb_xyz, field.N_emb_dir,
+        int(field.predict_normal), int(field.predict_mirror_mask),
+        int(sigma_only), n, s, rows_tile(field, dev), rows.data_ptr())
+    return rows
+
+
 def fused_rays_eval(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                     sigma_only: bool = False) -> torch.Tensor:
     """Ray mode: (N, 3) origins/dirs/view dirs + (N, S) depths -> (N·S, 8)
     rows, ray-major ((N·S, 1) raw σ when σ-only). CPU tensors take the plain
     version; CUDA tensors the kernel."""
-    global launches_rays
+    global launches_rays, launches_general_rays
     if on_cpu(z_vals.device, "fused PE-MLP rows"):
         return mlp_rays_rows_reference(field, params, rays_o, rays_d,
                                        view_dirs, z_vals, sigma_only)
@@ -98,7 +232,10 @@ def fused_rays_eval(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                            None if sigma_only else prep(view_dirs),
                            prep(z_vals), sigma_only)
     if z_vals.shape[0]:
-        launches_rays += 1
+        if field.supports_fused_t:
+            launches_rays += 1
+        else:
+            launches_general_rays += 1
     return rows
 
 
@@ -106,8 +243,8 @@ def fused_packed_eval(field, params: dict, xyz, dirs=None,
                       sigma_only: bool = False) -> torch.Tensor:
     """Point mode: (B, 3) raw coords [+ (B, 3) view dirs] -> (B, 8) rows
     ((B, 1) raw σ when σ-only). On the card each point is a one-sample ray
-    o = x, d = 0, z = 0 (x + 0·0 is x exactly), 256 to a block."""
-    global launches_points
+    o = x, d = 0, z = 0 (x + 0·0 is x exactly)."""
+    global launches_points, launches_general_points
     if not sigma_only and dirs is None:
         raise ValueError("fused_packed_eval needs view dirs unless σ-only")
     if on_cpu(xyz.device, "fused PE-MLP rows"):  # fp32, as the kernel
@@ -119,7 +256,10 @@ def fused_packed_eval(field, params: dict, xyz, dirs=None,
                            None if sigma_only else prep(dirs),
                            zeros[:, :1].contiguous(), sigma_only)
     if x.shape[0]:
-        launches_points += 1
+        if field.supports_fused_t:
+            launches_points += 1
+        else:
+            launches_general_points += 1
     return rows
 
 

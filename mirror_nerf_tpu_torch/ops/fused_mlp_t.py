@@ -204,12 +204,10 @@ _library = Library(_LIB, {"mnerf_fused_mlp_t": [
     _I, _P, _P, _P]}, _REFUSALS)
 
 
-def check_kernel_call(field, params: dict, inputs, sigma_act: str,
-                      what: str) -> None:
-    """The checks every launch of `csrc/fused_mlp_t.cu` makes, the gradient
-    guard first (so that it holds whatever else is wrong with the call):
-    forward-only, CUDA tensors, a known activation, a trunk the kernel
-    takes."""
+def check_forward_call(params: dict, inputs, what: str) -> None:
+    """The checks every launch of the PE-MLP kernels makes first, the
+    gradient guard before the rest (so that it holds whatever else is wrong
+    with the call): forward-only, CUDA tensors."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (*inputs, *tree_leaves(params))):
@@ -220,11 +218,20 @@ def check_kernel_call(field, params: dict, inputs, sigma_act: str,
     if not inputs[-1].is_cuda:
         raise ValueError(f"the fused PE-MLP {what} kernel needs CUDA "
                          f"tensors, got {inputs[-1].device}")
+
+
+def check_kernel_call(field, params: dict, inputs, sigma_act: str,
+                      what: str) -> None:
+    """The checks every launch of `csrc/fused_mlp_t.cu` makes:
+    `check_forward_call`, a known activation, a trunk the kernel takes."""
+    check_forward_call(params, inputs, what)
     if sigma_act not in _ACTS:
         raise ValueError(f"sigma_act must be one of {_ACTS}")
-    if not field.supports_fused:
-        raise ValueError("the fused PE-MLP kernel does not take this "
-                         "architecture (MirrorNeRFField.supports_fused)")
+    if not field.supports_fused_t:
+        raise ValueError(
+            f"the fused PE-MLP {what} kernel of csrc/fused_mlp_t.cu takes "
+            "the default trunk (width 256, depth 8, the skip at layer 4; "
+            "MirrorNeRFField.supports_fused_t)")
 
 
 def launch_kernel(field, params: dict, rays_o, rays_d, view_dirs, z_vals,

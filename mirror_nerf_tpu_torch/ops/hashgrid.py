@@ -4,20 +4,21 @@ hash probe (`tools/exp_hash_inkernel.py`).
 
 Per level ℓ a feature grid at resolution ceil(2^(ℓS)·H − 1) + 1, dense when
 it fits the level's table, spatially hashed (xor of coordinate·prime in
-uint32) when it does not, trilinearly interpolated at pos = x·scale + 0.5;
-inputs outside [0, 1]³ give zero features. The level layout (`LevelSpec`,
+uint32) when it does not, interpolated (linear or smoothstep weights over
+the 2^D corners) at pos = x·scale + 0.5 (x·scale with align_corners);
+inputs outside [0, 1]^D give zero features. The level layout (`LevelSpec`,
 `HashGridSpec.levels`) is the JAX package's, row for row, so a table trained
 by either package works in the other.
 
 Five kernel modes of one hand-written library (`csrc/hashgrid.cu`, sm_90a;
 see its source note), each with a plain PyTorch version beside it:
 
-  * ENCODE (`encode_forward`): (N, 3) x01 → (N, L·C) features, every level
+  * ENCODE (`encode_forward`): (N, D) x01 → (N, L·C) features, every level
     of a point; the hash-grid model's encoder;
   * BWD (`encode_backward`), ENCODE's backward: from dy (N, L·C) the table
-    grads (scatter-added) and/or dx01 (N, 3); with dx01 alone the ∇σ of an
+    grads (scatter-added) and/or dx01 (N, D); with dx01 alone the ∇σ of an
     eval render;
-  * BWD2 (`encode_backward2`), BWD's backward for a cotangent g (N, 3) of
+  * BWD2 (`encode_backward2`), BWD's backward for a cotangent g (N, D) of
     dx01, the normal losses' grad-of-grad: d_dy, the table grads and
     d_x01, any subset;
   * `gather_rows(table, idx)` (GATHER): `table[idx]` for an (R, C) fp32 or
@@ -30,6 +31,13 @@ see its source note), each with a plain PyTorch version beside it:
 BWD's and BWD2's table grads leave a warp as one reduction a run of lanes
 in one cell and corner; `reduction_plan` is that plan in plain PyTorch
 (which pairs are summed on chip before a reduction goes to L2).
+
+ENCODE, BWD and BWD2 take every spec the JAX encoder takes (`check_spec`:
+input_dim 1..7, any level_dim and level count, align_corners, linear or
+smoothstep, hashed or tiled): the hash-grid model's spec (`tuned_spec`) on
+the tuned kernels of `csrc/hashgrid.cu`, any other on the general ones of
+`csrc/hashgrid_any.cu` (counted in `launches_general_encode`, `_bwd`,
+`_bwd2`); the plain versions are the same formulas for any spec.
 
 Each dispatches on the device of its inputs: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (no fallback). The
@@ -84,12 +92,24 @@ _REFUSALS = {-1: "the level count is outside [1, 32]",
              -4: "a level or the table has no rows, or side < 2",
              -5: "no output asked for"}
 
-# kernel launches since import (or since a caller last reset them to 0)
+# kernel launches since import (or since a caller last reset them to 0):
+# the tuned library's five modes, and the general ENCODE, BWD and BWD2 of
+# `csrc/hashgrid_any.cu` (every spec `tuned_spec` does not take)
 launches_encode = 0
 launches_bwd = 0
 launches_bwd2 = 0
 launches_gather = 0
 launches_dense = 0
+launches_general_encode = 0
+launches_general_bwd = 0
+launches_general_bwd2 = 0
+
+_ANY_LIB = "hashgrid_any"
+MAX_INPUT_DIM = len(_PRIMES)  # the hash's primes: input_dim 1..7
+# the general entries' negative return codes (see csrc/hashgrid_any.cu)
+_ANY_REFUSALS = {-1: f"input_dim is outside [1, {MAX_INPUT_DIM}]",
+                 -2: "no levels", -3: "level_dim < 1",
+                 -5: "no output asked for"}
 
 
 @dataclass(frozen=True)
@@ -249,60 +269,114 @@ def hashgrid_encode_reference(table: torch.Tensor, x01: torch.Tensor,
 
 
 def _in_cube(x01: torch.Tensor) -> torch.Tensor:
-    """(N,) bool: the point lies in [0, 1]³ (ENCODE's mask)."""
+    """(N,) bool: the point lies in [0, 1]^D (ENCODE's mask)."""
     return ~torch.any((x01 < 0.0) | (x01 > 1.0), dim=-1)
 
 
 def _level_corners(spec: HashGridSpec, lv: LevelSpec, x01: torch.Tensor):
-    """One level's corners as BWD and BWD2 use them: the rows in the flat
-    table (8, N) int64, the factors f (8, N, 3) fp32 (t_d for corner bit d
-    set, else 1 − t_d) and the signs ∂f_d/∂t_d (8, 1, 3)."""
+    """One level's 2^D corners as BWD and BWD2 use them: the rows in the
+    flat table (2^D, N) int64, the factors f (2^D, N, D) fp32 (S(t_d) for
+    corner bit d set, else 1 − S(t_d)), their derivatives ∂f_d/∂t_d
+    (±S'(t_d)) and second derivatives (±S''(t_d)), same shape. S is the
+    identity (S' = 1, S'' = 0) or smoothstep (t·t)·(3 − 2t), S' = 6t·(1 − t),
+    S'' = 6 − 12t."""
     corners = _corner_offsets(spec.input_dim, x01.device)
-    pg, t = _grid_pos(x01, lv.scale, 0.5)
+    pg, t = _grid_pos(x01, lv.scale, 0.0 if spec.align_corners else 0.5)
     rows = lv.offset + _corner_indices(spec, lv,
                                        pg[None] + corners[:, None, :])
-    f = torch.where(corners[:, None, :] == 1, t[None], 1.0 - t[None])
-    return rows, f, (2 * corners - 1).to(torch.float32)[:, None, :]
+    if spec.interpolation == "smoothstep":
+        s, s1, s2 = (t * t) * (3.0 - 2.0 * t), (6.0 * t) * (1.0 - t), \
+            6.0 - 12.0 * t
+    else:
+        s, s1, s2 = t, torch.ones_like(t), torch.zeros_like(t)
+    up = corners[:, None, :] == 1
+    f = torch.where(up, s[None], 1.0 - s[None])
+    df = torch.where(up, s1[None], -s1[None])
+    ddf = torch.where(up, s2[None], -s2[None])
+    return rows, f, df, ddf
 
 
-def _weight_grads(f: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
-    """∂w_c/∂t_d = sign_d · (product of the other two factors), (8, N, 3)."""
-    return sign * torch.stack([f[..., 1] * f[..., 2], f[..., 0] * f[..., 2],
-                               f[..., 0] * f[..., 1]], dim=-1)
+def _weights(f: torch.Tensor) -> torch.Tensor:
+    """w_c = Π_d f_d in axis order ((f_0·f_1)·f_2 …), the JAX product."""
+    w = f[..., 0]
+    for d in range(1, f.shape[-1]):
+        w = w * f[..., d]
+    return w
+
+
+def _others(f: torch.Tensor, skip) -> torch.Tensor:
+    """Π f_k over the axes k not in `skip`, in axis order (1 if none)."""
+    keep = [k for k in range(f.shape[-1]) if k not in skip]
+    if not keep:
+        return torch.ones_like(f[..., 0])
+    out = f[..., keep[0]]
+    for k in keep[1:]:
+        out = out * f[..., k]
+    return out
+
+
+def _weight_grads(f: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """∂w_c/∂t_d = ∂f_d/∂t_d · Π_{e≠d} f_e, (2^D, N, D)."""
+    return df * torch.stack([_others(f, (d,)) for d in range(f.shape[-1])],
+                            dim=-1)
+
+
+def _hessian_rows(f, df, ddf, g, smooth: bool) -> torch.Tensor:
+    """Σ_e g_e ∂²w_c/∂t_d∂t_e for each axis d, (2^D, N, D): the mixed terms
+    ∂f_d/∂t_d·∂f_e/∂t_e·Π_{k≠d,e} f_k summed over e ≠ d in axis order, then,
+    for smoothstep, the diagonal ∂²f_d/∂t_d²·Π_{k≠d} f_k."""
+    dims = f.shape[-1]
+    out = []
+    for d in range(dims):
+        acc = None
+        for e in range(dims):
+            if e == d:
+                continue
+            lo, hi = min(d, e), max(d, e)
+            term = g[:, e] * ((df[..., lo] * df[..., hi])
+                              * _others(f, (d, e)))
+            acc = term if acc is None else acc + term
+        if smooth:
+            diag = g[:, d] * (ddf[..., d] * _others(f, (d,)))
+            acc = diag if acc is None else acc + diag
+        out.append(torch.zeros_like(f[..., 0]) if acc is None else acc)
+    return torch.stack(out, dim=-1)
 
 
 def _check_bwd_spec(spec: HashGridSpec) -> None:
-    if (spec.input_dim != 3 or spec.level_dim != 2 or spec.align_corners
-            or spec.interpolation != "linear"):
-        raise ValueError("the hash-grid backward takes 3-d inputs, 2 "
-                         "features a level, align_corners=False and linear "
-                         "interpolation")
+    """The summation plan (`reduction_plan`) is the tuned kernels'
+    (`tuned_spec`)."""
+    if not tuned_spec(spec):
+        raise ValueError("the tuned hash-grid backward takes 3-d inputs, 2 "
+                         "features a level, align_corners=False, linear "
+                         "interpolation and at most 32 levels")
 
 
 def encode_backward_reference(table: torch.Tensor, x01: torch.Tensor,
                               dy: torch.Tensor, spec: HashGridSpec,
                               need_table: bool = True,
                               need_dx: bool = True):
-    """The plain version of BWD (any device), from its formulas: d_table
-    (R, 2) += w_c·dy_l at corner c's row, and dx01 (N, 3) = Σ_l s_l Σ_c
-    ∇_t w_c ⟨T[row_c], dy_l⟩ with s_l = fp32(scale) and ∂w_c/∂t_d =
-    ±(product of the other two factors); a point outside [0, 1]³ adds
-    nothing and gets dx01 = 0. Returns (d_table or None, dx01 or None)."""
-    _check_bwd_spec(spec)
+    """The plain version of BWD (any device, any spec), from its formulas:
+    d_table (R, C) += w_c·dy_l at corner c's row, and dx01 (N, D) = Σ_l s_l
+    Σ_c ∇_t w_c ⟨T[row_c], dy_l⟩ with s_l = fp32(scale) and ∂w_c/∂t_d =
+    ∂f_d/∂t_d·(product of the other factors); a point outside [0, 1]^D
+    adds nothing and gets dx01 = 0. Returns (d_table or None, dx01 or
+    None)."""
+    c = spec.level_dim
     inb = _in_cube(x01)
     dy = torch.where(inb[:, None], dy, torch.zeros((), dtype=dy.dtype))
     d_table = torch.zeros_like(table) if need_table else None
     dx = torch.zeros_like(x01) if need_dx else None
     for li, lv in enumerate(spec.levels()):
-        dyl = dy[:, 2 * li:2 * li + 2]
-        rows, f, sign = _level_corners(spec, lv, x01)
+        dyl = dy[:, c * li:c * li + c]
+        rows, f, df, _ = _level_corners(spec, lv, x01)
         if need_table:
-            w = (f[..., 0] * f[..., 1]) * f[..., 2]
             d_table.index_add_(0, rows.reshape(-1),
-                               (w[..., None] * dyl[None]).reshape(-1, 2))
+                               (_weights(f)[..., None] * dyl[None]
+                                ).reshape(-1, c))
         if need_dx:
             dot = (table[rows] * dyl[None]).sum(-1)
-            dx += (_weight_grads(f, sign) * dot[..., None]).sum(0) * float(
+            dx += (_weight_grads(f, df) * dot[..., None]).sum(0) * float(
                 np.float32(lv.scale))
     if need_dx:
         dx = torch.where(inb[:, None], dx, torch.zeros((), dtype=dx.dtype))
@@ -313,13 +387,14 @@ def encode_backward2_reference(table: torch.Tensor, x01: torch.Tensor,
                                dy: torch.Tensor, g: torch.Tensor,
                                spec: HashGridSpec, need_table: bool = True,
                                need_ddy: bool = True, need_dx: bool = True):
-    """The plain version of BWD2 (any device), from its formulas, for the
-    cotangent g (N, 3) of BWD's dx01: with u_c = s_l ∇_t w_c · g,
-    d_dy_l = Σ_c u_c T[row_c], d_table[row_c] += u_c·dy_l and d_x01_e =
-    Σ_l s_l² Σ_c Σ_{d≠e} g_d ∂²w_c/∂t_d∂t_e ⟨T[row_c], dy_l⟩, where
-    ∂²w_c/∂t_d∂t_e = sign_d·sign_e·f_(the third axis); zero outside
-    [0, 1]³. Returns (d_table, d_dy, d_x01), None where not asked for."""
-    _check_bwd_spec(spec)
+    """The plain version of BWD2 (any device, any spec), from its formulas,
+    for the cotangent g (N, D) of BWD's dx01: with u_c = s_l ∇_t w_c · g,
+    d_dy_l = Σ_c u_c T[row_c], d_table[row_c] += u_c·dy_l and d_x01_d =
+    Σ_l s_l² Σ_c ⟨T[row_c], dy_l⟩ Σ_e g_e ∂²w_c/∂t_d∂t_e (`_hessian_rows`:
+    the mixed terms, and smoothstep's diagonal); zero outside [0, 1]^D.
+    Returns (d_table, d_dy, d_x01), None where not asked for."""
+    c = spec.level_dim
+    smooth = spec.interpolation == "smoothstep"
     inb = _in_cube(x01)
     g = torch.where(inb[:, None], g, torch.zeros((), dtype=g.dtype))
     d_table = torch.zeros_like(table) if need_table else None
@@ -327,24 +402,19 @@ def encode_backward2_reference(table: torch.Tensor, x01: torch.Tensor,
     d_x = torch.zeros_like(x01) if need_dx else None
     for li, lv in enumerate(spec.levels()):
         s = float(np.float32(lv.scale))
-        dyl = dy[:, 2 * li:2 * li + 2]
-        rows, f, sign = _level_corners(spec, lv, x01)
-        u = s * (_weight_grads(f, sign) * g[None]).sum(-1)  # (8, N)
+        dyl = dy[:, c * li:c * li + c]
+        rows, f, df, ddf = _level_corners(spec, lv, x01)
+        u = s * (_weight_grads(f, df) * g[None]).sum(-1)  # (2^D, N)
         if need_table:
             d_table.index_add_(0, rows.reshape(-1),
-                               (u[..., None] * dyl[None]).reshape(-1, 2))
+                               (u[..., None] * dyl[None]).reshape(-1, c))
         if need_ddy or need_dx:
-            v = table[rows]  # (8, N, 2)
+            v = table[rows]  # (2^D, N, C)
         if need_ddy:
-            d_dy[:, 2 * li:2 * li + 2] = (u[..., None] * v).sum(0)
+            d_dy[:, c * li:c * li + c] = (u[..., None] * v).sum(0)
         if need_dx:
             dot = (v * dyl[None]).sum(-1)
-            h01 = sign[..., 0] * sign[..., 1] * f[..., 2]
-            h02 = sign[..., 0] * sign[..., 2] * f[..., 1]
-            h12 = sign[..., 1] * sign[..., 2] * f[..., 0]
-            e = torch.stack([g[:, 1] * h01 + g[:, 2] * h02,
-                             g[:, 0] * h01 + g[:, 2] * h12,
-                             g[:, 0] * h02 + g[:, 1] * h12], dim=-1)
+            e = _hessian_rows(f, df, ddf, g, smooth)
             d_x += ((e * dot[..., None]).sum(0) * s) * s
     return d_table, d_dy, d_x
 
@@ -362,7 +432,7 @@ def pair_values(spec: HashGridSpec, dy: torch.Tensor,
     s_l ∇_t w_c · g."""
     def values(li, f, sign):
         if g is None:
-            w = (f[..., 0] * f[..., 1]) * f[..., 2]
+            w = _weights(f)
         else:
             w = float(np.float32(spec.levels()[li].scale)) * (
                 _weight_grads(f, sign) * g[None]).sum(-1)
@@ -376,7 +446,7 @@ def table_grad_pairs(spec: HashGridSpec, x01: torch.Tensor, values_of):
     inb = _in_cube(x01)
     rows, vals = [], []
     for li, lv in enumerate(spec.levels()):
-        r, f, sign = _level_corners(spec, lv, x01)
+        r, f, sign, _ = _level_corners(spec, lv, x01)
         rows.append(r[:, inb].reshape(-1))
         vals.append(values_of(li, f, sign)[:, inb].reshape(-1, 2))
     return torch.cat(rows), torch.cat(vals)
@@ -399,7 +469,7 @@ def reduction_plan(spec: HashGridSpec, x01: torch.Tensor, values_of):
     live = _in_cube(x01)
     rows_out, vals_out, by_level = [], [], []
     for li, lv in enumerate(spec.levels()):
-        rows, f, sign = _level_corners(spec, lv, x01)
+        rows, f, sign, _ = _level_corners(spec, lv, x01)
         vals = values_of(li, f, sign)  # (8, N, 2)
         cell, _ = _grid_pos(x01, lv.scale, 0.5)
         head = torch.ones(n, dtype=torch.bool, device=x01.device)
@@ -519,6 +589,14 @@ _library = Library(_LIB, {
     "mnerf_hash_gather": [_P, _LL, _I, _I, _P, _LL, _P],
     "mnerf_hash_dense": [_P, _LL, _I, _P, _LL, ctypes.c_float, _I, _P]},
     _REFUSALS)
+# the general entries': x, table, levels, d, n_levels, c, n,
+# align_corners, smooth, then ENCODE out; BWD dy, d_table, dx; BWD2 dy, g,
+# d_dy, d_table, d_x (a null output is not computed)
+_ANY = [_P, _P, _P, _I, _I, _I, _LL, _I, _I]
+_any_library = Library(_ANY_LIB, {
+    "mnerf_hash_any_encode": [*_ANY, _P],
+    "mnerf_hash_any_bwd": [*_ANY, _P, _P, _P],
+    "mnerf_hash_any_bwd2": [*_ANY, _P, _P, _P, _P, _P]}, _ANY_REFUSALS)
 _F32 = (torch.float32,)
 _ROWS = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
@@ -564,20 +642,43 @@ def _level_table(spec: HashGridSpec, device) -> torch.Tensor:
     return _level_words[key]
 
 
+def tuned_spec(spec: HashGridSpec) -> bool:
+    """Whether the tuned ENCODE, BWD and BWD2 of `csrc/hashgrid.cu` take the
+    spec (the hash-grid model's): 3-d inputs, 2 features a level,
+    align_corners off, linear interpolation, at most 32 levels. Every other
+    spec of the range (`check_spec`) takes `csrc/hashgrid_any.cu`."""
+    return (spec.input_dim == 3 and spec.level_dim == 2
+            and not spec.align_corners and spec.interpolation == "linear"
+            and 1 <= spec.num_levels <= 32)
+
+
+def check_spec(spec: HashGridSpec) -> None:
+    """The range of the kernels, the JAX package's: input_dim 1..7 (its
+    hash primes), level_dim ≥ 1, ≥ 1 level, linear or smoothstep; a
+    ValueError naming the limit otherwise."""
+    if not 1 <= spec.input_dim <= MAX_INPUT_DIM:
+        raise ValueError(
+            f"the hash-grid kernels take input_dim 1..{MAX_INPUT_DIM} (the "
+            f"spatial hash's {MAX_INPUT_DIM} primes), got {spec.input_dim}")
+    if spec.level_dim < 1 or spec.num_levels < 1:
+        raise ValueError("the hash-grid kernels need level_dim ≥ 1 and at "
+                         f"least one level, got {spec}")
+    if spec.interpolation not in ("linear", "smoothstep"):
+        raise ValueError("the hash-grid kernels interpolate linear or "
+                         f"smoothstep, got {spec.interpolation!r}")
+
+
 def _check_shapes(spec: HashGridSpec, table: torch.Tensor,
                   x01: torch.Tensor, *per_point) -> None:
     """What every ENCODE/BWD/BWD2 launch takes besides `card_index`'s
-    checks: the spec, x01 (N, 3), the table (rows, C) and (name, tensor,
+    checks: the spec, x01 (N, D), the table (rows, C) and (name, tensor,
     width) per-point tensors (N, width)."""
-    if (spec.input_dim != 3 or spec.align_corners
-            or spec.interpolation != "linear"):
-        raise ValueError("the hash-grid kernel takes 3-d inputs, "
-                         "align_corners=False and linear interpolation")
+    check_spec(spec)
     _need("x01", x01, 2)
     _need("table", table, 2)
-    if x01.shape[1] != 3 or tuple(table.shape) != (spec.table_rows,
-                                                   spec.level_dim):
-        raise ValueError(f"need x01 (N, 3) and table "
+    if x01.shape[1] != spec.input_dim or tuple(table.shape) != (
+            spec.table_rows, spec.level_dim):
+        raise ValueError(f"need x01 (N, {spec.input_dim}) and table "
                          f"({spec.table_rows}, {spec.level_dim}), got "
                          f"{tuple(x01.shape)} and {tuple(table.shape)}")
     for name, t, width in per_point:
@@ -586,49 +687,98 @@ def _check_shapes(spec: HashGridSpec, table: torch.Tensor,
                              f"{tuple(t.shape)}")
 
 
+_level_words_any: dict = {}
+
+
+def _level_table_any(spec: HashGridSpec, device) -> torch.Tensor:
+    """The general kernels' level table on `device`, cached: 16 int32 words
+    a level (offset, size, fp32 scale bits, use_hash, the D dense strides,
+    zeros)."""
+    key = (spec, str(device))
+    if key not in _level_words_any:
+        words = np.zeros((spec.num_levels, 16), np.int32)
+        for li, lv in enumerate(spec.levels()):
+            words[li, 0] = np.uint32(lv.offset).view(np.int32)
+            words[li, 1] = np.uint32(lv.size).view(np.int32)
+            words[li, 2] = np.float32(lv.scale).view(np.int32)
+            words[li, 3] = int(lv.use_hash)
+            words[li, 4:4 + spec.input_dim] = np.asarray(
+                lv.dense_strides, np.int64).astype(np.uint32).view(np.int32)
+        _level_words_any[key] = torch.from_numpy(words).to(device)
+    return _level_words_any[key]
+
+
+def _any_args(spec: HashGridSpec, table, x01) -> tuple:
+    """The general entries' leading arguments: x, table, levels, d,
+    n_levels, c, n, align_corners, smooth."""
+    return (x01.data_ptr(), table.data_ptr(),
+            _level_table_any(spec, x01.device).data_ptr(), spec.input_dim,
+            spec.num_levels, spec.level_dim, x01.shape[0],
+            int(spec.align_corners), int(spec.interpolation == "smoothstep"))
+
+
 def hashgrid_encode_cuda(table: torch.Tensor, x01: torch.Tensor,
                          spec: HashGridSpec) -> torch.Tensor:
-    """ENCODE: launch the kernel on CUDA tensors (raises for anything it
-    does not take). A mode call: its output carries no graph
-    (`hashgrid_encode` is the differentiable encoder)."""
-    global launches_encode
+    """ENCODE: launch the kernel on CUDA tensors, the tuned one for the
+    model's spec, else the general one (raises for anything neither
+    takes). A mode call: its output carries no graph (`hashgrid_encode` is
+    the differentiable encoder)."""
+    global launches_encode, launches_general_encode
+    tuned = tuned_spec(spec)
     dev = card_index("hash-grid ENCODE", ("x01", x01, _F32, 4),
-                     ("table", table, _F32, _row_align(table)))
+                     ("table", table, _F32,
+                      _row_align(table) if tuned else 4))
     _check_shapes(spec, table, x01)
     n = x01.shape[0]
     out = x01.new_empty((n, spec.output_dim))
     if n == 0:
         return out
-    words = _level_table(spec, x01.device)
-    _library.launch("mnerf_hash_encode", "hash-grid ENCODE", dev,
-                    x01.data_ptr(), table.data_ptr(), words.data_ptr(),
-                    spec.num_levels, spec.level_dim, n, out.data_ptr())
-    launches_encode += 1
+    if tuned:
+        words = _level_table(spec, x01.device)
+        _library.launch("mnerf_hash_encode", "hash-grid ENCODE", dev,
+                        x01.data_ptr(), table.data_ptr(), words.data_ptr(),
+                        spec.num_levels, spec.level_dim, n, out.data_ptr())
+        launches_encode += 1
+    else:
+        _any_library.launch("mnerf_hash_any_encode", "hash-grid ENCODE",
+                            dev, *_any_args(spec, table, x01),
+                            out.data_ptr())
+        launches_general_encode += 1
     return out
 
 
 def encode_backward_cuda(table: torch.Tensor, x01: torch.Tensor,
                          dy: torch.Tensor, spec: HashGridSpec,
                          need_table: bool = True, need_dx: bool = True):
-    """BWD: launch the kernel (a mode call, no graph); (d_table or None,
-    dx01 or None). The table is read only for dx01."""
-    global launches_bwd
+    """BWD: launch the kernel, tuned or general as ENCODE (a mode call, no
+    graph); (d_table or None, dx01 or None). The table is read only for
+    dx01."""
+    global launches_bwd, launches_general_bwd
+    tuned = tuned_spec(spec)
+    align = 8 if tuned else 4
     dev = card_index("hash-grid BWD", ("x01", x01, _F32, 4),
-                     ("table", table, _F32, 8), ("dy", dy, _F32, 8))
+                     ("table", table, _F32, align), ("dy", dy, _F32, align))
     _check_shapes(spec, table, x01, ("dy", dy, spec.output_dim))
     if not (need_table or need_dx):
         raise ValueError("hash-grid BWD: no output asked for")
     d_table = torch.zeros_like(table) if need_table else None
     dx = torch.empty_like(x01) if need_dx else None
     n = x01.shape[0]
-    if n:
+    if n == 0:
+        return d_table, dx
+    outs = (d_table.data_ptr() if need_table else None,
+            dx.data_ptr() if need_dx else None)
+    if tuned:
         _library.launch(
             "mnerf_hash_bwd", "hash-grid BWD", dev, x01.data_ptr(),
             table.data_ptr(), _level_table(spec, x01.device).data_ptr(),
-            spec.num_levels, spec.level_dim, n, dy.data_ptr(),
-            d_table.data_ptr() if need_table else None,
-            dx.data_ptr() if need_dx else None)
+            spec.num_levels, spec.level_dim, n, dy.data_ptr(), *outs)
         launches_bwd += 1
+    else:
+        _any_library.launch("mnerf_hash_any_bwd", "hash-grid BWD", dev,
+                            *_any_args(spec, table, x01), dy.data_ptr(),
+                            *outs)
+        launches_general_bwd += 1
     return d_table, dx
 
 
@@ -636,28 +786,38 @@ def encode_backward2_cuda(table: torch.Tensor, x01: torch.Tensor,
                           dy: torch.Tensor, g: torch.Tensor,
                           spec: HashGridSpec, need_table: bool = True,
                           need_ddy: bool = True, need_dx: bool = True):
-    """BWD2: launch the kernel (a mode call, no graph); (d_table, d_dy,
-    d_x01), None where not asked for."""
-    global launches_bwd2
+    """BWD2: launch the kernel, tuned or general as ENCODE (a mode call, no
+    graph); (d_table, d_dy, d_x01), None where not asked for."""
+    global launches_bwd2, launches_general_bwd2
+    tuned = tuned_spec(spec)
+    align = 8 if tuned else 4
     dev = card_index("hash-grid BWD2", ("x01", x01, _F32, 4),
-                     ("table", table, _F32, 8), ("dy", dy, _F32, 8),
+                     ("table", table, _F32, align), ("dy", dy, _F32, align),
                      ("g", g, _F32, 4))
     _check_shapes(spec, table, x01, ("dy", dy, spec.output_dim),
-                  ("g", g, 3))
+                  ("g", g, spec.input_dim))
     if not (need_table or need_ddy or need_dx):
         raise ValueError("hash-grid BWD2: no output asked for")
     d_table = torch.zeros_like(table) if need_table else None
     d_dy = torch.empty_like(dy) if need_ddy else None
     d_x = torch.empty_like(x01) if need_dx else None
     n = x01.shape[0]
-    if n:
+    if n == 0:
+        return d_table, d_dy, d_x
+    outs = [t.data_ptr() if t is not None else None
+            for t in (d_dy, d_table, d_x)]
+    if tuned:
         _library.launch(
             "mnerf_hash_bwd2", "hash-grid BWD2", dev, x01.data_ptr(),
             table.data_ptr(), _level_table(spec, x01.device).data_ptr(),
             spec.num_levels, spec.level_dim, n, dy.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() if t is not None else None
-              for t in (d_dy, d_table, d_x)))
+            *outs)
         launches_bwd2 += 1
+    else:
+        _any_library.launch("mnerf_hash_any_bwd2", "hash-grid BWD2", dev,
+                            *_any_args(spec, table, x01), dy.data_ptr(),
+                            g.data_ptr(), *outs)
+        launches_general_bwd2 += 1
     return d_table, d_dy, d_x
 
 

@@ -10,8 +10,8 @@ forward-only), which composites in-kernel on noise-free passes
 (ops/fused_cp.py for the CP grid, ops/fused_mlp_t.py for the flagship
 PE-MLP, ops/fused_hash.py for the hash grid, `nerf_tcnn`) and emits
 per-sample rows that are composited here on σ-noise passes, and on the
-flagship's passes with `fused_t` off (ops/fused_cp.py `fused_cp_rays_eval`,
-ops/fused_mlp.py `fused_rays_eval`); the hash grid's σ-noise passes take
+flagship's passes with `fused_t` off or a trunk other than the default
+(ops/fused_cp.py `fused_cp_rays_eval`, ops/fused_mlp.py `fused_rays_eval`); the hash grid's σ-noise passes take
 the plain route below (ENCODE and the PyTorch nets); the training kernels
 for density + ∇σ or density alone (`fused_density`,
 ops/fused_cp_train.py); or the plain field modules, with the σ-gradient
@@ -167,15 +167,14 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                     dirs, rs, results, sigma_only, rays_o, rays_d)
             # σ-noise passes: ENCODE and the PyTorch nets below (a rows
             # mode of the fused kernel is ROADMAP.md queue 2, item 13)
-        elif (hasattr(field, "supports_fused_hash")
-              and not hasattr(field, "supports_fused_cp")
-              and z_vals.device.type != "cpu"):
-            raise NotImplementedError(
-                "--fused_field: the fused NGP composite takes 2-feature "
-                "levels, at most 16, both heads and the default net dims; "
-                f"{field} has no kernel. Render it without --fused_field")
+        # a hash-grid field the fused NGP composite does not take renders
+        # every pass that way too: ENCODE (any spec) and the nets, the
+        # route the JAX package takes for every hash-grid pass
         if getattr(field, "supports_fused", False):
-            if rs.fused_t and rs.noise_std == 0:
+            # the composite kernel takes the default trunk; every trunk of
+            # the range takes the rows kernels with the composite outside
+            if (rs.fused_t and rs.noise_std == 0
+                    and getattr(field, "supports_fused_t", False)):
                 from ..ops.fused_mlp_t import fused_t_rays_composite
 
                 return _inference_in_kernel(
@@ -186,10 +185,10 @@ def _inference(field, params, typ: str, rays_o, rays_d, z_vals, dirs,
                                     pass_noise)
         if hasattr(field, "supports_fused") and z_vals.device.type != "cpu":
             raise NotImplementedError(
-                "--fused_field: the PE-MLP kernel takes width 256, depth 8, "
-                "the skip at layer 4 and at most 20 posenc frequencies; "
-                f"{field} has no kernel yet (ROADMAP.md queue 2, item 8). "
-                "Render it without --fused_field")
+                "--fused_field: the PE-MLP kernels take a width that is a "
+                "multiple of 128 and at most 20 posenc frequencies each "
+                f"(the JAX kernels' range); {field} is outside it. Render "
+                "it without --fused_field")
 
     xyz_flat = (rays_o[:, None, :]
                 + rays_d[:, None, :] * z_vals[..., None]).reshape(-1, 3)

@@ -1,9 +1,9 @@
 """Port parity, the encoders: `sh_encode` at degrees 1–8 (values and the
 gradient) and every `get_encoder` name against the JAX package's
-`models/encoding.py`, with its output dims; the grid encoders on specs the
-hash-grid kernel takes (through `hashgrid_encode`, its plain versions on the
-CPU) and on specs it does not (2-d inputs, align_corners, 4 features a
-level: the plain encoder by autograd on the CPU)."""
+`models/encoding.py`, with its output dims; the grid encoders through
+`hashgrid_encode` (its plain versions on the CPU) on the model's spec, which
+the tuned kernels take, and on others (2-d inputs, align_corners, 4
+features a level), which the general kernels take."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +13,8 @@ import torch
 
 from mirror_nerf_tpu.models.encoding import get_encoder as jax_get_encoder
 from mirror_nerf_tpu.ops.sh import sh_encode as jax_sh
-from mirror_nerf_tpu_torch.models.encoding import get_encoder, kernel_takes
+from mirror_nerf_tpu_torch.models.encoding import get_encoder
+from mirror_nerf_tpu_torch.ops.hashgrid import check_spec, tuned_spec
 from mirror_nerf_tpu_torch.ops.sh import sh_encode
 
 # the recurrence's fp32 rounding: XLA contracts some of its products into
@@ -80,12 +81,13 @@ def test_plain_encoders_match_jax(name, kw):
 
 
 GRIDS = {
-    # specs the kernel takes (hashgrid_encode; its plain version here)
+    # the model's spec, on the tuned kernels on the card (hashgrid_encode;
+    # its plain versions here)
     "hashgrid": ("hashgrid", dict(num_levels=6, log2_hashmap_size=12,
                                   desired_resolution=256)),
     "tiledgrid": ("tiledgrid", dict(num_levels=6, log2_hashmap_size=12,
                                     desired_resolution=256)),
-    # specs it does not: the plain encoder (item 15 on the card)
+    # other specs, on the general kernels on the card (the same graph)
     "hash_2d": ("hashgrid", dict(input_dim=2, num_levels=4,
                                  log2_hashmap_size=10,
                                  desired_resolution=128)),
@@ -108,7 +110,10 @@ def test_grid_encoders_match_jax(case):
     enc, dim = get_encoder(name, **kw)
     assert dim == jdim == enc.spec.output_dim
     assert enc.spec.table_rows == jenc.spec.table_rows
-    assert kernel_takes(enc.spec) == (case in ("hashgrid", "tiledgrid"))
+    # every spec of the JAX encoder's range runs on a kernel; the model's
+    # on the tuned ones
+    check_spec(enc.spec)
+    assert tuned_spec(enc.spec) == (case in ("hashgrid", "tiledgrid"))
     table = np.asarray(jenc.init(jax.random.PRNGKey(3))) * np.float32(1e4)
     x = _points(700, enc.spec.input_dim)
     w = np.random.default_rng(4).normal(size=(700, dim)).astype(np.float32)

@@ -175,33 +175,63 @@ def test_plain_composite_matches_jax_kernel_variants(variant):
 
 
 def test_supports_fused_is_the_kernels_architecture():
-    """True for the kernel's trunk (width 256, depth 8, skip at 4) with up
-    to 20 posenc frequencies and any heads; false for other trunks (unlike
-    the JAX property, which takes any width that is a multiple of 128)."""
-    assert TorchField().supports_fused
+    """The dispatch: `supports_fused` is the JAX property's range (a width
+    that is a multiple of 128, any depth and skips, ≤ 20 posenc
+    frequencies each, any heads), which the rows kernels take;
+    `supports_fused_t`, the composite kernel's, is the default trunk
+    within it; outside the range neither."""
+    jf = JaxField()
+    assert TorchField().supports_fused and TorchField().supports_fused_t
     for kw in (*VARIANTS.values(), dict(N_emb_xyz=20, N_emb_dir=0)):
         assert TorchField(**kw).supports_fused, kw
+        assert TorchField(**kw).supports_fused_t, kw
     for kw in (dict(width=128), dict(width=384), dict(depth=6),
-               dict(skips=(3,)), dict(N_emb_xyz=21), dict(N_emb_dir=21)):
-        assert not TorchField(**kw).supports_fused, kw
+               dict(skips=(3,)), dict(depth=6, skips=(2, 4)),
+               dict(width=512, depth=1, skips=())):
+        f = TorchField(**kw)
+        assert f.supports_fused and not f.supports_fused_t, kw
+        assert f.supports_fused == JaxField(**kw).supports_fused, kw
+    for kw in (dict(width=96), dict(width=200), dict(N_emb_xyz=21),
+               dict(N_emb_dir=21)):
+        f = TorchField(**kw)
+        assert not f.supports_fused and not f.supports_fused_t, kw
+        assert f.supports_fused == JaxField(**kw).supports_fused, kw
+    assert jf.supports_fused
 
 
 def test_fused_field_off_the_kernel_raises_off_the_cpu():
-    """--fused_field with a flagship field the kernel does not take: the
-    CPU renders it through the plain field modules (as the JAX package
-    does), any other device raises rather than render without the kernel."""
+    """--fused_field with a flagship field outside the rows kernels'
+    range: the CPU renders it through the plain field modules (as the JAX
+    package does), any other device raises, naming the limit. A trunk
+    inside the range but not the default (width 128) takes the rows route
+    on every device, whatever `fused_t` says: the CPU its plain version,
+    another device the kernel's dispatch (which refuses a meta tensor)."""
     from mirror_nerf_tpu_torch.render.renderer import (RenderSettings,
                                                        _inference)
 
-    tf = TorchField(width=128)
-    p = tf.init(torch.Generator().manual_seed(0))
     o, d, z = _torch(*_rays(2, 8, seed=8))
+    meta = [t.to("meta") for t in (o, d, z)]
     rs = RenderSettings(fused_field=True, compute_normal=False,
                         noise_std=0.0, test_time=True)
+    tf = TorchField(width=96)
+    p = tf.init(torch.Generator().manual_seed(0))
     res = _inference(tf, p, "fine", o, d, z, d, rs, {}, False)
     assert res["rgb_fine"].shape == (2, 3)
-    meta = [t.to("meta") for t in (o, d, z)]
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="multiple of 128 and at most 20 posenc"):
+        _inference(tf, p, "fine", meta[0], meta[1], meta[2], meta[1], rs,
+                   {}, False)
+    tf = TorchField(width=128)
+    p = tf.init(torch.Generator().manual_seed(0))
+    res = _inference(tf, p, "fine", o, d, z, d, rs, {}, False)
+    want = _inference(tf, p, "fine", o, d, z, d,
+                      RenderSettings(fused_field=False, compute_normal=False,
+                                     noise_std=0.0, test_time=True), {},
+                      False)
+    for k in ("rgb_fine", "depth_fine", "weights_fine"):
+        np.testing.assert_allclose(res[k].numpy(), want[k].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+    with pytest.raises(ValueError, match="no fused PE-MLP rows path"):
         _inference(tf, p, "fine", meta[0], meta[1], meta[2], meta[1], rs,
                    {}, False)
 

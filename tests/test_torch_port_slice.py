@@ -170,13 +170,14 @@ def test_unported_paths_raise(tmp_path):
                  str(tmp_path), "cpu")
     assert tr.cfg.use_remat and tr.group is None
     # every dataset of the JAX package loads (queue 1, item 5's loaders
-    # are ported); another name raises and cites what is still unported
+    # are ported); another name raises and names only the loaders
     from mirror_nerf_tpu_torch.data import get_dataset
 
-    with pytest.raises(NotImplementedError,
-                       match=r"unknown dataset 'colmap_dense'.*ROADMAP.md "
-                             r"queue 1\): item 15 \(the hash-grid"):
+    with pytest.raises(NotImplementedError) as err:
         get_dataset("colmap_dense")
+    assert str(err.value) == (
+        "unknown dataset 'colmap_dense': the port loads ['blender', 'llff', "
+        "'real_arkit', 'real_colmap'], the loaders of the JAX package")
 
 
 def test_port_runs_with_jax_blocked():
