@@ -9,7 +9,7 @@ each fatal on failure:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      whether nvcc and triton are present; TF32 off for the plain versions;
-  2. build the nine kernel libraries at once (one nvcc each), print the
+  2. build the ten kernel libraries at once (one nvcc each), print the
      build seconds and the compiler's register/spill report;
   3. the composite kernel vs its plain PyTorch version on the card, default
      CP field (levels 64:64,256:64,512:64, bound 6, seeded weights), 16384
@@ -261,18 +261,27 @@ each fatal on failure:
      it in turns, ms and peak memory. Its launches join rows 1, 2, 3, 9
      (ENCODE), 9c and 9d;
  23. the two kernels over the whole range of specs the JAX package calls
-     them with (`phase_spec_range`). The general PE-MLP rows kernel
-     (csrc/fused_mlp_rows.cu) against `mlp_rows_reference` for a width-512
-     (depth 8, skip 4) and a width-128 (depth 6, skips 2 and 4) flagship
-     trunk: 16384 strided rays of the 400×300 camera at S = 128, full and
-     σ-only, and 2,097,152 points, within 1e-4 scaled above 1, times
-     beside the 3×TF32 and the fp32 CUDA-core bound; its main path: each
-     trunk's all-mirror seeded weights through a 400×300 level-2 view by
-     run_view with --fused_field, noise-free and with σ noise 1, the width-512
-     σ grid at 128³ through query_sigma_grid, the counters set to 0 before
-     and read after (the default trunk's kernels must not launch); each
-     view on 4096 rays against the plain route within 1e-3 (the same σ
-     noise), the σ grid against the plain σ. The general ENCODE, BWD and
+     them with (`phase_spec_range`). The PE-MLP rows kernel on the tensor
+     cores (csrc/fused_mlp_rows_tc.cu, every trunk but the default of width
+     ≤ 512) against `mlp_rows_reference` for a width-512 (depth 8, skip 4)
+     and a width-128 (depth 6, skips 2 and 4) flagship trunk: 16384
+     strided rays of the 400×300 camera at S = 128, full and σ-only, and
+     2,097,152 points, within 1e-4 scaled above 1, times beside the
+     3×TF32 and the fp32 CUDA-core bound, the plain route and the fp32
+     kernel csrc/fused_mlp_rows.cu on the same inputs (a figure: that
+     kernel is the route of wider trunks only); raw σ's signed mean
+     error against a float64 plain version within 1e-7 of its scale; the
+     default trunk through the new kernel beside its tuned rows mode (a
+     figure, not a route); its main path: each trunk's all-mirror seeded
+     weights through a 400×300 level-2 view by run_view with
+     --fused_field, noise-free and with σ noise 1, the width-512 σ grid at
+     128³ through query_sigma_grid, the counters set to 0 before and read
+     after (no other rows kernel may launch); each view on 4096 rays
+     against the plain route within 1e-3 (the same σ noise), the σ grid
+     against the plain σ. The fp32 kernel on its own range: a width-640
+     trunk within 1e-4 of the plain version (4096 rays × 128, full and
+     σ-only; 524,288 points), and its main path, a 100×75 level-2 view
+     and a 32³ σ grid, counted likewise. The general ENCODE, BWD and
      BWD2 (csrc/hashgrid_any.cu) against their plain versions for five
      specs of 16 levels × 2¹⁹ rows (2-d C 2, 3-d align_corners, 3-d
      smoothstep, 4-d C 4, 7-d C 1 at 8 levels): ENCODE on 2,097,152 points
@@ -287,7 +296,7 @@ each fatal on failure:
      rays against fused_field off within 1e-3.
 
 Each phase prints its wall time. The script prints one JSON line with the
-twenty-six kernels' numbers (each with the least time the card could take for
+twenty-eight kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
 modes, the train kernels and the flagship's three also with
@@ -431,15 +440,17 @@ def phase_build():
 
     mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid, invoke_floor,
             segment_scan, table_mma)
-    # and phase 23's two: the general rows kernel and the general ENCODE,
-    # BWD and BWD2
-    names = [m._LIB for m in mods] + [fused_mlp._ROWS_LIB,
+    # and phase 23's three: the rows kernels for the other trunks (on the
+    # tensor cores, and fp32 above width 512) and the general ENCODE, BWD
+    # and BWD2
+    names = [m._LIB for m in mods] + [fused_mlp._TC_LIB, fused_mlp._ROWS_LIB,
                                       hashgrid._ANY_LIB]
     t0 = time.perf_counter()
     _build.build_libraries(names)
     for m in mods:
         m._library()
     fused_hash._library()  # the fused NGP composite's entry, same library
+    fused_mlp._tc_library()
     fused_mlp._rows_library()
     hashgrid._any_library()
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} "
@@ -4713,6 +4724,9 @@ def phase_data_parallel(torch, card: str) -> dict:
 # the trunks of phase 23's views (the flagship's heads, posenc 10/4)
 SPEC_TRUNKS = {"width 512": dict(width=512, depth=8, skips=(4,)),
                "width 128": dict(width=128, depth=6, skips=(2, 4))}
+# a trunk wider than the tensor-core kernel's instances: the fp32 rows
+# kernel's own range
+SPEC_WIDE = dict(width=640, depth=2, skips=())
 # phase 23's hash specs: get_encoder's defaults (16 levels, 2¹⁹ rows a
 # level at most, base 16, desired resolution 2048) with these changes
 SPEC_HASH = {"2-d, C 2": dict(input_dim=2),
@@ -4793,11 +4807,15 @@ def _spec_case(torch, tag: str, kern, plain, card: str) -> tuple:
 
 
 def _spec_rows_kernel(torch, card: str) -> list:
-    """(23) The general rows kernel against `mlp_rows_reference` on the
-    card: each trunk of SPEC_TRUNKS on 16384 strided rays of the 400×300
-    camera at S = 128 (full and σ-only) and on 2,097,152 points (full), 1e-4
-    scaled above 1; times beside the fp32 CUDA-core bound. Returns the
-    rays' and the points' entries (the width-512 trunk's numbers)."""
+    """(23) The rows kernel on the tensor cores (csrc/fused_mlp_rows_tc.cu,
+    the route of SPEC_TRUNKS) against `mlp_rows_reference` on the card:
+    each trunk on 16384 strided rays of the 400×300 camera at S = 128 (full
+    and σ-only) and on 2,097,152 points (full), 1e-4 scaled above 1; times
+    beside the 3×TF32 and fp32 bounds, the plain route and PR 19's fp32
+    kernel (csrc/fused_mlp_rows.cu) on the same inputs; raw σ against a
+    float64 plain version; the default trunk through it beside the tuned
+    rows mode. Returns the rays' and the points' entries (the width-512
+    trunk's numbers)."""
     from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
     from mirror_nerf_tpu_torch.ops import fused_mlp
 
@@ -4814,7 +4832,7 @@ def _spec_rows_kernel(torch, card: str) -> list:
     for name, kw in SPEC_TRUNKS.items():
         field, params = _spec_field(torch, kw)
         p = params["fine"]
-        assert field.supports_fused and not field.supports_fused_t
+        assert fused_mlp.rows_route(field) == "fused_mlp_rows_tc", name
         weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(
             field, p)[0])
         for sigma_only in (False, True):
@@ -4826,16 +4844,21 @@ def _spec_rows_kernel(torch, card: str) -> list:
                     field, p, o, d, d, z, sigma_only=sigma_only)),
                 lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
                     field, p, o, d, d, z, sigma_only=sigma_only)), card)
+            fp32_ms = _spec_fp32_ms(torch, lambda: fused_mlp.
+                                    general_rows_cuda(
+                                        field, p, o, d,
+                                        None if sigma_only else d, z,
+                                        sigma_only))
             n = z.numel()
             nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
                       + weights + n * 4 * (1 if sigma_only else 8))
             bound = _trunk_bound(field, n, sigma_only, nbytes)
-            _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+            _spec_rows_bound_log(tag, bound, ms, plain_ms, card, fp32_ms)
             if name == "width 512" and not sigma_only:
                 entries.append(_spec_entry(
-                    "PE-MLP rows, any trunk (rays)", "fused_mlp_rows.cu",
+                    "PE-MLP rows, any trunk (rays)", "fused_mlp_rows_tc.cu",
                     "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 "
-                    "_kernel_rays", worst, ms, plain_ms, bound))
+                    "_kernel_rays", worst, ms, plain_ms, bound, fp32_ms))
         tag = f"{name} points, {SPEC_ENCODE_POINTS}, full"
         worst, ms, plain_ms = _spec_case(
             torch, tag,
@@ -4843,27 +4866,109 @@ def _spec_rows_kernel(torch, card: str) -> list:
                                                             dirs)),
             lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
                                                              dirs)), card)
+        zeros = torch.zeros_like(pts)
+        fp32_ms = _spec_fp32_ms(torch, lambda: fused_mlp.general_rows_cuda(
+            field, p, pts, zeros, dirs, zeros[:, :1].contiguous(), False))
         nbytes = _nbytes(pts, dirs) + weights + SPEC_ENCODE_POINTS * 32
         bound = _trunk_bound(field, SPEC_ENCODE_POINTS, False, nbytes)
-        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card, fp32_ms)
         if name == "width 512":
             entries.append(_spec_entry(
-                "PE-MLP rows, any trunk (points)", "fused_mlp_rows.cu",
+                "PE-MLP rows, any trunk (points)", "fused_mlp_rows_tc.cu",
                 "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst,
-                ms, plain_ms, bound))
+                ms, plain_ms, bound, fp32_ms))
+        _spec_sigma_bias(torch, name, field, p, o[:4096], d[:4096],
+                         z[:4096], card)
+    _spec_default_trunk(torch, o, d, z, card)
     return entries
 
 
+def _spec_fp32_ms(torch, fn) -> float:
+    """PR 19's fp32 rows kernel (csrc/fused_mlp_rows.cu) timed on a case's
+    inputs: a figure beside the kernel that replaced it on these trunks."""
+    with torch.no_grad():
+        return _time_ms(torch, fn, reps=2, warmup=1)
+
+
+def _spec_sigma_bias(torch, name: str, field, p: dict, o, d, z,
+                     card: str) -> None:
+    """Raw σ of the rows route (σ-only rays) against a float64 plain
+    version: the mean signed error and the largest, over max(1, max |σ|),
+    beside the fp32 plain version's. A tensor-core sum left to run over
+    more than two k-steps truncates and shows as a mean as large as the
+    largest error; the bar is 1e-7, as phase 11's."""
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+    from mirror_nerf_tpu_torch.train.checkpoints import _map
+
+    with torch.no_grad():
+        exact = fused_mlp.mlp_rays_rows_reference(
+            field, _map(p, lambda _, t: t.double()), o.double(), d.double(),
+            d.double(), z.double(), sigma_only=True)[:, 0]
+        scale = max(1.0, float(exact.abs().max()))
+        out = {}
+        for k, fn in (("kernel", fused_mlp.fused_rays_eval),
+                      ("fp32 plain", fused_mlp.mlp_rays_rows_reference)):
+            err = fn(field, p, o, d, d, z, sigma_only=True)[:, 0].double() \
+                - exact
+            out[k] = (float(err.mean()) / scale,
+                      float(err.abs().max()) / scale)
+    log(f"[spec-rows] {name} raw σ against a float64 plain version, "
+        f"{z.shape[0]} rays × {z.shape[1]} ({card}): mean signed error, max "
+        "abs error (scaled above 1): " + "; ".join(
+            f"{k} {m:+.3e}, {a:.3e}" for k, (m, a) in out.items()))
+    assert abs(out["kernel"][0]) <= 1e-7, (name, out)
+
+
+def _spec_default_trunk(torch, o, d, z, card: str) -> None:
+    """The default trunk (phase 9's seeded weights) through the rows kernel
+    on the tensor cores beside its route, the tuned rows mode of
+    csrc/fused_mlp_t.cu, in turns on the same 16384 × 128 rays: what
+    generality costs (a figure; the two agree within 1e-4)."""
+    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+
+    field = MirrorNeRFField()
+    p = _sigma_scaled(field.init(torch.Generator().manual_seed(0), "cuda"),
+                      5.0)
+    for sigma_only in (False, True):
+        v = None if sigma_only else d
+        runs = {"tuned": lambda: fused_mlp.fused_rays_eval(
+                    field, p, o, d, d, z, sigma_only),
+                "tensor-core": lambda: fused_mlp.tc_rows_cuda(
+                    field, p, o, d, v, z, sigma_only)}
+        with torch.no_grad():
+            err = _scaled_errs({"rows": runs["tensor-core"]()},
+                               {"rows": runs["tuned"]()})["rows"]
+            ms = {k: [] for k in runs}
+            for k in ("tuned", "tensor-core", "tensor-core", "tuned"):
+                ms[k].append(_time_ms(torch, runs[k], reps=3, warmup=1))
+        best = {k: min(v) for k, v in ms.items()}
+        log(f"[spec-rows] default trunk 16384 × 128 "
+            f"{'σ-only' if sigma_only else 'full'}, in turns: tuned rows "
+            f"mode (fused_mlp_t.cu) {best['tuned']:.3f} ms, the tensor-core "
+            f"rows kernel (fused_mlp_rows_tc.cu, not its route) "
+            f"{best['tensor-core']:.3f} ms "
+            f"({best['tensor-core'] / best['tuned']:.3f}× the tuned time; "
+            f"{card}); max abs difference (scaled above 1) "
+            f"{err:.3e}")
+        assert err <= KERNEL_ATOL, err
+
+
 def _spec_rows_bound_log(tag: str, bound: tuple, ms: float,
-                         plain_ms: float, card: str) -> None:
+                         plain_ms: float, card: str,
+                         fp32_ms: float = None) -> None:
+    beside = ("" if fp32_ms is None else f" and {fp32_ms / ms:.2f}× PR 19's "
+              f"fp32 kernel's ({fp32_ms:.3f} ms)")
     log(f"[spec-rows] {tag}: bound 3×TF32 {bound[0]:.3f} ms ({bound[1]}), "
         f"kernel at {bound[0] / ms * 100:.1f} % of it; fp32 CUDA cores "
         f"{bound[2]:.3f} ms, kernel at {bound[2] / ms * 100:.1f} %; the "
-        f"kernel at {plain_ms / ms:.2f}× the plain version's speed ({card})")
+        f"kernel at {plain_ms / ms:.2f}× the plain version's speed{beside} "
+        f"({card})")
 
 
 def _spec_entry(name: str, source: str, replaces: str, worst: float,
-                ms: float, plain_ms: float, bound: tuple) -> dict:
+                ms: float, plain_ms: float, bound: tuple,
+                fp32_ms: float = None) -> dict:
     entry = {"name": name, "route": "cuda",
              "source": f"mirror_nerf_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": 0, "max_abs_err": worst,
@@ -4871,20 +4976,22 @@ def _spec_entry(name: str, source: str, replaces: str, worst: float,
              "bound_by": bound[1], "library_ms": None}
     if len(bound) > 2:
         entry["bound_fp32_ms"] = bound[2]
+    if fp32_ms is not None:
+        entry["fp32_kernel_ms"] = fp32_ms
     return entry
 
 
 def _spec_views(torch, card: str) -> tuple:
-    """(23) The main path of the general rows kernel: each trunk of
-    SPEC_TRUNKS, all-mirror seeded weights, one 400×300 level-2 view through
-    `run_view` with --fused_field (run.sh mode 1's nerf flags) noise-free
-    and one with σ noise 1, and the width-512 trunk's σ grid at 128³ through
-    `query_sigma_grid`; the rows kernels' counters set to 0 just before and
-    read just after (the composite and the tuned rows mode must not
-    launch). Then, on 4096 strided rays, each view against the plain
-    route (fused_field off, the same σ-noise draws) within RENDER_ATOL, and
-    a strided 1/64 of the σ grid against the plain σ. Returns the rays' and
-    the points' launches."""
+    """(23) The main path of the rows kernel on the tensor cores: each trunk
+    of SPEC_TRUNKS, all-mirror seeded weights, one 400×300 level-2 view
+    through `run_view` with --fused_field (run.sh mode 1's nerf flags)
+    noise-free and one with σ noise 1, and the width-512 trunk's σ grid at
+    128³ through `query_sigma_grid`; the rows kernels' counters set to 0
+    just before and read just after (the composite, the tuned rows mode and
+    the fp32 kernel must not launch). Then, on 4096 strided rays, each view
+    against the plain route (fused_field off, the same σ-noise draws)
+    within RENDER_ATOL, and a strided 1/64 of the σ grid against the plain
+    σ. Returns the rays' and the points' launches."""
     import numpy as np
 
     from mirror_nerf_tpu_torch.eval import get_opt
@@ -4902,9 +5009,7 @@ def _spec_views(torch, card: str) -> tuple:
         ctx = AppContext.build(cfg, args, field, params, "cuda")
         ctxs[name] = (ctx, replace(ctx, rs=replace(ctx.rs, noise_std=1.0)))
         run_view(ctxs[name][0], {"rays": sub_np[:1024]})  # warm
-    fused_mlp.launches_general_rays = fused_mlp.launches_general_points = 0
-    fused_mlp.launches_rays = fused_mlp.launches_points = 0
-    fused_mlp_t.launches = 0
+    _reset_rows_counters()
     walls, views = {}, {}
     for name, (quiet, noisy) in ctxs.items():
         for label, ctx in (("noise-free", quiet), ("σ noise 1", noisy)):
@@ -4921,10 +5026,11 @@ def _spec_views(torch, card: str) -> tuple:
     launches = (fused_mlp.launches_general_rays,
                 fused_mlp.launches_general_points)
     other = (fused_mlp.launches_rays + fused_mlp.launches_points
-             + fused_mlp_t.launches)
-    log(f"[spec-views] general rows kernel launches on the main path: rays "
-        f"{launches[0]}, points {launches[1]}; the default trunk's "
-        f"kernels {other}")
+             + fused_mlp_t.launches + fused_mlp.launches_wide_rays
+             + fused_mlp.launches_wide_points)
+    log(f"[spec-views] tensor-core rows kernel launches on the main path: "
+        f"rays {launches[0]}, points {launches[1]}; the default trunk's "
+        f"kernels and the fp32 rows kernel {other}")
     assert min(launches) > 0 and other == 0, (launches, other)
     for (name, label), res in views.items():
         for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved"):
@@ -4964,6 +5070,115 @@ def _spec_views(torch, card: str) -> tuple:
         f"points: max abs err (scaled above 1) {err:.2e}")
     assert err <= KERNEL_ATOL, err
     return launches
+
+
+def _reset_rows_counters() -> None:
+    """Every rows kernel's counters, and the flagship composite's, to 0."""
+    from mirror_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
+
+    for k in ("rays", "points", "general_rays", "general_points",
+              "wide_rays", "wide_points"):
+        setattr(fused_mlp, f"launches_{k}", 0)
+    fused_mlp_t.launches = 0
+
+
+def _spec_wide(torch, card: str) -> list:
+    """(23) The fp32 rows kernel (csrc/fused_mlp_rows.cu) on its own range,
+    trunks wider than 512: a width-640 trunk (SPEC_WIDE) against
+    `mlp_rows_reference` on 4096 strided rays of the 400×300 camera at S =
+    128 (full and σ-only) and on 524,288 points (full), 1e-4 scaled above
+    1, times beside its bounds; its main path: a 100×75 level-2 view by
+    run_view with --fused_field and the σ grid at 32³ through
+    query_sigma_grid, the counters set to 0 just before and read just after
+    (no other rows kernel may launch), the view on 1024 rays against the
+    plain route within 1e-3. Returns its rays' and points' entries."""
+    import numpy as np
+
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.eval import get_opt
+    from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
+    from mirror_nerf_tpu_torch.eval.mesh import query_sigma_grid
+    from mirror_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
+
+    field, params = _spec_field(torch, SPEC_WIDE)
+    p = params["fine"]
+    assert fused_mlp.rows_route(field) == "fused_mlp_rows", SPEC_WIDE
+    rays = torch.from_numpy(_view_rays(400, 300)).cuda()
+    sub = rays[::rays.shape[0] // 4096][:4096]
+    o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
+    z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = d.repeat_interleave(128, 0)
+    weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(field, p)[0])
+    entries = []
+    for sigma_only in (False, True):
+        tag = (f"width 640 rays, 4096 × 128, "
+               f"{'σ-only' if sigma_only else 'full'}")
+        worst, ms, plain_ms = _spec_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_rays_eval(
+                field, p, o, d, d, z, sigma_only=sigma_only)),
+            lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
+                field, p, o, d, d, z, sigma_only=sigma_only)), card)
+        nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
+                  + weights + z.numel() * 4 * (1 if sigma_only else 8))
+        bound = _trunk_bound(field, z.numel(), sigma_only, nbytes)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+        if not sigma_only:
+            entries.append(_spec_entry(
+                "PE-MLP rows, trunks wider than 512 (rays)",
+                "fused_mlp_rows.cu",
+                "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 _kernel_rays",
+                worst, ms, plain_ms, bound))
+    tag = f"width 640 points, {pts.shape[0]}, full"
+    worst, ms, plain_ms = _spec_case(
+        torch, tag,
+        lambda: _row_groups(fused_mlp.fused_packed_eval(field, p, pts, dirs)),
+        lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
+                                                         dirs)), card)
+    bound = _trunk_bound(field, pts.shape[0], False,
+                         _nbytes(pts, dirs) + weights + pts.shape[0] * 32)
+    _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+    entries.append(_spec_entry(
+        "PE-MLP rows, trunks wider than 512 (points)", "fused_mlp_rows.cu",
+        "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst, ms,
+        plain_ms, bound))
+    # its main path
+    cfg, args = get_opt(NERF_EVAL_FLAGS + ["--img_wh", "100", "75"])
+    ctx = AppContext.build(cfg, args, field, params, "cuda")
+    rays_np = _view_rays(100, 75)
+    run_view(ctx, {"rays": rays_np[:256]})  # warm
+    _reset_rows_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_view(ctx, {"rays": rays_np})
+    wall = time.perf_counter() - t0
+    sigma = query_sigma_grid(field, p, 32, *((-1.0, 1.0),) * 3,
+                             device="cuda")
+    launches = (fused_mlp.launches_wide_rays, fused_mlp.launches_wide_points)
+    other = (fused_mlp.launches_rays + fused_mlp.launches_points
+             + fused_mlp.launches_general_rays
+             + fused_mlp.launches_general_points + fused_mlp_t.launches)
+    log(f"[spec-views] width 640 (all-mirror), 100x75 level-2 view "
+        f"{wall:.3f} s -> {len(rays_np) / wall:.1f} rays/s ({card}), mirror "
+        f"fraction {res['mirror_mask_resolved'].mean():.4f}; σ grid 32³, σ > "
+        f"0 at {(sigma > 0).mean() * 100:.1f} %; fp32 rows kernel launches: "
+        f"rays {launches[0]}, points {launches[1]}; the other rows kernels "
+        f"{other}")
+    assert min(launches) > 0 and other == 0, (launches, other)
+    sub_np = rays_np[::len(rays_np) // 1024][:1024]
+    got = {}
+    for fused in (True, False):
+        got[fused] = run_view(replace(ctx, rs=replace(
+            ctx.rs, fused_field=fused)), {"rays": sub_np})
+    errs = {k: float(np.abs(got[True][k] - got[False][k]).max())
+            for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved")}
+    log("[spec-views] width 640: the rows route vs the plain route on 1024 "
+        "rays, max abs err " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in errs.items()))
+    assert max(errs.values()) <= RENDER_ATOL, errs
+    entries[0]["launches"], entries[1]["launches"] = launches
+    return entries
 
 
 def _spec_hash(kw: dict):
@@ -5275,11 +5490,13 @@ def _spec_ngp_outside(torch, card: str) -> None:
 
 def phase_spec_range(torch, card: str) -> list:
     """(23) The two kernels over the whole range of specs the JAX package
-    calls them with: the general PE-MLP rows kernel (csrc/
+    calls them with: the PE-MLP rows kernels for every trunk but the
+    default (csrc/fused_mlp_rows_tc.cu; wider than 512 csrc/
     fused_mlp_rows.cu) and the general ENCODE, BWD and BWD2 (csrc/
-    hashgrid_any.cu). Returns their five entries, launches filled in."""
+    hashgrid_any.cu). Returns their seven entries, launches filled in."""
     rows = _spec_rows_kernel(torch, card)
     rows[0]["launches"], rows[1]["launches"] = _spec_views(torch, card)
+    rows += _spec_wide(torch, card)
     hashes = _spec_hash_kernels(torch, card)
     counts = _spec_hash_training(torch, card)
     for e, k in zip(hashes, ("encode", "bwd", "bwd2")):

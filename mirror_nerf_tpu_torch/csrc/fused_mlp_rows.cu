@@ -1,16 +1,19 @@
-// The flagship PE-MLP field per sample, for any trunk (sm_90a): the rows
-// mode of csrc/fused_mlp_t.cu widened from its one trunk (width 256, depth
-// 8, the skip at layer 4) to every trunk the JAX kernels take.
+// The flagship PE-MLP field per sample, for any trunk (sm_90a), in fp32 on
+// the CUDA cores: the rows mode of csrc/fused_mlp_t.cu widened from its one
+// trunk (width 256, depth 8, the skip at layer 4) to every trunk the JAX
+// kernels take.
 //
-// Replaces, for every `FusedSpec` the JAX adapters build (`FusedSpec(width=
-// field.width, depth=field.depth, skips=field.skips)`: width a multiple of
-// 128, any depth, any skips, ≤ 20 posenc frequencies each, either head), the
-// two per-sample Pallas TPU kernels of mirror_nerf_tpu/ops/pallas/
-// fused_mlp.py: `_kernel_rays:238` (rays; fused_forward_rays:310, adapter
-// fused_rays_eval:367) and `_kernel:223` (points; fused_forward:266,
+// Replaces, for the `FusedSpec`s the JAX adapters build (`FusedSpec(width=
+// field.width, depth=field.depth, skips=field.skips)`) wider than 512 (a
+// multiple of 128, any depth, any skips, ≤ 20 posenc frequencies each,
+// either head), the two per-sample Pallas TPU kernels of mirror_nerf_tpu/
+// ops/pallas/fused_mlp.py: `_kernel_rays:238` (rays; fused_forward_rays:310,
+// adapter fused_rays_eval:367) and `_kernel:223` (points; fused_forward:266,
 // adapters fused_packed_eval:416, fused_field_eval:448). The default trunk
-// keeps the tuned 3×TF32 `wgmma` rows mode of csrc/fused_mlp_t.cu
-// (ops/fused_mlp.py routes it there); every other trunk runs here.
+// keeps the tuned 3×TF32 `wgmma` rows mode of csrc/fused_mlp_t.cu, the
+// other trunks up to width 512 take the 3×TF32 `wgmma` kernel
+// csrc/fused_mlp_rows_tc.cu (ops/fused_mlp.py `rows_route`); the entry
+// takes any width, so those trunks can be timed here beside it.
 //
 // For each sample (ray r, depth index i; a point is a one-sample ray with
 // o = x, d = 0, z = 0):
@@ -48,9 +51,10 @@
 //   * posenc rows are computed once per block into shared memory, the
 //     view-dir posenc over them after the trunk.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 23,
-// PERF.md §6 rows 5g, 6g): 485 ms at width 512, depth 8 (16384 rays × S =
-// 128, full), 33 % of its 160.5 ms fp32 bound; 31.6 ms at width 128,
-// depth 6 (30 %).
+// PERF.md §6 rows 5w, 6w): 103 ms at width 640, depth 2 (4096 rays × S =
+// 128, full), 22 % of its fp32 bound and 0.45× the plain route's speed;
+// 485 ms at width 512, depth 8 (16384 rays × 128), where the tensor-core
+// kernel now takes ~130.
 
 #include <cuda_runtime.h>
 

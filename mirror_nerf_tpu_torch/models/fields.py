@@ -62,9 +62,11 @@ class MirrorNeRFField:
         of 128, any depth and skips, at most 20 posenc frequencies each for
         positions and view dirs (≤ 123 rows, the JAX kernel's 128 lanes),
         with or without the normal and the mirror head. The default trunk
-        runs on the tuned rows mode of csrc/fused_mlp_t.cu, every other one
-        on csrc/fused_mlp_rows.cu. With `--fused_field` on the card, a
-        field outside this set raises (render/renderer.py)."""
+        runs on the tuned rows mode of csrc/fused_mlp_t.cu, the others on
+        csrc/fused_mlp_rows_tc.cu (`supports_fused_tc`) or, wider than 512,
+        csrc/fused_mlp_rows.cu (ops/fused_mlp.py `rows_route`). With
+        `--fused_field` on the card, a field outside this set raises
+        (render/renderer.py)."""
         return (self.width > 0 and self.width % 128 == 0 and self.depth >= 1
                 and 0 <= self.N_emb_xyz <= 20 and 0 <= self.N_emb_dir <= 20)
 
@@ -77,6 +79,16 @@ class MirrorNeRFField:
         outside it, JAX's `_inference_fused` route."""
         return (self.supports_fused and self.width == 256
                 and self.depth == 8 and tuple(self.skips) == (4,))
+
+    @property
+    def supports_fused_tc(self) -> bool:
+        """Whether the rows kernel on the tensor cores,
+        csrc/fused_mlp_rows_tc.cu, takes this architecture: a width of 128,
+        256, 384 or 512 (its template instances) within `supports_fused`,
+        any depth and skips. Outside the default trunk it is the rows
+        route of these widths; wider trunks take the fp32 kernel
+        csrc/fused_mlp_rows.cu."""
+        return self.supports_fused and self.width <= 512
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> dict:

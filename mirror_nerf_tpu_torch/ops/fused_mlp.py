@@ -19,11 +19,15 @@ gives); a σ-only row is raw σ alone.
   * `mlp_rows_reference` (points) and `mlp_rays_rows_reference` (rays) are
     the plain PyTorch version (the field modules of models/fields.py). CPU
     tensors take it; CUDA tensors launch a hand-written kernel (sm_90a; see
-    each source note): the default trunk (`supports_fused_t`) the rows
-    mode of `csrc/fused_mlp_t.cu`, counted in `launches_rays` and
-    `launches_points`; every other trunk of the range
-    `csrc/fused_mlp_rows.cu`, counted in `launches_general_rays` and
-    `launches_general_points`. There is no fallback: a kernel that fails to
+    each source note), one route a trunk, chosen by spec (`rows_route`):
+    the default trunk (`supports_fused_t`) the rows mode of
+    `csrc/fused_mlp_t.cu`, counted in `launches_rays` and
+    `launches_points`; every other trunk of width ≤ 512
+    (`supports_fused_tc`) the 3×TF32 `wgmma` kernel
+    `csrc/fused_mlp_rows_tc.cu`, counted in `launches_general_rays` and
+    `launches_general_points`; wider ones the fp32 kernel
+    `csrc/fused_mlp_rows.cu`, counted in `launches_wide_rays` and
+    `launches_wide_points`. There is no fallback: a kernel that fails to
     build or launch raises, and so does a trunk outside the range.
 
 The view dirs go to the posenc as given (the color head of
@@ -41,17 +45,22 @@ from ..core.mathutil import l2_normalize
 from ._build import Library, card_index
 from ._dtype import float32_field
 from .fused_cp import check_ray_inputs, on_cpu, prep
-from .fused_mlp_t import check_forward_call, check_kernel_call, launch_kernel
+from .fused_mlp_t import (_leaves, _pack, check_forward_call,
+                          check_kernel_call, launch_kernel, stream_plan,
+                          trunk_spec)
 
 ROW = 8  # σ, rgb (3), normal (3), mirror
 
 # kernel launches since import (or since a caller last reset them to 0):
 # rays (JAX `_kernel_rays`) and points (JAX `_kernel`), the default trunk
-# on csrc/fused_mlp_t.cu and every other trunk on csrc/fused_mlp_rows.cu
+# on csrc/fused_mlp_t.cu, the other trunks of width ≤ 512 on
+# csrc/fused_mlp_rows_tc.cu, the wider ones on csrc/fused_mlp_rows.cu
 launches_rays = 0
 launches_points = 0
 launches_general_rays = 0
 launches_general_points = 0
+launches_wide_rays = 0
+launches_wide_points = 0
 
 
 def mlp_rows_reference(field, params: dict, xyz, dirs=None,
@@ -81,15 +90,38 @@ def mlp_rays_rows_reference(field, params: dict, rays_o, rays_d, view_dirs,
     return mlp_rows_reference(field, params, xyz, dirs, sigma_only)
 
 
+# the three routes of `rows_route`: each names its library
+ROUTES = ("fused_mlp_t", "fused_mlp_rows_tc", "fused_mlp_rows")
+
+
+def rows_route(field) -> str:
+    """The kernel a trunk's rows take on the card, by spec: the default
+    trunk the tuned rows mode of `csrc/fused_mlp_t.cu`, any other of width
+    ≤ 512 `csrc/fused_mlp_rows_tc.cu`, a wider one `csrc/fused_mlp_rows.cu`
+    (the library's name, `ROUTES`). Raises outside `supports_fused`."""
+    if not field.supports_fused:
+        raise ValueError(
+            "the PE-MLP rows kernels take a width that is a positive "
+            "multiple of 128, a depth ≥ 1 and at most 20 posenc frequencies "
+            f"each (the JAX kernels' range); got width {field.width}, depth "
+            f"{field.depth}, frequencies {field.N_emb_xyz}/"
+            f"{field.N_emb_dir}")
+    if field.supports_fused_t:
+        return ROUTES[0]
+    return ROUTES[1] if field.supports_fused_tc else ROUTES[2]
+
+
 def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                     sigma_only: bool) -> torch.Tensor:
-    """Launch the rows kernel of the field's trunk on the current stream:
-    the default trunk the rows mode of `csrc/fused_mlp_t.cu`, any other
-    `csrc/fused_mlp_rows.cu`. Inputs must be float32, contiguous, on one
-    CUDA device: rays_o/rays_d/view_dirs (N, 3), z (N, S). Returns (N·S, 8)
-    rows, or (N·S, 1) raw σ when σ-only."""
+    """Launch the rows kernel of the field's trunk (`rows_route`) on the
+    current stream. Inputs must be float32, contiguous, on one CUDA device:
+    rays_o/rays_d/view_dirs (N, 3), z (N, S). Returns (N·S, 8) rows, or
+    (N·S, 1) raw σ when σ-only."""
     inputs = (rays_o, rays_d, view_dirs, z_vals)
-    if not field.supports_fused_t:
+    route = rows_route(field)
+    if route == ROUTES[1]:
+        return tc_rows_cuda(field, params, *inputs, sigma_only)
+    if route == ROUTES[2]:
         return general_rows_cuda(field, params, *inputs, sigma_only)
     check_kernel_call(field, params, inputs, "relu", "rows")
     n, s = z_vals.shape
@@ -102,7 +134,99 @@ def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
     return rows
 
 
-# ---- the rows kernel for any trunk (csrc/fused_mlp_rows.cu) ----
+def _count(field, mode: str) -> None:
+    """One launch of the route's kernel in `mode` ("rays" or "points")."""
+    name = {ROUTES[0]: f"launches_{mode}",
+            ROUTES[1]: f"launches_general_{mode}",
+            ROUTES[2]: f"launches_wide_{mode}"}[rows_route(field)]
+    globals()[name] += 1
+
+
+# ---- the rows kernel on the tensor cores, width ≤ 512
+# (csrc/fused_mlp_rows_tc.cu) ----
+
+_TC_LIB = "fused_mlp_rows_tc"
+TC_WIDTHS = (128, 256, 384, 512)  # the kernel's template instances
+# the entry's negative return codes (see mnerf_mlp_rows_tc)
+_TC_REFUSALS = {
+    -2: "S < 1",
+    -3: "a posenc frequency count is outside [0, 20]",
+    -4: f"the width is not one of {TC_WIDTHS}, or the depth < 1",
+    -6: "no rays",
+    -7: "no CTA of the width's shared memory fits the card"}
+# the entry's arguments before the card and the stream (_build.Library):
+# rays_o, rays_d, view_dirs, z_vals, nets, plan, width, depth, n_emb_xyz,
+# n_emb_dir, has_normal, has_mirror, sigma_only, n_rays, n_samples, rows
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F32 = (torch.float32,)
+_tc_library = Library(_TC_LIB, {
+    "mnerf_mlp_rows_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _LL, _I, _P]}, _TC_REFUSALS)
+_plans: dict = {}  # (leaf shapes, device) -> stream_plan on the card
+
+
+def _plan(params: dict, device) -> torch.Tensor:
+    """`stream_plan` of these params as int64 on `device` (cached per
+    layout)."""
+    key = (tuple(tuple(t.shape) for t in _leaves(params)),
+           str(device))
+    if key not in _plans:
+        _plans[key] = torch.tensor(stream_plan(params)[0],
+                                   dtype=torch.int64, device=device)
+    return _plans[key]
+
+
+def check_tc_spec(field, params: dict) -> None:
+    """A trunk the kernel takes (`supports_fused_tc`), and params of that
+    trunk (`trunk_spec`): the plan comes from the params, the instance and
+    the posenc from the field."""
+    if not field.supports_fused_tc:
+        raise ValueError(
+            "the PE-MLP rows kernel on the tensor cores takes a width of "
+            f"{', '.join(map(str, TC_WIDTHS))} (supports_fused_tc); got "
+            f"width {field.width}, depth {field.depth}, frequencies "
+            f"{field.N_emb_xyz}/{field.N_emb_dir}")
+    spec = (field.width, field.depth,
+            tuple(sorted({i for i in field.skips if 0 < i < field.depth})),
+            field.in_xyz, field.in_dir, field.predict_normal,
+            field.predict_mirror_mask)
+    if trunk_spec(params) != spec:
+        raise ValueError(
+            f"the params' trunk {trunk_spec(params)} (width, depth, skips, "
+            f"posenc rows x/v, normal, mirror) is not the field's {spec}")
+
+
+def tc_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
+                 sigma_only: bool) -> torch.Tensor:
+    """Launch `csrc/fused_mlp_rows_tc.cu` on the current stream, for any
+    trunk of `supports_fused_tc` (the default trunk too: the route sends it
+    to the tuned kernel, a caller may time this one beside it). Inputs as
+    `fused_rows_cuda` takes them."""
+    check_forward_call(params, (rays_o, rays_d, view_dirs, z_vals), "rows")
+    check_tc_spec(field, params)
+    n, s = z_vals.shape
+    check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
+    rows = torch.empty((n * s, 1 if sigma_only else ROW),
+                       dtype=torch.float32, device=z_vals.device)
+    if n == 0:
+        return rows
+    with torch.no_grad():
+        nets = _pack(params)
+    dev = card_index("PE-MLP rows (tensor cores)",
+                     ("z_vals", z_vals, _F32, 4), ("nets", nets, _F32, 16))
+    _tc_library.launch(
+        "mnerf_mlp_rows_tc", "PE-MLP rows (tensor cores)", dev,
+        rays_o.data_ptr(), rays_d.data_ptr(),
+        None if sigma_only else view_dirs.data_ptr(), z_vals.data_ptr(),
+        nets.data_ptr(), _plan(params, z_vals.device).data_ptr(),
+        field.width, field.depth, field.N_emb_xyz, field.N_emb_dir,
+        int(field.predict_normal), int(field.predict_mirror_mask),
+        int(sigma_only), n, s, rows.data_ptr())
+    return rows
+
+
+# ---- the fp32 rows kernel for any trunk (csrc/fused_mlp_rows.cu): the
+# route of widths above 512 ----
 
 _ROWS_LIB = "fused_mlp_rows"
 MAX_FREQS = 20  # posenc frequencies, x or v (the JAX kernel's 128 lanes)
@@ -121,8 +245,6 @@ _HEADS = (("sigma",), ("xyz_final",), ("dir_enc",), ("rgb",),
 # rays_o, rays_d, view_dirs, z_vals, nets, offs, width, depth, n_emb_xyz,
 # n_emb_dir, has_normal, has_mirror, sigma_only, n_rays, n_samples, T,
 # rows; the tile query: width, n_emb_xyz, n_emb_dir
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_F32 = (torch.float32,)
 _rows_library = Library(_ROWS_LIB, {
     "mnerf_mlp_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _LL, _I, _I, _P],
@@ -190,15 +312,10 @@ def rows_tile(field, device: int) -> int:
 def general_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs,
                       z_vals, sigma_only: bool) -> torch.Tensor:
     """Launch `csrc/fused_mlp_rows.cu` on the current stream, for any trunk
-    of `supports_fused`. Inputs as `fused_rows_cuda` takes them."""
+    of `supports_fused` (the route sends it the widths above 512; a caller
+    may time it on any other). Inputs as `fused_rows_cuda` takes them."""
     check_forward_call(params, (rays_o, rays_d, view_dirs, z_vals), "rows")
-    if not field.supports_fused:
-        raise ValueError(
-            "the PE-MLP rows kernel takes a width that is a positive "
-            "multiple of 128, a depth ≥ 1 and at most 20 posenc frequencies "
-            f"each (the JAX kernels' range); got width {field.width}, depth "
-            f"{field.depth}, frequencies {field.N_emb_xyz}/"
-            f"{field.N_emb_dir}")
+    rows_route(field)  # raises outside supports_fused
     n, s = z_vals.shape
     check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
     rows = torch.empty((n * s, 1 if sigma_only else ROW),
@@ -224,7 +341,6 @@ def fused_rays_eval(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
     """Ray mode: (N, 3) origins/dirs/view dirs + (N, S) depths -> (N·S, 8)
     rows, ray-major ((N·S, 1) raw σ when σ-only). CPU tensors take the plain
     version; CUDA tensors the kernel."""
-    global launches_rays, launches_general_rays
     if on_cpu(z_vals.device, "fused PE-MLP rows"):
         return mlp_rays_rows_reference(field, params, rays_o, rays_d,
                                        view_dirs, z_vals, sigma_only)
@@ -232,10 +348,7 @@ def fused_rays_eval(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                            None if sigma_only else prep(view_dirs),
                            prep(z_vals), sigma_only)
     if z_vals.shape[0]:
-        if field.supports_fused_t:
-            launches_rays += 1
-        else:
-            launches_general_rays += 1
+        _count(field, "rays")
     return rows
 
 
@@ -244,7 +357,6 @@ def fused_packed_eval(field, params: dict, xyz, dirs=None,
     """Point mode: (B, 3) raw coords [+ (B, 3) view dirs] -> (B, 8) rows
     ((B, 1) raw σ when σ-only). On the card each point is a one-sample ray
     o = x, d = 0, z = 0 (x + 0·0 is x exactly)."""
-    global launches_points, launches_general_points
     if not sigma_only and dirs is None:
         raise ValueError("fused_packed_eval needs view dirs unless σ-only")
     if on_cpu(xyz.device, "fused PE-MLP rows"):  # fp32, as the kernel
@@ -256,10 +368,7 @@ def fused_packed_eval(field, params: dict, xyz, dirs=None,
                            None if sigma_only else prep(dirs),
                            zeros[:, :1].contiguous(), sigma_only)
     if x.shape[0]:
-        if field.supports_fused_t:
-            launches_points += 1
-        else:
-            launches_general_points += 1
+        _count(field, "points")
     return rows
 
 

@@ -75,7 +75,7 @@ def mlp_rays_composite_reference(field, params: dict, rays_o, rays_d,
     return res
 
 
-W, WH, DEPTH, SKIP = 256, 128, 8, 4  # the kernel's trunk and head widths
+W, DEPTH, SKIP = 256, 8, 4  # the default trunk, csrc/fused_mlp_t.cu's
 
 
 def _pad(n: int, m: int) -> int:
@@ -83,9 +83,9 @@ def _pad(n: int, m: int) -> int:
 
 
 def _leaves(params: dict) -> list:
-    """The field's leaves in the packed index's order: trunk (w, b) × 8,
-    σ, xyz_final, dir_enc, rgb, then normal (2) and is_mirror (2) where the
-    field has them, each as (w, b)."""
+    """The field's leaves in the packed index's order: trunk (w, b) per
+    layer, σ, xyz_final, dir_enc, rgb, then normal (2) and is_mirror (2)
+    where the field has them, each as (w, b)."""
     leaves = []
     for layer in params["trunk"]:
         leaves += [layer["w"], layer["b"]]
@@ -96,37 +96,54 @@ def _leaves(params: dict) -> list:
     return leaves
 
 
-def stream_layout(pe: int, dpe: int, has_n: bool, has_m: bool) -> list:
-    """The kernel's weight stream (`net_offsets` in the .cu), in the order
-    it runs the products: (name, leaf, K rows, N) per layer, the leaf an
-    index into `_leaves` and K rows the leaf's row each packed row reads
-    (None: a zero row). Rows fed by a hidden layer's accumulators are in
-    `c_order`; posenc rows in their own order, padded to 8."""
-    h = c_order(W)
+def trunk_spec(params: dict) -> tuple:
+    """(width, depth, skips, pe, dpe, has_n, has_m) of the field these
+    params are: a trunk layer past the first with more input rows than the
+    width is a skip layer ([pe, h])."""
+    trunk = params["trunk"]
+    pe, width = trunk[0]["w"].shape
+    skips = tuple(i for i in range(1, len(trunk))
+                  if trunk[i]["w"].shape[0] != width)
+    return (width, len(trunk), skips, pe,
+            params["dir_enc"]["w"].shape[0] - width, "normal" in params,
+            "is_mirror" in params)
+
+
+def stream_layout(pe: int, dpe: int, has_n: bool, has_m: bool,
+                  width: int = W, depth: int = DEPTH,
+                  skips: tuple = (SKIP,)) -> list:
+    """The kernels' weight stream, in the order they run the products:
+    (name, leaf, K rows, N) per layer, the leaf an index into `_leaves` and
+    K rows the leaf's row each packed row reads (None: a zero row). Rows
+    fed by a hidden layer's accumulators are in `c_order`; posenc rows in
+    their own order, padded to 8. The default trunk is the one
+    `csrc/fused_mlp_t.cu` takes (its `net_offsets`); any other is
+    `csrc/fused_mlp_rows_tc.cu`'s (through `stream_plan`)."""
+    h = c_order(width)
     pe_rows = list(range(pe)) + [None] * (_pad(pe, 8) - pe)
     layers = []
-    for i in range(DEPTH):
+    for i in range(depth):
         rows = pe_rows if i == 0 else (
-            pe_rows + [pe + r for r in h] if i == SKIP else h)
-        layers.append((f"trunk{i}", 2 * i, rows, W))
-    heads = 2 * DEPTH + 8  # the first head leaf, after σ, xf, dir, rgb
+            pe_rows + [pe + r for r in h] if i in skips else h)
+        layers.append((f"trunk{i}", 2 * i, rows, width))
+    heads = 2 * depth + 8  # the first head leaf, after σ, xf, dir, rgb
     if has_n:
-        layers.append(("normal0", heads, h, WH))
+        layers.append(("normal0", heads, h, width // 2))
     if has_m:
-        layers.append(("mirror0", heads + 4 * has_n, h, WH))
-    layers.append(("xyz_final", 2 * DEPTH + 2, h, W))
-    layers.append(("dir_enc", 2 * DEPTH + 4,
-                   h + [W + j for j in range(dpe)]
-                   + [None] * (_pad(dpe, 8) - dpe), WH))
+        layers.append(("mirror0", heads + 4 * has_n, h, width // 2))
+    layers.append(("xyz_final", 2 * depth + 2, h, width))
+    layers.append(("dir_enc", 2 * depth + 4,
+                   h + [width + j for j in range(dpe)]
+                   + [None] * (_pad(dpe, 8) - dpe), width // 2))
     return layers
 
 
-def _raw_leaves(has_n: bool, has_m: bool) -> list:
+def _raw_leaves(has_n: bool, has_m: bool, depth: int = DEPTH) -> list:
     """The fp32 leaves after the stream, in order, as indices into
     `_leaves`: the trunk's biases, σ (w, b), xf b, dir b, rgb (w, b), then
     normal (b0, w1, b1) and mirror (b0, w1, b1) where present."""
-    raw = [2 * i + 1 for i in range(DEPTH)]
-    s = 2 * DEPTH
+    raw = [2 * i + 1 for i in range(depth)]
+    s = 2 * depth
     raw += [s, s + 1, s + 3, s + 5, s + 6, s + 7]
     at = s + 8
     for present in (has_n, has_m):
@@ -137,7 +154,8 @@ def _raw_leaves(has_n: bool, has_m: bool) -> list:
 
 
 def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
-               has_m: bool):
+               has_m: bool, width: int = W, depth: int = DEPTH,
+               skips: tuple = (SKIP,)):
     """(index, kind) of every float of the packed buffer: the index into
     the leaves (`shapes`, in `_leaves` order) flattened and concatenated
     with one zero appended, and the kind 0 (TF32 hi), 1 (TF32 lo) or 2
@@ -148,7 +166,8 @@ def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
     offs = np.cumsum([0] + [int(np.prod(s)) for s in shapes])
     zero = int(offs[-1])
     idx, kind = [], []
-    for _, leaf, rows, n in stream_layout(pe, dpe, has_n, has_m):
+    for _, leaf, rows, n in stream_layout(pe, dpe, has_n, has_m, width,
+                                          depth, skips):
         pos = np.arange(8 * n)
         col, q = pos // 8, pos % 8
         k = ((q // 4) ^ ((col // 4) & 1)) * 4 + q % 4
@@ -157,7 +176,7 @@ def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
         plane = np.where(src >= 0, offs[leaf] + src * n + col, zero)
         idx.append(np.stack([plane, plane], 1).reshape(-1))
         kind.append(np.tile(np.repeat([0, 1], 8 * n), len(rows) // 8))
-    for leaf in _raw_leaves(has_n, has_m):
+    for leaf in _raw_leaves(has_n, has_m, depth):
         size = int(np.prod(shapes[leaf]))
         idx.append(np.concatenate([offs[leaf] + np.arange(size),
                                    [zero] * (_pad(size, 4) - size)]))
@@ -166,26 +185,53 @@ def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
             torch.from_numpy(np.concatenate(kind).astype(np.int8)))
 
 
+def stream_plan(params: dict) -> tuple:
+    """(plan, floats) of the packed buffer (`_pack`) of these params, as
+    `csrc/fused_mlp_rows_tc.cu` reads it: per streamed layer of
+    `stream_layout` (float offset, k-steps, N, its bias's float offset),
+    then the float offsets of σ's w and b, rgb's w and b, the normal's
+    second w and b and the mirror's (−1 for a head the field lacks);
+    `floats` is the buffer's length."""
+    width, depth, skips, pe, dpe, has_n, has_m = trunk_spec(params)
+    shapes = [tuple(leaf.shape) for leaf in _leaves(params)]
+    plan, at, streamed = [], 0, []
+    for _, leaf, rows, n in stream_layout(pe, dpe, has_n, has_m, width,
+                                          depth, skips):
+        streamed.append((at, len(rows) // 8, n, leaf))
+        at += 2 * len(rows) * n
+    raw = {}
+    for leaf in _raw_leaves(has_n, has_m, depth):
+        raw[leaf] = at
+        at += _pad(int(np.prod(shapes[leaf])), 4)
+    for off, ks, n, leaf in streamed:
+        plan += [off, ks, n, raw[leaf + 1]]  # a layer's bias is its next leaf
+    s = 2 * depth
+    n1 = s + 10 if has_n else None
+    m1 = s + 8 + 4 * has_n + 2 if has_m else None
+    plan += [raw[s], raw[s + 1], raw[s + 6], raw[s + 7]]
+    plan += [raw[n1], raw[n1 + 1]] if has_n else [-1, -1]
+    plan += [raw[m1], raw[m1 + 1]] if has_m else [-1, -1]
+    return plan, at
+
+
 _pack_index: dict = {}  # (shapes, device) -> pack_index there
 
 
 def _pack(params: dict) -> torch.Tensor:
-    """All weights as the kernel reads them (`pack_index`): the streamed
-    layers split into TF32 hi and lo planes, the rest fp32. The layout is
-    cached per leaf shapes and device; the values are packed on every
-    call."""
+    """All weights as the kernels read them (`pack_index`, for the field's
+    own trunk: `trunk_spec`): the streamed layers split into TF32 hi and lo
+    planes, the rest fp32. The layout is cached per leaf shapes and device;
+    the values are packed on every call."""
     leaves = _leaves(params)
     flat = torch.cat([leaf.reshape(-1) for leaf in leaves]
                      + [leaves[0].new_zeros(1)]).to(torch.float32)
     shapes = tuple(tuple(leaf.shape) for leaf in leaves)
     key = (shapes, str(flat.device))
     if key not in _pack_index:
-        pe = shapes[0][0]
-        dpe = shapes[2 * DEPTH + 4][0] - W
+        width, depth, skips, pe, dpe, has_n, has_m = trunk_spec(params)
         _pack_index[key] = tuple(
             t.to(flat.device) for t in pack_index(
-                list(shapes), pe, dpe, "normal" in params,
-                "is_mirror" in params))
+                list(shapes), pe, dpe, has_n, has_m, width, depth, skips))
     index, kind = _pack_index[key]
     g = flat[index]
     hi = tf32_round(g)
