@@ -64,7 +64,7 @@ each fatal on failure:
      the head-less field with --fused_field (it must launch the kernel);
      max abs error per output (scaled above 1), per-ray Σw ≤ 1 + 1e-5,
      kernel and plain times beside the 3×TF32 bound (and the fp32
-     CUDA-core one, the first design's); the SASS of its fifteen
+     CUDA-core one, the first design's); the SASS of its ten
      instances (HGMMA in each; FFMA, LDS, LDL, STL counted) and ptxas'
      registers and spills;
  10. the flagship eval path: the eval CLI (run.sh mode-1 nerf flags,
@@ -93,6 +93,11 @@ each fatal on failure:
      composite kernels not), rays/s; on 1024 rays the fused route against
      the plain modules on the card from the same generator seed, and the
      flagship's fused_t=False route at noise 0 against its composite route;
+     then the σ-lean check (ROADMAP [18]): the flagship's view on 1024
+     rays for the default, a width-512 (depth 8) and a width-640 (depth
+     2) trunk on He-scaled weights (σ far above 1), the rows route
+     against the plain route within 1e-3, the signed mean depth error and
+     raw σ's signed lean against float64 logged;
  13. the fused NGP composite (`hash_field_kernel` of
      csrc/fused_cp_composite.cu, ops/fused_hash.py) vs its plain version:
      the hash-grid model at full width (bound 6, dense levels ×1e4, seeded
@@ -262,26 +267,33 @@ each fatal on failure:
      (ENCODE), 9c and 9d;
  23. the two kernels over the whole range of specs the JAX package calls
      them with (`phase_spec_range`). The PE-MLP rows kernel on the tensor
-     cores (csrc/fused_mlp_rows_tc.cu, every trunk but the default of width
-     ≤ 512) against `mlp_rows_reference` for a width-512 (depth 8, skip 4)
-     and a width-128 (depth 6, skips 2 and 4) flagship trunk: 16384
-     strided rays of the 400×300 camera at S = 128, full and σ-only, and
-     2,097,152 points, within 1e-4 scaled above 1, times beside the
-     3×TF32 and the fp32 CUDA-core bound, the plain route and the fp32
-     kernel csrc/fused_mlp_rows.cu on the same inputs (a figure: that
-     kernel is the route of wider trunks only); raw σ's signed mean
-     error against a float64 plain version within 1e-7 of its scale; the
-     default trunk through the new kernel beside its tuned rows mode (a
-     figure, not a route); its main path: each trunk's all-mirror seeded
-     weights through a 400×300 level-2 view by run_view with
-     --fused_field, noise-free and with σ noise 1, the width-512 σ grid at
-     128³ through query_sigma_grid, the counters set to 0 before and read
-     after (no other rows kernel may launch); each view on 4096 rays
-     against the plain route within 1e-3 (the same σ noise), the σ grid
-     against the plain σ. The fp32 kernel on its own range: a width-640
-     trunk within 1e-4 of the plain version (4096 rays × 128, full and
-     σ-only; 524,288 points), and its main path, a 100×75 level-2 view
-     and a 32³ σ grid, counted likewise. The general ENCODE, BWD and
+     cores (csrc/fused_mlp_rows_tc.cu, every trunk up to width 4096)
+     against `mlp_rows_reference` for a width-512 (depth 8, skip 4) and a
+     width-128 (depth 6, skips 2 and 4) flagship trunk: 16384 strided rays
+     of the 400×300 camera at S = 128, full and σ-only, and 2,097,152
+     points, within 1e-4 scaled above 1, times beside the 3×TF32 and the
+     fp32 CUDA-core bound, the plain route and the fp32 kernel
+     csrc/fused_mlp_rows.cu on the same inputs (a figure: that kernel is
+     the route of trunks wider than 4096 only); raw σ's signed mean error
+     against a float64 plain version within 1e-7 of its scale; its main
+     path: each trunk's all-mirror seeded weights through a 400×300
+     level-2 view by run_view with --fused_field, noise-free and with σ
+     noise 1, the width-512 σ grid at 128³ through query_sigma_grid, the
+     counters set to 0 before and read after (no other rows kernel may
+     launch); each view on 4096 rays against the plain route within 1e-3
+     (the same σ noise), the σ grid against the plain σ. Its cluster
+     instance (wider than 512): a width-640 trunk (depth 2, 2 CTAs a
+     group) on 4096 rays × 128, full and σ-only, and 524,288 points, and a
+     width-1408 one (4 CTAs, parts 6/6/5/5) on 1024 rays × 128, within 1e-4
+     of the plain version, seeded and saturating (σ ×2000), times beside
+     the plain version and the bound, raw σ's lean within 1e-7; the
+     width-640 trunk's main path, a 100×75 level-2 view and a 32³ σ grid,
+     counted likewise (the fp32 kernel never launched), the view on 1024
+     rays against the plain route within 1e-3. The fp32 kernel on its own
+     range: a width-4224 trunk (depth 1) on 64 rays × 128 and 4096
+     points within 1e-4, and its main path, a 16×12 level-2 view and an
+     8³ σ grid (the tensor-core kernel never launched), the view against
+     the plain route within 1e-3. The general ENCODE, BWD and
      BWD2 (csrc/hashgrid_any.cu) against their plain versions for five
      specs of 16 levels × 2¹⁹ rows (2-d C 2, 3-d align_corners, 3-d
      smoothstep, 4-d C 4, 7-d C 1 at 8 levels): ENCODE on 2,097,152 points
@@ -296,7 +308,7 @@ each fatal on failure:
      rays against fused_field off within 1e-3.
 
 Each phase prints its wall time. The script prints one JSON line with the
-twenty-eight kernels' numbers (each with the least time the card could take for
+thirty kernels' numbers (each with the least time the card could take for
 the same work, `bound_ms`, counted from this run's shapes; the probe
 kernels' also with their profiler `device_ms`, the CP composite's
 modes, the train kernels and the flagship's three also with
@@ -1369,12 +1381,12 @@ def phase_mlp_kernel(torch, card: str) -> dict:
     sass = _build.sass_counts(_build.library_path(fm._LIB),
                               "mlp_field_kernel",
                               opcodes=("HGMMA", "FFMA", "LDS", "LDL", "STL"))
-    assert len(sass) == 15 and min(c["HGMMA"] for c in sass.values()) > 0, \
+    assert len(sass) == 10 and min(c["HGMMA"] for c in sass.values()) > 0, \
         sass
     for name, c in sorted(sass.items()):
-        inst = re.search(r"mlp_field_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb"
-                         r"(\d)E", name)
-        log("[mlp-kernel] SASS of mlp_field_kernel<rows {}, sigma_only {}, "
+        inst = re.search(r"mlp_field_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                         name)
+        log("[mlp-kernel] SASS of mlp_field_kernel<sigma_only {}, "
             "softplus {}, normal {}, mirror {}>: ".format(*inst.groups())
             + ", ".join(f"{k} {v}" for k, v in c.items()))
     for line in _build.build_log.get(fm._LIB, "").splitlines():
@@ -1662,9 +1674,8 @@ def phase_rows_kernels(torch, card: str) -> list:
     from mirror_nerf_tpu_torch.models.tpugrid import TPUGridField
     from mirror_nerf_tpu_torch.ops import fused_cp, fused_mlp
     from mirror_nerf_tpu_torch.ops import fused_mlp_t as fm
-    from mirror_nerf_tpu_torch.tools import exp_mlp_diag
 
-    fused_cp.launches_samples = fused_mlp.launches_points = 0
+    fused_cp.launches_samples = fused_mlp.launches_general_points = 0
     n = 16384
     worst = {}
 
@@ -1762,8 +1773,7 @@ def phase_rows_kernels(torch, card: str) -> list:
     # raw σ against float64: the tensor cores' sums truncate toward zero,
     # so a bias is what a sum left on them too long shows (the diagnosis
     # tool's `layer_sums` build: ~1e-6 of σ's scale; the kernel's ~1e-8)
-    bias = exp_mlp_diag.sigma_bias(
-        {"kernel": fm._library.entry("mnerf_fused_mlp_t")})
+    bias = _sigma_lean(torch, field, seeded, o, d, z128)
     log(f"[rows-kernel] flagship rows raw σ against a float64 plain version, "
         f"S=128, {n} rays ({card}): mean signed error, max abs error (scaled "
         "above 1): " + "; ".join(f"{k} {m:+.3e}, {a:.3e}"
@@ -1809,17 +1819,19 @@ def phase_rows_kernels(torch, card: str) -> list:
             timed["mlp_points"] = {"ms": ms, "plain_ms": plain_ms}
             points_bytes = _nbytes(x, v, packed) + b * 32
     entries += [
-        _entry("fused_mlp_rows", "fused_mlp_t.cu", "fused_mlp.py:238",
+        _entry("fused_mlp_rows", "fused_mlp_rows_tc.cu", "fused_mlp.py:238",
                worst["mlp_rows"], timed["mlp_rows"],
                _mlp_bound(n * 128, False, mlp_rows_bytes), "S=128 full"),
-        _entry("fused_mlp_points", "fused_mlp_t.cu", "fused_mlp.py:223",
+        _entry("fused_mlp_points", "fused_mlp_rows_tc.cu",
+               "fused_mlp.py:223",
                worst["mlp_points"], timed["mlp_points"],
                _mlp_bound(pts.shape[0], False, points_bytes),
                f"{pts.shape[0]} points full")]
     entries[1]["launches"] = fused_cp.launches_samples
-    entries[3]["launches"] = fused_mlp.launches_points
+    entries[3]["launches"] = fused_mlp.launches_general_points
     log(f"[rows-kernel] launches in this phase: per-sample composite "
-        f"{fused_cp.launches_samples}, points {fused_mlp.launches_points}")
+        f"{fused_cp.launches_samples}, points "
+        f"{fused_mlp.launches_general_points}")
     return entries
 
 
@@ -1877,11 +1889,11 @@ def phase_noise_path(torch, card: str) -> tuple:
         _noise_view(torch, field, params, rays[:1024], ts,
                     torch.Generator(device="cuda").manual_seed(0))  # warm
         fused_cp.launches = fused_cp.launches_rows = 0
-        fused_mlp.launches_rays = fused_mlp_t.launches = 0
+        fused_mlp.launches_general_rays = fused_mlp_t.launches = 0
         out, wall = _noise_view(torch, field, params, rays, ts,
                                 torch.Generator(device="cuda").manual_seed(1))
         rows = (fused_cp.launches_rows if model == "cp grid"
-                else fused_mlp.launches_rays)
+                else fused_mlp.launches_general_rays)
         composite = fused_cp.launches + fused_mlp_t.launches
         assert rows > 0, f"{model}: the rows mode never launched"
         assert composite == 0, f"{model}: a composite kernel launched"
@@ -1920,7 +1932,59 @@ def phase_noise_path(torch, card: str) -> tuple:
                 f"fused_t=True (composite), 1024 rays: max abs err "
                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
             assert max(errs.values()) <= RENDER_ATOL, errs
+    lean_views(torch, card, ts)
     return tuple(launches)
+
+
+# the trunks of the σ-lean check (ROADMAP [18]): the default one, the
+# deepest of the tensor-core rows kernel's instances, and one that the
+# cluster instance takes
+LEAN_TRUNKS = {"default": {},
+               "width 512": dict(width=512, depth=8, skips=(4,)),
+               "width 640": dict(width=640, depth=2, skips=())}
+
+
+def lean_views(torch, card: str, ts, trunks=LEAN_TRUNKS) -> dict:
+    """(12) ROADMAP [18]: phase 12's flagship σ-noise level-2 view (`ts`)
+    on 1024 strided rays of the 400×300 camera, on He-scaled weights
+    (`exp_rows_tc_diag._field(kw, True)`: the trunk keeps its features
+    through its depth, σ far above 1, where the tensor cores' truncating
+    sums lean σ the most), for each trunk of `trunks` through its rows
+    kernel against the plain route from the same generator seed, within
+    RENDER_ATOL; logs the signed mean depth error and raw σ's signed lean
+    against a float64 plain version (σ-only, 1024 rays × 128). Returns
+    trunk -> (max abs err, signed mean depth error, σ's lean)."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+    from mirror_nerf_tpu_torch.tools.exp_rows_tc_diag import _field
+
+    rays = torch.from_numpy(_view_rays(400, 300)).cuda()
+    sub = rays[::rays.shape[0] // 1024][:1024]
+    o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
+    z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
+    out = {}
+    for name, kw in trunks.items():
+        field, p = _field(kw, True)
+        params = {"coarse": p, "fine": p}
+        got, want = (_noise_view(
+            torch, field, params, sub, replace(ts, render=replace(
+                ts.render, fused_field=fused)),
+            torch.Generator(device="cuda").manual_seed(2))[0]
+            for fused in (True, False))
+        errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
+        depth_mean = float((got["depth_fine"] - want["depth_fine"]).mean())
+        lean = _sigma_lean(torch, field, p, o, d, z)
+        log(f"[noise] σ-lean check [18], {name} trunk (He-scaled, "
+            f"{fused_mlp.rows_route(field)}): fused route vs plain on 1024 "
+            f"rays, same generator seed: max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; signed mean depth error {depth_mean:+.3e}; raw σ against "
+            f"float64 (σ-only, 1024 × 128): kernel mean signed "
+            f"{lean['kernel'][0]:+.3e}, max {lean['kernel'][1]:.3e}; fp32 "
+            f"plain {lean['fp32 plain'][0]:+.3e} ({card})")
+        assert max(errs.values()) <= RENDER_ATOL, (name, errs)
+        out[name] = (max(errs.values()), depth_mean, lean["kernel"][0])
+    return out
 
 
 def _dense_scaled(field, params: dict, scale: float = 1e4) -> dict:
@@ -3702,10 +3766,10 @@ def phase_real_capture_and_mesh(torch, card: str) -> dict:
         mf = MirrorNeRFField()
         mp = _sigma_scaled(mf.init(g), 5.0)
         mp = torch.utils._pytree.tree_map(lambda t: t.cuda(), mp)
-        fused_mlp.launches_points = 0
+        fused_mlp.launches_general_points = 0
         _sigma_card_vs_cpu(torch, mf, mp, 128, box, cfg.chunk,
                            "flagship (points mode), seeded, σ column |w|·5")
-        counts["points"] = fused_mlp.launches_points
+        counts["points"] = fused_mlp.launches_general_points
         assert counts["encode"] > 0 and counts["points"] > 0, counts
         verts, tris, _ = read_ply(os.path.join(mesh_dir, "noise_free.ply"))
         normals = vertex_normals(verts, tris)
@@ -4724,9 +4788,14 @@ def phase_data_parallel(torch, card: str) -> dict:
 # the trunks of phase 23's views (the flagship's heads, posenc 10/4)
 SPEC_TRUNKS = {"width 512": dict(width=512, depth=8, skips=(4,)),
                "width 128": dict(width=128, depth=6, skips=(2, 4))}
-# a trunk wider than the tensor-core kernel's instances: the fp32 rows
-# kernel's own range
-SPEC_WIDE = dict(width=640, depth=2, skips=())
+# trunks wider than 512, the tensor-core kernel's cluster instance: C = 2
+# CTAs (width 640) and C = 4 with parts split 6/6/5/5 (width 1408), each with
+# the rays it is held on (the first also in its view and σ grid)
+SPEC_WIDE = {"width 640": (dict(width=640, depth=2, skips=()), 4096),
+             "width 1408": (dict(width=1408, depth=2, skips=()), 1024)}
+# a trunk wider than the tensor-core kernel's limit: the fp32 rows kernel's
+# own range
+SPEC_FP32 = dict(width=4224, depth=1, skips=())
 # phase 23's hash specs: get_encoder's defaults (16 levels, 2¹⁹ rows a
 # level at most, base 16, desired resolution 2048) with these changes
 SPEC_HASH = {"2-d, C 2": dict(input_dim=2),
@@ -4813,9 +4882,8 @@ def _spec_rows_kernel(torch, card: str) -> list:
     and σ-only) and on 2,097,152 points (full), 1e-4 scaled above 1; times
     beside the 3×TF32 and fp32 bounds, the plain route and PR 19's fp32
     kernel (csrc/fused_mlp_rows.cu) on the same inputs; raw σ against a
-    float64 plain version; the default trunk through it beside the tuned
-    rows mode. Returns the rays' and the points' entries (the width-512
-    trunk's numbers)."""
+    float64 plain version. Returns the rays' and the points' entries (the
+    width-512 trunk's numbers)."""
     from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
     from mirror_nerf_tpu_torch.ops import fused_mlp
 
@@ -4879,7 +4947,6 @@ def _spec_rows_kernel(torch, card: str) -> list:
                 ms, plain_ms, bound, fp32_ms))
         _spec_sigma_bias(torch, name, field, p, o[:4096], d[:4096],
                          z[:4096], card)
-    _spec_default_trunk(torch, o, d, z, card)
     return entries
 
 
@@ -4890,13 +4957,10 @@ def _spec_fp32_ms(torch, fn) -> float:
         return _time_ms(torch, fn, reps=2, warmup=1)
 
 
-def _spec_sigma_bias(torch, name: str, field, p: dict, o, d, z,
-                     card: str) -> None:
-    """Raw σ of the rows route (σ-only rays) against a float64 plain
-    version: the mean signed error and the largest, over max(1, max |σ|),
-    beside the fp32 plain version's. A tensor-core sum left to run over
-    more than two k-steps truncates and shows as a mean as large as the
-    largest error; the bar is 1e-7, as phase 11's."""
+def _sigma_lean(torch, field, p: dict, o, d, z) -> dict:
+    """Raw σ of the rows route (σ-only rays, `fused_rays_eval`) and of the
+    fp32 plain version against a float64 plain version: "kernel" and "fp32
+    plain" -> (mean signed error, max abs error), over max(1, max |σ|)."""
     from mirror_nerf_tpu_torch.ops import fused_mlp
     from mirror_nerf_tpu_torch.train.checkpoints import _map
 
@@ -4912,46 +4976,22 @@ def _spec_sigma_bias(torch, name: str, field, p: dict, o, d, z,
                 - exact
             out[k] = (float(err.mean()) / scale,
                       float(err.abs().max()) / scale)
+    return out
+
+
+def _spec_sigma_bias(torch, name: str, field, p: dict, o, d, z,
+                     card: str) -> None:
+    """Raw σ of the rows route (σ-only rays) against a float64 plain
+    version: the mean signed error and the largest, over max(1, max |σ|),
+    beside the fp32 plain version's. A tensor-core sum left to run over
+    more than two k-steps truncates and shows as a mean as large as the
+    largest error; the bar is 1e-7, as phase 11's."""
+    out = _sigma_lean(torch, field, p, o, d, z)
     log(f"[spec-rows] {name} raw σ against a float64 plain version, "
         f"{z.shape[0]} rays × {z.shape[1]} ({card}): mean signed error, max "
         "abs error (scaled above 1): " + "; ".join(
             f"{k} {m:+.3e}, {a:.3e}" for k, (m, a) in out.items()))
     assert abs(out["kernel"][0]) <= 1e-7, (name, out)
-
-
-def _spec_default_trunk(torch, o, d, z, card: str) -> None:
-    """The default trunk (phase 9's seeded weights) through the rows kernel
-    on the tensor cores beside its route, the tuned rows mode of
-    csrc/fused_mlp_t.cu, in turns on the same 16384 × 128 rays: what
-    generality costs (a figure; the two agree within 1e-4)."""
-    from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField
-    from mirror_nerf_tpu_torch.ops import fused_mlp
-
-    field = MirrorNeRFField()
-    p = _sigma_scaled(field.init(torch.Generator().manual_seed(0), "cuda"),
-                      5.0)
-    for sigma_only in (False, True):
-        v = None if sigma_only else d
-        runs = {"tuned": lambda: fused_mlp.fused_rays_eval(
-                    field, p, o, d, d, z, sigma_only),
-                "tensor-core": lambda: fused_mlp.tc_rows_cuda(
-                    field, p, o, d, v, z, sigma_only)}
-        with torch.no_grad():
-            err = _scaled_errs({"rows": runs["tensor-core"]()},
-                               {"rows": runs["tuned"]()})["rows"]
-            ms = {k: [] for k in runs}
-            for k in ("tuned", "tensor-core", "tensor-core", "tuned"):
-                ms[k].append(_time_ms(torch, runs[k], reps=3, warmup=1))
-        best = {k: min(v) for k, v in ms.items()}
-        log(f"[spec-rows] default trunk 16384 × 128 "
-            f"{'σ-only' if sigma_only else 'full'}, in turns: tuned rows "
-            f"mode (fused_mlp_t.cu) {best['tuned']:.3f} ms, the tensor-core "
-            f"rows kernel (fused_mlp_rows_tc.cu, not its route) "
-            f"{best['tensor-core']:.3f} ms "
-            f"({best['tensor-core'] / best['tuned']:.3f}× the tuned time; "
-            f"{card}); max abs difference (scaled above 1) "
-            f"{err:.3e}")
-        assert err <= KERNEL_ATOL, err
 
 
 def _spec_rows_bound_log(tag: str, bound: tuple, ms: float,
@@ -5025,12 +5065,11 @@ def _spec_views(torch, card: str) -> tuple:
     grid_wall = time.perf_counter() - t0
     launches = (fused_mlp.launches_general_rays,
                 fused_mlp.launches_general_points)
-    other = (fused_mlp.launches_rays + fused_mlp.launches_points
-             + fused_mlp_t.launches + fused_mlp.launches_wide_rays
+    other = (fused_mlp_t.launches + fused_mlp.launches_wide_rays
              + fused_mlp.launches_wide_points)
     log(f"[spec-views] tensor-core rows kernel launches on the main path: "
-        f"rays {launches[0]}, points {launches[1]}; the default trunk's "
-        f"kernels and the fp32 rows kernel {other}")
+        f"rays {launches[0]}, points {launches[1]}; the flagship composite "
+        f"and the fp32 rows kernel {other}")
     assert min(launches) > 0 and other == 0, (launches, other)
     for (name, label), res in views.items():
         for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved"):
@@ -5076,43 +5115,189 @@ def _reset_rows_counters() -> None:
     """Every rows kernel's counters, and the flagship composite's, to 0."""
     from mirror_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
 
-    for k in ("rays", "points", "general_rays", "general_points",
-              "wide_rays", "wide_points"):
+    for k in ("general_rays", "general_points", "wide_rays", "wide_points"):
         setattr(fused_mlp, f"launches_{k}", 0)
     fused_mlp_t.launches = 0
 
 
-def _spec_wide(torch, card: str) -> list:
-    """(23) The fp32 rows kernel (csrc/fused_mlp_rows.cu) on its own range,
-    trunks wider than 512: a width-640 trunk (SPEC_WIDE) against
-    `mlp_rows_reference` on 4096 strided rays of the 400×300 camera at S =
-    128 (full and σ-only) and on 524,288 points (full), 1e-4 scaled above
-    1, times beside its bounds; its main path: a 100×75 level-2 view by
-    run_view with --fused_field and the σ grid at 32³ through
-    query_sigma_grid, the counters set to 0 just before and read just after
-    (no other rows kernel may launch), the view on 1024 rays against the
-    plain route within 1e-3. Returns its rays' and points' entries."""
+def _spec_wide_cases(torch, card: str, name: str, kw: dict, n: int,
+                     points: bool) -> list:
+    """(23) One trunk wider than 512 on the cluster instance against
+    `mlp_rows_reference`: n strided rays of the 400×300 camera at S = 128,
+    full and σ-only, seeded and saturating (σ column ×2000, where a stale
+    peer row would show), and, if `points`, their sample positions as
+    points (full), 1e-4 scaled above 1; times beside the plain version and
+    the 3×TF32 bound; raw σ against a float64 plain version within 1e-7.
+    Returns its rays' and points' entries."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+
+    field, params = _spec_field(torch, kw)
+    p = params["fine"]
+    assert fused_mlp.rows_route(field) == "fused_mlp_rows_tc", name
+    log(f"[spec-rows] {name}: the cluster instance's shape "
+        f"{fused_mlp.tc_cluster_shape(field.width, 0)} ({card})")
+    rays = torch.from_numpy(_view_rays(400, 300)).cuda()
+    sub = rays[::rays.shape[0] // n][:n]
+    o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
+    z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
+    weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(field, p)[0])
+    replaces = "mirror_nerf_tpu/ops/pallas/fused_mlp.py:"
+    title = "PE-MLP rows, trunks wider than 512"
+    entries = []
+    _reset_rows_counters()
+    for sigma_only in (False, True):
+        mode = "σ-only" if sigma_only else "full"
+        with torch.no_grad():
+            sat = _sigma_scaled(p, 2000.0)
+            err = _scaled_errs(
+                _row_groups(fused_mlp.fused_rays_eval(
+                    field, sat, o, d, d, z, sigma_only=sigma_only)),
+                _row_groups(fused_mlp.mlp_rays_rows_reference(
+                    field, sat, o, d, d, z, sigma_only=sigma_only)))
+        log(f"[spec-rows] {name} rays, {n} × 128, {mode}, saturating σ "
+            "(×2000): max abs err (scaled above 1) "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+        assert max(err.values()) <= KERNEL_ATOL, (name, err)
+        tag = f"{name} rays, {n} × 128, {mode}"
+        worst, ms, plain_ms = _spec_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_rays_eval(
+                field, p, o, d, d, z, sigma_only=sigma_only)),
+            lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
+                field, p, o, d, d, z, sigma_only=sigma_only)), card)
+        nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
+                  + weights + z.numel() * 4 * (1 if sigma_only else 8))
+        bound = _trunk_bound(field, z.numel(), sigma_only, nbytes)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+        if not sigma_only:
+            entries.append(_spec_entry(
+                f"{title} (rays)", "fused_mlp_rows_tc.cu",
+                replaces + "238 _kernel_rays", worst, ms, plain_ms, bound))
+    if points:
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        dirs = d.repeat_interleave(128, 0)
+        tag = f"{name} points, {pts.shape[0]}, full"
+        worst, ms, plain_ms = _spec_case(
+            torch, tag,
+            lambda: _row_groups(fused_mlp.fused_packed_eval(field, p, pts,
+                                                            dirs)),
+            lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
+                                                             dirs)), card)
+        bound = _trunk_bound(field, pts.shape[0], False,
+                             _nbytes(pts, dirs) + weights + pts.shape[0] * 32)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
+        entries.append(_spec_entry(
+            f"{title} (points)", "fused_mlp_rows_tc.cu",
+            replaces + "223 _kernel", worst, ms, plain_ms, bound))
+    _spec_sigma_bias(torch, name, field, p, o[:1024], d[:1024], z[:1024],
+                     card)
+    wide = fused_mlp.launches_wide_rays + fused_mlp.launches_wide_points
+    log(f"[spec-rows] {name}: tensor-core rows kernel launches rays "
+        f"{fused_mlp.launches_general_rays}, points "
+        f"{fused_mlp.launches_general_points}; the fp32 kernel's {wide}")
+    assert fused_mlp.launches_general_rays > 0 and wide == 0, name
+    return entries
+
+
+def _spec_trunk_path(torch, card: str, kw: dict, wh: tuple, grid: int,
+                     counters: tuple, n_check: int) -> tuple:
+    """(23) A trunk's main path: a w×h level-2 view by run_view with
+    --fused_field (all-mirror seeded weights) and its σ grid at grid³
+    through query_sigma_grid, every rows kernel's counters set to 0 just
+    before and read just after: `counters` (the rays' and the points'
+    names in ops/fused_mlp.py) must move, no other; then n_check strided
+    rays of the view against the plain route within 1e-3. Returns the
+    two counts."""
     import numpy as np
 
-    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
     from mirror_nerf_tpu_torch.eval import get_opt
     from mirror_nerf_tpu_torch.eval.apps import AppContext, run_view
     from mirror_nerf_tpu_torch.eval.mesh import query_sigma_grid
     from mirror_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
 
-    field, params = _spec_field(torch, SPEC_WIDE)
+    field, params = _spec_field(torch, kw)
+    cfg, args = get_opt(NERF_EVAL_FLAGS + ["--img_wh", *map(str, wh)])
+    ctx = AppContext.build(cfg, args, field, params, "cuda")
+    rays_np = _view_rays(*wh)
+    run_view(ctx, {"rays": rays_np[:64]})  # warm
+    _reset_rows_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_view(ctx, {"rays": rays_np})
+    wall = time.perf_counter() - t0
+    sigma = query_sigma_grid(field, params["fine"], grid,
+                             *((-1.0, 1.0),) * 3, device="cuda")
+    names = [f"launches_{k}" for k in ("general_rays", "general_points",
+                                       "wide_rays", "wide_points")]
+    counts = {k: getattr(fused_mlp, k) for k in names}
+    launches = tuple(counts.pop(k) for k in counters)
+    other = sum(counts.values()) + fused_mlp_t.launches
+    log(f"[spec-views] width {field.width} (all-mirror), {wh[0]}x{wh[1]} "
+        f"level-2 view {wall:.3f} s -> {len(rays_np) / wall:.1f} rays/s "
+        f"({card}), mirror fraction {res['mirror_mask_resolved'].mean():.4f}"
+        f"; σ grid {grid}³, σ > 0 at {(sigma > 0).mean() * 100:.1f} %; "
+        f"{counters[0]} {launches[0]}, {counters[1]} {launches[1]}; the "
+        f"other rows kernels {other}")
+    assert min(launches) > 0 and other == 0, (launches, counts)
+    sub_np = rays_np[::max(1, len(rays_np) // n_check)][:n_check]
+    got = {}
+    for fused in (True, False):
+        got[fused] = run_view(replace(ctx, rs=replace(
+            ctx.rs, fused_field=fused)), {"rays": sub_np})
+    errs = {k: float(np.abs(got[True][k] - got[False][k]).max())
+            for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved")}
+    log(f"[spec-views] width {field.width}: the rows route vs the plain "
+        f"route on {len(sub_np)} rays, max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= RENDER_ATOL, errs
+    return launches
+
+
+def _spec_wide(torch, card: str) -> list:
+    """(23) Trunks wider than 512 on the cluster instance of the
+    tensor-core rows kernel (SPEC_WIDE: widths 640 and 1408, depth 2),
+    `_spec_wide_cases` each; the width-640 one's main path, a 100×75
+    level-2 view and a 32³ σ grid (`_spec_trunk_path`: the tensor-core
+    kernel's counters move, the fp32 kernel's stay 0). Returns the width
+    640 trunk's rays' and points' entries, launches filled in."""
+    entries = _spec_wide_cases(torch, card, "width 640",
+                               *SPEC_WIDE["width 640"], points=True)
+    _spec_wide_cases(torch, card, "width 1408", *SPEC_WIDE["width 1408"],
+                     points=False)
+    entries[0]["launches"], entries[1]["launches"] = _spec_trunk_path(
+        torch, card, SPEC_WIDE["width 640"][0], (100, 75), 32,
+        ("launches_general_rays", "launches_general_points"), 1024)
+    return entries
+
+
+def _spec_fp32(torch, card: str) -> list:
+    """(23) The fp32 rows kernel (csrc/fused_mlp_rows.cu) on its own range,
+    a trunk wider than the tensor-core kernel's limit (SPEC_FP32, width
+    4224): 64 strided rays of the 400×300 camera at S = 128 (full and
+    σ-only) and 4096 points against `mlp_rows_reference` within 1e-4
+    scaled above 1, times beside the plain version and the bounds; its
+    main path, a 16×12 level-2 view and an 8³ σ grid
+    (`_spec_trunk_path`: the fp32 kernel's counters move, the
+    tensor-core kernel's stay 0). Returns its rays' and points' entries."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+
+    field, params = _spec_field(torch, SPEC_FP32)
     p = params["fine"]
-    assert fused_mlp.rows_route(field) == "fused_mlp_rows", SPEC_WIDE
+    assert fused_mlp.rows_route(field) == "fused_mlp_rows", SPEC_FP32
     rays = torch.from_numpy(_view_rays(400, 300)).cuda()
-    sub = rays[::rays.shape[0] // 4096][:4096]
+    sub = rays[::rays.shape[0] // 64][:64]
     o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
     z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
-    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
-    dirs = d.repeat_interleave(128, 0)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)[
+        ::2].contiguous()
+    dirs = d.repeat_interleave(128, 0)[::2].contiguous()
     weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(field, p)[0])
+    title = "PE-MLP rows, trunks wider than 4096"
     entries = []
     for sigma_only in (False, True):
-        tag = (f"width 640 rays, 4096 × 128, "
+        tag = (f"width 4224 rays, 64 × 128, "
                f"{'σ-only' if sigma_only else 'full'}")
         worst, ms, plain_ms = _spec_case(
             torch, tag,
@@ -5126,11 +5311,10 @@ def _spec_wide(torch, card: str) -> list:
         _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
         if not sigma_only:
             entries.append(_spec_entry(
-                "PE-MLP rows, trunks wider than 512 (rays)",
-                "fused_mlp_rows.cu",
+                f"{title} (rays)", "fused_mlp_rows.cu",
                 "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 _kernel_rays",
                 worst, ms, plain_ms, bound))
-    tag = f"width 640 points, {pts.shape[0]}, full"
+    tag = f"width 4224 points, {pts.shape[0]}, full"
     worst, ms, plain_ms = _spec_case(
         torch, tag,
         lambda: _row_groups(fused_mlp.fused_packed_eval(field, p, pts, dirs)),
@@ -5140,44 +5324,12 @@ def _spec_wide(torch, card: str) -> list:
                          _nbytes(pts, dirs) + weights + pts.shape[0] * 32)
     _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
     entries.append(_spec_entry(
-        "PE-MLP rows, trunks wider than 512 (points)", "fused_mlp_rows.cu",
+        f"{title} (points)", "fused_mlp_rows.cu",
         "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst, ms,
         plain_ms, bound))
-    # its main path
-    cfg, args = get_opt(NERF_EVAL_FLAGS + ["--img_wh", "100", "75"])
-    ctx = AppContext.build(cfg, args, field, params, "cuda")
-    rays_np = _view_rays(100, 75)
-    run_view(ctx, {"rays": rays_np[:256]})  # warm
-    _reset_rows_counters()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_view(ctx, {"rays": rays_np})
-    wall = time.perf_counter() - t0
-    sigma = query_sigma_grid(field, p, 32, *((-1.0, 1.0),) * 3,
-                             device="cuda")
-    launches = (fused_mlp.launches_wide_rays, fused_mlp.launches_wide_points)
-    other = (fused_mlp.launches_rays + fused_mlp.launches_points
-             + fused_mlp.launches_general_rays
-             + fused_mlp.launches_general_points + fused_mlp_t.launches)
-    log(f"[spec-views] width 640 (all-mirror), 100x75 level-2 view "
-        f"{wall:.3f} s -> {len(rays_np) / wall:.1f} rays/s ({card}), mirror "
-        f"fraction {res['mirror_mask_resolved'].mean():.4f}; σ grid 32³, σ > "
-        f"0 at {(sigma > 0).mean() * 100:.1f} %; fp32 rows kernel launches: "
-        f"rays {launches[0]}, points {launches[1]}; the other rows kernels "
-        f"{other}")
-    assert min(launches) > 0 and other == 0, (launches, other)
-    sub_np = rays_np[::len(rays_np) // 1024][:1024]
-    got = {}
-    for fused in (True, False):
-        got[fused] = run_view(replace(ctx, rs=replace(
-            ctx.rs, fused_field=fused)), {"rays": sub_np})
-    errs = {k: float(np.abs(got[True][k] - got[False][k]).max())
-            for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved")}
-    log("[spec-views] width 640: the rows route vs the plain route on 1024 "
-        "rays, max abs err " + ", ".join(f"{k} {v:.2e}"
-                                         for k, v in errs.items()))
-    assert max(errs.values()) <= RENDER_ATOL, errs
-    entries[0]["launches"], entries[1]["launches"] = launches
+    entries[0]["launches"], entries[1]["launches"] = _spec_trunk_path(
+        torch, card, SPEC_FP32, (16, 12), 8,
+        ("launches_wide_rays", "launches_wide_points"), 192)
     return entries
 
 
@@ -5490,13 +5642,15 @@ def _spec_ngp_outside(torch, card: str) -> None:
 
 def phase_spec_range(torch, card: str) -> list:
     """(23) The two kernels over the whole range of specs the JAX package
-    calls them with: the PE-MLP rows kernels for every trunk but the
-    default (csrc/fused_mlp_rows_tc.cu; wider than 512 csrc/
-    fused_mlp_rows.cu) and the general ENCODE, BWD and BWD2 (csrc/
-    hashgrid_any.cu). Returns their seven entries, launches filled in."""
+    calls them with: the PE-MLP rows kernels for the trunks no preset
+    builds (csrc/fused_mlp_rows_tc.cu, its cluster instance above width
+    512; wider than 4096 csrc/fused_mlp_rows.cu) and the general ENCODE,
+    BWD and BWD2 (csrc/hashgrid_any.cu). Returns their nine entries,
+    launches filled in."""
     rows = _spec_rows_kernel(torch, card)
     rows[0]["launches"], rows[1]["launches"] = _spec_views(torch, card)
     rows += _spec_wide(torch, card)
+    rows += _spec_fp32(torch, card)
     hashes = _spec_hash_kernels(torch, card)
     counts = _spec_hash_training(torch, card)
     for e, k in zip(hashes, ("encode", "bwd", "bwd2")):

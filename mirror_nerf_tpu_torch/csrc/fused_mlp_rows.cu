@@ -4,16 +4,15 @@
 // kernels take.
 //
 // Replaces, for the `FusedSpec`s the JAX adapters build (`FusedSpec(width=
-// field.width, depth=field.depth, skips=field.skips)`) wider than 512 (a
+// field.width, depth=field.depth, skips=field.skips)`) wider than 4096 (a
 // multiple of 128, any depth, any skips, ≤ 20 posenc frequencies each,
 // either head), the two per-sample Pallas TPU kernels of mirror_nerf_tpu/
 // ops/pallas/fused_mlp.py: `_kernel_rays:238` (rays; fused_forward_rays:310,
 // adapter fused_rays_eval:367) and `_kernel:223` (points; fused_forward:266,
-// adapters fused_packed_eval:416, fused_field_eval:448). The default trunk
-// keeps the tuned 3×TF32 `wgmma` rows mode of csrc/fused_mlp_t.cu, the
-// other trunks up to width 512 take the 3×TF32 `wgmma` kernel
-// csrc/fused_mlp_rows_tc.cu (ops/fused_mlp.py `rows_route`); the entry
-// takes any width, so those trunks can be timed here beside it.
+// adapters fused_packed_eval:416, fused_field_eval:448). Every trunk up to
+// width 4096 takes the 3×TF32 `wgmma` kernel csrc/fused_mlp_rows_tc.cu
+// (ops/fused_mlp.py `rows_route`); the entry takes any width, so those
+// trunks can be timed here beside it.
 //
 // For each sample (ray r, depth index i; a point is a one-sample ray with
 // o = x, d = 0, z = 0):
@@ -51,10 +50,11 @@
 //   * posenc rows are computed once per block into shared memory, the
 //     view-dir posenc over them after the trunk.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 23,
-// PERF.md §6 rows 5w, 6w): 103 ms at width 640, depth 2 (4096 rays × S =
-// 128, full), 22 % of its fp32 bound and 0.45× the plain route's speed;
-// 485 ms at width 512, depth 8 (16384 rays × 128), where the tensor-core
-// kernel now takes ~130.
+// PERF.md §6): 103 ms at width 640, depth 2 (4096 rays × S = 128, full),
+// 22 % of its fp32 bound and 0.45× the plain route's speed, where the
+// tensor-core kernel's cluster instance now takes ~32; 485 ms at width
+// 512, depth 8 (16384 rays × 128), where the tensor-core kernel takes
+// ~130.
 
 #include <cuda_runtime.h>
 

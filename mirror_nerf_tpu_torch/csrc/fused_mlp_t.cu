@@ -1,24 +1,16 @@
 // Fused flagship PE-MLP field + per-ray alpha compositing, one kernel
-// (sm_90a), with a per-sample rows output mode.
+// (sm_90a).
 //
-// Composite mode replaces the Pallas TPU kernel `_kernel` of
+// It replaces the Pallas TPU kernel `_kernel` of
 // mirror_nerf_tpu/ops/pallas/fused_mlp_t.py:276 (driven by fused_t_forward:352,
 // σ-only at :384, full at :393; adapter fused_t_rays_eval:418), in both its
 // variants. It computes the same function, not the same layout: the TPU
 // kernel's transposed lanes, its `E @ x3` posenc matmul with the hi/lo bf16
 // split, the roll scan, the SUM-matrix composite and the packed 8-row output
-// answered TPU limits and are gone.
-//
-// Rows mode (the ROWS template flag) replaces the two per-sample kernels of
-// mirror_nerf_tpu/ops/pallas/fused_mlp.py: `_kernel_rays:238` (rays;
-// fused_forward_rays:310 → :348, adapter fused_rays_eval:367) and `_kernel:223`
-// (points; fused_forward:266 → :290, adapters fused_packed_eval:416,
-// fused_field_eval:448). It runs the same trunk and heads and writes, per
-// sample, 8 floats [raw σ, rgb (3), unit normal (3), mirror] (0 where the
-// field lacks the head; raw σ alone in the σ-only variant) instead of
-// compositing: σ-noise passes add the noise to the raw σ and composite
-// outside. Points are one-sample rays (o = x, d = 0, z = 0: x + 0·0 is x
-// exactly), so a block takes 256 of them.
+// answered TPU limits and are gone. The per-sample rows of the same trunk
+// (the σ-noise passes, the point queries) are csrc/fused_mlp_rows_tc.cu's,
+// which computes them bit for bit as this kernel's rows mode did before
+// that mode was retired.
 //
 // For each sample i of each ray (o, d, view dir v, sorted depths z):
 //   x = o + d·z (a rounded multiply, then a rounded add: no FMA contraction)
@@ -96,9 +88,8 @@
 //     fragment registers;
 //   * per-sample sd, rgb, n, m of the block's rays collect in shared memory;
 //     one thread per ray then runs the exclusive prefix and the sums in
-//     sample order. Rows mode keeps raw σ there instead of sd and the whole
-//     block writes its rows out at the end, 32 bytes a sample, coalesced.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6, rows 4–6):
+//     sample order.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6, row 4):
 // 26.0 ms at S = 128 full on 16384 rays (76.8 before, in the same process),
 // 9.1 ms σ-only at S = 64 (28.9): 64–69 % of the 3×TF32 bound. What bounds
 // it now (tools/exp_mlp_diag.py): one TF32 product in place of three takes
@@ -129,7 +120,6 @@ constexpr int DEPTH = 8;
 constexpr int SKIP = 4;
 constexpr int MAX_NF = 20;                 // posenc frequencies, x or v
 constexpr int NOUT = 9;  // opacity, rgb(3), normal(3), mirror, depth
-constexpr int NROW = 8;  // rows mode: σ, rgb(3), normal(3), mirror
 constexpr int MAX_LAYERS = DEPTH + 4;      // trunk, n0, m0, xf, dir
 constexpr int STAGE_BYTES = 2 * 8 * W * 4;        // hi + lo, 8 K rows
 constexpr int ACT_BYTES = (W / 8) * 128 * 16;     // a warpgroup's fragments
@@ -507,7 +497,7 @@ __device__ __forceinline__ float4 posenc_frag(const float* a, const float* b,
                      posenc_row(b[0], b[1], b[2], r1, rows));
 }
 
-template <bool ROWS, bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
+template <bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
 __global__ void __cluster_dims__(CLUSTER, 1, 1)
     __launch_bounds__(THREADS, 1) mlp_field_kernel(
         const float* __restrict__ rays_o, const float* __restrict__ rays_d,
@@ -515,14 +505,13 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
         const float* __restrict__ z_vals, const float* __restrict__ nets,
         const Nets no, const int pe, const int dpe, const int n_rays,
         const int n_samples, const int rays_per_block,
-        float* __restrict__ weights, float* __restrict__ per_ray,
-        float* __restrict__ rows) {
+        float* __restrict__ weights, float* __restrict__ per_ray) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
   constexpr Smem L = smem_layout(SIGMA_ONLY);
   const uint32_t base = smem_u32(smem);
-  float* s_sd = reinterpret_cast<float*>(smem + L.sd);  // sd, or raw σ
+  float* s_sd = reinterpret_cast<float*>(smem + L.sd);
   float* s_rgb = reinterpret_cast<float*>(smem + L.rgb);
   float* s_nrm = reinterpret_cast<float*>(smem + L.nrm);
   float* s_mir = reinterpret_cast<float*>(smem + L.mir);
@@ -604,8 +593,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
           const int i = ts[h] % n_samples;
           const long long zi = ray * n_samples + i;
           const float z = z_vals[zi];
-          if (!ROWS)
-            in[6] = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
+          in[6] = (i == n_samples - 1) ? 1e10f : z_vals[zi + 1] - z;
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
             in[a] = __fadd_rn(rays_o[ray * 3 + a],
@@ -641,7 +629,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
           const float a = SOFTPLUS
               ? fmaxf(sg, 0.f) + log1pf(expf(-fabsf(sg)))
               : fmaxf(sg, 0.f);
-          s_sd[ts[h]] = ROWS ? sg : (h ? io1 : io0)[6] * a;
+          s_sd[ts[h]] = (h ? io1 : io0)[6] * a;
         }
     }
     if (SIGMA_ONLY) continue;
@@ -694,19 +682,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   // the consumers' per-sample results are complete
   asm volatile("bar.sync 1, %0;" ::"n"(128 * CONSUMERS) : "memory");
 
-  if (ROWS) {  // the block's rows, ray-major, coalesced
-    constexpr int NR = SIGMA_ONLY ? 1 : NROW;
-    float* out = rows + ray0 * n_samples * NR;
-    for (int idx = tid; idx < nt * NR; idx += 128 * CONSUMERS) {
-      const int ts_ = idx / NR, c = idx - ts_ * NR;
-      float val;
-      if (c == 0) val = s_sd[ts_];
-      else if (c < 4) val = s_rgb[(c - 1) * MAXS + ts_];
-      else if (c < 7) val = HAS_N ? s_nrm[(c - 4) * MAXS + ts_] : 0.f;
-      else val = HAS_M ? s_mir[ts_] : 0.f;
-      out[idx] = val;
-    }
-  } else if (tid < n_here) {
+  if (tid < n_here) {
     // one thread per ray: the exclusive prefix and the per-ray sums, in
     // sample order. The prefix never holds a sample's own sd, so the 1e10
     // on the last sample cancels nothing.
@@ -742,37 +718,34 @@ struct Args {
   const float *rays_o, *rays_d, *view_dirs, *z_vals, *nets;
   Nets no;
   int pe, dpe, n_rays, n_samples;
-  float *weights, *per_ray, *rows;
+  float *weights, *per_ray;
 };
 
-template <bool ROWS, bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
+template <bool SIGMA_ONLY, bool SOFTPLUS, bool HAS_N, bool HAS_M>
 int launch(const Args& a, cudaStream_t stream) {
   const int rays_per_block = MAXS / a.n_samples;
   int grid = (a.n_rays + rays_per_block - 1) / rays_per_block;
   grid = (grid + CLUSTER - 1) / CLUSTER * CLUSTER;
   const int smem = smem_layout(SIGMA_ONLY).total + 1024;
-  auto kern = mlp_field_kernel<ROWS, SIGMA_ONLY, SOFTPLUS, HAS_N, HAS_M>;
+  auto kern = mlp_field_kernel<SIGMA_ONLY, SOFTPLUS, HAS_N, HAS_M>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, THREADS, smem, stream>>>(
       a.rays_o, a.rays_d, a.view_dirs, a.z_vals, a.nets, a.no, a.pe, a.dpe,
-      a.n_rays, a.n_samples, rays_per_block, a.weights, a.per_ray, a.rows);
+      a.n_rays, a.n_samples, rays_per_block, a.weights, a.per_ray);
   return (int)cudaGetLastError();
 }
 
-// the σ-only variant reads no head; the full one one instance per head set.
-// Rows mode emits raw σ, so it has no activation (one instance per set).
-template <bool ROWS, bool SOFTPLUS>
+// the σ-only variant reads no head; the full one one instance per head set
+template <bool SOFTPLUS>
 int launch_variant(const Args& a, bool sigma_only, bool has_n, bool has_m,
                    cudaStream_t stream) {
-  if (sigma_only)
-    return launch<ROWS, true, SOFTPLUS, false, false>(a, stream);
-  if (has_n && has_m)
-    return launch<ROWS, false, SOFTPLUS, true, true>(a, stream);
-  if (has_n) return launch<ROWS, false, SOFTPLUS, true, false>(a, stream);
-  if (has_m) return launch<ROWS, false, SOFTPLUS, false, true>(a, stream);
-  return launch<ROWS, false, SOFTPLUS, false, false>(a, stream);
+  if (sigma_only) return launch<true, SOFTPLUS, false, false>(a, stream);
+  if (has_n && has_m) return launch<false, SOFTPLUS, true, true>(a, stream);
+  if (has_n) return launch<false, SOFTPLUS, true, false>(a, stream);
+  if (has_m) return launch<false, SOFTPLUS, false, true>(a, stream);
+  return launch<false, SOFTPLUS, false, false>(a, stream);
 }
 
 }  // namespace
@@ -788,9 +761,8 @@ const char* mnerf_cuda_error_string(int e) {
 //   -2 S outside [1, MAXS]   -3 a posenc frequency count outside
 //   [0, MAX_NF]   -4 n_nets is not the layout's   -6 n_rays < 1
 // All pointers are device pointers; view_dirs may be null for the σ-only
-// variant. Composite mode (rows_mode 0) writes weights (N, S) and, unless
-// σ-only, per_ray (N, 9); rows mode (1) writes rows (N·S, 8), or (N·S,)
-// raw σ when σ-only, and ignores softplus. nets holds every leaf of the
+// variant. It writes weights (N, S) and, unless σ-only, per_ray (N, 9).
+// nets holds every leaf of the
 // field, heads included, whichever the variant, in the layout of
 // `net_offsets` (16-B aligned). The entry takes the card's index (int) and
 // a stream of that card last; the guard makes the card current for the
@@ -800,8 +772,8 @@ int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
                       const float* nets, long long n_nets, int n_rays,
                       int n_samples, int n_emb_xyz, int n_emb_dir,
                       int has_normal, int has_mirror, int sigma_only,
-                      int softplus, int rows_mode, float* weights,
-                      float* per_ray, float* rows, int device,
+                      int softplus, float* weights, float* per_ray,
+                      int device,
                       void* stream) {
   if (n_samples < 1 || n_samples > MAXS) return -2;
   if (n_emb_xyz < 0 || n_emb_xyz > MAX_NF || n_emb_dir < 0 ||
@@ -810,18 +782,15 @@ int mnerf_fused_mlp_t(const float* rays_o, const float* rays_d,
   const int pe = posenc_rows(n_emb_xyz), dpe = posenc_rows(n_emb_dir);
   const Args a{rays_o, rays_d, view_dirs, z_vals, nets,
                net_offsets(pe, dpe, has_normal, has_mirror), pe, dpe,
-               n_rays, n_samples, weights, per_ray, rows};
+               n_rays, n_samples, weights, per_ray};
   if (n_nets != a.no.total) return -4;
   if (n_rays < 1) return -6;
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_mode)
-    return launch_variant<true, false>(a, sigma_only, has_normal, has_mirror,
-                                       s);
   return softplus
-      ? launch_variant<false, true>(a, sigma_only, has_normal, has_mirror, s)
-      : launch_variant<false, false>(a, sigma_only, has_normal, has_mirror, s);
+      ? launch_variant<true>(a, sigma_only, has_normal, has_mirror, s)
+      : launch_variant<false>(a, sigma_only, has_normal, has_mirror, s);
 }
 
 }  // extern "C"

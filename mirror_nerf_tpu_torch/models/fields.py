@@ -36,6 +36,11 @@ from .nn import init_linear, leaky_relu, linear, linear_out, relu, sigmoid
 from .tpugrid import TPUGridField
 
 
+# the widest trunk the rows kernel on the tensor cores takes
+# (csrc/fused_mlp_rows_tc.cu: 8 CTAs × 8 parts of 64 columns)
+FUSED_TC_MAX_WIDTH = 4096
+
+
 @dataclass(frozen=True)
 class MirrorNeRFField:
     N_emb_xyz: int = 10
@@ -61,10 +66,10 @@ class MirrorNeRFField:
         architecture, the JAX property's range: a width that is a multiple
         of 128, any depth and skips, at most 20 posenc frequencies each for
         positions and view dirs (≤ 123 rows, the JAX kernel's 128 lanes),
-        with or without the normal and the mirror head. The default trunk
-        runs on the tuned rows mode of csrc/fused_mlp_t.cu, the others on
-        csrc/fused_mlp_rows_tc.cu (`supports_fused_tc`) or, wider than 512,
-        csrc/fused_mlp_rows.cu (ops/fused_mlp.py `rows_route`). With
+        with or without the normal and the mirror head. Up to width
+        FUSED_TC_MAX_WIDTH they run on csrc/fused_mlp_rows_tc.cu
+        (`supports_fused_tc`), wider ones on csrc/fused_mlp_rows.cu
+        (ops/fused_mlp.py `rows_route`). With
         `--fused_field` on the card, a field outside this set raises
         (render/renderer.py)."""
         return (self.width > 0 and self.width % 128 == 0 and self.depth >= 1
@@ -72,8 +77,8 @@ class MirrorNeRFField:
 
     @property
     def supports_fused_t(self) -> bool:
-        """Whether the composite mode of csrc/fused_mlp_t.cu (and its tuned
-        rows mode) takes this architecture: the default trunk — width 256,
+        """Whether the composite kernel csrc/fused_mlp_t.cu takes this
+        architecture: the default trunk — width 256,
         depth 8, the skip at layer 4 — within `supports_fused`. Another
         trunk's noise-free passes take the rows kernel and composite
         outside it, JAX's `_inference_fused` route."""
@@ -83,12 +88,13 @@ class MirrorNeRFField:
     @property
     def supports_fused_tc(self) -> bool:
         """Whether the rows kernel on the tensor cores,
-        csrc/fused_mlp_rows_tc.cu, takes this architecture: a width of 128,
-        256, 384 or 512 (its template instances) within `supports_fused`,
-        any depth and skips. Outside the default trunk it is the rows
-        route of these widths; wider trunks take the fp32 kernel
+        csrc/fused_mlp_rows_tc.cu, takes this architecture: a width up to
+        FUSED_TC_MAX_WIDTH within `supports_fused` (128, 256, 384 and 512
+        its template instances, wider ones its cluster instance), any
+        depth and skips, the default trunk included. It is the rows route
+        of these widths; wider trunks take the fp32 kernel
         csrc/fused_mlp_rows.cu."""
-        return self.supports_fused and self.width <= 512
+        return self.supports_fused and self.width <= FUSED_TC_MAX_WIDTH
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> dict:

@@ -20,15 +20,14 @@ gives); a σ-only row is raw σ alone.
     the plain PyTorch version (the field modules of models/fields.py). CPU
     tensors take it; CUDA tensors launch a hand-written kernel (sm_90a; see
     each source note), one route a trunk, chosen by spec (`rows_route`):
-    the default trunk (`supports_fused_t`) the rows mode of
-    `csrc/fused_mlp_t.cu`, counted in `launches_rays` and
-    `launches_points`; every other trunk of width ≤ 512
-    (`supports_fused_tc`) the 3×TF32 `wgmma` kernel
-    `csrc/fused_mlp_rows_tc.cu`, counted in `launches_general_rays` and
-    `launches_general_points`; wider ones the fp32 kernel
-    `csrc/fused_mlp_rows.cu`, counted in `launches_wide_rays` and
-    `launches_wide_points`. There is no fallback: a kernel that fails to
-    build or launch raises, and so does a trunk outside the range.
+    every trunk up to width `TC_MAX_WIDTH` (4096; `supports_fused_tc`, the
+    default trunk included) the 3×TF32 `wgmma` kernel
+    `csrc/fused_mlp_rows_tc.cu` (its cluster instance above 512), counted
+    in `launches_general_rays` and `launches_general_points`; wider ones
+    the fp32 kernel `csrc/fused_mlp_rows.cu`, counted in
+    `launches_wide_rays` and `launches_wide_points`. There is no fallback:
+    a kernel that fails to build or launch raises, and so does a trunk
+    outside the range.
 
 The view dirs go to the posenc as given (the color head of
 `MirrorNeRFField` does not normalize them either). Forward-only.
@@ -45,18 +44,16 @@ from ..core.mathutil import l2_normalize
 from ._build import Library, card_index
 from ._dtype import float32_field
 from .fused_cp import check_ray_inputs, on_cpu, prep
-from .fused_mlp_t import (_leaves, _pack, check_forward_call,
-                          check_kernel_call, launch_kernel, stream_plan,
-                          trunk_spec)
+from ..models.fields import FUSED_TC_MAX_WIDTH as TC_MAX_WIDTH
+from .fused_mlp_t import _leaves, _pack, check_forward_call, stream_plan, \
+    trunk_spec
 
 ROW = 8  # σ, rgb (3), normal (3), mirror
 
 # kernel launches since import (or since a caller last reset them to 0):
-# rays (JAX `_kernel_rays`) and points (JAX `_kernel`), the default trunk
-# on csrc/fused_mlp_t.cu, the other trunks of width ≤ 512 on
-# csrc/fused_mlp_rows_tc.cu, the wider ones on csrc/fused_mlp_rows.cu
-launches_rays = 0
-launches_points = 0
+# rays (JAX `_kernel_rays`) and points (JAX `_kernel`), the trunks up to
+# TC_MAX_WIDTH on csrc/fused_mlp_rows_tc.cu, the wider ones on
+# csrc/fused_mlp_rows.cu
 launches_general_rays = 0
 launches_general_points = 0
 launches_wide_rays = 0
@@ -90,15 +87,15 @@ def mlp_rays_rows_reference(field, params: dict, rays_o, rays_d, view_dirs,
     return mlp_rows_reference(field, params, xyz, dirs, sigma_only)
 
 
-# the three routes of `rows_route`: each names its library
-ROUTES = ("fused_mlp_t", "fused_mlp_rows_tc", "fused_mlp_rows")
+# the two routes of `rows_route`: each names its library
+ROUTES = ("fused_mlp_rows_tc", "fused_mlp_rows")
 
 
 def rows_route(field) -> str:
-    """The kernel a trunk's rows take on the card, by spec: the default
-    trunk the tuned rows mode of `csrc/fused_mlp_t.cu`, any other of width
-    ≤ 512 `csrc/fused_mlp_rows_tc.cu`, a wider one `csrc/fused_mlp_rows.cu`
-    (the library's name, `ROUTES`). Raises outside `supports_fused`."""
+    """The kernel a trunk's rows take on the card, by spec: every trunk of
+    width ≤ TC_MAX_WIDTH `csrc/fused_mlp_rows_tc.cu`, a wider one
+    `csrc/fused_mlp_rows.cu` (the library's name, `ROUTES`). Raises
+    outside `supports_fused`."""
     if not field.supports_fused:
         raise ValueError(
             "the PE-MLP rows kernels take a width that is a positive "
@@ -106,9 +103,7 @@ def rows_route(field) -> str:
             f"each (the JAX kernels' range); got width {field.width}, depth "
             f"{field.depth}, frequencies {field.N_emb_xyz}/"
             f"{field.N_emb_dir}")
-    if field.supports_fused_t:
-        return ROUTES[0]
-    return ROUTES[1] if field.supports_fused_tc else ROUTES[2]
+    return ROUTES[0] if field.supports_fused_tc else ROUTES[1]
 
 
 def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
@@ -117,32 +112,20 @@ def fused_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
     current stream. Inputs must be float32, contiguous, on one CUDA device:
     rays_o/rays_d/view_dirs (N, 3), z (N, S). Returns (N·S, 8) rows, or
     (N·S, 1) raw σ when σ-only."""
-    inputs = (rays_o, rays_d, view_dirs, z_vals)
-    route = rows_route(field)
-    if route == ROUTES[1]:
-        return tc_rows_cuda(field, params, *inputs, sigma_only)
-    if route == ROUTES[2]:
-        return general_rows_cuda(field, params, *inputs, sigma_only)
-    check_kernel_call(field, params, inputs, "relu", "rows")
-    n, s = z_vals.shape
-    check_ray_inputs(rays_o, rays_d, view_dirs, z_vals, sigma_only)
-    rows = torch.empty((n * s, 1 if sigma_only else ROW),
-                       dtype=torch.float32, device=z_vals.device)
-    if n:
-        launch_kernel(field, params, rays_o, rays_d, view_dirs, z_vals,
-                      sigma_only, False, True, rows=rows)
-    return rows
+    launch = (tc_rows_cuda if rows_route(field) == ROUTES[0]
+              else general_rows_cuda)
+    return launch(field, params, rays_o, rays_d, view_dirs, z_vals,
+                  sigma_only)
 
 
 def _count(field, mode: str) -> None:
     """One launch of the route's kernel in `mode` ("rays" or "points")."""
-    name = {ROUTES[0]: f"launches_{mode}",
-            ROUTES[1]: f"launches_general_{mode}",
-            ROUTES[2]: f"launches_wide_{mode}"}[rows_route(field)]
+    name = {ROUTES[0]: f"launches_general_{mode}",
+            ROUTES[1]: f"launches_wide_{mode}"}[rows_route(field)]
     globals()[name] += 1
 
 
-# ---- the rows kernel on the tensor cores, width ≤ 512
+# ---- the rows kernel on the tensor cores, width ≤ TC_MAX_WIDTH
 # (csrc/fused_mlp_rows_tc.cu) ----
 
 _TC_LIB = "fused_mlp_rows_tc"
@@ -151,9 +134,12 @@ TC_WIDTHS = (128, 256, 384, 512)  # the kernel's template instances
 _TC_REFUSALS = {
     -2: "S < 1",
     -3: "a posenc frequency count is outside [0, 20]",
-    -4: f"the width is not one of {TC_WIDTHS}, or the depth < 1",
+    -4: f"the width is not one of {TC_WIDTHS} or a multiple of 128 up to "
+        f"the limit {TC_MAX_WIDTH}, or the depth < 1",
     -6: "no rays",
-    -7: "no CTA of the width's shared memory fits the card"}
+    -7: "no CTA, or cluster of CTAs, of the width's shared memory fits the "
+        f"card (widths 640 … {TC_MAX_WIDTH} run clusters of 2·⌈width / "
+        "512⌉ CTAs)"}
 # the entry's arguments before the card and the stream (_build.Library):
 # rays_o, rays_d, view_dirs, z_vals, nets, plan, width, depth, n_emb_xyz,
 # n_emb_dir, has_normal, has_mirror, sigma_only, n_rays, n_samples, rows
@@ -161,7 +147,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F32 = (torch.float32,)
 _tc_library = Library(_TC_LIB, {
     "mnerf_mlp_rows_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _LL, _I, _P]}, _TC_REFUSALS)
+                          _I, _LL, _I, _P],
+    "mnerf_mlp_rows_tc_shape": [_I]}, _TC_REFUSALS)
 _plans: dict = {}  # (leaf shapes, device) -> stream_plan on the card
 
 
@@ -176,16 +163,32 @@ def _plan(params: dict, device) -> torch.Tensor:
     return _plans[key]
 
 
+def tc_cluster_shape(width: int, device: int) -> dict:
+    """The cluster instance at a width above 512 on card `device`: the
+    CTAs that split a layer's columns (C), the most 64-column parts a CTA
+    holds, the weight ring's stages and the clusters of 2C CTAs the card
+    holds at once (0: none fits, the launch refuses)."""
+    code = _tc_library.entry("mnerf_mlp_rows_tc_shape")(width, device, None)
+    if code < 0:
+        raise ValueError(f"no cluster instance at width {width}: "
+                         f"{_TC_REFUSALS.get(code, code)}")
+    out = {}
+    for k in ("ctas", "parts", "stages"):
+        code, out[k] = divmod(code, 16)
+    out["clusters"] = code
+    return out
+
+
 def check_tc_spec(field, params: dict) -> None:
     """A trunk the kernel takes (`supports_fused_tc`), and params of that
     trunk (`trunk_spec`): the plan comes from the params, the instance and
     the posenc from the field."""
     if not field.supports_fused_tc:
         raise ValueError(
-            "the PE-MLP rows kernel on the tensor cores takes a width of "
-            f"{', '.join(map(str, TC_WIDTHS))} (supports_fused_tc); got "
-            f"width {field.width}, depth {field.depth}, frequencies "
-            f"{field.N_emb_xyz}/{field.N_emb_dir}")
+            "the PE-MLP rows kernel on the tensor cores takes a width that is "
+            f"a multiple of 128 up to the limit {TC_MAX_WIDTH} "
+            f"(supports_fused_tc); got width {field.width}, depth "
+            f"{field.depth}, frequencies {field.N_emb_xyz}/{field.N_emb_dir}")
     spec = (field.width, field.depth,
             tuple(sorted({i for i in field.skips if 0 < i < field.depth})),
             field.in_xyz, field.in_dir, field.predict_normal,
@@ -199,9 +202,8 @@ def check_tc_spec(field, params: dict) -> None:
 def tc_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
                  sigma_only: bool) -> torch.Tensor:
     """Launch `csrc/fused_mlp_rows_tc.cu` on the current stream, for any
-    trunk of `supports_fused_tc` (the default trunk too: the route sends it
-    to the tuned kernel, a caller may time this one beside it). Inputs as
-    `fused_rows_cuda` takes them."""
+    trunk of `supports_fused_tc`. Inputs as `fused_rows_cuda` takes
+    them."""
     check_forward_call(params, (rays_o, rays_d, view_dirs, z_vals), "rows")
     check_tc_spec(field, params)
     n, s = z_vals.shape
@@ -226,7 +228,7 @@ def tc_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
 
 
 # ---- the fp32 rows kernel for any trunk (csrc/fused_mlp_rows.cu): the
-# route of widths above 512 ----
+# route of widths above TC_MAX_WIDTH ----
 
 _ROWS_LIB = "fused_mlp_rows"
 MAX_FREQS = 20  # posenc frequencies, x or v (the JAX kernel's 128 lanes)
@@ -312,8 +314,9 @@ def rows_tile(field, device: int) -> int:
 def general_rows_cuda(field, params: dict, rays_o, rays_d, view_dirs,
                       z_vals, sigma_only: bool) -> torch.Tensor:
     """Launch `csrc/fused_mlp_rows.cu` on the current stream, for any trunk
-    of `supports_fused` (the route sends it the widths above 512; a caller
-    may time it on any other). Inputs as `fused_rows_cuda` takes them."""
+    of `supports_fused` (the route sends it the widths above TC_MAX_WIDTH;
+    a caller may time it on any other). Inputs as `fused_rows_cuda` takes
+    them."""
     check_forward_call(params, (rays_o, rays_d, view_dirs, z_vals), "rows")
     rows_route(field)  # raises outside supports_fused
     n, s = z_vals.shape

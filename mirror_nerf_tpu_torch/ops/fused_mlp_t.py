@@ -116,8 +116,8 @@ def stream_layout(pe: int, dpe: int, has_n: bool, has_m: bool,
     (name, leaf, K rows, N) per layer, the leaf an index into `_leaves` and
     K rows the leaf's row each packed row reads (None: a zero row). Rows
     fed by a hidden layer's accumulators are in `c_order`; posenc rows in
-    their own order, padded to 8. The default trunk is the one
-    `csrc/fused_mlp_t.cu` takes (its `net_offsets`); any other is
+    their own order, padded to 8. The default trunk's is the one
+    `csrc/fused_mlp_t.cu` takes (its `net_offsets`); every trunk's is
     `csrc/fused_mlp_rows_tc.cu`'s (through `stream_plan`)."""
     h = c_order(width)
     pe_rows = list(range(pe)) + [None] * (_pad(pe, 8) - pe)
@@ -136,6 +136,40 @@ def stream_layout(pe: int, dpe: int, has_n: bool, has_m: bool,
                    h + [width + j for j in range(dpe)]
                    + [None] * (_pad(dpe, 8) - dpe), width // 2))
     return layers
+
+
+CTA_PARTS = 8  # 64-column parts a CTA of csrc/fused_mlp_rows_tc.cu holds
+
+
+def cluster_ctas(width: int) -> int:
+    """C, the CTAs of `csrc/fused_mlp_rows_tc.cu`'s cluster instance that
+    split a layer's columns at this width (its `wide_shape`): 1 up to 512
+    (one CTA holds every column); above, the fewest of 2, 4 and 8 that
+    hold at most 6 of its 64-column parts each, else 8 (at most
+    `CTA_PARTS` each up to width 4096)."""
+    parts = width // 64
+    if width <= 512:
+        return 1
+    return 2 if parts <= 12 else (4 if parts <= 24 else 8)
+
+
+def cta_parts(n: int, ctas: int) -> list:
+    """The 64-column parts of a layer of n columns that each of `ctas` CTAs
+    holds, CTA c the parts q ≡ c (mod ctas), in order."""
+    return [list(range(c, n // 64, ctas)) for c in range(ctas)]
+
+
+def stage_order(n: int, ctas: int) -> np.ndarray:
+    """The order of a k-step's 16·n floats in the packed buffer: for one
+    CTA the hi plane's n rows then the lo plane's (8 floats a row); split
+    across `ctas` CTAs, CTA after CTA, each its parts' rows of the hi
+    plane, then of the lo plane (a part 64 rows), so that each CTA's share
+    of a stage is one run."""
+    if ctas == 1:
+        return np.arange(16 * n)
+    return np.concatenate([8 * n * plane + 512 * q + np.arange(512)
+                           for parts in cta_parts(n, ctas)
+                           for plane in (0, 1) for q in parts])
 
 
 def _raw_leaves(has_n: bool, has_m: bool, depth: int = DEPTH) -> list:
@@ -162,9 +196,11 @@ def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
     (fp32 as it is). A streamed layer of K rows and N columns is K/8
     k-steps of [hi plane, lo plane], a plane N rows of 8 K values, K-major,
     in the 32-byte swizzle: the 16-B half h of row n holds K values
-    4(h ^ (n/4 mod 2)) … + 3 of the k-step."""
+    4(h ^ (n/4 mod 2)) … + 3 of the k-step. Wider than 512 each k-step's
+    rows are in `stage_order`, each CTA's [hi, lo] parts one run."""
     offs = np.cumsum([0] + [int(np.prod(s)) for s in shapes])
     zero = int(offs[-1])
+    ctas = cluster_ctas(width)
     idx, kind = [], []
     for _, leaf, rows, n in stream_layout(pe, dpe, has_n, has_m, width,
                                           depth, skips):
@@ -174,8 +210,10 @@ def pack_index(shapes: list, pe: int, dpe: int, has_n: bool,
         src = np.array([-1 if r is None else r for r in rows]).reshape(
             -1, 8)[:, k]
         plane = np.where(src >= 0, offs[leaf] + src * n + col, zero)
-        idx.append(np.stack([plane, plane], 1).reshape(-1))
-        kind.append(np.tile(np.repeat([0, 1], 8 * n), len(rows) // 8))
+        order = stage_order(n, ctas)
+        idx.append(np.stack([plane, plane], 1).reshape(
+            len(rows) // 8, -1)[:, order].reshape(-1))
+        kind.append(np.tile(np.repeat([0, 1], 8 * n)[order], len(rows) // 8))
     for leaf in _raw_leaves(has_n, has_m, depth):
         size = int(np.prod(shapes[leaf]))
         idx.append(np.concatenate([offs[leaf] + np.arange(size),
@@ -191,7 +229,9 @@ def stream_plan(params: dict) -> tuple:
     `stream_layout` (float offset, k-steps, N, its bias's float offset),
     then the float offsets of σ's w and b, rgb's w and b, the normal's
     second w and b and the mirror's (−1 for a head the field lacks);
-    `floats` is the buffer's length."""
+    `floats` is the buffer's length. Wider than 512 the kernel's CTA c of
+    C = `cluster_ctas(width)` reads its parts (`cta_parts(N, C)[c]`) of
+    each k-step, a run after those of the CTAs before it (`stage_order`)."""
     width, depth, skips, pe, dpe, has_n, has_m = trunk_spec(params)
     shapes = [tuple(leaf.shape) for leaf in _leaves(params)]
     plan, at, streamed = [], 0, []
@@ -242,12 +282,12 @@ def _pack(params: dict) -> torch.Tensor:
 # the entry's arguments before the card and the stream (_build.Library):
 # rays_o, rays_d, view_dirs, z_vals, nets, n_nets, n_rays, n_samples,
 # n_emb_xyz, n_emb_dir, has_normal, has_mirror, sigma_only, softplus,
-# rows_mode, weights, per_ray, rows
+# weights, per_ray
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F32 = (torch.float32,)
 _library = Library(_LIB, {"mnerf_fused_mlp_t": [
     _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I,
-    _I, _P, _P, _P]}, _REFUSALS)
+    _P, _P]}, _REFUSALS)
 
 
 def check_forward_call(params: dict, inputs, what: str) -> None:
@@ -281,11 +321,11 @@ def check_kernel_call(field, params: dict, inputs, sigma_act: str,
 
 
 def launch_kernel(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
-                  sigma_only: bool, softplus: bool, rows_mode: bool,
-                  weights=None, per_ray=None, rows=None) -> None:
+                  sigma_only: bool, softplus: bool, weights,
+                  per_ray=None) -> None:
     """One launch of `csrc/fused_mlp_t.cu` on the current stream, on checked
-    inputs and allocated outputs: composite mode writes weights and per_ray,
-    rows mode rows. Raises on a refusal or a failed launch."""
+    inputs and allocated outputs: weights and, unless σ-only, per_ray.
+    Raises on a refusal or a failed launch."""
     n, s = z_vals.shape
     nets = _pack(params)
     dev = card_index("fused PE-MLP", ("z_vals", z_vals, _F32, 4),
@@ -300,7 +340,7 @@ def launch_kernel(field, params: dict, rays_o, rays_d, view_dirs, z_vals,
         z_vals.data_ptr(), nets.data_ptr(), nets.numel(), n, s,
         field.N_emb_xyz, field.N_emb_dir, int(field.predict_normal),
         int(field.predict_mirror_mask), int(sigma_only), int(softplus),
-        int(rows_mode), ptr(weights), ptr(per_ray), ptr(rows))
+        ptr(weights), ptr(per_ray))
 
 
 def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
@@ -321,8 +361,7 @@ def fused_t_composite_cuda(field, params: dict, rays_o, rays_d, view_dirs,
     if n == 0:
         return weights, per_ray
     launch_kernel(field, params, rays_o, rays_d, view_dirs, z_vals,
-                  sigma_only, sigma_act == "softplus", False, weights=weights,
-                  per_ray=per_ray)
+                  sigma_only, sigma_act == "softplus", weights, per_ray)
     launches += 1
     return weights, per_ray
 

@@ -41,7 +41,10 @@ and handed to both), a warm view each, then 3 rounds in turns. With
 `--groups flagship`: the flagship PE-MLP kernel at its main path's shapes
 (16384 strided rays of the 400×300 camera, the default field, seeded
 weights; 5 calls a round, best of 3): composite S = 128 full and S = 64
-σ-only, rows S = 128 full; then one 400×300 level-2 flagship view through
+σ-only, and the default trunk's rows through each tree's route, S = 128
+full and S = 64 σ-only (bit for bit: the rows kernel that took them over
+from the composite kernel's retired rows mode computes them the same
+way); then one 400×300 level-2 flagship view through
 each tree's `run_view` (chip_smoke.py phase 10's flags), seeded and
 all-mirror weights, as the CP view.
 With `--groups train`: the CP train kernels' tangent forward and tangent
@@ -284,7 +287,8 @@ def _flagship_groups(other: dict, n: int = 16384,
     """The flagship PE-MLP kernel at the main path's shapes (16384 strided
     rays of the 400×300 camera, the default field, seeded weights with the
     σ column |w|·5), both trees on the same inputs: composite S = 128 full
-    and S = 64 σ-only, rows S = 128 full."""
+    and S = 64 σ-only within the kernel's bar, the rows' route S = 128
+    full and S = 64 σ-only bit for bit."""
     from ..core.sampling import merge_fine_z_vals, stratified_z_vals
     from ..models.fields import MirrorNeRFField
 
@@ -308,9 +312,12 @@ def _flagship_groups(other: dict, n: int = 16384,
         "flagship_s64_sigma": lambda m, _: cat(m.fused_t_rays_composite(
             field, p, o, d, d, z64, sigma_only=True)),
         "flagship_rows_s128": lambda _, r: r.fused_rays_eval(
-            field, p, o, d, d, z128)}
+            field, p, o, d, d, z128),
+        "flagship_rows_s64_sigma": lambda _, r: r.fused_rays_eval(
+            field, p, o, d, d, z64, sigma_only=True)}
     return {name: ({"this": lambda c=c: c(fused_mlp_t, fused_mlp),
-                    "other": lambda c=c: c(om, omr)}, KERNEL_BAR)
+                    "other": lambda c=c: c(om, omr)},
+                   0.0 if "rows" in name else KERNEL_BAR)
             for name, c in calls.items()}
 
 

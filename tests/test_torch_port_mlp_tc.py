@@ -20,10 +20,12 @@
 
 and, on a machine with a card only: every instance and mode against its
 plain version at S ∈ {1, 16, 17, 64, 80, 128, 192, 256} and 1, 37 and
-16384 rays, HGMMA in every instance's SASS, a build with one TF32 product
-in place of three outside the 1e-4 bar that the kernel meets, and one
-that sums whole layers on the tensor cores outside the 1e-7 σ-bias bar
-that the kernel's fp32 chunk sums meet."""
+16384 rays (the rows through their route, csrc/fused_mlp_rows_tc.cu,
+which took over the rows of this trunk), HGMMA in every instance's SASS,
+a build with one TF32 product in place of three outside the 1e-4 bar that
+the kernel meets, and a build of the rows kernel that sums whole layers
+on the tensor cores outside the 1e-7 σ-bias bar that the fp32 chunk sums
+of both kernels meet."""
 
 import jax
 import numpy as np
@@ -37,7 +39,7 @@ from mirror_nerf_tpu.ops.pallas.fused_mlp_t import fused_t_rays_eval
 from mirror_nerf_tpu_torch.models.embedding import posenc
 from mirror_nerf_tpu_torch.models.fields import MirrorNeRFField as TorchField
 from mirror_nerf_tpu_torch.ops import _build, fused_cp, fused_mlp, fused_mlp_t
-from mirror_nerf_tpu_torch.tools import exp_mlp_diag
+from mirror_nerf_tpu_torch.tools import exp_mlp_diag, exp_rows_tc_diag
 from mirror_nerf_tpu_torch.train.checkpoints import params_from_numpy
 
 # the emulation sums each product in float64 and rounds each layer to fp32,
@@ -404,7 +406,8 @@ def _every_mode(field, params, o, d, z, modes=("composite", "rows")):
                                   field, params, o, d, d, z, so, act)))
     if "rows" in modes:
         for so in (False, True):
-            cases.append((f"rows so={so}", fused_mlp, "launches_rays",
+            cases.append((f"rows so={so}", fused_mlp,
+                          "launches_general_rays",
                           lambda so=so: {"rows": fused_mlp.fused_rays_eval(
                               field, params, o, d, d, z, so)},
                           lambda so=so: {"rows": fused_mlp.
@@ -470,7 +473,7 @@ def test_cuda_kernel_runs_on_wgmma():
     sass = _build.sass_counts(_build.library_path(fused_mlp_t._LIB),
                               "mlp_field_kernel",
                               opcodes=("HGMMA", "FFMA", "LDS", "LDL", "STL"))
-    assert len(sass) == 15, list(sass)
+    assert len(sass) == 10, list(sass)
     for name, counts in sass.items():
         assert counts["HGMMA"] > 0, name
 
@@ -491,12 +494,15 @@ def test_cuda_single_pass_tf32_misses_the_bar():
 @pytest.mark.gpu
 def test_cuda_fp32_chunk_sums_remove_the_truncation_bias():
     """The tensor cores' fp32 sums truncate toward zero: summed over whole
-    layers (the diagnosis tool's `layer_sums` build) raw σ comes out biased
-    by more than 1e-7 of its scale against a float64 plain version, where
-    the kernel's fp32 chunk sums stay within 1e-7 (chip_smoke.py phase 11
-    asserts the same bar)."""
+    layers (the rows diagnosis tool's `layer_sums` build, the default
+    trunk's rows route) raw σ comes out biased by more than 1e-7 of its
+    scale against a float64 plain version, where the kernel's fp32 chunk
+    sums stay within 1e-7 (chip_smoke.py phase 11 asserts the same bar),
+    on phase 23's weights (seeded, the σ column |w|·5)."""
     _needs_card()
-    fns = {k: v[0] for k, v in exp_mlp_diag.builds(["layer_sums"]).items()}
-    bias = exp_mlp_diag.sigma_bias(fns)
+    fns = {k: v[0] for k, v in
+           exp_rows_tc_diag.builds(["layer_sums"]).items()}
+    bias = exp_rows_tc_diag.sigma_lean(fns, ["default"])[
+        "phase 23", "default"]
     print(f"mean signed, max abs error of raw σ: {bias}")
     assert abs(bias["real"][0]) <= 1e-7 < abs(bias["layer_sums"][0]), bias

@@ -378,13 +378,15 @@ def test_mlp_cpu_dispatch_and_refusals(mlp_params):
     tf = TorchMLP()
     pt = params_from_numpy(mlp_params["both_heads"])
     o, d, z = _torch(*_rays(2, 8, seed=7))
-    before = (fused_mlp.launches_rays, fused_mlp.launches_points)
+    before = (fused_mlp.launches_general_rays,
+              fused_mlp.launches_general_points)
     rows = fused_mlp.fused_rays_eval(tf, pt, o, d, d, z)
     xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
     ref = fused_mlp.mlp_rows_reference(tf, pt, xyz, d.repeat_interleave(8, 0))
     assert torch.equal(rows, ref)
     fused_mlp.fused_packed_eval(tf, pt, xyz, sigma_only=True)
-    assert (fused_mlp.launches_rays, fused_mlp.launches_points) == before
+    assert (fused_mlp.launches_general_rays,
+            fused_mlp.launches_general_points) == before
     with pytest.raises(ValueError, match="view dirs"):
         fused_mlp.fused_packed_eval(tf, pt, xyz)
     with pytest.raises(ValueError, match="no fused PE-MLP rows path"):
@@ -478,12 +480,12 @@ def test_cuda_mlp_rows_match_plain(mlp_params, sigma_only, n_samples,
                                             seed=n_samples, scale=1.0,
                                             z_max=4.0))]
     args.insert(2, args[1])
-    before = fused_mlp.launches_rays
+    before = fused_mlp.launches_general_rays
     with torch.no_grad():
         got = fused_mlp.fused_rays_eval(tf, pt, *args,
                                         sigma_only=sigma_only)
         torch.cuda.synchronize()
-        assert fused_mlp.launches_rays == before + 1
+        assert fused_mlp.launches_general_rays == before + 1
         o, d, _, z = args
         xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
         ref = fused_mlp.mlp_rows_reference(
@@ -525,11 +527,11 @@ def test_cuda_mlp_points_match_plain(mlp_params, sigma_only, n_points):
     dirs = torch.nn.functional.normalize(
         torch.from_numpy(rng.normal(size=(n_points, 3)).astype(
             np.float32)).cuda(), dim=-1)
-    before = fused_mlp.launches_points
+    before = fused_mlp.launches_general_points
     with torch.no_grad():
         got = fused_mlp.fused_packed_eval(tf, pt, xyz, dirs,
                                           sigma_only=sigma_only)
         torch.cuda.synchronize()
-        assert fused_mlp.launches_points == before + 1
+        assert fused_mlp.launches_general_points == before + 1
         ref = fused_mlp.mlp_rows_reference(tf, pt, xyz, dirs, sigma_only)
     _cuda_close({"rows": got}, {"rows": ref}, "mlp points")

@@ -1,28 +1,32 @@
 """Port parity, the PE-MLP rows kernel on the tensor cores for every trunk
-but the default one (`csrc/fused_mlp_rows_tc.cu`, 3×TF32 `wgmma`, depth and
-skips at run time):
+up to width 4096 (`csrc/fused_mlp_rows_tc.cu`, 3×TF32 `wgmma`, depth and
+skips at run time; wider than 512 its cluster instance, C CTAs (2, 4 or
+8) splitting each layer's columns):
 
   * the packed buffer (`fused_mlp_t._pack`, generalised to the field's own
     trunk) and its plan (`fused_mlp_t.stream_plan`): every streamed layer
     at the plan's offset as K/8 k-steps of TF32 hi and lo planes in the
     32-byte swizzle, hi exactly TF32, hi + lo the fp32 weight in the packed
     row order (`c_order` for rows fed by a hidden layer, posenc rows first
-    in a skip layer), zero pad rows, every fp32 leaf at its offset;
+    in a skip layer), zero pad rows, every fp32 leaf at its offset; wider
+    than 512 each k-step read back as the cluster's CTAs read it, one run
+    of [hi, lo] planes of its parts a CTA (`cta_parts`, `stage_order`),
+    every column owned by exactly one CTA;
   * those planes multiplied in the kernel's order (a_lo·b_hi + a_hi·b_lo +
     a_hi·b_hi, the tensor cores' sums two k-steps long and added in fp32,
-    A in the K order the kernel feeds) reproduce the plain version and the
-    JAX field modules at 1e-5, on seeded and on saturating σ;
+    A in the K order the kernel feeds; in a cluster each CTA its parts'
+    columns, A gathered from the CTAs' parks) reproduce the plain version
+    and the JAX field modules at 1e-5, on seeded and on saturating σ;
   * the route each trunk takes (`fused_mlp.rows_route`), and the refusal
     outside the range;
 
-and, on a machine with a card only: each trunk (widths 128, 256, 384, 512;
-the skip sets of the spec-range tests) in rays mode, full and σ-only, and
-in points mode against the plain version at 1e-4 scaled above 1, a trunk
-wider than 512 on the fp32 kernel likewise, HGMMA in every instance's
-SASS, raw σ's signed mean error against a float64 plain version within
-1e-7 of its scale on phase 23's weights, and within 2⁻²⁴ a layer on
-He-scaled ones (the tuned kernel's, bit for bit, on the default
-trunk)."""
+and, on a machine with a card only: each trunk (widths 128, 256, 384, 512,
+640, 1408; the skip sets of the spec-range tests) in rays mode, full and
+σ-only, and in points mode against the plain version at 1e-4 scaled above
+1, a trunk wider than 4096 on the fp32 kernel likewise, HGMMA in every
+instance's SASS, raw σ's signed mean error against a float64 plain
+version within 1e-7 of its scale on phase 23's weights, and within 2⁻²⁴ a
+layer on He-scaled ones."""
 
 import numpy as np
 import pytest
@@ -37,9 +41,12 @@ from mirror_nerf_tpu_torch.train.checkpoints import _map, params_from_numpy
 from test_torch_port_spec_range import (TRUNKS, _close, _field_rows, _rays,
                                         _t, _trunk_params)
 
-# the trunks of this file: the spec-range tests' and a width-512 one
+# the trunks of this file: the spec-range tests', a width-512 one and two
+# of the cluster instance (C = 2, and C = 4 with parts split 6/6/5/5)
 TC_TRUNKS = {**TRUNKS,
-             "w512_d3_s2": dict(width=512, depth=3, skips=(2,))}
+             "w512_d3_s2": dict(width=512, depth=3, skips=(2,)),
+             "w640_d2": dict(width=640, depth=2, skips=()),
+             "w1408_d1": dict(width=1408, depth=1, skips=())}
 # the emulation sums each chunk in float64 and rounds it to fp32, the plain
 # version runs fp32: summation order through a few layers only
 ATOL = 1e-5
@@ -69,18 +76,50 @@ def _unswizzle(c: torch.Tensor, n: int):
                  for i in (0, 1))
 
 
+def cta_runs(step: torch.Tensor, n: int, ctas: int) -> list:
+    """A k-step's 16·n packed floats as the kernel's CTAs read them: CTA
+    c's run, (hi, lo) planes of its parts' rows, (64·parts, 8) each."""
+    runs, at = [], 0
+    for parts in fused_mlp_t.cta_parts(n, ctas):
+        size = 512 * len(parts)
+        runs.append((step[at:at + size].reshape(-1, 8),
+                     step[at + size:at + 2 * size].reshape(-1, 8)))
+        at += 2 * size
+    assert at == step.numel() == 16 * n
+    return runs
+
+
+def reassemble(step: torch.Tensor, n: int, ctas: int) -> torch.Tensor:
+    """A k-step's (2, n, 8) [hi, lo] planes from the CTAs' runs and their
+    part lists: each part's 64 rows back at rows 64q …; every column owned
+    by exactly one CTA."""
+    planes = step.new_zeros((2, n, 8))
+    owned = [0] * (n // 64)
+    for (hi, lo), parts in zip(cta_runs(step, n, ctas),
+                               fused_mlp_t.cta_parts(n, ctas)):
+        for i, q in enumerate(parts):
+            planes[0, 64 * q:64 * q + 64] = hi[64 * i:64 * i + 64]
+            planes[1, 64 * q:64 * q + 64] = lo[64 * i:64 * i + 64]
+            owned[q] += 1
+    assert owned == [1] * (n // 64), owned
+    return planes
+
+
 def read_plan(params: dict, nets: torch.Tensor):
     """The packed buffer read as the kernel reads it through the plan:
-    [(hi, lo, bias)] per streamed layer in stream order, and the heads'
-    fp32 leaves by name (None for a head the field lacks)."""
+    [(hi, lo, bias)] per streamed layer in stream order (each k-step
+    reassembled from its CTAs' runs), and the heads' fp32 leaves by name
+    (None for a head the field lacks)."""
     plan, _ = fused_mlp_t.stream_plan(params)
     width, depth, _, _, _, has_n, has_m = fused_mlp_t.trunk_spec(params)
+    ctas = fused_mlp_t.cluster_ctas(width)
     nl = depth + has_n + has_m + 2
     layers = []
     for i in range(nl):
         off, ks, n, bias = plan[4 * i:4 * i + 4]
-        hi, lo = _unswizzle(nets[off:off + ks * 16 * n].reshape(ks, 2, n, 8),
-                            n)
+        steps = nets[off:off + ks * 16 * n].reshape(ks, 16 * n)
+        hi, lo = _unswizzle(torch.stack([reassemble(st, n, ctas)
+                                         for st in steps]), n)
         layers.append((hi, lo, nets[bias:bias + n]))
     sizes = {"sw": (width, 1), "sb": (1,), "rw": (width // 2, 3),
              "rb": (3,), "n1w": (width // 2, 3), "n1b": (3,),
@@ -90,6 +129,29 @@ def read_plan(params: dict, nets: torch.Tensor):
         heads[name] = None if off < 0 else nets[
             off:off + int(np.prod(shape))].reshape(shape)
     return layers, heads
+
+
+@pytest.mark.parametrize("width", [640, 1408, 4096])
+def test_cluster_packs_reassemble_each_layer(width):
+    """Wider than 512, C CTAs (2, 4 or 8: clusters of 4, 8 or 16) split
+    each layer's 64-column parts, CTA c the parts q ≡ c (mod C), at most
+    6 a CTA where 8 CTAs allow it and 8 at the limit (640: 5/5; 1408:
+    6/6/5/5; 4096: 8 × 8); a k-step of the trunk's width and of the heads'
+    half width, packed in `stage_order`, comes back whole from the C
+    per-CTA runs and the part lists, every column owned once (at the
+    limit on a k-step of indices: the whole trunk's buffer is ~10⁸
+    floats)."""
+    ctas = fused_mlp_t.cluster_ctas(width)
+    counts = [len(p) for p in fused_mlp_t.cta_parts(width, ctas)]
+    assert sum(counts) == width // 64
+    assert counts == {640: [5, 5], 1408: [6, 6, 5, 5],
+                      4096: [8] * 8}[width]
+    assert max(counts) <= fused_mlp_t.CTA_PARTS
+    for n in (width, width // 2):
+        want = torch.arange(16 * n, dtype=torch.float64)
+        order = torch.from_numpy(fused_mlp_t.stage_order(n, ctas))
+        got = reassemble(want[order], n, ctas)
+        assert torch.equal(got.reshape(-1), want), n
 
 
 @pytest.mark.parametrize("trunk", sorted(TC_TRUNKS))
@@ -167,40 +229,76 @@ def _pad_cols(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([a, a.new_zeros(a.shape[0], pad)], 1) if pad else a
 
 
+def _cluster_mm3(a: torch.Tensor, layer, ctas: int) -> torch.Tensor:
+    """`_mm3_chunks` as a cluster runs it: each CTA its parts' columns, the
+    CTAs' outputs placed at their columns."""
+    hi, lo, bias = layer
+    out = a.new_zeros((a.shape[0], hi.shape[1]), dtype=torch.float32)
+    for parts in fused_mlp_t.cta_parts(hi.shape[1], ctas):
+        cols = torch.tensor([64 * q + j for q in parts for j in range(64)],
+                            dtype=torch.long)
+        out[:, cols] = _mm3_chunks(a, (hi[:, cols], lo[:, cols], bias))
+    return out
+
+
+def _from_parks(h: torch.Tensor, ctas: int) -> torch.Tensor:
+    """A layer's activations (B, W), already in `c_order`, as the next
+    layer's A: each CTA parks its parts (part slot l = its l-th), and
+    k-tile kt comes from the park of CTA (kt/8) mod C at slot (kt/8) / C."""
+    parts = fused_mlp_t.cta_parts(h.shape[1], ctas)
+    parks = [torch.cat([h[:, 64 * q:64 * q + 64] for q in p], 1)
+             for p in parts]
+    tiles = []
+    for kt in range(h.shape[1] // 8):
+        q = kt // 8
+        at = 64 * (q // ctas) + 8 * (kt % 8)
+        tiles.append(parks[q % ctas][:, at:at + 8])
+    return torch.cat(tiles, 1)
+
+
 def kernel_order_rows_tc(field, params: dict, xyz, dirs) -> torch.Tensor:
     """The (B, 8) rows from the buffer and plan the wrapper hands the
     kernel, in the kernel's order: the trunk through the plan's layers
     (a skip layer is one with more K rows than the width: posenc rows
-    first), the heads' dots in fp32, 0 for a head the field lacks."""
+    first), each layer's columns split across the cluster's CTAs and its
+    A gathered from their parks (one CTA up to width 512), the heads'
+    dots in fp32, 0 for a head the field lacks."""
     layers, heads = read_plan(params, fused_mlp_t._pack(params))
     w, depth = field.width, field.depth
+    ctas = fused_mlp_t.cluster_ctas(w)
     order = fused_cp.c_order(w)
+
+    def mm3(a, layer):
+        return _cluster_mm3(a, layer, ctas)
+
+    def park(x):
+        return _from_parks(x[:, order], ctas)
+
     pe = _pad_cols(posenc(xyz, field.N_emb_xyz))
-    h = torch.relu(_mm3_chunks(pe, layers[0]) + layers[0][2])
+    h = torch.relu(mm3(pe, layers[0]) + layers[0][2])
     for i in range(1, depth):
-        a = h[:, order]
+        a = park(h)
         if layers[i][0].shape[0] != w:
             a = torch.cat([pe, a], 1)
-        h = torch.relu(_mm3_chunks(a, layers[i]) + layers[i][2])
+        h = torch.relu(mm3(a, layers[i]) + layers[i][2])
     b = xyz.shape[0]
     out = torch.zeros((b, 8))
     out[:, :1] = h @ heads["sw"] + heads["sb"]
-    hc, l = h[:, order], depth
+    hc, l = park(h), depth
     if field.predict_normal:
-        n = (_mm3_chunks(hc, layers[l]) + layers[l][2]) @ heads["n1w"] \
+        n = (mm3(hc, layers[l]) + layers[l][2]) @ heads["n1w"] \
             + heads["n1b"]
         out[:, 4:7] = n * torch.rsqrt(
             (n * n).sum(-1, keepdim=True).clamp_min(1.1920929e-07))
         l += 1
     if field.predict_mirror_mask:
-        m = _mm3_chunks(hc, layers[l]) + layers[l][2]
+        m = mm3(hc, layers[l]) + layers[l][2]
         m = torch.where(m >= 0, m, 0.01 * m)
         out[:, 7:] = torch.sigmoid(m @ heads["m1w"] + heads["m1b"])
         l += 1
-    xf = _mm3_chunks(hc, layers[l]) + layers[l][2]
-    a = torch.cat([xf[:, order], _pad_cols(posenc(dirs, field.N_emb_dir))],
-                  1)
-    y = torch.relu(_mm3_chunks(a, layers[l + 1]) + layers[l + 1][2])
+    xf = mm3(hc, layers[l]) + layers[l][2]
+    a = torch.cat([park(xf), _pad_cols(posenc(dirs, field.N_emb_dir))], 1)
+    y = torch.relu(mm3(a, layers[l + 1]) + layers[l + 1][2])
     out[:, 1:4] = torch.sigmoid(y @ heads["rw"] + heads["rb"])
     return out
 
@@ -233,23 +331,27 @@ def test_kernel_order_reproduces_rows(trunk, sigma_scale):
 
 
 def test_rows_route_by_spec():
-    """One route a trunk, by spec: the default trunk the tuned kernel,
-    every other of width ≤ 512 the tensor-core kernel, wider ones the fp32
+    """One route a trunk, by spec: every trunk up to the limit (4096), the
+    default one included, the tensor-core kernel, wider ones the fp32
     kernel; outside `supports_fused` a refusal naming the range."""
+    limit = fused_mlp.TC_MAX_WIDTH
+    assert limit == 4096
     want = {**{k: "fused_mlp_rows_tc" for k in TC_TRUNKS},
-            "default": "fused_mlp_t",
+            "default": "fused_mlp_rows_tc",
             "w256_d4": "fused_mlp_rows_tc",
             "w256_d8_s3": "fused_mlp_rows_tc",
-            "w640_d2": "fused_mlp_rows",
-            "w1024_d1": "fused_mlp_rows"}
+            "w1024_d1": "fused_mlp_rows_tc",
+            "w4096_d1": "fused_mlp_rows_tc",
+            "w4224_d1": "fused_mlp_rows"}
     kws = {**TC_TRUNKS, "default": {}, "w256_d4": dict(depth=4),
            "w256_d8_s3": dict(skips=(3,)),
-           "w640_d2": dict(width=640, depth=2, skips=()),
-           "w1024_d1": dict(width=1024, depth=1, skips=())}
+           "w1024_d1": dict(width=1024, depth=1, skips=()),
+           "w4096_d1": dict(width=4096, depth=1, skips=()),
+           "w4224_d1": dict(width=4224, depth=1, skips=())}
     for name, kw in kws.items():
         tf = TorchField(**kw)
         assert fused_mlp.rows_route(tf) == want[name], name
-        assert tf.supports_fused_tc == (tf.width <= 512), name
+        assert tf.supports_fused_tc == (tf.width <= limit), name
     for kw in (dict(width=200), dict(width=256, depth=0),
                dict(N_emb_xyz=21), dict(N_emb_dir=21)):
         tf = TorchField(**kw)
@@ -322,10 +424,10 @@ def test_cuda_tc_rows_match_plain(trunk):
 
 @pytest.mark.gpu
 def test_cuda_wide_trunk_takes_the_fp32_kernel():
-    """A trunk wider than 512 takes the fp32 kernel (its own counters),
-    within 1e-4 of the plain version."""
+    """A trunk wider than the tensor-core kernel's limit (4096) takes the
+    fp32 kernel (its own counters), within 1e-4 of the plain version."""
     _needs_card()
-    kw = dict(width=640, depth=2, skips=())
+    kw = dict(width=4224, depth=1, skips=())
     tf = TorchField(**kw)
     pt = params_from_numpy(_params(kw, 5.0, seed=8), device="cuda")
     o, d, z = (t.cuda() for t in _t(*_rays(37, 17, seed=9)))
@@ -333,21 +435,22 @@ def test_cuda_wide_trunk_takes_the_fp32_kernel():
     with torch.no_grad():
         got = fused_mlp.fused_rays_eval(tf, pt, o, d, d, z)
         ref = fused_mlp.mlp_rays_rows_reference(tf, pt, o, d, d, z)
-    _close(got.cpu().numpy(), ref.cpu().numpy(), 1e-4, "w640")
+    _close(got.cpu().numpy(), ref.cpu().numpy(), 1e-4, "w4224")
     assert (fused_mlp.launches_wide_rays,
             fused_mlp.launches_general_rays) == (n0[0] + 1, n0[1])
 
 
 @pytest.mark.gpu
 def test_cuda_tc_kernel_runs_on_wgmma():
-    """Every width instance of the kernel holds HGMMA (wgmma) in its SASS
-    (cuobjdump of the library the wrapper loaded)."""
+    """Every instance of the kernel, the four widths' and the cluster
+    instance's two, holds HGMMA (wgmma) in its SASS (cuobjdump of the
+    library the wrapper loaded)."""
     _needs_card()
     fused_mlp._tc_library()
     sass = _build.sass_counts(_build.library_path(fused_mlp._TC_LIB),
-                              "mlp_rows_tc_kernel",
+                              "mlp_rows_",
                               opcodes=("HGMMA", "FFMA", "LDL", "STL"))
-    assert len(sass) == len(fused_mlp.TC_WIDTHS), list(sass)
+    assert len(sass) == len(fused_mlp.TC_WIDTHS) + 2, list(sass)
     for name, counts in sass.items():
         assert counts["HGMMA"] > 0, name
 
@@ -370,7 +473,8 @@ def _tc_sigma(tf, pt, o, d, z):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("trunk", ["w128_d6_s24", "w512_d8_s4"])
+@pytest.mark.parametrize("trunk", ["w128_d6_s24", "w512_d8_s4", "w640_d2",
+                                   "w1408_d1"])
 def test_cuda_tc_sigma_lean_within_1e7(trunk):
     """chip_smoke.py phase 23's weights (the init, the σ column |w|·5, the
     mirror bias +5): raw σ's mean signed error against a float64 plain
@@ -398,8 +502,7 @@ def test_cuda_tc_sigma_lean_per_layer(trunk):
     output by about half an ulp of itself, so raw σ leans by that times
     the depth, in the tuned kernel as here (~2e-8 a layer). Held within
     2⁻²⁴ a layer: a sum left running over a whole layer leans an order
-    more. On the default trunk this kernel's σ is the tuned kernel's, bit
-    for bit."""
+    more."""
     _needs_card()
     kw = CARD_TRUNKS[trunk]
     tf = TorchField(**kw)
@@ -410,12 +513,6 @@ def test_cuda_tc_sigma_lean_per_layer(trunk):
           f"({mean / tf.depth:+.3e} a layer), max {worst:.3e}")
     assert abs(mean) / tf.depth <= 2.0 ** -24 and worst <= 1e-4, (mean,
                                                                   worst)
-    default = TorchField()
-    pd = params_from_numpy(_params({}, 5.0, seed=10), device="cuda")
-    with torch.no_grad():
-        assert torch.equal(
-            _tc_sigma(default, pd, o, d, z),
-            fused_mlp.fused_rows_cuda(default, pd, o, d, None, z, True))
 
 
 @pytest.mark.parametrize("variant", sorted(exp_rows_tc_diag.PATCHES))
@@ -440,7 +537,7 @@ def test_tc_wrapper_refuses_params_of_another_trunk():
     """Before a launch the wrapper holds the params' trunk (`trunk_spec`)
     to the field's: another width, depth, skip set, posenc or head set
     raises (the kernel would read the plan past the field's instance); a
-    width above 512 is refused by name."""
+    width above the limit (4096) is refused by name."""
     kw = TC_TRUNKS["w128_d6_s24"]
     tf = TorchField(**kw)
     fused_mlp.check_tc_spec(tf, params_from_numpy(_params(kw, 5.0)))
@@ -450,6 +547,6 @@ def test_tc_wrapper_refuses_params_of_another_trunk():
         pt = params_from_numpy(_params(other, 5.0))
         with pytest.raises(ValueError, match="not the field's"):
             fused_mlp.check_tc_spec(tf, pt)
-    wide = TorchField(width=640, depth=1, skips=())
-    with pytest.raises(ValueError, match="supports_fused_tc"):
-        fused_mlp.check_tc_spec(wide, wide.init())
+    wide = TorchField(width=4224, depth=1, skips=())
+    with pytest.raises(ValueError, match="limit 4096"):
+        fused_mlp.check_tc_spec(wide, None)  # refused before its params

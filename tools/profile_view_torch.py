@@ -127,7 +127,8 @@ def main(argv=None) -> int:
         if ngp:
             return hashgrid.launches_encode
         if nerf:
-            return fused_mlp.launches_rays if noisy else fused_mlp_t.launches
+            return (fused_mlp.launches_general_rays if noisy
+                    else fused_mlp_t.launches)
         return fused_cp.launches_rows if noisy else fused_cp.launches
     w, h = (opt.cpu, opt.cpu) if opt.cpu else ((400, 300) if nerf
                                                else (800, 800))
