@@ -272,9 +272,7 @@ each fatal on failure:
      width-128 (depth 6, skips 2 and 4) flagship trunk: 16384 strided rays
      of the 400×300 camera at S = 128, full and σ-only, and 2,097,152
      points, within 1e-4 scaled above 1, times beside the 3×TF32 and the
-     fp32 CUDA-core bound, the plain route and the fp32 kernel
-     csrc/fused_mlp_rows.cu on the same inputs (a figure: that kernel is
-     the route of trunks wider than 4096 only); raw σ's signed mean error
+     fp32 CUDA-core bound and the plain route; raw σ's signed mean error
      against a float64 plain version within 1e-7 of its scale; its main
      path: each trunk's all-mirror seeded weights through a 400×300
      level-2 view by run_view with --fused_field, noise-free and with σ
@@ -288,12 +286,17 @@ each fatal on failure:
      of the plain version, seeded and saturating (σ ×2000), times beside
      the plain version and the bound, raw σ's lean within 1e-7; the
      width-640 trunk's main path, a 100×75 level-2 view and a 32³ σ grid,
-     counted likewise (the fp32 kernel never launched), the view on 1024
-     rays against the plain route within 1e-3. The fp32 kernel on its own
-     range: a width-4224 trunk (depth 1) on 64 rays × 128 and 4096
-     points within 1e-4, and its main path, a 16×12 level-2 view and an
-     8³ σ grid (the tensor-core kernel never launched), the view against
-     the plain route within 1e-3. The general ENCODE, BWD and
+     counted likewise (the layer-major kernel never launched), the view on
+     1024 rays against the plain route within 1e-3. The layer-major
+     3×TF32 `wgmma` kernel csrc/fused_mlp_layers.cu on its own range: a
+     width-4224 trunk (depth 1) on 64 rays × 128 (full and σ-only) and
+     4096 points within 1e-4, raw σ of each against float64 (mean signed
+     error within 1e-7), and its main path, a 16×12 level-2 view and an 8³
+     σ grid (the tensor-core kernel never launched), the view against the
+     plain route within 1e-3; ROADMAP [20]: a width-4096 trunk (depth 2)
+     on 256 rays × 128, full, through the cluster instance and through
+     the layer-major kernel, each within 1e-4 of the plain version, timed
+     in turns beside the bound. The general ENCODE, BWD and
      BWD2 (csrc/hashgrid_any.cu) against their plain versions for five
      specs of 16 levels × 2¹⁹ rows (2-d C 2, 3-d align_corners, 3-d
      smoothstep, 4-d C 4, 7-d C 1 at 8 levels): ENCODE on 2,097,152 points
@@ -319,6 +322,7 @@ power limit, and last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -453,9 +457,10 @@ def phase_build():
     mods = (fused_cp, fused_cp_train, fused_mlp_t, hashgrid, invoke_floor,
             segment_scan, table_mma)
     # and phase 23's three: the rows kernels for the other trunks (on the
-    # tensor cores, and fp32 above width 512) and the general ENCODE, BWD
-    # and BWD2
-    names = [m._LIB for m in mods] + [fused_mlp._TC_LIB, fused_mlp._ROWS_LIB,
+    # tensor cores up to width 4096, layer-major above) and the general
+    # ENCODE, BWD and BWD2
+    names = [m._LIB for m in mods] + [fused_mlp._TC_LIB,
+                                      fused_mlp._LAYERS_LIB,
                                       hashgrid._ANY_LIB]
     t0 = time.perf_counter()
     _build.build_libraries(names)
@@ -463,7 +468,7 @@ def phase_build():
         m._library()
     fused_hash._library()  # the fused NGP composite's entry, same library
     fused_mlp._tc_library()
-    fused_mlp._rows_library()
+    fused_mlp._layers_library()
     hashgrid._any_library()
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} "
         "s wall")
@@ -4793,9 +4798,12 @@ SPEC_TRUNKS = {"width 512": dict(width=512, depth=8, skips=(4,)),
 # the rays it is held on (the first also in its view and σ grid)
 SPEC_WIDE = {"width 640": (dict(width=640, depth=2, skips=()), 4096),
              "width 1408": (dict(width=1408, depth=2, skips=()), 1024)}
-# a trunk wider than the tensor-core kernel's limit: the fp32 rows kernel's
-# own range
-SPEC_FP32 = dict(width=4224, depth=1, skips=())
+# a trunk wider than the tensor-core kernel's limit: the layer-major rows
+# kernel's own range
+SPEC_LAYERS = dict(width=4224, depth=1, skips=())
+# the widest trunk the cluster instance takes (8 parts a CTA), timed
+# against the layer-major kernel (ROADMAP [20])
+SPEC_AT_4096 = dict(width=4096, depth=2, skips=())
 # phase 23's hash specs: get_encoder's defaults (16 levels, 2¹⁹ rows a
 # level at most, base 16, desired resolution 2048) with these changes
 SPEC_HASH = {"2-d, C 2": dict(input_dim=2),
@@ -4880,8 +4888,7 @@ def _spec_rows_kernel(torch, card: str) -> list:
     the route of SPEC_TRUNKS) against `mlp_rows_reference` on the card:
     each trunk on 16384 strided rays of the 400×300 camera at S = 128 (full
     and σ-only) and on 2,097,152 points (full), 1e-4 scaled above 1; times
-    beside the 3×TF32 and fp32 bounds, the plain route and PR 19's fp32
-    kernel (csrc/fused_mlp_rows.cu) on the same inputs; raw σ against a
+    beside the 3×TF32 and fp32 bounds and the plain route; raw σ against a
     float64 plain version. Returns the rays' and the points' entries (the
     width-512 trunk's numbers)."""
     from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
@@ -4901,8 +4908,7 @@ def _spec_rows_kernel(torch, card: str) -> list:
         field, params = _spec_field(torch, kw)
         p = params["fine"]
         assert fused_mlp.rows_route(field) == "fused_mlp_rows_tc", name
-        weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(
-            field, p)[0])
+        weights = _leaf_bytes(p)
         for sigma_only in (False, True):
             tag = (f"{name} rays, 16384 × 128, "
                    f"{'σ-only' if sigma_only else 'full'}")
@@ -4912,21 +4918,16 @@ def _spec_rows_kernel(torch, card: str) -> list:
                     field, p, o, d, d, z, sigma_only=sigma_only)),
                 lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
                     field, p, o, d, d, z, sigma_only=sigma_only)), card)
-            fp32_ms = _spec_fp32_ms(torch, lambda: fused_mlp.
-                                    general_rows_cuda(
-                                        field, p, o, d,
-                                        None if sigma_only else d, z,
-                                        sigma_only))
             n = z.numel()
             nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
                       + weights + n * 4 * (1 if sigma_only else 8))
             bound = _trunk_bound(field, n, sigma_only, nbytes)
-            _spec_rows_bound_log(tag, bound, ms, plain_ms, card, fp32_ms)
+            _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
             if name == "width 512" and not sigma_only:
                 entries.append(_spec_entry(
                     "PE-MLP rows, any trunk (rays)", "fused_mlp_rows_tc.cu",
                     "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 "
-                    "_kernel_rays", worst, ms, plain_ms, bound, fp32_ms))
+                    "_kernel_rays", worst, ms, plain_ms, bound))
         tag = f"{name} points, {SPEC_ENCODE_POINTS}, full"
         worst, ms, plain_ms = _spec_case(
             torch, tag,
@@ -4934,27 +4935,24 @@ def _spec_rows_kernel(torch, card: str) -> list:
                                                             dirs)),
             lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
                                                              dirs)), card)
-        zeros = torch.zeros_like(pts)
-        fp32_ms = _spec_fp32_ms(torch, lambda: fused_mlp.general_rows_cuda(
-            field, p, pts, zeros, dirs, zeros[:, :1].contiguous(), False))
         nbytes = _nbytes(pts, dirs) + weights + SPEC_ENCODE_POINTS * 32
         bound = _trunk_bound(field, SPEC_ENCODE_POINTS, False, nbytes)
-        _spec_rows_bound_log(tag, bound, ms, plain_ms, card, fp32_ms)
+        _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
         if name == "width 512":
             entries.append(_spec_entry(
                 "PE-MLP rows, any trunk (points)", "fused_mlp_rows_tc.cu",
                 "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst,
-                ms, plain_ms, bound, fp32_ms))
+                ms, plain_ms, bound))
         _spec_sigma_bias(torch, name, field, p, o[:4096], d[:4096],
                          z[:4096], card)
     return entries
 
 
-def _spec_fp32_ms(torch, fn) -> float:
-    """PR 19's fp32 rows kernel (csrc/fused_mlp_rows.cu) timed on a case's
-    inputs: a figure beside the kernel that replaced it on these trunks."""
-    with torch.no_grad():
-        return _time_ms(torch, fn, reps=2, warmup=1)
+def _leaf_bytes(p: dict) -> int:
+    """Bytes of a PE-MLP trunk's parameters in fp32, each read once."""
+    from mirror_nerf_tpu_torch.ops.fused_mlp_t import _leaves
+
+    return sum(t.numel() * 4 for t in _leaves(p))
 
 
 def _sigma_lean(torch, field, p: dict, o, d, z) -> dict:
@@ -4995,20 +4993,15 @@ def _spec_sigma_bias(torch, name: str, field, p: dict, o, d, z,
 
 
 def _spec_rows_bound_log(tag: str, bound: tuple, ms: float,
-                         plain_ms: float, card: str,
-                         fp32_ms: float = None) -> None:
-    beside = ("" if fp32_ms is None else f" and {fp32_ms / ms:.2f}× PR 19's "
-              f"fp32 kernel's ({fp32_ms:.3f} ms)")
+                         plain_ms: float, card: str) -> None:
     log(f"[spec-rows] {tag}: bound 3×TF32 {bound[0]:.3f} ms ({bound[1]}), "
         f"kernel at {bound[0] / ms * 100:.1f} % of it; fp32 CUDA cores "
         f"{bound[2]:.3f} ms, kernel at {bound[2] / ms * 100:.1f} %; the "
-        f"kernel at {plain_ms / ms:.2f}× the plain version's speed{beside} "
-        f"({card})")
+        f"kernel at {plain_ms / ms:.2f}× the plain version's speed ({card})")
 
 
 def _spec_entry(name: str, source: str, replaces: str, worst: float,
-                ms: float, plain_ms: float, bound: tuple,
-                fp32_ms: float = None) -> dict:
+                ms: float, plain_ms: float, bound: tuple) -> dict:
     entry = {"name": name, "route": "cuda",
              "source": f"mirror_nerf_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": 0, "max_abs_err": worst,
@@ -5016,8 +5009,6 @@ def _spec_entry(name: str, source: str, replaces: str, worst: float,
              "bound_by": bound[1], "library_ms": None}
     if len(bound) > 2:
         entry["bound_fp32_ms"] = bound[2]
-    if fp32_ms is not None:
-        entry["fp32_kernel_ms"] = fp32_ms
     return entry
 
 
@@ -5027,8 +5018,8 @@ def _spec_views(torch, card: str) -> tuple:
     through `run_view` with --fused_field (run.sh mode 1's nerf flags)
     noise-free and one with σ noise 1, and the width-512 trunk's σ grid at
     128³ through `query_sigma_grid`; the rows kernels' counters set to 0
-    just before and read just after (the composite, the tuned rows mode and
-    the fp32 kernel must not launch). Then, on 4096 strided rays, each view
+    just before and read just after (the composite and the layer-major
+    kernel must not launch). Then, on 4096 strided rays, each view
     against the plain route (fused_field off, the same σ-noise draws)
     within RENDER_ATOL, and a strided 1/64 of the σ grid against the plain
     σ. Returns the rays' and the points' launches."""
@@ -5069,7 +5060,7 @@ def _spec_views(torch, card: str) -> tuple:
              + fused_mlp.launches_wide_points)
     log(f"[spec-views] tensor-core rows kernel launches on the main path: "
         f"rays {launches[0]}, points {launches[1]}; the flagship composite "
-        f"and the fp32 rows kernel {other}")
+        f"and the layer-major rows kernel {other}")
     assert min(launches) > 0 and other == 0, (launches, other)
     for (name, label), res in views.items():
         for k in ("rgb_fine", "depth_fine", "mirror_mask_resolved"):
@@ -5141,7 +5132,7 @@ def _spec_wide_cases(torch, card: str, name: str, kw: dict, n: int,
     sub = rays[::rays.shape[0] // n][:n]
     o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
     z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
-    weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(field, p)[0])
+    weights = _leaf_bytes(p)
     replaces = "mirror_nerf_tpu/ops/pallas/fused_mlp.py:"
     title = "PE-MLP rows, trunks wider than 512"
     entries = []
@@ -5195,7 +5186,8 @@ def _spec_wide_cases(torch, card: str, name: str, kw: dict, n: int,
     wide = fused_mlp.launches_wide_rays + fused_mlp.launches_wide_points
     log(f"[spec-rows] {name}: tensor-core rows kernel launches rays "
         f"{fused_mlp.launches_general_rays}, points "
-        f"{fused_mlp.launches_general_points}; the fp32 kernel's {wide}")
+        f"{fused_mlp.launches_general_points}; the layer-major kernel's "
+        f"{wide}")
     assert fused_mlp.launches_general_rays > 0 and wide == 0, name
     return entries
 
@@ -5259,8 +5251,8 @@ def _spec_wide(torch, card: str) -> list:
     tensor-core rows kernel (SPEC_WIDE: widths 640 and 1408, depth 2),
     `_spec_wide_cases` each; the width-640 one's main path, a 100×75
     level-2 view and a 32³ σ grid (`_spec_trunk_path`: the tensor-core
-    kernel's counters move, the fp32 kernel's stay 0). Returns the width
-    640 trunk's rays' and points' entries, launches filled in."""
+    kernel's counters move, the layer-major kernel's stay 0). Returns the
+    width 640 trunk's rays' and points' entries, launches filled in."""
     entries = _spec_wide_cases(torch, card, "width 640",
                                *SPEC_WIDE["width 640"], points=True)
     _spec_wide_cases(torch, card, "width 1408", *SPEC_WIDE["width 1408"],
@@ -5271,66 +5263,140 @@ def _spec_wide(torch, card: str) -> list:
     return entries
 
 
-def _spec_fp32(torch, card: str) -> list:
-    """(23) The fp32 rows kernel (csrc/fused_mlp_rows.cu) on its own range,
-    a trunk wider than the tensor-core kernel's limit (SPEC_FP32, width
-    4224): 64 strided rays of the 400×300 camera at S = 128 (full and
-    σ-only) and 4096 points against `mlp_rows_reference` within 1e-4
-    scaled above 1, times beside the plain version and the bounds; its
-    main path, a 16×12 level-2 view and an 8³ σ grid
-    (`_spec_trunk_path`: the fp32 kernel's counters move, the
-    tensor-core kernel's stay 0). Returns its rays' and points' entries."""
+def _sigma_f64(torch, field, p: dict, xyz):
+    """Raw σ of the plain version in float64 at these points."""
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+    from mirror_nerf_tpu_torch.train.checkpoints import _map
+
+    with torch.no_grad():
+        return fused_mlp.mlp_rows_reference(
+            field, _map(p, lambda _, t: t.double()), xyz.double(),
+            sigma_only=True)[:, 0]
+
+
+def _lean_log(tag: str, sigma, exact, card: str) -> None:
+    """Raw σ of a case against float64: the mean signed error beside the
+    largest, over max(1, max |σ|); the mean within 1e-7 (phase 11's bar:
+    a tensor-core sum over too many k-steps truncates and leans)."""
+    scale = max(1.0, float(exact.abs().max()))
+    err = sigma.double() - exact
+    mean, worst = float(err.mean()) / scale, float(err.abs().max()) / scale
+    log(f"[spec-rows] {tag}: raw σ against a float64 plain version, mean "
+        f"signed error {mean:+.3e}, max abs error {worst:.3e} (scaled above "
+        f"1; {card})")
+    assert abs(mean) <= 1e-7, (tag, mean)
+
+
+def _spec_layers(torch, card: str) -> list:
+    """(23) The layer-major rows kernel (csrc/fused_mlp_layers.cu) on its
+    own range, a trunk wider than the tensor-core kernel's limit
+    (SPEC_LAYERS, width 4224): 64 strided rays of the 400×300 camera at S
+    = 128 (full and σ-only) and 4096 points against `mlp_rows_reference`
+    within 1e-4 scaled above 1, raw σ of each against float64, times beside
+    the plain version and the bounds; its main path, a 16×12 level-2 view
+    and an 8³ σ grid (`_spec_trunk_path`: the layer-major kernel's counters
+    move, the tensor-core kernel's stay 0). Returns its rays' and points'
+    entries."""
     from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
     from mirror_nerf_tpu_torch.ops import fused_mlp
 
-    field, params = _spec_field(torch, SPEC_FP32)
+    field, params = _spec_field(torch, SPEC_LAYERS)
     p = params["fine"]
-    assert fused_mlp.rows_route(field) == "fused_mlp_rows", SPEC_FP32
+    assert fused_mlp.rows_route(field) == "fused_mlp_layers", SPEC_LAYERS
     rays = torch.from_numpy(_view_rays(400, 300)).cuda()
     sub = rays[::rays.shape[0] // 64][:64]
     o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
     z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
-    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)[
-        ::2].contiguous()
+    xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    pts = xyz[::2].contiguous()
     dirs = d.repeat_interleave(128, 0)[::2].contiguous()
-    weights = sum(t.numel() * 4 for t in fused_mlp.rows_layout(field, p)[0])
+    weights = _leaf_bytes(p)
     title = "PE-MLP rows, trunks wider than 4096"
     entries = []
+    exact = _sigma_f64(torch, field, p, xyz)
     for sigma_only in (False, True):
         tag = (f"width 4224 rays, 64 × 128, "
                f"{'σ-only' if sigma_only else 'full'}")
+        rays_eval = functools.partial(fused_mlp.fused_rays_eval, field, p, o,
+                                      d, d, z, sigma_only=sigma_only)
         worst, ms, plain_ms = _spec_case(
-            torch, tag,
-            lambda: _row_groups(fused_mlp.fused_rays_eval(
-                field, p, o, d, d, z, sigma_only=sigma_only)),
+            torch, tag, lambda: _row_groups(rays_eval()),
             lambda: _row_groups(fused_mlp.mlp_rays_rows_reference(
                 field, p, o, d, d, z, sigma_only=sigma_only)), card)
+        with torch.no_grad():
+            _lean_log(tag, rays_eval()[:, 0], exact, card)
         nbytes = (_nbytes(o, d, z) + (0 if sigma_only else _nbytes(d))
                   + weights + z.numel() * 4 * (1 if sigma_only else 8))
         bound = _trunk_bound(field, z.numel(), sigma_only, nbytes)
         _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
         if not sigma_only:
             entries.append(_spec_entry(
-                f"{title} (rays)", "fused_mlp_rows.cu",
+                f"{title} (rays)", "fused_mlp_layers.cu",
                 "mirror_nerf_tpu/ops/pallas/fused_mlp.py:238 _kernel_rays",
                 worst, ms, plain_ms, bound))
     tag = f"width 4224 points, {pts.shape[0]}, full"
+    points_eval = functools.partial(fused_mlp.fused_packed_eval, field, p,
+                                    pts, dirs)
     worst, ms, plain_ms = _spec_case(
-        torch, tag,
-        lambda: _row_groups(fused_mlp.fused_packed_eval(field, p, pts, dirs)),
+        torch, tag, lambda: _row_groups(points_eval()),
         lambda: _row_groups(fused_mlp.mlp_rows_reference(field, p, pts,
                                                          dirs)), card)
+    with torch.no_grad():
+        _lean_log(tag, points_eval()[:, 0], exact[::2], card)
     bound = _trunk_bound(field, pts.shape[0], False,
                          _nbytes(pts, dirs) + weights + pts.shape[0] * 32)
     _spec_rows_bound_log(tag, bound, ms, plain_ms, card)
     entries.append(_spec_entry(
-        f"{title} (points)", "fused_mlp_rows.cu",
+        f"{title} (points)", "fused_mlp_layers.cu",
         "mirror_nerf_tpu/ops/pallas/fused_mlp.py:223 _kernel", worst, ms,
         plain_ms, bound))
     entries[0]["launches"], entries[1]["launches"] = _spec_trunk_path(
-        torch, card, SPEC_FP32, (16, 12), 8,
+        torch, card, SPEC_LAYERS, (16, 12), 8,
         ("launches_wide_rays", "launches_wide_points"), 192)
     return entries
+
+
+def _spec_layers_at_4096(torch, card: str) -> None:
+    """(23) ROADMAP [20]'s question: at width 4096, where the cluster
+    instance of csrc/fused_mlp_rows_tc.cu (the route) holds 8 parts a CTA
+    and ptxas serializes its `wgmma`s, does the layer-major kernel beat
+    it? SPEC_AT_4096 (depth 2) on 256 strided rays × 128, full: each
+    against the plain version, then both timed in turns (cluster,
+    layer-major, layer-major, cluster), beside the 3×TF32 bound."""
+    from mirror_nerf_tpu_torch.core.sampling import stratified_z_vals
+    from mirror_nerf_tpu_torch.ops import fused_mlp
+
+    field, params = _spec_field(torch, SPEC_AT_4096)
+    p = params["fine"]
+    assert fused_mlp.rows_route(field) == "fused_mlp_rows_tc", SPEC_AT_4096
+    rays = torch.from_numpy(_view_rays(400, 300)).cuda()
+    sub = rays[::rays.shape[0] // 256][:256]
+    o, d = sub[:, 0:3].contiguous(), sub[:, 3:6].contiguous()
+    z = stratified_z_vals(sub[:, 6:7], sub[:, 7:8], 128).contiguous()
+    kernels = {name: functools.partial(fn, field, p, o, d, d, z, False)
+               for name, fn in (("cluster", fused_mlp.tc_rows_cuda),
+                                ("layer-major", fused_mlp.layers_rows_cuda))}
+    with torch.no_grad():
+        ref = _row_groups(fused_mlp.mlp_rays_rows_reference(field, p, o, d,
+                                                            d, z))
+        for name, fn in kernels.items():
+            errs = _scaled_errs(_row_groups(fn()), ref)
+            log(f"[spec-rows] width 4096 depth 2 rays, 256 × 128, full, "
+                f"{name}: max abs err (scaled above 1) "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            assert max(errs.values()) <= KERNEL_ATOL, (name, errs)
+        ms = {name: [] for name in kernels}
+        for name in ("cluster", "layer-major", "layer-major", "cluster"):
+            ms[name].append(_time_ms(torch, kernels[name], reps=2, warmup=0))
+    nbytes = _nbytes(o, d, z, d) + _leaf_bytes(p) + z.numel() * 32
+    bound = _trunk_bound(field, z.numel(), False, nbytes)
+    log(f"[spec-rows] ROADMAP [20], width 4096 depth 2 rays, 256 × 128, "
+        f"full, in turns: cluster instance "
+        + ", ".join(f"{t:.3f}" for t in ms["cluster"])
+        + " ms, layer-major " + ", ".join(f"{t:.3f}" for t in ms["layer-major"])
+        + f" ms; bound 3×TF32 {bound[0]:.3f} ms ({bound[1]}): "
+        f"{bound[0] / min(ms['cluster']) * 100:.1f} % and "
+        f"{bound[0] / min(ms['layer-major']) * 100:.1f} % ({card})")
 
 
 def _spec_hash(kw: dict):
@@ -5644,13 +5710,15 @@ def phase_spec_range(torch, card: str) -> list:
     """(23) The two kernels over the whole range of specs the JAX package
     calls them with: the PE-MLP rows kernels for the trunks no preset
     builds (csrc/fused_mlp_rows_tc.cu, its cluster instance above width
-    512; wider than 4096 csrc/fused_mlp_rows.cu) and the general ENCODE,
-    BWD and BWD2 (csrc/hashgrid_any.cu). Returns their nine entries,
-    launches filled in."""
+    512; wider than 4096 csrc/fused_mlp_layers.cu, and ROADMAP [20]'s
+    width 4096 on both) and the general ENCODE, BWD and BWD2
+    (csrc/hashgrid_any.cu). Returns their nine entries, launches filled
+    in."""
     rows = _spec_rows_kernel(torch, card)
     rows[0]["launches"], rows[1]["launches"] = _spec_views(torch, card)
     rows += _spec_wide(torch, card)
-    rows += _spec_fp32(torch, card)
+    rows += _spec_layers(torch, card)
+    _spec_layers_at_4096(torch, card)
     hashes = _spec_hash_kernels(torch, card)
     counts = _spec_hash_training(torch, card)
     for e, k in zip(hashes, ("encode", "bwd", "bwd2")):

@@ -11,8 +11,8 @@
 // mirror_nerf_tpu/ops/pallas/fused_mlp.py: `_kernel_rays:238` (rays;
 // fused_forward_rays:310, adapter fused_rays_eval:367) and `_kernel:223`
 // (points; fused_forward:266, adapters fused_packed_eval:416,
-// fused_field_eval:448). Wider trunks keep the fp32 kernel
-// csrc/fused_mlp_rows.cu (ops/fused_mlp.py `rows_route`).
+// fused_field_eval:448). Wider trunks take the layer-major GEMMs of
+// csrc/fused_mlp_layers.cu (ops/fused_mlp.py `rows_route`).
 //
 // For each sample (ray r, depth index i; a point is a one-sample ray with
 // o = x, d = 0, z = 0):

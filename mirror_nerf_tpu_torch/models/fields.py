@@ -68,8 +68,8 @@ class MirrorNeRFField:
         positions and view dirs (≤ 123 rows, the JAX kernel's 128 lanes),
         with or without the normal and the mirror head. Up to width
         FUSED_TC_MAX_WIDTH they run on csrc/fused_mlp_rows_tc.cu
-        (`supports_fused_tc`), wider ones on csrc/fused_mlp_rows.cu
-        (ops/fused_mlp.py `rows_route`). With
+        (`supports_fused_tc`), wider ones on the layer-major GEMMs of
+        csrc/fused_mlp_layers.cu (ops/fused_mlp.py `rows_route`). With
         `--fused_field` on the card, a field outside this set raises
         (render/renderer.py)."""
         return (self.width > 0 and self.width % 128 == 0 and self.depth >= 1
@@ -92,8 +92,8 @@ class MirrorNeRFField:
         FUSED_TC_MAX_WIDTH within `supports_fused` (128, 256, 384 and 512
         its template instances, wider ones its cluster instance), any
         depth and skips, the default trunk included. It is the rows route
-        of these widths; wider trunks take the fp32 kernel
-        csrc/fused_mlp_rows.cu."""
+        of these widths; wider trunks take the layer-major kernel
+        csrc/fused_mlp_layers.cu."""
         return self.supports_fused and self.width <= FUSED_TC_MAX_WIDTH
 
     def init(self, generator: Optional[torch.Generator] = None,

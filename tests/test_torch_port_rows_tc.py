@@ -23,7 +23,7 @@ skips at run time; wider than 512 its cluster instance, C CTAs (2, 4 or
 and, on a machine with a card only: each trunk (widths 128, 256, 384, 512,
 640, 1408; the skip sets of the spec-range tests) in rays mode, full and
 σ-only, and in points mode against the plain version at 1e-4 scaled above
-1, a trunk wider than 4096 on the fp32 kernel likewise, HGMMA in every
+1, a trunk wider than 4096 on the layer-major kernel likewise, HGMMA in every
 instance's SASS, raw σ's signed mean error against a float64 plain
 version within 1e-7 of its scale on phase 23's weights, and within 2⁻²⁴ a
 layer on He-scaled ones."""
@@ -332,8 +332,9 @@ def test_kernel_order_reproduces_rows(trunk, sigma_scale):
 
 def test_rows_route_by_spec():
     """One route a trunk, by spec: every trunk up to the limit (4096), the
-    default one included, the tensor-core kernel, wider ones the fp32
-    kernel; outside `supports_fused` a refusal naming the range."""
+    default one included, the tensor-core kernel, wider ones the
+    layer-major kernel; outside `supports_fused` a refusal naming the
+    range."""
     limit = fused_mlp.TC_MAX_WIDTH
     assert limit == 4096
     want = {**{k: "fused_mlp_rows_tc" for k in TC_TRUNKS},
@@ -342,7 +343,7 @@ def test_rows_route_by_spec():
             "w256_d8_s3": "fused_mlp_rows_tc",
             "w1024_d1": "fused_mlp_rows_tc",
             "w4096_d1": "fused_mlp_rows_tc",
-            "w4224_d1": "fused_mlp_rows"}
+            "w4224_d1": "fused_mlp_layers"}
     kws = {**TC_TRUNKS, "default": {}, "w256_d4": dict(depth=4),
            "w256_d8_s3": dict(skips=(3,)),
            "w1024_d1": dict(width=1024, depth=1, skips=()),
@@ -423,9 +424,10 @@ def test_cuda_tc_rows_match_plain(trunk):
 
 
 @pytest.mark.gpu
-def test_cuda_wide_trunk_takes_the_fp32_kernel():
+def test_cuda_wide_trunk_takes_the_layers_kernel():
     """A trunk wider than the tensor-core kernel's limit (4096) takes the
-    fp32 kernel (its own counters), within 1e-4 of the plain version."""
+    layer-major kernel (its own counters), within 1e-4 of the plain
+    version."""
     _needs_card()
     kw = dict(width=4224, depth=1, skips=())
     tf = TorchField(**kw)

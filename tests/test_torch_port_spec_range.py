@@ -4,10 +4,10 @@
     build (width a multiple of 128, any depth and skips, ≤ 20 posenc
     frequencies, either head): the port's rows path (its plain version on
     the CPU) against the JAX field modules and the JAX adapters (Pallas in
-    interpret mode, bf16 weights, at the JAX tests' own bars); the general
-    kernel's packed layout (`rows_layout`) read back through its offsets
-    table; a render of a non-default trunk with `fused_field` against the
-    JAX renderer; and what JAX's `fused_t` route does with such trunks;
+    interpret mode, bf16 weights, at the JAX tests' own bars); a render of
+    a non-default trunk with `fused_field` against the JAX renderer; and
+    what JAX's `fused_t` route does with such trunks (the rows kernels'
+    packings: tests/test_torch_port_rows_tc.py and _rows_layers.py);
   * the hash-grid encoder for every `HashGridSpec` (input_dim 1..7,
     level_dim 1..4, align_corners, smoothstep, hashed and tiled): the
     plain ENCODE, BWD and BWD2 against JAX's `hashgrid_encode`, its
@@ -188,78 +188,6 @@ def test_rows_match_jax_adapters(trunk):
     for k, g, kv in zip(("sigma", "rgb", "normal", "mirror"), got, kern):
         np.testing.assert_allclose(g.numpy(), np.asarray(kv, np.float32),
                                    atol=POINT_BARS[k], err_msg=k)
-
-
-def _emulate_general_rows(field, nets: torch.Tensor, table: list,
-                          xyz, dirs) -> torch.Tensor:
-    """The general rows kernel's reads, in float64: every weight taken
-    from the packed buffer at the offsets table's entries (the trunk's
-    skip flags, the head slots), the products as the kernel runs them."""
-    from mirror_nerf_tpu_torch.models.embedding import posenc
-
-    w_, d_ = field.width, field.depth
-    nets = nets.double()
-
-    def mat(i, rows, cols):
-        return nets[table[i]:table[i] + rows * cols].reshape(rows, cols)
-
-    def vec(i, n):
-        return nets[table[i]:table[i] + n]
-
-    pe = posenc(xyz, field.N_emb_xyz).double()  # fp32, as the kernel
-    h = torch.relu(pe @ mat(0, pe.shape[1], w_) + vec(1, w_))
-    for i in range(1, d_):
-        x = torch.cat([pe, h], -1) if table[3 * i + 2] else h
-        h = torch.relu(x @ mat(3 * i, x.shape[1], w_) + vec(3 * i + 1, w_))
-    hd = 3 * d_
-    sigma = h @ mat(hd, w_, 1) + vec(hd + 1, 1)
-    out = torch.zeros((xyz.shape[0], 8), dtype=torch.float64)
-    out[:, :1] = sigma
-    if field.predict_normal:
-        n = (h @ mat(hd + 8, w_, w_ // 2) + vec(hd + 9, w_ // 2)) @ mat(
-            hd + 10, w_ // 2, 3) + vec(hd + 11, 3)
-        out[:, 4:7] = n * torch.rsqrt(torch.clamp_min(
-            (n * n).sum(-1, keepdim=True), 1.1920929e-07))
-    if field.predict_mirror_mask:
-        m = torch.nn.functional.leaky_relu(
-            h @ mat(hd + 12, w_, w_ // 2) + vec(hd + 13, w_ // 2), 0.01)
-        out[:, 7:] = torch.sigmoid(m @ mat(hd + 14, w_ // 2, 1)
-                                   + vec(hd + 15, 1))
-    xf = h @ mat(hd + 2, w_, w_) + vec(hd + 3, w_)
-    dv = torch.cat([xf, posenc(dirs, field.N_emb_dir).double()], -1)
-    hc = torch.relu(dv @ mat(hd + 4, dv.shape[1], w_ // 2)
-                    + vec(hd + 5, w_ // 2))
-    out[:, 1:4] = torch.sigmoid(hc @ mat(hd + 6, w_ // 2, 3)
-                                + vec(hd + 7, 3))
-    return out
-
-
-@pytest.mark.parametrize("trunk", sorted(TRUNKS) + ["default"])
-def test_general_rows_layout_reads_back(trunk):
-    """`_rows_nets` and its offsets table as the general kernel reads them:
-    every leaf at a multiple of 4 floats, a skip flag for each skip layer
-    past 0, −1 for a missing head; the field read back through them (in
-    float64) is the plain version's."""
-    kw = TRUNKS.get(trunk, {})
-    tf = TorchField(**kw)
-    p = params_from_numpy(_trunk_params(kw))
-    nets, offs = fused_mlp._rows_nets(tf, p, "cpu")
-    table = offs.tolist()
-    assert len(table) == 3 * tf.depth + 16
-    offsets = [o for i, o in enumerate(table)
-               if i >= 3 * tf.depth or i % 3 < 2]
-    assert all(o % 4 == 0 for o in offsets if o >= 0)
-    assert [table[3 * i + 2] for i in range(tf.depth)] == [
-        int(0 < i and i in tf.skips) for i in range(tf.depth)]
-    heads = table[3 * tf.depth:]
-    assert (min(heads[8:12]) >= 0) == tf.predict_normal
-    assert (min(heads[12:]) >= 0) == tf.predict_mirror_mask
-    rng = np.random.default_rng(6)
-    xyz, dirs = _t(rng.normal(size=(64, 3)).astype(np.float32),
-                   rng.normal(size=(64, 3)).astype(np.float32))
-    got = _emulate_general_rows(tf, nets, table, xyz, dirs)
-    want = fused_mlp.mlp_rows_reference(tf, p, xyz, dirs).double()
-    _close(got.numpy(), want.numpy(), 1e-5, trunk)
 
 
 def test_non_default_trunk_render_matches_jax():
@@ -571,24 +499,6 @@ def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("trunk", sorted(TRUNKS))
-def test_cuda_general_rows_match_plain(trunk):
-    _needs_card()
-    tf = TorchField(**TRUNKS[trunk])
-    pt = params_from_numpy(_trunk_params(TRUNKS[trunk]), device="cuda")
-    o, d, z = (t.cuda() for t in _t(*_rays(301, 37, seed=14)))
-    before = fused_mlp.launches_general_rays
-    with torch.no_grad():
-        got = fused_mlp.fused_rays_eval(tf, pt, o, d, d, z)
-        torch.cuda.synchronize()
-        xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
-        ref = fused_mlp.mlp_rows_reference(tf, pt, xyz,
-                                           d.repeat_interleave(37, 0))
-    assert fused_mlp.launches_general_rays == before + 1
-    _close(got.cpu().numpy(), ref.cpu().numpy(), 1e-4, trunk)
 
 
 @pytest.mark.gpu
