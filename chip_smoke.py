@@ -302,7 +302,10 @@ each fatal on failure:
      smoothstep, 4-d C 4, 7-d C 1 at 8 levels): ENCODE on 2,097,152 points
      within 1e-5, BWD and BWD2 on 131,072 within 1e-3 of scale, times
      beside the bound from the distinct 32-B table sectors or the
-     operations of a product tree over the corners; their main
+     operations of a product tree over the corners, ENCODE's corner rows
+     and BWD's table-grad reductions a second beside them as figures;
+     ENCODE and BWD again on ray-ordered points (16384 and 1024 segments
+     of the unit cube × 128 consecutive points); their main
      path: 5 Adam steps of two `get_encoder` tables with a loss on ∇x
      (grad-of-grad) on the card against the CPU. A hash-grid field the
      fused NGP composite does not take (20 levels) through a 400×300
@@ -5407,15 +5410,6 @@ def _spec_hash(kw: dict):
                                   desired_resolution=2048), **kw})
 
 
-def _spec_points(torch, spec, n: int, seed: int):
-    """n points in [0, 1]^D, ~2 % with x_0 = 1.25 (outside)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((n, spec.input_dim), generator=gen, device="cuda")
-    out = torch.rand(n, generator=gen, device="cuda") < 0.02
-    x[out, 0] = 1.25
-    return x.contiguous()
-
-
 def _spec_sectors(torch, spec, x) -> int:
     """Distinct 32-B sectors of the table that the corners of the points
     in the box touch, summed over the levels (each level's rows are its
@@ -5479,78 +5473,99 @@ def _spec_hash_kernels(torch, card: str) -> list:
     scaled above 1; BWD and BWD2 (every output) on 131,072 within 1e-3 of
     each output's scale; times with CUDA events, bounds from the bytes
     (x, the outputs and the distinct 32-B table sectors the corners
-    touch) or the operations (`_spec_hash_ops`). Returns the three
-    entries, each summed over the five specs."""
+    touch) or the operations (`_spec_hash_ops`); beside each, as a figure,
+    ENCODE's corner rows and BWD's table-grad reductions
+    (`any_reduction_plan`) a second. ENCODE and BWD again on ray-ordered
+    points (128 consecutive points along each of 16384 or 1024 segments of
+    the unit cube, `exp_launch_ab.hash_any_points`), held and logged the
+    same way. Returns the three entries, each summed over the five specs
+    on uniform points."""
     from mirror_nerf_tpu_torch.ops import hashgrid as thg
+    from mirror_nerf_tpu_torch.tools.exp_launch_ab import hash_any_points
 
     sums = {m: dict(err=0.0, ms=0.0, plain_ms=0.0, bound=0.0, ops=0.0,
                     nbytes=0.0) for m in ("encode", "bwd", "bwd2")}
+    ray = {m: 0.0 for m in ("encode", "bwd")}
     for si, (name, kw) in enumerate(SPEC_HASH.items()):
         spec = _spec_hash(kw)
         assert not thg.tuned_spec(spec)
         table = (thg.init_hashgrid(torch.Generator().manual_seed(si), spec)
                  * 1e4).cuda()
-        x = _spec_points(torch, spec, SPEC_ENCODE_POINTS, 30 + si)
         ld = spec.output_dim
-        with torch.no_grad():
-            got = thg.encode_forward(table, x, spec)
-            ms = _time_ms(torch, lambda: thg.encode_forward(table, x, spec),
-                          reps=5, warmup=0)
-            parts = []
-            plain_ms = _time_ms(torch, lambda: parts.extend(
-                thg.hashgrid_encode_reference(table, x[i:i + (1 << 17)],
-                                              spec)
-                for i in range(0, x.shape[0], 1 << 17)), reps=1, warmup=0)
-            want = torch.cat(parts)
-            err = float((got - want).abs().max()) / max(
-                1.0, float(want.abs().max()))
-        sectors = _spec_sectors(torch, spec, x)
-        nbytes = _nbytes(x, got) + 32 * sectors
-        ops = _spec_hash_ops("encode", spec, SPEC_ENCODE_POINTS)
-        _spec_log("ENCODE", name, SPEC_ENCODE_POINTS, err, ms, plain_ms,
-                  ops, nbytes, sectors, card)
-        assert err <= SPEC_FEATURE_ATOL, (name, err)
-        _spec_add(sums["encode"], err, ms, plain_ms, ops, nbytes)
+        for layout in ("uniform", "ray-ordered"):
+            x = hash_any_points(spec, SPEC_ENCODE_POINTS, layout,
+                                (30 if layout == "uniform" else 60) + si)
+            tag = name if layout == "uniform" else f"{name}, ray-ordered"
+            err, ms, plain_ms, got = _spec_encode_case(torch, thg, spec,
+                                                       table, x)
+            sectors = _spec_sectors(torch, spec, x)
+            nbytes = _nbytes(x, got) + 32 * sectors
+            ops = _spec_hash_ops("encode", spec, SPEC_ENCODE_POINTS)
+            corners = (int(thg._in_cube(x).sum()) * spec.num_levels
+                       * 2 ** spec.input_dim)
+            _spec_log("ENCODE", tag, SPEC_ENCODE_POINTS, err, ms, plain_ms,
+                      ops, nbytes, sectors, card,
+                      f"{corners / ms / 1e6:.1f} G corner rows/s")
+            assert err <= SPEC_FEATURE_ATOL, (tag, err)
+            del got
+            if layout == "uniform":
+                _spec_add(sums["encode"], err, ms, plain_ms, ops, nbytes)
+            else:
+                ray["encode"] += ms
 
-        xb = x[:SPEC_BWD_POINTS].contiguous()
-        gen = torch.Generator(device="cuda").manual_seed(40 + si)
-        dy = torch.randn((SPEC_BWD_POINTS, ld), generator=gen,
-                         device="cuda")
-        g = torch.randn((SPEC_BWD_POINTS, spec.input_dim), generator=gen,
-                        device="cuda")
-        sectors_b = _spec_sectors(torch, spec, xb)
-        with torch.no_grad():
-            for mode, kern, plain, extra in (
-                    ("bwd", lambda: thg.encode_backward(table, xb, dy, spec),
-                     lambda: thg.encode_backward_reference(table, xb, dy,
-                                                           spec),
-                     _nbytes(xb, dy, xb)),
-                    ("bwd2",
-                     lambda: thg.encode_backward2(table, xb, dy, g, spec),
-                     lambda: thg.encode_backward2_reference(table, xb, dy, g,
+            xb = (x[:SPEC_BWD_POINTS].contiguous() if layout == "uniform"
+                  else hash_any_points(spec, SPEC_BWD_POINTS, layout,
+                                       70 + si))
+            gen = torch.Generator(device="cuda").manual_seed(40 + si)
+            dy = torch.randn((SPEC_BWD_POINTS, ld), generator=gen,
+                             device="cuda")
+            g = torch.randn((SPEC_BWD_POINTS, spec.input_dim),
+                            generator=gen, device="cuda")
+            sectors_b = _spec_sectors(torch, spec, xb)
+            sent = sum(b["reductions"] for b in
+                       thg.any_reduction_plan(spec, xb, dy)[2])
+            modes = [("bwd", lambda: thg.encode_backward(table, xb, dy, spec),
+                      lambda: thg.encode_backward_reference(table, xb, dy,
                                                             spec),
-                     _nbytes(xb, dy, g, dy, xb))):
-                got = kern()
-                ms = _time_ms(torch, kern, reps=5, warmup=0)
-                want = []
-                plain_ms = _time_ms(torch, lambda: want.extend(plain()),
-                                    reps=1, warmup=0)
-                errs = [_spec_rel(a, b) for a, b in zip(got, want)]
-                # the table's sectors read (the dot with dy) and its grads'
-                # sectors written
-                nbytes = extra + 2 * 32 * sectors_b
-                ops = _spec_hash_ops(mode, spec, SPEC_BWD_POINTS)
-                _spec_log(mode.upper(), name, SPEC_BWD_POINTS, max(errs), ms,
-                          plain_ms, ops, nbytes, sectors_b, card)
-                assert max(errs) <= SPEC_GRAD_RTOL, (name, mode, errs)
-                _spec_add(sums[mode], max(errs), ms, plain_ms, ops, nbytes)
+                      _nbytes(xb, dy, xb))]
+            if layout == "uniform":
+                modes.append((
+                    "bwd2",
+                    lambda: thg.encode_backward2(table, xb, dy, g, spec),
+                    lambda: thg.encode_backward2_reference(table, xb, dy, g,
+                                                           spec),
+                    _nbytes(xb, dy, g, dy, xb)))
+            with torch.no_grad():
+                for mode, kern, plain, extra in modes:
+                    got = kern()
+                    ms = _time_ms(torch, kern, reps=5, warmup=0)
+                    want = []
+                    plain_ms = _time_ms(torch, lambda: want.extend(plain()),
+                                        reps=1, warmup=0)
+                    errs = [_spec_rel(a, b) for a, b in zip(got, want)]
+                    # the table's sectors read (the dot with dy) and its
+                    # grads' sectors written
+                    nbytes = extra + 2 * 32 * sectors_b
+                    ops = _spec_hash_ops(mode, spec, SPEC_BWD_POINTS)
+                    _spec_log(mode.upper(), tag, SPEC_BWD_POINTS, max(errs),
+                              ms, plain_ms, ops, nbytes, sectors_b, card,
+                              f"{sent / ms / 1e6:.1f} G table-grad "
+                              "reductions/s" if mode == "bwd" else "")
+                    assert max(errs) <= SPEC_GRAD_RTOL, (tag, mode, errs)
+                    if layout == "uniform":
+                        _spec_add(sums[mode], max(errs), ms, plain_ms, ops,
+                                  nbytes)
+                    else:
+                        ray[mode] += ms
     entries = []
     for mode, label in (("encode", "ENCODE"), ("bwd", "BWD"),
                         ("bwd2", "BWD2")):
         s = sums[mode]
         bound = _bound(s["ops"], s["nbytes"])
         log(f"[spec-hash] general {label}, the five specs summed: kernel "
-            f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, bound "
+            f"{s['ms']:.3f} ms"
+            + (f" (ray-ordered {ray[mode]:.3f} ms)" if mode in ray else "")
+            + f", plain {s['plain_ms']:.3f} ms, bound "
             f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
             f"{bound[0] / s['ms'] * 100:.1f} % of it ({card})")
         entries.append(_spec_entry(
@@ -5559,6 +5574,23 @@ def _spec_hash_kernels(torch, card: str) -> list:
             + (")" if mode == "encode" else " autodiff)"), s["err"],
             s["ms"], s["plain_ms"], bound))
     return entries
+
+
+def _spec_encode_case(torch, thg, spec, table, x) -> tuple:
+    """The general ENCODE on x against its plain version (in chunks of
+    131072): (error scaled above 1, kernel ms, plain ms, the output)."""
+    with torch.no_grad():
+        got = thg.encode_forward(table, x, spec)
+        ms = _time_ms(torch, lambda: thg.encode_forward(table, x, spec),
+                      reps=5, warmup=0)
+        parts = []
+        plain_ms = _time_ms(torch, lambda: parts.extend(
+            thg.hashgrid_encode_reference(table, x[i:i + (1 << 17)], spec)
+            for i in range(0, x.shape[0], 1 << 17)), reps=1, warmup=0)
+        want = torch.cat(parts)
+        err = float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+    return err, ms, plain_ms, got
 
 
 def _spec_add(s: dict, err, ms, plain_ms, ops, nbytes) -> None:
@@ -5570,12 +5602,13 @@ def _spec_add(s: dict, err, ms, plain_ms, ops, nbytes) -> None:
 
 
 def _spec_log(mode, name, n, err, ms, plain_ms, ops, nbytes, sectors,
-              card) -> None:
+              card, figure: str = "") -> None:
     bound = _bound(ops, nbytes)
     log(f"[spec-hash] {mode} {name}, {n} points: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms ({card}); max err {err:.2e}; {sectors} distinct "
         f"32-B table sectors, bound {bound[0]:.3f} ms ({bound[1]}), kernel "
-        f"at {bound[0] / ms * 100:.1f} % of it")
+        f"at {bound[0] / ms * 100:.1f} % of it"
+        + (f"; {figure} (a figure, not a bound)" if figure else ""))
 
 
 def _spec_hash_training(torch, card: str) -> dict:

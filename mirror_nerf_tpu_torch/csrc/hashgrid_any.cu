@@ -26,38 +26,82 @@
 //           d_x_d = Σ_l s² Σ_c ⟨T_c, dy_l⟩ (Σ_{e≠d} g_e ∂²w_c/∂t_d∂t_e
 //             + g_d ±S''_d Π_{e≠d} f_e): smoothstep's diagonal term, which
 //           the linear weights lack
-// The products of all factors but one (and, for BWD2, the sums of
-// a_e Π_{k≠e} f_k with a_e = g_e ∂f_e/∂t_e, and their derivatives) come
-// from prefix and suffix products over the axes: O(D) a corner at D = 7's
-// 128 corners.
 //
-// What bounds it on the H100: the gathers, 2^D row loads of C·4 bytes a
-// (point, level) at data-dependent addresses (and for BWD, BWD2 as many
-// fp32 reductions into L2). The design is the simple one, templated on D
-// only (C, align_corners and the interpolation are run-time arguments, so
-// the build holds 7 instances a mode):
-//   * ENCODE: one thread a (point, level), level fastest, as the tuned
-//     ENCODE; the features in chunks of four;
-//   * BWD, BWD2: one thread a point, its levels in order (dx and d_x are
-//     summed in registers, no atomics); the table grads by one fp32
-//     `atomicAdd` (a no-return reduction) a (corner, feature);
-//   * the level table (16 words a level: offset, size, scale, hashed, D
-//     strides) is read from global memory, uniform within a level.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 23,
-// PERF.md §6 rows 9g–9i; five specs of 16 levels × 2¹⁹ rows, 2-d to 7-d):
-// ENCODE 0.85–8.7 ms on 2,097,152 points (2.5–10.6 % of each spec's
-// bound), BWD 0.57–2.4 ms and BWD2 0.99–3.9 ms on 131,072 (1.6–4.1 %).
+// What bounds them on the H100: the gathers, 2^D row loads of C·4 bytes a
+// (point, level), and for BWD as many reductions into L2; at 7-d, where the
+// table fits in L2, the work of the corners. ENCODE and BWD:
+//   * corners by trees over the axes (`Walk`): per (point, level) and axis
+//     the two factors 1 − S_d, S_d and the two row terms (g_d + b)·prime_d
+//     (hashed) or (g_d + b)·stride_d (dense), once; the 2^D weights by
+//     doubling, w·f_d in axis order (the plain version's product order, so
+//     the weights are the same bits), the rows the same way by xor or add
+//     (ENCODE has an instance for each, BWD chooses at run time: `Rows`).
+//     The walk is depth first and two trees at once, the two halves of
+//     axis 0, so that a leaf holds corners c and c + 1, an x-pair, and the
+//     registers hold D levels of the walk, not 2^D corners; its last
+//     WALK_AXES axes are unrolled and the ones above them a run-time loop
+//     (`walk_fwd`, `walk_bwd`), so the code holds at most 8 leaves for any
+//     D (the whole walk unrolled took minutes of nvcc);
+//   * a row's index reduced by a per-level rule the wrapper packs
+//     (`index_of`, ops/hashgrid.py `index_rule`): a mask where the size is a
+//     power of two (every hashed level), min(i, i − size) where the index
+//     stays below twice the size (a dense level with align_corners reaches
+//     its size at x = 1), a true modulo only where neither holds;
+//   * a corner's row as one 4-, 8- or 16-B load (C 1, 2, 4; above, 16-B
+//     chunks of one walk for up to 8 features); where C ≤ 2 and both rows
+//     of the x-pair lie in one 16-B block of the table, one 16-B load for
+//     both. A table not aligned for them takes narrower loads in the same
+//     kernel;
+//   * ENCODE: level-major. The grid is level groups outer, point tiles
+//     inner, so the blocks in flight gather from one group's rows; a group
+//     is G levels with G·C·4 ≤ 32 bytes (at most 2¹⁹·32 B = 16 MB), a warp
+//     32 consecutive points of one level, and a block's features are staged
+//     in shared memory and stored as whole 32-B sectors of the (N, L·C)
+//     output;
+//   * BWD: a block of BWD_TILE consecutive points, a thread a point that
+//     walks the levels in order, so that a warp holds 32 consecutive points
+//     of one level at each step, dx is summed in registers in level order
+//     (no atomics, no scratch: the entry keeps its arguments), and the
+//     blocks, resident together at the sizes BWD takes, send their
+//     reductions into one level's rows at a time. A run of lanes in one cell
+//     sums its corners by segmented shuffles and its first lane sends one
+//     no-return vector reduction a corner (8 B at C 2, 16 B at C 4), or one
+//     of 16 B for the x-pair where both rows lie in one 16-B block; a level
+//     whose grads fit SHARED_FLOATS and whose rows are fewer than a block's
+//     corners (a coarse dense level) is summed in shared memory and flushed
+//     once a block (ops/hashgrid.py `any_reduction_plan` is the plan);
+//   * BWD2 keeps the first design: one thread a point, its levels in order,
+//     the table grads by one fp32 `atomicAdd` a (corner, feature), the
+//     products but one by prefix and suffix products over the axes.
+// D is a template parameter, C too for 1 and 2 (and 4 in BWD; any other C
+// runs in chunks of four features); align_corners and smoothstep are
+// run-time.
+// Times on an NVIDIA H100 (chip_smoke.py phase 23, PERF.md §6 rows 9g–9i).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "launch.cuh"
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int BLOCK = 256;  // BWD2's block
 constexpr int MAX_D = 7;
+constexpr unsigned FULL = 0xffffffffu;
+// ENCODE's block: 8 warps, G levels × 256/G points
+constexpr int ENC_THREADS = 256;
+constexpr int ENC_WARPS = ENC_THREADS / 32;
+// BWD's block: BWD_TILE consecutive points, a thread a point
+constexpr int BWD_TILE = 128;
+// BWD's shared-memory levels hold at most this many floats of grads
+constexpr int SHARED_FLOATS = 2048;
+// LevelAny.flags
+constexpr unsigned FLAG_MODULO = 1u;  // the index needs a true modulo
+constexpr unsigned FLAG_SHARED = 2u;  // BWD sums the level in shared memory
+// the kernels' alignment flags (bits of `vec`)
+constexpr int TABLE_8 = 1, TABLE_16 = 2, DY_8 = 4, DY_16 = 8, GRADS_16 = 16;
 
 // the reference's spatial-hash primes (gridencoder.cu:55-56)
 __constant__ unsigned PRIMES[MAX_D] = {1u,          2654435761u, 805459861u,
@@ -71,9 +115,24 @@ struct LevelAny {
   float scale;             // fp32 2^(l·S)·H − 1
   int use_hash;
   unsigned stride[MAX_D];  // dense strides (0 past the level size)
-  unsigned pad[5];
+  unsigned msk, sub;       // the index rule: min(i & msk, (i & msk) − sub)
+  unsigned flags;          // FLAG_MODULO, FLAG_SHARED
+  unsigned mod_lo, mod_hi; // FLAG_MODULO: ⌈2⁶⁴ / size⌉
 };
 static_assert(sizeof(LevelAny) == 64, "LevelAny is 16 words");
+
+__device__ __forceinline__ LevelAny load_level_any(
+    const LevelAny* __restrict__ levels, int l) {
+  const uint4* w = reinterpret_cast<const uint4*>(levels + l);
+  uint4 q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = __ldg(w + i);
+  LevelAny L;
+  memcpy(&L, q, sizeof(L));
+  return L;
+}
+
+// ---- BWD2's device functions ----
 
 // One level of one point: the cell, the interpolants S_d and their first
 // and second derivatives.
@@ -134,117 +193,630 @@ __device__ __forceinline__ void factors(const Cell<D>& k, int c,
   }
 }
 
-// w = Π f in axis order and pex_d = Π_{e≠d} f_e (in axis order)
-template <int D>
-__device__ __forceinline__ float products(const float (&f)[D],
-                                          float (&pex)[D]) {
-  float pre[D + 1], suf[D + 1];
-  pre[0] = 1.f;
-  suf[D] = 1.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) pre[d + 1] = pre[d] * f[d];
-#pragma unroll
-  for (int d = D - 1; d >= 0; --d) suf[d] = f[d] * suf[d + 1];
-#pragma unroll
-  for (int d = 0; d < D; ++d) pex[d] = pre[d] * suf[d + 1];
-  return pre[D];
-}
-
 __device__ __forceinline__ bool in_unit_box(const float* x, int d) {
   for (int i = 0; i < d; ++i)
     if (x[i] < 0.f || x[i] > 1.f) return false;
   return true;
 }
 
-// ENCODE: one thread a (point, level), level fastest; out (N, L·C)
+// ---- ENCODE's and BWD's device functions ----
+
+// One level of one point, per axis: the factors f[b][d] (1 − S_d for b = 0,
+// S_d for b = 1), the row terms t[b][d] = (g_d + b)·m_d in uint32 (m_d the
+// prime or the dense stride), the cell g_d and S'_d.
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
-    encode_any_kernel(const float* __restrict__ x,
-                      const float* __restrict__ table,
-                      const LevelAny* __restrict__ levels, int n_levels,
-                      int C, long long n, float off, int smooth,
-                      float* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (t >= n * n_levels) return;
-  const long long p = t / n_levels;
-  const int l = (int)(t - p * n_levels);
-  float xp[D];
+struct Axes {
+  float f[2][D];
+  unsigned t[2][D];
+  unsigned g[D];
+  float s1[D];
+  bool hash;  // the level is hashed (the rows combine by xor)
+};
+
+// How a kernel instance combines the row terms: every level dense, every
+// level hashed (ENCODE takes one of the two a level), or either, chosen at
+// run time by the level (BWD: half the code, the same times).
+enum Rows { DENSE, HASHED, EITHER };
+
+template <int D, int ROWS>
+__device__ __forceinline__ void axes_of(const LevelAny& L, const float* x,
+                                        float off, bool smooth, Axes<D>& a) {
+  a.hash = L.use_hash;
 #pragma unroll
-  for (int d = 0; d < D; ++d) xp[d] = __ldg(x + D * p + d);
-  float* y = out + t * C;
-  if (!in_unit_box(xp, D)) {
-    for (int k = 0; k < C; ++k) y[k] = 0.f;
-    return;
-  }
-  const LevelAny L = levels[l];
-  const Cell<D> cell = cell_of<D>(L, xp, off, smooth);
-  for (int k0 = 0; k0 < C; k0 += 4) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int c = 0; c < (1 << D); ++c) {
-      float f[D], df[D], pex[D];
-      factors<D>(cell, c, f, df);
-      const float w = products<D>(f, pex);
-      const float* row = table + corner_row<D>(L, cell, c) * C + k0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (k0 + k < C) acc[k] = fmaf(w, __ldg(row + k), acc[k]);
+  for (int d = 0; d < D; ++d) {
+    const float p = __fmaf_rn(x[d], L.scale, off);
+    const float fl = floorf(p);
+    const float t = __fsub_rn(p, fl);
+    const unsigned g = (unsigned)(int)fl;
+    float s = t, s1 = 1.f;
+    if (smooth) {
+      s = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.f, __fmul_rn(2.f, t)));
+      s1 = __fmul_rn(__fmul_rn(6.f, t), __fsub_rn(1.f, t));
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (k0 + k < C) y[k0 + k] = acc[k];
+    a.f[0][d] = __fsub_rn(1.f, s);
+    a.f[1][d] = s;
+    a.s1[d] = s1;
+    a.g[d] = g;
+    const unsigned m =
+        (ROWS == EITHER ? a.hash : ROWS == HASHED) ? PRIMES[d] : L.stride[d];
+    a.t[0][d] = g * m;
+    a.t[1][d] = (g + 1u) * m;
   }
 }
 
-// BWD: one thread a point, its levels in order
+template <int ROWS>
+__device__ __forceinline__ unsigned combine(unsigned r, unsigned t,
+                                            bool hash) {
+  return (ROWS == EITHER ? hash : ROWS == HASHED) ? (r ^ t) : (r + t);
+}
+
+// A corner's uint32 index → its row in the level (ops/hashgrid.py
+// `index_rule`): a mask (msk = size − 1, sub = 0), min(i, i − size) in
+// uint32 (sub = size: i < 2·size), nothing (msk = ~0, sub = 0), or a
+// modulo, i − ⌊i·M / 2⁶⁴⌋·size with M = ⌈2⁶⁴ / size⌉ (exact for 32-bit i:
+// no division in the kernel).
+__device__ __forceinline__ unsigned index_of(const LevelAny& L, unsigned r) {
+  unsigned i = r & L.msk;
+  i = min(i, i - L.sub);
+  if (L.flags & FLAG_MODULO) {
+    const unsigned long long m =
+        ((unsigned long long)L.mod_hi << 32) | L.mod_lo;
+    i -= (unsigned)__umul64hi(i, m) * L.size;
+  }
+  return i;
+}
+
+// The corners of one (point, level) by two trees over the axes at once: the
+// walk below axis 0 carries the prefix weights (wa, wb) and rows (ra, rb) of
+// the two halves (bit 0 clear, bit 0 set), one axis a depth, both children
+// in order; at depth D `leaf(wa, wb, ra, rb)` takes corners c and c + 1.
+// `bwd` also runs the tree's reverse: a leaf returns (dot_a, dot_b), a node
+// returns Σ_leaves Π_{e ≥ d} f_e · dot for each half, and gf[b][d] sums
+// Π_{e ≠ d} f_e · dot over the corners with bit d = b (∂/∂f_d(b) of
+// Σ_c w_c dot_c).
+template <int D, int d, int ROWS>
+struct Walk {
+  template <class Leaf>
+  static __device__ __forceinline__ void fwd(const Axes<D>& a, float wa,
+                                             float wb, unsigned ra,
+                                             unsigned rb, Leaf& leaf) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      Walk<D, d + 1, ROWS>::fwd(a, __fmul_rn(wa, a.f[b][d]),
+                                __fmul_rn(wb, a.f[b][d]),
+                                combine<ROWS>(ra, a.t[b][d], a.hash),
+                                combine<ROWS>(rb, a.t[b][d], a.hash), leaf);
+  }
+  template <class Leaf>
+  static __device__ __forceinline__ float2 bwd(const Axes<D>& a, float wa,
+                                               float wb, unsigned ra,
+                                               unsigned rb,
+                                               float (&gf)[2][D],
+                                               Leaf& leaf) {
+    float2 adj[2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      adj[b] = Walk<D, d + 1, ROWS>::bwd(a, __fmul_rn(wa, a.f[b][d]),
+                                         __fmul_rn(wb, a.f[b][d]),
+                                         combine<ROWS>(ra, a.t[b][d], a.hash),
+                                         combine<ROWS>(rb, a.t[b][d], a.hash), gf,
+                                         leaf);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      gf[b][d] = fmaf(wa, adj[b].x, fmaf(wb, adj[b].y, gf[b][d]));
+    return make_float2(fmaf(a.f[0][d], adj[0].x, a.f[1][d] * adj[1].x),
+                       fmaf(a.f[0][d], adj[0].y, a.f[1][d] * adj[1].y));
+  }
+};
+
+template <int D, int ROWS>
+struct Walk<D, D, ROWS> {
+  template <class Leaf>
+  static __device__ __forceinline__ void fwd(const Axes<D>&, float wa,
+                                             float wb, unsigned ra,
+                                             unsigned rb, Leaf& leaf) {
+    leaf(wa, wb, ra, rb);
+  }
+  template <class Leaf>
+  static __device__ __forceinline__ float2 bwd(const Axes<D>&, float wa,
+                                               float wb, unsigned ra,
+                                               unsigned rb, float (&)[2][D],
+                                               Leaf& leaf) {
+    return leaf(wa, wb, ra, rb);
+  }
+};
+
+// The loop over the top axes: a (point, level) walks axes 1 … T_D by a
+// run-time loop over their 2^T_D paths, each recomputing its prefix (the
+// same products in axis order) and walking the last WALK_AXES axes
+// unrolled, so a kernel holds 2^WALK_AXES leaves of code whatever D.
+constexpr int WALK_AXES = 3;
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
+__host__ __device__ constexpr int top_axes() {
+  return D - 1 > WALK_AXES ? D - 1 - WALK_AXES : 0;
+}
+
+template <int D, int ROWS, class Leaf>
+__device__ __forceinline__ void walk_fwd(const Axes<D>& a, Leaf& leaf) {
+  constexpr int T = top_axes<D>();
+#pragma unroll 1
+  for (unsigned j = 0; j < (1u << T); ++j) {
+    float wa = a.f[0][0], wb = a.f[1][0];
+    unsigned ra = a.t[0][0], rb = a.t[1][0];
+#pragma unroll
+    for (int d = 1; d <= T; ++d) {
+      const bool b = (j >> (d - 1)) & 1u;
+      const float f = b ? a.f[1][d] : a.f[0][d];
+      const unsigned t = b ? a.t[1][d] : a.t[0][d];
+      wa = __fmul_rn(wa, f);
+      wb = __fmul_rn(wb, f);
+      ra = combine<ROWS>(ra, t, a.hash);
+      rb = combine<ROWS>(rb, t, a.hash);
+    }
+    Walk<D, T + 1, ROWS>::fwd(a, wa, wb, ra, rb, leaf);
+  }
+}
+
+// The same walk with the reverse: gf[b][d] += ∂/∂f_d(b) of Σ_c w_c dot_c.
+// A top axis d of a path takes Π_{e ≠ d} of the path's top factors times
+// f_0(0)·adj_a + f_0(1)·adj_b (the adjoints of the path's two subtrees);
+// axis 0 takes Π of the top factors times adj_a or adj_b.
+template <int D, int ROWS, class Leaf>
+__device__ __forceinline__ void walk_bwd(const Axes<D>& a,
+                                         float (&gf)[2][D], Leaf& leaf) {
+  constexpr int T = top_axes<D>();
+#pragma unroll 1
+  for (unsigned j = 0; j < (1u << T); ++j) {
+    float ft[T + 2];
+    float wa = a.f[0][0], wb = a.f[1][0];
+    unsigned ra = a.t[0][0], rb = a.t[1][0];
+#pragma unroll
+    for (int d = 1; d <= T; ++d) {
+      const bool b = (j >> (d - 1)) & 1u;
+      ft[d] = b ? a.f[1][d] : a.f[0][d];
+      const unsigned t = b ? a.t[1][d] : a.t[0][d];
+      wa = __fmul_rn(wa, ft[d]);
+      wb = __fmul_rn(wb, ft[d]);
+      ra = combine<ROWS>(ra, t, a.hash);
+      rb = combine<ROWS>(rb, t, a.hash);
+    }
+    const float2 adj = Walk<D, T + 1, ROWS>::bwd(a, wa, wb, ra, rb, gf, leaf);
+    float suf[T + 2];  // suf[d] = Π_{e ≥ d} of the path's top factors
+    suf[T + 1] = 1.f;
+#pragma unroll
+    for (int d = T; d >= 1; --d) suf[d] = ft[d] * suf[d + 1];
+    const float both = fmaf(a.f[0][0], adj.x, a.f[1][0] * adj.y);
+    float pre = 1.f;
+#pragma unroll
+    for (int d = 1; d <= T; ++d) {
+      const float v = pre * suf[d + 1] * both;
+      if ((j >> (d - 1)) & 1u)
+        gf[1][d] += v;
+      else
+        gf[0][d] += v;
+      pre *= ft[d];
+    }
+    gf[0][0] = fmaf(suf[1], adj.x, gf[0][0]);
+    gf[1][0] = fmaf(suf[1], adj.y, gf[1][0]);
+  }
+}
+
+// v's float number i mod 4
+__device__ __forceinline__ float lane_of(const float4& v, unsigned i) {
+  return (i & 2u) ? ((i & 1u) ? v.w : v.z) : ((i & 1u) ? v.y : v.x);
+}
+
+// Rows a and b (level-relative) of an x-pair from the level's first row
+// `base` (C = CV floats a row): one 16-B load where both lie in one block
+// of 16 B ({2k, 2k + 1} at C 2; 1 ≤ a ^ b ≤ 3 at C 1, as for 3 of 4 cells
+// of a hashed level, whose axis-0 prime is 1) and the table allows it, else
+// one load a row (4 or 8 B; a float each where the table is not 16-B
+// aligned at C 2).
+template <int CV>
+__device__ __forceinline__ void load_pair(const float* __restrict__ base,
+                                          unsigned a, unsigned b, int vec,
+                                          float (&va)[CV], float (&vb)[CV]) {
+  static_assert(CV == 1 || CV == 2, "rows of 1 or 2 floats");
+  const bool pair = (a ^ b) == 1u;
+  const bool hi = a & 1u;
+  if constexpr (CV == 1) {
+    if ((a ^ b) - 1u < 3u && (vec & TABLE_16)) {
+      // both rows in one aligned block of four
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(base + (a & ~3u)));
+      va[0] = lane_of(v, a);
+      vb[0] = lane_of(v, b);
+    } else if (pair && (vec & TABLE_8)) {
+      const float2 v =
+          __ldg(reinterpret_cast<const float2*>(base + (a & ~1u)));
+      va[0] = hi ? v.y : v.x;
+      vb[0] = hi ? v.x : v.y;
+    } else {
+      va[0] = __ldg(base + a);
+      vb[0] = __ldg(base + b);
+    }
+  } else if (vec & TABLE_16) {
+    if (pair) {
+      const float4 v = __ldg(
+          reinterpret_cast<const float4*>(base + 2 * (size_t)(a & ~1u)));
+      va[0] = hi ? v.z : v.x;
+      va[1] = hi ? v.w : v.y;
+      vb[0] = hi ? v.x : v.z;
+      vb[1] = hi ? v.y : v.w;
+    } else {
+      const float2 u = __ldg(reinterpret_cast<const float2*>(base) + a);
+      const float2 v = __ldg(reinterpret_cast<const float2*>(base) + b);
+      va[0] = u.x, va[1] = u.y;
+      vb[0] = v.x, vb[1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      va[k] = __ldg(base + 2 * (size_t)a + k);
+      vb[k] = __ldg(base + 2 * (size_t)b + k);
+    }
+  }
+}
+
+// Features k0 … k0 + 3 (those below C) of the row at `row`: one 16-B load
+// where C is a multiple of 4 and the table 16-B aligned, else a float each.
+__device__ __forceinline__ float4 load_chunk(const float* __restrict__ row,
+                                             int k0, int C, bool vec4) {
+  if (vec4) return __ldg(reinterpret_cast<const float4*>(row + k0));
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k0 + k < C ? __ldg(row + k0 + k) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// ENCODE of one (point, level): acc[k] = y[kb + k] for the features of a
+// block (CV of them, or for CV = 0 up to 8 from kb, in chunks of four).
+template <int D, int CV, int ROWS>
+__device__ __forceinline__ void encode_level(
+    const LevelAny& L, const float* __restrict__ table, const float* xp,
+    float off, bool smooth, int vec, int C, int kb,
+    float (&acc)[CV ? CV : 8]) {
+  Axes<D> a;
+  axes_of<D, ROWS>(L, xp, off, smooth, a);
+  const float* base = table + (size_t)L.offset * C;
+#pragma unroll
+  for (int k = 0; k < (CV ? CV : 8); ++k) acc[k] = 0.f;
+  if constexpr (CV > 0) {
+    auto leaf = [&](float wa, float wb, unsigned ra, unsigned rb) {
+      float va[CV], vb[CV];
+      load_pair<CV>(base, index_of(L, ra), index_of(L, rb), vec, va, vb);
+#pragma unroll
+      for (int k = 0; k < CV; ++k)
+        acc[k] = fmaf(wb, vb[k], fmaf(wa, va[k], acc[k]));
+    };
+    walk_fwd<D, ROWS>(a, leaf);
+  } else {
+    const bool vec4 = (C & 3) == 0 && (vec & TABLE_16);
+    auto leaf = [&](float wa, float wb, unsigned ra, unsigned rb) {
+      const float* rowa = base + (size_t)index_of(L, ra) * C + kb;
+      const float* rowb = base + (size_t)index_of(L, rb) * C + kb;
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (kb + 4 * ch >= C) break;
+        const float4 u = load_chunk(rowa, 4 * ch, C - kb, vec4);
+        const float4 v = load_chunk(rowb, 4 * ch, C - kb, vec4);
+        float* s = acc + 4 * ch;
+        s[0] = fmaf(wb, v.x, fmaf(wa, u.x, s[0]));
+        s[1] = fmaf(wb, v.y, fmaf(wa, u.y, s[1]));
+        s[2] = fmaf(wb, v.z, fmaf(wa, u.z, s[2]));
+        s[3] = fmaf(wb, v.w, fmaf(wa, u.w, s[3]));
+      }
+    };
+    walk_fwd<D, ROWS>(a, leaf);
+  }
+}
+
+// ENCODE, level-major: block b takes level group b / tiles (G levels) and
+// point tile b % tiles (256/G points); warp w level w / (8/G) of the group,
+// 32 consecutive points. With G > 1 (C ≤ 4) the block's features go
+// through shared memory and leave as the tile's whole (point, group) runs
+// of G·C floats; out (N, L·C).
+template <int D, int CV>
+__global__ void __launch_bounds__(ENC_THREADS)
+    encode_any_kernel(const float* __restrict__ x,
+                      const float* __restrict__ table,
+                      const LevelAny* __restrict__ levels, int n_levels,
+                      int C, long long n, float off, int smooth, int vec,
+                      int G, unsigned tiles, float* __restrict__ out) {
+  __shared__ float stage[ENC_THREADS * 4];
+  constexpr int KA = CV ? CV : 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned group = blockIdx.x / tiles;
+  const long long tile = blockIdx.x - group * tiles;
+  const int wpl = ENC_WARPS / G;  // warps a level
+  const int P = 32 * wpl;         // points a block
+  const int l0 = (int)group * G;
+  const int ge = min(G, n_levels - l0);  // levels in this group
+  const int gi = warp / wpl;
+  const int q = (warp - gi * wpl) * 32 + lane;
+  const long long p = tile * P + q;
+  const long long lc = (long long)n_levels * C;
+  if (gi < ge && p < n) {
+    float xp[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) xp[d] = __ldg(x + D * p + d);
+    const bool live = in_unit_box(xp, D);
+    const LevelAny L = load_level_any(levels, l0 + gi);
+    for (int kb = 0; kb < C; kb += KA) {
+      float acc[KA];
+      if (!live) {
+#pragma unroll
+        for (int k = 0; k < KA; ++k) acc[k] = 0.f;
+      } else if (L.use_hash) {
+        encode_level<D, CV, HASHED>(L, table, xp, off, smooth, vec, C, kb,
+                                  acc);
+      } else {
+        encode_level<D, CV, DENSE>(L, table, xp, off, smooth, vec, C, kb,
+                                   acc);
+      }
+      const int nk = min(KA, C - kb);
+      if (G > 1) {
+        float* s = stage + (q * ge + gi) * C + kb;
+#pragma unroll
+        for (int k = 0; k < KA; ++k)
+          if (k < nk) s[k] = acc[k];
+      } else {
+        float* y = out + p * lc + (long long)l0 * C + kb;
+#pragma unroll
+        for (int k = 0; k < KA; ++k)
+          if (k < nk) y[k] = acc[k];
+      }
+    }
+  }
+  if (G > 1) {
+    __syncthreads();
+    const int seg = ge * C;
+    for (int i = threadIdx.x; i < P * seg; i += ENC_THREADS) {
+      const int qq = i / seg;
+      const long long pp = tile * P + qq;
+      if (pp < n) out[pp * lc + (long long)l0 * C + (i - qq * seg)] = stage[i];
+    }
+  }
+}
+
+// One BWD table-grad reduction of an x-pair's values va, vb (CV floats) at
+// level-relative rows a, b of `grads` (the level's first row of d_table):
+// one 16-B reduction where both lie in one block of 16 B ({2k, 2k + 1} at
+// C 2; 1 ≤ a ^ b ≤ 3 at C 1, the other two floats zero), else one a row
+// (4 or 8 B), scalar where d_table is not 16-B aligned.
+template <int CV>
+__device__ __forceinline__ void red_pair(float* __restrict__ grads,
+                                         unsigned a, unsigned b, int vec,
+                                         const float (&va)[CV],
+                                         const float (&vb)[CV]) {
+  static_assert(CV == 1 || CV == 2, "rows of 1 or 2 floats");
+  const bool wide = vec & GRADS_16;
+  if constexpr (CV == 1) {
+    if (wide && (a ^ b) - 1u < 3u) {
+      // one 16-B reduction of the aligned block of four holding both
+      float v[4];
+#pragma unroll
+      for (unsigned k = 0; k < 4; ++k)
+        v[k] = (a & 3u) == k ? va[0] : ((b & 3u) == k ? vb[0] : 0.f);
+      atomicAdd(reinterpret_cast<float4*>(grads + (a & ~3u)),
+                make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+      atomicAdd(grads + a, va[0]);
+      atomicAdd(grads + b, vb[0]);
+    }
+  } else {
+    if (wide && (a ^ b) == 1u) {
+      atomicAdd(reinterpret_cast<float4*>(grads + 2 * (size_t)(a & ~1u)),
+                (a & 1u) ? make_float4(vb[0], vb[1], va[0], va[1])
+                         : make_float4(va[0], va[1], vb[0], vb[1]));
+    } else if (wide) {
+      atomicAdd(reinterpret_cast<float2*>(grads) + a,
+                make_float2(va[0], va[1]));
+      atomicAdd(reinterpret_cast<float2*>(grads) + b,
+                make_float2(vb[0], vb[1]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        atomicAdd(grads + 2 * (size_t)a + k, va[k]);
+        atomicAdd(grads + 2 * (size_t)b + k, vb[k]);
+      }
+    }
+  }
+}
+
+// What one BWD level step needs besides the point.
+struct BwdLevel {
+  const float* base;  // the level's first table row
+  float* grads;       // its first d_table row (null: no table grads)
+  float* shared;      // the block's shared-memory grads (shared level)
+  int vec, C;
+  bool want_dx;
+};
+
+// One BWD level of one point: the table grads of its corners (runs summed
+// by shuffles, `red_pair` from each run's first lane, or shared-memory
+// atomics on a shared level) and gl[d] = S'_d (gf[1][d] − gf[0][d]), the
+// level's ∂/∂t_d of Σ_c w_c ⟨T_c, dy⟩. Every lane of the warp runs it (the
+// shuffles); a lane that is not live sends and loads nothing. K = CV
+// features of dy at a time (CV = 0: chunks of four from k0).
+template <int D, int CV, int ROWS>
+__device__ __forceinline__ void bwd_level(const LevelAny& L,
+                                          const BwdLevel& B, const float* xp,
+                                          float off, bool smooth, bool live,
+                                          const float* __restrict__ dyl,
+                                          float (&gl)[D]) {
+  constexpr int K = CV ? CV : 4;
+  const int lane = threadIdx.x & 31;
+  Axes<D> a;
+  axes_of<D, ROWS>(L, xp, off, smooth, a);
+  // the runs: a lane and the following lanes of its warp that are live and
+  // in the same cell share all 2^D rows
+  bool head = true;
+  int end = lane + 1;
+  unsigned longest = 1;
+  if (B.grads && !B.shared) {
+    const int qlive = __shfl_up_sync(FULL, (int)live, 1);  // every lane
+    head = lane == 0 || !live || !qlive;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      head = (__shfl_up_sync(FULL, a.g[d], 1) != a.g[d]) || head;
+    const unsigned later = __ballot_sync(FULL, head) & (0xFFFFFFFEu << lane);
+    end = later ? __ffs(later) - 1 : 32;
+    longest = __reduce_max_sync(FULL, (unsigned)(end - lane));
+  }
+  float gf[2][D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) gf[0][d] = gf[1][d] = 0.f;
+  const int C = CV ? CV : B.C;
+  const bool vec4 = (C & 3) == 0 && (B.vec & GRADS_16);
+  for (int k0 = 0; k0 < C; k0 += K) {
+    float g[K];
+    if constexpr (CV == 2) {
+      float2 u = make_float2(0.f, 0.f);
+      if (live)
+        u = (B.vec & DY_8) ? __ldg(reinterpret_cast<const float2*>(dyl))
+                           : make_float2(__ldg(dyl), __ldg(dyl + 1));
+      g[0] = u.x;
+      g[1] = u.y;
+    } else if constexpr (CV == 0 || CV == 4) {
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live)
+        u = load_chunk(dyl, k0, C, (C & 3) == 0 && (B.vec & DY_16));
+      g[0] = u.x, g[1] = u.y, g[2] = u.z, g[3] = u.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        g[k] = live && k0 + k < C ? __ldg(dyl + k0 + k) : 0.f;
+    }
+    auto leaf = [&](float wa, float wb, unsigned ra, unsigned rb) {
+      const unsigned ia = index_of(L, ra), ib = index_of(L, rb);
+      if (B.grads) {
+        float va[K], vb[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          va[k] = wa * g[k];
+          vb[k] = wb * g[k];
+        }
+        if (B.shared) {
+          if (live) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              if (k0 + k >= C) break;
+              atomicAdd(B.shared + (size_t)ia * C + k0 + k, va[k]);
+              atomicAdd(B.shared + (size_t)ib * C + k0 + k, vb[k]);
+            }
+          }
+        } else {
+#pragma unroll 1
+          for (unsigned o = 1; o < longest; o <<= 1) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float sa = __shfl_down_sync(FULL, va[k], o);
+              const float sb = __shfl_down_sync(FULL, vb[k], o);
+              if (lane + (int)o < end) {
+                va[k] += sa;
+                vb[k] += sb;
+              }
+            }
+          }
+          if (head && live) {
+            if constexpr (CV == 1 || CV == 2) {
+              red_pair<CV>(B.grads, ia, ib, B.vec, va, vb);
+            } else {
+              float* pa = B.grads + (size_t)ia * C + k0;
+              float* pb = B.grads + (size_t)ib * C + k0;
+              if (vec4) {
+                atomicAdd(reinterpret_cast<float4*>(pa),
+                          make_float4(va[0], va[1], va[2], va[3]));
+                atomicAdd(reinterpret_cast<float4*>(pb),
+                          make_float4(vb[0], vb[1], vb[2], vb[3]));
+              } else {
+#pragma unroll
+                for (int k = 0; k < K; ++k) {
+                  if (k0 + k >= C) break;
+                  atomicAdd(pa + k, va[k]);
+                  atomicAdd(pb + k, vb[k]);
+                }
+              }
+            }
+          }
+        }
+      }
+      float2 dot = make_float2(0.f, 0.f);
+      if (B.want_dx && live) {
+        float ta[K], tb[K];
+        if constexpr (CV == 1 || CV == 2) {
+          load_pair<CV>(B.base, ia, ib, B.vec, ta, tb);
+        } else {
+          const bool t4 = (C & 3) == 0 && (B.vec & TABLE_16);
+          const float4 u = load_chunk(B.base + (size_t)ia * C, k0, C, t4);
+          const float4 v = load_chunk(B.base + (size_t)ib * C, k0, C, t4);
+          ta[0] = u.x, ta[1] = u.y, ta[2] = u.z, ta[3] = u.w;
+          tb[0] = v.x, tb[1] = v.y, tb[2] = v.z, tb[3] = v.w;
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          dot.x = fmaf(ta[k], g[k], dot.x);
+          dot.y = fmaf(tb[k], g[k], dot.y);
+        }
+      }
+      return dot;
+    };
+    walk_bwd<D, ROWS>(a, gf, leaf);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    gl[d] = live ? a.s1[d] * (gf[1][d] - gf[0][d]) : 0.f;
+}
+
+// BWD: a block of BWD_TILE consecutive points, a thread a point, its levels
+// in order (the warps hold 32 consecutive points of one level at each
+// step); dx summed in registers in level order.
+template <int D, int CV>
+__global__ void __launch_bounds__(BWD_TILE)
     bwd_any_kernel(const float* __restrict__ x,
                    const float* __restrict__ table,
                    const LevelAny* __restrict__ levels, int n_levels, int C,
-                   long long n, float off, int smooth,
+                   long long n, float off, int smooth, int vec,
                    const float* __restrict__ dy, float* __restrict__ d_table,
                    float* __restrict__ dx) {
-  const long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= n) return;
+  __shared__ float shared[SHARED_FLOATS];
+  const long long p = (long long)blockIdx.x * BWD_TILE + threadIdx.x;
+  const bool inb = p < n;
   float xp[D], gx[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    xp[d] = __ldg(x + D * p + d);
+    xp[d] = inb ? __ldg(x + D * p + d) : 0.f;
     gx[d] = 0.f;
   }
-  if (in_unit_box(xp, D)) {
-    const long long lc = (long long)n_levels * C;
-    for (int l = 0; l < n_levels; ++l) {
-      const LevelAny L = levels[l];
-      const Cell<D> cell = cell_of<D>(L, xp, off, smooth);
-      const float* dyl = dy + p * lc + (long long)l * C;
-      float gl[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) gl[d] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < (1 << D); ++c) {
-        float f[D], df[D], pex[D];
-        factors<D>(cell, c, f, df);
-        const float w = products<D>(f, pex);
-        const size_t row = corner_row<D>(L, cell, c) * C;
-        float dot = 0.f;
-        for (int k = 0; k < C; ++k) {
-          const float g = __ldg(dyl + k);
-          if (d_table) atomicAdd(d_table + row + k, w * g);
-          if (dx) dot = fmaf(__ldg(table + row + k), g, dot);
-        }
-        if (dx) {
-#pragma unroll
-          for (int d = 0; d < D; ++d)
-            gl[d] = fmaf(df[d] * pex[d], dot, gl[d]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) gx[d] += gl[d] * L.scale;
+  const bool live = inb && in_unit_box(xp, D);
+  const long long lc = (long long)n_levels * C;
+  for (int l = 0; l < n_levels; ++l) {
+    const LevelAny L = load_level_any(levels, l);
+    const bool sh = d_table && (L.flags & FLAG_SHARED);
+    const int cells = (int)L.size * C;
+    if (sh) {
+      for (int i = threadIdx.x; i < cells; i += BWD_TILE) shared[i] = 0.f;
+      __syncthreads();
     }
+    const BwdLevel B{table + (size_t)L.offset * C,
+                     d_table ? d_table + (size_t)L.offset * C : nullptr,
+                     sh ? shared : nullptr, vec, C, dx != nullptr};
+    const float* dyl = dy + (inb ? p : 0) * lc + (long long)l * C;
+    float gl[D];
+    bwd_level<D, CV, EITHER>(L, B, xp, off, smooth, live, dyl, gl);
+    if (sh) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < cells; i += BWD_TILE) {
+        const float v = shared[i];
+        if (v != 0.f) atomicAdd(B.grads + i, v);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) gx[d] += gl[d] * L.scale;
   }
-  if (dx) {
+  if (dx && inb) {
 #pragma unroll
     for (int d = 0; d < D; ++d) dx[D * p + d] = gx[d];
   }
@@ -360,20 +932,62 @@ struct Args {
   int smooth;
 };
 
+// the alignment flags of the table (and dy, d_table) the kernels read
+int vec_flags(const void* table, const void* dy, const void* d_table) {
+  auto at = [](const void* p, unsigned a) {
+    return p && (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
+  };
+  return (at(table, 8) ? TABLE_8 : 0) | (at(table, 16) ? TABLE_16 : 0) |
+         (at(dy, 8) ? DY_8 : 0) | (at(dy, 16) ? DY_16 : 0) |
+         (at(d_table, 16) ? GRADS_16 : 0);
+}
+
+template <int D, int CV>
+int encode_cv(const Args& a, float* out, cudaStream_t s) {
+  // G levels a block: the most (1, 2, 4 or 8, at most the level count)
+  // with G·C·4 ≤ 32 bytes
+  const int gmax = a.C == 1 ? 8 : a.C == 2 ? 4 : a.C <= 4 ? 2 : 1;
+  int G = 1;
+  while (2 * G <= gmax && 2 * G <= a.n_levels) G *= 2;
+  const long long P = 32LL * (ENC_WARPS / G);
+  const long long tiles = (a.n + P - 1) / P;
+  const long long grid = (a.n_levels + G - 1) / G * tiles;
+  if (grid > 0x7fffffffLL) return -6;
+  encode_any_kernel<D, CV><<<(unsigned)grid, ENC_THREADS, 0, s>>>(
+      a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth,
+      vec_flags(a.table, nullptr, nullptr), G, (unsigned)tiles, out);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int encode(const Args& a, float* out, cudaStream_t s) {
-  encode_any_kernel<D><<<blocks(a.n * a.n_levels), BLOCK, 0, s>>>(
-      a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth, out);
+  switch (a.C) {
+    case 1: return encode_cv<D, 1>(a, out, s);
+    case 2: return encode_cv<D, 2>(a, out, s);
+    default: return encode_cv<D, 0>(a, out, s);
+  }
+}
+
+template <int D, int CV>
+int bwd_cv(const Args& a, const float* dy, float* d_table, float* dx,
+           cudaStream_t s) {
+  const long long grid = (a.n + BWD_TILE - 1) / BWD_TILE;
+  if (grid > 0x7fffffffLL) return -6;
+  bwd_any_kernel<D, CV><<<(unsigned)grid, BWD_TILE, 0, s>>>(
+      a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth,
+      vec_flags(a.table, dy, d_table), dy, d_table, dx);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int bwd(const Args& a, const float* dy, float* d_table, float* dx,
         cudaStream_t s) {
-  bwd_any_kernel<D><<<blocks(a.n), BLOCK, 0, s>>>(
-      a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth, dy,
-      d_table, dx);
-  return (int)cudaGetLastError();
+  switch (a.C) {
+    case 1: return bwd_cv<D, 1>(a, dy, d_table, dx, s);
+    case 2: return bwd_cv<D, 2>(a, dy, d_table, dx, s);
+    case 4: return bwd_cv<D, 4>(a, dy, d_table, dx, s);
+    default: return bwd_cv<D, 0>(a, dy, d_table, dx, s);
+  }
 }
 
 template <int D>
@@ -417,6 +1031,7 @@ const char* mnerf_cuda_error_string(int e) {
 // a message):
 //   -1 input_dim outside [1, 7] (the hash's primes)   -2 no levels
 //   -3 level_dim < 1                                   -5 no output asked for
+//   -6 more blocks than a launch takes
 // x is (n, d), table (rows, c), `levels` n_levels × 16 int32 words;
 // align_corners puts pos at x·scale (else x·scale + 0.5), smooth selects
 // smoothstep interpolation. Each entry takes the card's index (int) and a

@@ -30,7 +30,10 @@ see its source note), each with a plain PyTorch version beside it:
 
 BWD's and BWD2's table grads leave a warp as one reduction a run of lanes
 in one cell and corner; `reduction_plan` is that plan in plain PyTorch
-(which pairs are summed on chip before a reduction goes to L2).
+(which pairs are summed on chip before a reduction goes to L2). The
+general ENCODE and BWD build a level's corners by trees over the axes
+with a per-level row rule; `any_corners`, `index_rule` and
+`any_reduction_plan` are their arithmetic and plan in plain PyTorch.
 
 ENCODE, BWD and BWD2 take every spec the JAX encoder takes (`check_spec`:
 input_dim 1..7, any level_dim and level count, align_corners, linear or
@@ -109,7 +112,15 @@ MAX_INPUT_DIM = len(_PRIMES)  # the hash's primes: input_dim 1..7
 # the general entries' negative return codes (see csrc/hashgrid_any.cu)
 _ANY_REFUSALS = {-1: f"input_dim is outside [1, {MAX_INPUT_DIM}]",
                  -2: "no levels", -3: "level_dim < 1",
-                 -5: "no output asked for"}
+                 -5: "no output asked for",
+                 -6: "more blocks than one launch takes"}
+# the general ENCODE's and BWD's layout (csrc/hashgrid_any.cu): BWD's block
+# of consecutive points (a warp 32 of them), and the most floats of grads a
+# level summed in its shared memory
+ANY_BWD_TILE = 128
+ANY_SHARED_FLOATS = 2048
+# the level table's flags (LevelAny.flags)
+_FLAG_MODULO, _FLAG_SHARED = 1, 2
 
 
 @dataclass(frozen=True)
@@ -493,6 +504,111 @@ def reduction_plan(spec: HashGridSpec, x01: torch.Tensor, values_of):
     return torch.cat(rows_out), torch.cat(vals_out), by_level
 
 
+def any_corners(spec: HashGridSpec, lv: LevelSpec, x01: torch.Tensor):
+    """One level's corners as the general ENCODE and BWD build them
+    (csrc/hashgrid_any.cu `Walk`), in plain PyTorch: per axis the factors
+    (1 − S_d, S_d) and the row terms (g_d·m_d, (g_d + 1)·m_d) in uint32 (m_d
+    the prime of a hashed level, else the dense stride); the 2^D weights
+    and rows by doubling over the axes in order (w·f_d; r xor or + the
+    term); each row reduced by the level's `index_rule`. Returns (rows
+    (2^D, N) int64 in the flat table, weights (2^D, N) fp32), corner c's
+    bit d for +1 along axis d, for every point (the kernels use those in
+    [0, 1]^D only)."""
+    pg, t = _grid_pos(x01, lv.scale, 0.0 if spec.align_corners else 0.5)
+    if spec.interpolation == "smoothstep":
+        t = (t * t) * (3.0 - 2.0 * t)
+    f = (1.0 - t, t)
+    g = pg & _MASK32
+    mult = _PRIMES if lv.use_hash else lv.dense_strides
+    terms = [(_mul32(g[:, d], mult[d]), _mul32((g[:, d] + 1) & _MASK32,
+                                               mult[d]))
+             for d in range(spec.input_dim)]
+    w = [f[0][:, 0], f[1][:, 0]]
+    r = list(terms[0])
+    for d in range(1, spec.input_dim):
+        w = [wc * f[b][:, d] for b in (0, 1) for wc in w]
+        r = [(rc ^ terms[d][b]) if lv.use_hash
+             else (rc + terms[d][b]) & _MASK32 for b in (0, 1) for rc in r]
+    rule, msk, sub = index_rule(spec, lv)
+    idx = torch.stack(r) & msk
+    idx = torch.minimum(idx, (idx - sub) & _MASK32)
+    if rule == "modulo":
+        idx = idx % lv.size
+    return lv.offset + idx, torch.stack(w)
+
+
+def _vector_reductions(c: int) -> int:
+    """Reductions the general BWD sends for one corner's C features: one
+    (4, 8 or 16 B) for C 1, 2, 4; 16-B chunks for a multiple of 4; else a
+    float each."""
+    return 1 if c in (1, 2, 4) else (c // 4 if c % 4 == 0 else c)
+
+
+def any_reduction_plan(spec: HashGridSpec, x01: torch.Tensor,
+                       dy: torch.Tensor):
+    """The table-grad reductions that the general BWD (csrc/hashgrid_any.cu)
+    sends, in plain PyTorch, for a d_table aligned for vector reductions
+    (the wrapper allocates it). Per level, corner c of each point in [0,
+    1]^D adds w_c·dy_l (`any_corners`):
+    - on a shared level (`shared_level`) a block's ANY_BWD_TILE points sum
+      their values per table element in shared memory, flushed as one
+      scalar reduction a nonzero element;
+    - else a warp's runs (a lane and the following lanes of its warp that
+      are in the box and in the same cell: the same 2^D rows) are summed,
+      and each run's first lane sends one 16-B reduction an x-pair
+      (corners c, c + 1) where both rows lie in one 16-B block of the
+      table (C 2: {2k, 2k + 1}; C 1: the same block of four), else
+      `_vector_reductions(C)` a corner.
+    Returns (flat element indices (E,) int64 into the (rows·C,) table,
+    values (E,), per level a dict of its pairs (corner values of live
+    points), reductions and whether it is shared); `index_add_` of the
+    plan into zeros equals `index_add_` of every pair."""
+    n, c = x01.shape[0], spec.level_dim
+    dev = x01.device
+    idx = torch.arange(n, device=dev)
+    live = _in_cube(x01)
+    k = torch.arange(c, device=dev)
+    elems, vals, by_level = [], [], []
+    for li, lv in enumerate(spec.levels()):
+        rows, w = any_corners(spec, lv, x01)
+        v = w[..., None] * dy[None, :, c * li:c * li + c]  # (2^D, N, C)
+        pairs = int(live.sum()) * rows.shape[0]
+        if shared_level(spec, lv):
+            block = (idx // ANY_BWD_TILE).expand_as(rows)[:, live]
+            key = block * lv.size + (rows[:, live] - lv.offset)
+            sums = v.new_zeros((int(block.max()) + 1 if pairs else 0)
+                               * lv.size, c).index_add_(
+                0, key.reshape(-1), v[:, live].reshape(-1, c))
+            nz = sums.reshape(-1) != 0
+            el = (lv.offset * c + torch.arange(sums.numel(), device=dev)
+                  % (lv.size * c))[nz]
+            elems.append(el)
+            vals.append(sums.reshape(-1)[nz])
+            by_level.append(dict(pairs=pairs, reductions=int(nz.sum()),
+                                 shared=True))
+            continue
+        cell, _ = _grid_pos(x01, lv.scale, 0.0 if spec.align_corners
+                            else 0.5)
+        head = torch.ones(n, dtype=torch.bool, device=dev)
+        head[1:] = ~((cell[1:] == cell[:-1]).all(-1) & live[1:] & live[:-1])
+        head |= idx % 32 == 0
+        run = torch.cumsum(head.long(), 0) - 1
+        sums = v.new_zeros((rows.shape[0], int(head.sum()), c)).index_add_(
+            1, run, torch.where(live[None, :, None], v, v.new_zeros(())))
+        keep = live[head]
+        r = rows[:, head][:, keep]  # (2^D, runs)
+        if c <= 2:  # both rows in one 16-B block
+            xor = r[0::2] ^ r[1::2]
+            paired = (xor >= 1) & (xor <= (3 if c == 1 else 1))
+            sent = int(paired.sum()) + 2 * int((~paired).sum())
+        else:
+            sent = r.numel() * _vector_reductions(c)
+        elems.append((r[..., None] * c + k).reshape(-1))
+        vals.append(sums[:, keep].reshape(-1))
+        by_level.append(dict(pairs=pairs, reductions=sent, shared=False))
+    return torch.cat(elems), torch.cat(vals), by_level
+
+
 def tv_loss(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec,
             weight: float = 1e-7) -> torch.Tensor:
     """Total-variation loss at sampled points (the JAX package's `tv_loss`,
@@ -687,13 +803,63 @@ def _check_shapes(spec: HashGridSpec, table: torch.Tensor,
                              f"{tuple(t.shape)}")
 
 
+def _max_index(spec: HashGridSpec, lv: LevelSpec) -> int:
+    """The largest index Σ_d (g_d + 1)·stride_d (an integer, before any
+    uint32 wrap) that a corner of a point in [0, 1]^D reaches on a dense
+    level: g_d at x_d = 1, pos = fp32(scale + offset), the kernels' FMA."""
+    pos = np.float32(np.float64(np.float32(lv.scale))
+                     + (0.0 if spec.align_corners else 0.5))
+    top = int(np.floor(pos)) + 1
+    return sum(top * stride for stride in lv.dense_strides)
+
+
+def index_rule(spec: HashGridSpec, lv: LevelSpec) -> Tuple[str, int, int]:
+    """How the general ENCODE and BWD reduce a corner's uint32 index i to
+    the level's row, as (rule, msk, sub) with the row min(i & msk, (i & msk)
+    − sub) in uint32, then a true modulo for "modulo": "mask" (msk = size −
+    1) where the size is a power of two, as every hashed level's is; on a
+    dense level whose index, for points in [0, 1]^D, stays below the size
+    "none", or below twice the size "subtract" (sub = size; align_corners
+    reaches the size at x = 1); else "modulo". Each equals `% size` wherever
+    a point in [0, 1]^D takes it (`any_corners`)."""
+    size = lv.size
+    if size & (size - 1) == 0:
+        return "mask", size - 1, 0
+    if not lv.use_hash:
+        top = _max_index(spec, lv)
+        if top < size:
+            return "none", _MASK32, 0
+        if top < 2 * size <= _MASK32:
+            return "subtract", _MASK32, size
+    return "modulo", _MASK32, 0
+
+
+def divisor_magic(size: int) -> Tuple[int, int]:
+    """M = ⌈2⁶⁴ / size⌉ as (low, high) uint32 words: for every uint32 i,
+    ⌊i·M / 2⁶⁴⌋ = ⌊i / size⌋, so the general kernels take i mod size as
+    i − ⌊i·M / 2⁶⁴⌋·size (`index_of`)."""
+    m = -(-(1 << 64) // size)
+    return m & _MASK32, m >> 32
+
+
+def shared_level(spec: HashGridSpec, lv: LevelSpec) -> bool:
+    """Whether the general BWD sums a level's table grads in a block's
+    shared memory and flushes them once: its grads fit ANY_SHARED_FLOATS
+    and it has no more rows than a block has corners (ANY_BWD_TILE·2^D), as
+    the coarse dense levels."""
+    return (lv.size * spec.level_dim <= ANY_SHARED_FLOATS
+            and lv.size <= ANY_BWD_TILE * 2 ** spec.input_dim)
+
+
 _level_words_any: dict = {}
 
 
 def _level_table_any(spec: HashGridSpec, device) -> torch.Tensor:
     """The general kernels' level table on `device`, cached: 16 int32 words
-    a level (offset, size, fp32 scale bits, use_hash, the D dense strides,
-    zeros)."""
+    a level (offset, size, fp32 scale bits, use_hash, the D dense strides;
+    at 11-13 the index rule's msk and sub (`index_rule`) and the flags:
+    1 a true modulo, 2 BWD's shared-memory level (`shared_level`); at 14-15
+    the modulo's multiplier ⌈2⁶⁴ / size⌉, low word first)."""
     key = (spec, str(device))
     if key not in _level_words_any:
         words = np.zeros((spec.num_levels, 16), np.int32)
@@ -704,6 +870,15 @@ def _level_table_any(spec: HashGridSpec, device) -> torch.Tensor:
             words[li, 3] = int(lv.use_hash)
             words[li, 4:4 + spec.input_dim] = np.asarray(
                 lv.dense_strides, np.int64).astype(np.uint32).view(np.int32)
+            rule, msk, sub = index_rule(spec, lv)
+            words[li, 11] = np.uint32(msk).view(np.int32)
+            words[li, 12] = np.uint32(sub).view(np.int32)
+            words[li, 13] = ((_FLAG_MODULO if rule == "modulo" else 0)
+                             | (_FLAG_SHARED if shared_level(spec, lv)
+                                else 0))
+            if rule == "modulo":
+                words[li, 14:16] = np.asarray(
+                    divisor_magic(lv.size), np.uint32).view(np.int32)
         _level_words_any[key] = torch.from_numpy(words).to(device)
     return _level_words_any[key]
 

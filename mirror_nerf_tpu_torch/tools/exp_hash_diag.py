@@ -41,6 +41,17 @@ With `--bwd_spread N`, the real kernels alone, N runs of each on every
 layout: the spread (min, median, max) of the table grads' error against
 float64, scaled, beside each layout's bar (`table_bar`).
 
+With `--any [variant ...]`, the general ENCODE and BWD of
+`csrc/hashgrid_any.cu` instead, beside copies with one level a block
+and each warp storing its own features (`no_stage`: no shared-memory
+staging of whole 32-B sectors), the grid ordered point tile outer and
+level group inner (`point_major`: the blocks in flight gather from every
+level), and each corner's row loaded alone (`no_pairs`: no 16-B load of
+an x-pair); on chip_smoke.py phase 23's five specs (uniform points,
+ENCODE on 2,097,152, BWD on 131,072 with both outputs): every build's
+ENCODE bit for bit with the real one, its BWD within 2e-3 of each
+output's scale (atomics); 10 calls a round, best of 3 rounds in turns.
+
 Inputs (`cases`, also chip_smoke.py phase 13's): the hash-grid model at
 full width (16 levels × 2, 2¹⁹ rows a level, bound 6; seeded weights with
 the table's dense levels ×1e4 and the σ column |w|·5, and a saturating
@@ -501,6 +512,113 @@ def bwd_spread(reps: int) -> dict:
     return out
 
 
+ANY_ENTRIES = ("mnerf_hash_any_encode", "mnerf_hash_any_bwd")
+_ANY_GROUPS = ("  int G = 1;\n"
+               "  while (2 * G <= gmax && 2 * G <= a.n_levels) G *= 2;\n")
+_ANY_ORDER = ("  const unsigned group = blockIdx.x / tiles;\n"
+              "  const long long tile = blockIdx.x - group * tiles;\n")
+_ANY_PAIRS = ("  const bool pair = (a ^ b) == 1u;\n"
+              "  const bool hi = a & 1u;\n"
+              "  if constexpr (CV == 1) {\n"
+              "    if ((a ^ b) - 1u < 3u && (vec & TABLE_16)) {\n")
+ANY_PATCHES = {
+    "no_stage": [(_ANY_GROUPS, "  int G = 1;\n  (void)gmax;\n")],
+    "point_major": [(_ANY_ORDER,
+                     "  const unsigned groups = (n_levels + G - 1) / G;\n"
+                     "  const unsigned tile = blockIdx.x / groups;\n"
+                     "  const unsigned group = blockIdx.x - tile * groups;"
+                     "\n")],
+    "no_pairs": [(_ANY_PAIRS, _ANY_PAIRS.replace(
+        "(a ^ b) == 1u;", "false;").replace(
+        "if ((a ^ b) - 1u < 3u && (vec & TABLE_16))", "if (false)"))]}
+
+
+def _any_build(name: str) -> dict:
+    """A variant of the general ENCODE and BWD built into
+    build/kernels/diag/: entry -> ctypes function, typed as the
+    wrapper's."""
+    import ctypes
+
+    from ..ops import hashgrid
+
+    src = (_build.CSRC / "hashgrid_any.cu").read_text()
+    tag = "hash_any_" + name
+    fn, _ = exp_cp_diag.build(tag, {tag: ANY_PATCHES[name]}, ANY_ENTRIES[0],
+                              hashgrid._any_library, source=src)
+    lib = ctypes.CDLL(str(_build.BUILD_DIR / "diag" / f"{tag}.so"))
+    fn2 = getattr(lib, ANY_ENTRIES[1])
+    fn2.argtypes = hashgrid._any_library.entries[ANY_ENTRIES[1]]
+    fn2.restype = ctypes.c_int
+    return {ANY_ENTRIES[0]: fn, ANY_ENTRIES[1]: fn2}
+
+
+def any_main(rounds: int, names=None) -> dict:
+    """The general ENCODE and BWD beside their variants on phase 23's five
+    specs: each build held to the real one, then timed in turns."""
+    from ..ops import hashgrid as hg
+    from .exp_launch_ab import HASH_ANY_SPECS, hash_any_points, hash_any_spec
+
+    hg._any_library()
+    names = list(names or ANY_PATCHES)
+    real = hg._any_library._fns
+    fns = {"real": {e: real[e] for e in ANY_ENTRIES}}
+    with ThreadPoolExecutor(len(names)) as pool:
+        fns.update(zip(names, pool.map(_any_build, names)))
+
+    def swapped(name, call):
+        real.update(fns[name])
+        try:
+            return call()
+        finally:
+            real.update(fns["real"])
+
+    calls, worst = {}, {name: 0.0 for name in fns}
+    with torch.no_grad():
+        for si, spec_name in enumerate(HASH_ANY_SPECS):
+            spec = hash_any_spec(spec_name)
+            table = (hg.init_hashgrid(torch.Generator().manual_seed(si),
+                                      spec) * 1e4).cuda()
+            x = hash_any_points(spec, 2_097_152, "uniform", 30 + si)
+            xb = x[:131_072].contiguous()
+            dy = torch.randn((xb.shape[0], spec.output_dim),
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(50 + si), device="cuda")
+            enc = hg.encode_forward(table, x, spec)
+            bwd = hg.encode_backward(table, xb, dy, spec)
+            for name in fns:
+                got = swapped(name, lambda: hg.encode_forward(table, x, spec))
+                assert torch.equal(got, enc), (name, spec_name)
+                del got
+                for a, b in zip(swapped(name, lambda: hg.encode_backward(
+                        table, xb, dy, spec)), bwd):
+                    err = _scaled(a, b)
+                    assert err <= 2e-3, (name, spec_name, err)
+                    worst[name] = max(worst[name], err)
+            del enc, bwd
+            calls[f"{spec_name}: ENCODE"] = (
+                lambda x=x, table=table, spec=spec:
+                hg.encode_forward(table, x, spec))
+            calls[f"{spec_name}: BWD"] = (
+                lambda xb=xb, dy=dy, table=table, spec=spec:
+                hg.encode_backward(table, xb, dy, spec))
+        res = {name: {} for name in fns}
+        for rnd in range(rounds):
+            order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+            for name in order:
+                for case, call in calls.items():
+                    ms = swapped(name, lambda c=call: _ms(c, 10))
+                    res[name][case] = min(res[name].get(case, 1e9), ms)
+    print(f"device: {torch.cuda.get_device_name(0)}; general ENCODE / BWD "
+          f"ms per call, best of {rounds} rounds in turns; ENCODE bit for "
+          "bit with the real build, BWD's largest difference from it "
+          "(scaled to each output's largest entry)")
+    for name in fns:
+        print(f"{name:12s} " + ", ".join(
+            f"{case} {ms:.4f}" for case, ms in res[name].items())
+            + f" (BWD differs by {worst[name]:.2e})")
+    return {"ms": res, "max_diff": worst}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+", choices=list(PATCHES),
@@ -515,9 +633,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--bwd_spread", type=int, metavar="N",
                     help="N runs of BWD and BWD2 on each layout: the "
                          "table grads' error spread")
+    ap.add_argument("--any", nargs="*", choices=list(ANY_PATCHES),
+                    help="the general ENCODE's and BWD's variants (all "
+                         "without names) instead of the fused kernel's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on a card")
+    if args.any is not None:
+        return any_main(args.rounds, args.any)
     if args.dense:
         return dense_main(max(args.rounds, 5))
     if args.bwd_spread:

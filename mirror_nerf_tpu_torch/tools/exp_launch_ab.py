@@ -62,6 +62,14 @@ ray-ordered layouts (`exp_hash_diag.bwd_cases`), and `index_add_` of the
 same (row, value) pairs into a zeroed table (20 calls a round, best of 5);
 each tree's outputs are held to the plain versions first (the table grads
 against float64, the rest against fp32, within phase 16's 1e-5 of scale).
+With `--groups hash_any`: the general ENCODE, BWD (both outputs) and BWD2
+(all outputs) of `csrc/hashgrid_any.cu` on chip_smoke.py phase 23's five
+specs (`HASH_ANY_SPECS`, ×1e4 tables), on uniform points (~2 % outside)
+and ray-ordered ones (`hash_any_points`): ENCODE on 2,097,152 points
+(16384 segments × 128), BWD and BWD2 on 131,072 (1024 × 128); 10 calls a
+round, best of 3; the trees agree within 1e-5 (ENCODE, scaled above 1) and
+2e-3 of each output's scale (BWD, BWD2: each within 1e-3 of the plain
+version, with atomics).
 Each group is also checked: the two trees' outputs agree (GATHER, DENSE,
 ENCODE, the fused NGP composite, int8 table products and the floor bit for
 bit, the views and the train backward within 1e-3, the rest
@@ -95,7 +103,7 @@ from .timing import per_call_ms
 LIBS = ("segment_scan", "hashgrid", "invoke_floor", "fused_cp",
         "fused_cp_train", "fused_mlp_t", "table_mma")
 GROUPS = ("launch", "composite", "view", "flagship", "train", "tables",
-          "hash", "hash_bwd")
+          "hash", "hash_bwd", "hash_any")
 KERNEL_BAR = 1e-4  # the composite's bar against its plain version
 VIEW_BAR = 1e-3  # a whole render: sampling compounds the kernels' order
 OTHER = "other_port"  # the name the other tree's package is imported under
@@ -117,8 +125,11 @@ def load_other(root) -> dict:
 
 
 def _libraries(mods: dict) -> list:
-    """The kernel libraries (`_LIB` names) of a tree's modules."""
-    return [mods[name]._LIB for name in LIBS]
+    """The kernel libraries (`_LIB` names) of a tree's modules, and its
+    general hash-grid library where the tree has one."""
+    any_lib = getattr(mods["hashgrid"], "_ANY_LIB", None)
+    return [mods[name]._LIB for name in LIBS] + ([any_lib] if any_lib
+                                                 else [])
 
 
 def _groups(other: dict, seed: int) -> dict:
@@ -479,6 +490,88 @@ def _hash_bwd_groups(other: dict) -> dict:
     return out
 
 
+# chip_smoke.py phase 23's hash specs: get_encoder's defaults (16 levels,
+# 2¹⁹ rows a level at most, base 16, desired resolution 2048) with these
+# changes
+HASH_ANY_BASE = dict(num_levels=16, level_dim=2, base_resolution=16,
+                     log2_hashmap_size=19, desired_resolution=2048)
+HASH_ANY_SPECS = {"2-d, C 2": dict(input_dim=2),
+                  "3-d, align_corners": dict(align_corners=True),
+                  "3-d, smoothstep": dict(interpolation="smoothstep"),
+                  "4-d, C 4": dict(input_dim=4, level_dim=4),
+                  "7-d, C 1, 8 levels": dict(input_dim=7, level_dim=1,
+                                             num_levels=8)}
+HASH_ANY_RAY = 128  # consecutive points a segment
+
+
+def hash_any_spec(name: str):
+    return hashgrid.HashGridSpec(**{**HASH_ANY_BASE, **HASH_ANY_SPECS[name]})
+
+
+def hash_any_points(spec, n: int, layout: str, seed: int,
+                    dev: str = "cuda") -> torch.Tensor:
+    """n points for the general hash kernels: "uniform" in [0, 1]^D with
+    ~2 % at x_0 = 1.25 (outside), or "ray-ordered": n / HASH_ANY_RAY
+    segments between two uniform points of the unit cube, HASH_ANY_RAY
+    consecutive points along each (a ray's samples)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = spec.input_dim
+    if layout == "uniform":
+        x = torch.rand((n, d), generator=gen, device=dev)
+        out = torch.rand(n, generator=gen, device=dev) < 0.02
+        x[out, 0] = 1.25
+        return x.contiguous()
+    ends = torch.rand((2, n // HASH_ANY_RAY, 1, d), generator=gen,
+                      device=dev)
+    t = torch.linspace(0.0, 1.0, HASH_ANY_RAY, device=dev)[None, :, None]
+    return (ends[0] + (ends[1] - ends[0]) * t).reshape(-1, d).contiguous()
+
+
+def _hash_any_groups(other: dict) -> dict:
+    """The general ENCODE, BWD and BWD2 on phase 23's five specs, uniform
+    and ray-ordered points, both trees on the same inputs; BWD's and BWD2's
+    outputs each scaled to this tree's largest entry."""
+    ohg = other["hashgrid"]
+    out = {}
+    for si, name in enumerate(HASH_ANY_SPECS):
+        spec = hash_any_spec(name)
+        table = (hashgrid.init_hashgrid(torch.Generator().manual_seed(si),
+                                        spec) * 1e4).cuda()
+        tag = name.split(",")[0].replace("-", "") + (
+            "a" if spec.align_corners else "") + (
+            "s" if spec.interpolation == "smoothstep" else "") + (
+            f"c{spec.level_dim}")
+        for layout in ("uniform", "ray-ordered"):
+            lay = layout[:3]
+            x = hash_any_points(spec, 2_097_152, layout, 30 + si)
+            out[f"any_enc_{tag}_{lay}"] = (
+                {"this": lambda x=x, spec=spec, table=table:
+                     hashgrid.encode_forward(table, x, spec),
+                 "other": lambda x=x, spec=spec, table=table:
+                     ohg.encode_forward(table, x, spec)}, 1e-5)
+            xb = (x[:131_072].contiguous() if layout == "uniform"
+                  else hash_any_points(spec, 131_072, layout, 40 + si))
+            gen = torch.Generator(device="cuda").manual_seed(50 + si)
+            dy = torch.randn((xb.shape[0], spec.output_dim), generator=gen,
+                             device="cuda")
+            g = torch.randn(xb.shape, generator=gen, device="cuda")
+            for mode, fn in (
+                    ("bwd", lambda m, xb=xb, dy=dy, spec=spec, table=table:
+                     m.encode_backward(table, xb, dy, spec)),
+                    ("bwd2", lambda m, xb=xb, dy=dy, g=g, spec=spec,
+                     table=table: m.encode_backward2(table, xb, dy, g,
+                                                     spec))):
+                scale = [float(v.abs().max()) for v in fn(hashgrid)]
+
+                def flat(res, scale=scale):
+                    return torch.cat([v.reshape(-1) / s for v, s in
+                                      zip(res, scale)])
+                out[f"any_{mode}_{tag}_{lay}"] = (
+                    {"this": lambda fn=fn: fn(hashgrid),
+                     "other": lambda fn=fn: fn(ohg)}, 2e-3, flat)
+    return out
+
+
 def composite_code(other: dict) -> dict:
     """Each tree's composite library: ptxas' registers and spills, and the
     SASS counts of every `cp_field_kernel` instance."""
@@ -538,6 +631,9 @@ def bench(other: dict, seed: int = 1, groups=("launch",)) -> dict:
         if "hash_bwd" in groups:
             todo.update((k, (v, 20, 5)) for k, v in
                         _hash_bwd_groups(other).items())
+        if "hash_any" in groups:
+            todo.update((k, (v, 10, 3)) for k, v in
+                        _hash_any_groups(other).items())
         for group, ((fns, bar, *flat), reps, rounds) in todo.items():
             diff = _agree(fns, bar, *flat)
             us = {k: v * 1e3 for k, v in
@@ -658,7 +754,8 @@ def main(argv=None) -> dict:
                          "products at the probe's defaults; hash: DENSE, "
                          "ENCODE and the fused NGP composite at their main "
                          "paths' shapes; hash_bwd: BWD and BWD2 on phase "
-                         "16's layouts")
+                         "16's layouts; hash_any: the general ENCODE, BWD "
+                         "and BWD2 on phase 23's five specs")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -312,6 +312,13 @@ SPECS = {
                                base_resolution=4, log2_hashmap_size=8,
                                align_corners=True,
                                interpolation="smoothstep"),
+    # C 8 (the general kernels' 16-B chunks) and a tiled spec whose levels
+    # overflow their 2⁶ rows
+    "d3_c8": dict(input_dim=3, level_dim=8, num_levels=3, base_resolution=4,
+                  log2_hashmap_size=9),
+    "d2_c1_tiled": dict(input_dim=2, level_dim=1, num_levels=4,
+                        base_resolution=8, log2_hashmap_size=6,
+                        gridtype="tiled"),
 }
 
 
@@ -501,11 +508,27 @@ def _needs_card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _ray_ordered(x: np.ndarray, per: int, seed: int) -> np.ndarray:
+    """x's points replaced by segments of `per` consecutive points between
+    two uniform points of [0, 1]^D (rows in a ray's order), the points
+    outside kept where they were."""
+    rng = np.random.default_rng(seed)
+    n, d = x.shape
+    a, b = rng.random((2, -(-n // per), 1, d))
+    t = np.linspace(0.0, 1.0, per)[None, :, None]
+    seg = (a + (b - a) * t).reshape(-1, d)[:n].astype(np.float32)
+    out = (x < 0).any(-1) | (x > 1).any(-1)
+    return np.where(out[:, None], x, seg)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("points", ["uniform", "ray-ordered"])
 @pytest.mark.parametrize("spec", sorted(SPECS))
-def test_cuda_general_hash_modes_match_plain(spec):
+def test_cuda_general_hash_modes_match_plain(spec, points):
     _needs_card()
     _, ts, *arrays = _hash_case(SPECS[spec], 3001, seed=15)
+    if points == "ray-ordered":
+        arrays[1] = _ray_ordered(arrays[1], 128, seed=16)
     tt, xt, dyt, gt_ = (a.cuda() for a in _t(*arrays))
     n0 = (thg.launches_general_encode, thg.launches_general_bwd,
           thg.launches_general_bwd2)
@@ -520,3 +543,25 @@ def test_cuda_general_hash_modes_match_plain(spec):
         _rel(got.cpu(), want.cpu(), 1e-3, "bwd2")
     assert (thg.launches_general_encode, thg.launches_general_bwd,
             thg.launches_general_bwd2) == tuple(k + 1 for k in n0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["d2_c2", "d4_c4_tiled", "d7_c1", "d3_c8"])
+def test_cuda_general_hash_unaligned_table(spec):
+    """A table that starts 4 B past a 16-B boundary takes the same kernels
+    (narrower loads) and matches the plain version, as the aligned one."""
+    _needs_card()
+    _, ts, table, x, dy, _ = _hash_case(SPECS[spec], 2001, seed=17)
+    tt, xt, dyt = (a.cuda() for a in _t(table, x, dy))
+    buf = torch.empty(tt.numel() + 4, device="cuda")
+    odd = buf[1:1 + tt.numel()].view(tt.shape)
+    odd.copy_(tt)
+    assert odd.data_ptr() % 16 == 4
+    n0 = (thg.launches_general_encode, thg.launches_general_bwd)
+    _rel(thg.encode_forward(odd, xt, ts).cpu(),
+         thg.hashgrid_encode_reference(tt, xt, ts).cpu(), 1e-5, "encode")
+    for got, want in zip(thg.encode_backward(odd, xt, dyt, ts),
+                         thg.encode_backward_reference(tt, xt, dyt, ts)):
+        _rel(got.cpu(), want.cpu(), 1e-3, "bwd")
+    assert (thg.launches_general_encode,
+            thg.launches_general_bwd) == tuple(k + 1 for k in n0)
