@@ -303,9 +303,12 @@ each fatal on failure:
      within 1e-5, BWD and BWD2 on 131,072 within 1e-3 of scale, times
      beside the bound from the distinct 32-B table sectors or the
      operations of a product tree over the corners, ENCODE's corner rows
-     and BWD's table-grad reductions a second beside them as figures;
-     ENCODE and BWD again on ray-ordered points (16384 and 1024 segments
-     of the unit cube × 128 consecutive points); their main
+     and BWD's and BWD2's table-grad reductions a second beside them as
+     figures; BWD2 also asked for (d_table, d_dy) alone, as the training
+     path asks, every output zero outside the box; ENCODE, BWD and BWD2
+     again on ray-ordered points (16384 and 1024 segments of the unit cube
+     × 128 consecutive points); ptxas' registers and spills of BWD2's
+     instances (none may spill); their main
      path: 5 Adam steps of two `get_encoder` tables with a loss on ∇x
      (grad-of-grad) on the card against the CPU. A hash-grid field the
      fused NGP composite does not take (20 levels) through a 400×300
@@ -5451,13 +5454,17 @@ def _spec_hash_ops(mode: str, spec, n: int) -> float:
     - BWD2: the tree (W), its directional derivative along g (a multiply
       and a multiply-add a node, 3W), its reverse through both (10W); per
       corner the dot (2C), d_table (C) and d_dy (2C); per axis 10
-      (smoothstep 10 more): 10D + 14W + 5CK."""
+      (smoothstep 10 more): 10D + 14W + 5CK;
+    - BWD2 asked for (d_table, d_dy) alone (`bwd2_td`): ENCODE's axis work
+      and τ_d = g_d S'_d (6D, smoothstep 4 more), the tree and its
+      tangent (4W), per corner d_table (C) and d_dy (2C): 6D + 4W + 3CK."""
     d, c = spec.input_dim, spec.level_dim
     k, w = 2 ** d, 2 ** (d + 1) - 4
     smooth = spec.interpolation == "smoothstep"
     per = {"encode": (5 + 4 * smooth) * d + w + 2 * c * k,
            "bwd": (8 + 8 * smooth) * d + 4 * w + 3 * c * k,
-           "bwd2": (10 + 10 * smooth) * d + 14 * w + 5 * c * k}[mode]
+           "bwd2": (10 + 10 * smooth) * d + 14 * w + 5 * c * k,
+           "bwd2_td": (6 + 4 * smooth) * d + 4 * w + 3 * c * k}[mode]
     return float(n) * spec.num_levels * per
 
 
@@ -5470,22 +5477,28 @@ def _spec_hash_kernels(torch, card: str) -> list:
     """(23) The general ENCODE, BWD and BWD2 against their plain versions on
     the card, for each spec of SPEC_HASH (table init ×1e4): ENCODE on
     2,097,152 points (the plain version in chunks of 131072) within 1e-5
-    scaled above 1; BWD and BWD2 (every output) on 131,072 within 1e-3 of
-    each output's scale; times with CUDA events, bounds from the bytes
-    (x, the outputs and the distinct 32-B table sectors the corners
-    touch) or the operations (`_spec_hash_ops`); beside each, as a figure,
-    ENCODE's corner rows and BWD's table-grad reductions
-    (`any_reduction_plan`) a second. ENCODE and BWD again on ray-ordered
-    points (128 consecutive points along each of 16384 or 1024 segments of
-    the unit cube, `exp_launch_ab.hash_any_points`), held and logged the
-    same way. Returns the three entries, each summed over the five specs
-    on uniform points."""
+    scaled above 1; BWD and BWD2 (every output; BWD2 also (d_table, d_dy)
+    alone, the training path's call) on 131,072 within 1e-3 of each
+    output's scale, BWD2's d_dy and d_x zero outside the box; times with
+    CUDA events, bounds from the bytes (x, the outputs and the distinct
+    32-B table sectors the corners touch) or the operations
+    (`_spec_hash_ops`); beside each, as a figure, ENCODE's corner rows and
+    BWD's and BWD2's table-grad reductions (`any_reduction_plan`) a second.
+    All again on ray-ordered points (128 consecutive points along each of
+    16384 or 1024 segments of the unit cube,
+    `exp_launch_ab.hash_any_points`), held and logged the same way. First
+    ptxas' registers and spills of BWD2's instances: none may spill.
+    Returns the three entries, each summed over the five specs on uniform
+    points (BWD2: the call for all three outputs)."""
+    from mirror_nerf_tpu_torch.ops import _build
     from mirror_nerf_tpu_torch.ops import hashgrid as thg
     from mirror_nerf_tpu_torch.tools.exp_launch_ab import hash_any_points
 
+    _spec_bwd2_ptxas(_build, thg)
+    modes = ("encode", "bwd", "bwd2", "bwd2_td")
     sums = {m: dict(err=0.0, ms=0.0, plain_ms=0.0, bound=0.0, ops=0.0,
-                    nbytes=0.0) for m in ("encode", "bwd", "bwd2")}
-    ray = {m: 0.0 for m in ("encode", "bwd")}
+                    nbytes=0.0) for m in modes}
+    ray = {m: 0.0 for m in modes}
     for si, (name, kw) in enumerate(SPEC_HASH.items()):
         spec = _spec_hash(kw)
         assert not thg.tuned_spec(spec)
@@ -5516,64 +5529,102 @@ def _spec_hash_kernels(torch, card: str) -> list:
             xb = (x[:SPEC_BWD_POINTS].contiguous() if layout == "uniform"
                   else hash_any_points(spec, SPEC_BWD_POINTS, layout,
                                        70 + si))
+            del x
             gen = torch.Generator(device="cuda").manual_seed(40 + si)
             dy = torch.randn((SPEC_BWD_POINTS, ld), generator=gen,
                              device="cuda")
             g = torch.randn((SPEC_BWD_POINTS, spec.input_dim),
                             generator=gen, device="cuda")
             sectors_b = _spec_sectors(torch, spec, xb)
-            sent = sum(b["reductions"] for b in
-                       thg.any_reduction_plan(spec, xb, dy)[2])
-            modes = [("bwd", lambda: thg.encode_backward(table, xb, dy, spec),
-                      lambda: thg.encode_backward_reference(table, xb, dy,
-                                                            spec),
-                      _nbytes(xb, dy, xb))]
-            if layout == "uniform":
-                modes.append((
-                    "bwd2",
-                    lambda: thg.encode_backward2(table, xb, dy, g, spec),
-                    lambda: thg.encode_backward2_reference(table, xb, dy, g,
-                                                           spec),
-                    _nbytes(xb, dy, g, dy, xb)))
+            sent = {m: sum(b["reductions"] for b in thg.any_reduction_plan(
+                spec, xb, dy, gg)[2]) for m, gg in (("bwd", None),
+                                                     ("bwd2", g))}
+            sent["bwd2_td"] = sent["bwd2"]
+            cases = [
+                ("bwd", "BWD",
+                 lambda: thg.encode_backward(table, xb, dy, spec),
+                 lambda: thg.encode_backward_reference(table, xb, dy, spec),
+                 _nbytes(xb, dy, xb)),
+                ("bwd2", "BWD2",
+                 lambda: thg.encode_backward2(table, xb, dy, g, spec),
+                 lambda: thg.encode_backward2_reference(table, xb, dy, g,
+                                                        spec),
+                 _nbytes(xb, dy, g, dy, xb)),
+                ("bwd2_td", "BWD2 (d_table, d_dy)",
+                 lambda: thg.encode_backward2(table, xb, dy, g, spec,
+                                              need_dx=False)[:2],
+                 lambda: thg.encode_backward2_reference(
+                     table, xb, dy, g, spec, need_dx=False)[:2],
+                 _nbytes(xb, dy, g, dy))]
+            out = ~thg._in_cube(xb)
             with torch.no_grad():
-                for mode, kern, plain, extra in modes:
+                for mode, label, kern, plain, extra in cases:
                     got = kern()
                     ms = _time_ms(torch, kern, reps=5, warmup=0)
                     want = []
                     plain_ms = _time_ms(torch, lambda: want.extend(plain()),
                                         reps=1, warmup=0)
                     errs = [_spec_rel(a, b) for a, b in zip(got, want)]
+                    if mode != "bwd":  # d_dy (and d_x) zero outside the box
+                        assert all(bool((v[out] == 0).all())
+                                   for v in got[1:]), (tag, mode)
                     # the table's sectors read (the dot with dy) and its
                     # grads' sectors written
                     nbytes = extra + 2 * 32 * sectors_b
                     ops = _spec_hash_ops(mode, spec, SPEC_BWD_POINTS)
-                    _spec_log(mode.upper(), tag, SPEC_BWD_POINTS, max(errs),
-                              ms, plain_ms, ops, nbytes, sectors_b, card,
-                              f"{sent / ms / 1e6:.1f} G table-grad "
-                              "reductions/s" if mode == "bwd" else "")
+                    _spec_log(label, tag, SPEC_BWD_POINTS, max(errs), ms,
+                              plain_ms, ops, nbytes, sectors_b, card,
+                              f"{sent[mode] / ms / 1e6:.1f} G table-grad "
+                              "reductions/s")
                     assert max(errs) <= SPEC_GRAD_RTOL, (tag, mode, errs)
                     if layout == "uniform":
                         _spec_add(sums[mode], max(errs), ms, plain_ms, ops,
                                   nbytes)
                     else:
                         ray[mode] += ms
+                    del got, want
     entries = []
     for mode, label in (("encode", "ENCODE"), ("bwd", "BWD"),
-                        ("bwd2", "BWD2")):
+                        ("bwd2", "BWD2"),
+                        ("bwd2_td", "BWD2 (d_table, d_dy)")):
         s = sums[mode]
         bound = _bound(s["ops"], s["nbytes"])
         log(f"[spec-hash] general {label}, the five specs summed: kernel "
-            f"{s['ms']:.3f} ms"
-            + (f" (ray-ordered {ray[mode]:.3f} ms)" if mode in ray else "")
-            + f", plain {s['plain_ms']:.3f} ms, bound "
-            f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
-            f"{bound[0] / s['ms'] * 100:.1f} % of it ({card})")
+            f"{s['ms']:.3f} ms (ray-ordered {ray[mode]:.3f} ms), plain "
+            f"{s['plain_ms']:.3f} ms, bound {bound[0]:.3f} ms "
+            f"({bound[1]}), kernel at {bound[0] / s['ms'] * 100:.1f} % of "
+            f"it ({card})")
+        if mode == "bwd2_td":
+            continue
         entries.append(_spec_entry(
             f"hash-grid {label}, any spec", "hashgrid_any.cu",
             "mirror_nerf_tpu/ops/hashgrid.py:137 hashgrid_encode (XLA"
             + (")" if mode == "encode" else " autodiff)"), s["err"],
             s["ms"], s["plain_ms"], bound))
     return entries
+
+
+def _spec_bwd2_ptxas(_build, thg) -> None:
+    """ptxas' registers and spills of each BWD2 instance of the general
+    library (D, C as a template (0: chunks of four), d_x on or off), from
+    this run's build; none may spill."""
+    thg._any_library()
+    log_text = _build.build_log.get(thg._ANY_LIB, "")
+    if not log_text:
+        log("[spec-hash] BWD2's ptxas report: none (the library was built "
+            "before this run)")
+        return
+    found = _build.ptxas_by_function(log_text, "bwd2_any_kernel")
+    assert len(found) == 56, sorted(found)
+    spilled = []
+    for name, line in sorted(found.items()):
+        inst = re.search(r"bwd2_any_kernelILi(\d)ELi(\d)ELb(\d)E", name)
+        log(f"[spec-hash] ptxas BWD2<D {inst.group(1)}, C {inst.group(2)}, "
+            f"d_x {inst.group(3)}>: {line}")
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                         line):
+            spilled.append(inst.group(0))
+    assert not spilled, spilled
 
 
 def _spec_encode_case(torch, thg, spec, table, x) -> tuple:

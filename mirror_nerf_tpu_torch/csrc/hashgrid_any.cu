@@ -28,14 +28,16 @@
 //           the linear weights lack
 //
 // What bounds them on the H100: the gathers, 2^D row loads of C·4 bytes a
-// (point, level), and for BWD as many reductions into L2; at 7-d, where the
-// table fits in L2, the work of the corners. ENCODE and BWD:
+// (point, level), and for BWD and BWD2 as many reductions into L2; at 7-d,
+// where the table fits in L2, the work of the corners. ENCODE, BWD and
+// BWD2:
 //   * corners by trees over the axes (`Walk`): per (point, level) and axis
 //     the two factors 1 − S_d, S_d and the two row terms (g_d + b)·prime_d
 //     (hashed) or (g_d + b)·stride_d (dense), once; the 2^D weights by
 //     doubling, w·f_d in axis order (the plain version's product order, so
 //     the weights are the same bits), the rows the same way by xor or add
-//     (ENCODE has an instance for each, BWD chooses at run time: `Rows`).
+//     (ENCODE has an instance for each, BWD and BWD2 choose at run time:
+//     `Rows`).
 //     The walk is depth first and two trees at once, the two halves of
 //     axis 0, so that a leaf holds corners c and c + 1, an x-pair, and the
 //     registers hold D levels of the walk, not 2^D corners; its last
@@ -70,12 +72,20 @@
 //     whose grads fit SHARED_FLOATS and whose rows are fewer than a block's
 //     corners (a coarse dense level) is summed in shared memory and flushed
 //     once a block (ops/hashgrid.py `any_reduction_plan` is the plan);
-//   * BWD2 keeps the first design: one thread a point, its levels in order,
-//     the table grads by one fp32 `atomicAdd` a (corner, feature), the
-//     products but one by prefix and suffix products over the axes.
-// D is a template parameter, C too for 1 and 2 (and 4 in BWD; any other C
-// runs in chunks of four features); align_corners and smoothstep are
-// run-time.
+//   * BWD2: BWD's block, lanes, runs and reductions, its table grads u_c·dy_l
+//     sent as BWD sends w_c·dy_l. The trees' nodes also carry the tangent
+//     v = Σ_d g_d ∂w/∂t_d (u_c = s·v_c; `Walk2`: v' = v·f + w·τ, τ = ±g_d
+//     S'_d), and for d_x the reverse of both trees sums per axis the
+//     adjoints of the factors and of the tangent terms (forward mode over
+//     reverse mode: the mixed second derivatives and smoothstep's diagonal
+//     one, with no per-corner products over the axes); an instance without
+//     d_x walks forward only. A corner's row is loaded once for d_dy and
+//     the dot; d_dy_l is summed in registers and written once a (point,
+//     level), through shared memory where a block's rows fit, so that the
+//     block's contiguous run of d_dy leaves in whole sectors.
+// D is a template parameter, C too for 1 and 2 (and 4 in BWD and BWD2; any
+// other C runs in chunks of four features); align_corners and smoothstep
+// are run-time.
 // Times on an NVIDIA H100 (chip_smoke.py phase 23, PERF.md §6 rows 9g–9i).
 
 #include <cuda_runtime.h>
@@ -87,7 +97,6 @@
 
 namespace {
 
-constexpr int BLOCK = 256;  // BWD2's block
 constexpr int MAX_D = 7;
 constexpr unsigned FULL = 0xffffffffu;
 // ENCODE's block: 8 warps, G levels × 256/G points
@@ -97,6 +106,9 @@ constexpr int ENC_WARPS = ENC_THREADS / 32;
 constexpr int BWD_TILE = 128;
 // BWD's shared-memory levels hold at most this many floats of grads
 constexpr int SHARED_FLOATS = 2048;
+// BWD2 stages a block's d_dy rows where they fit this many floats (with
+// the static SHARED_FLOATS, 48 KB a block)
+constexpr int STAGE_FLOATS = 10240;
 // LevelAny.flags
 constexpr unsigned FLAG_MODULO = 1u;  // the index needs a true modulo
 constexpr unsigned FLAG_SHARED = 2u;  // BWD sums the level in shared memory
@@ -130,67 +142,6 @@ __device__ __forceinline__ LevelAny load_level_any(
   LevelAny L;
   memcpy(&L, q, sizeof(L));
   return L;
-}
-
-// ---- BWD2's device functions ----
-
-// One level of one point: the cell, the interpolants S_d and their first
-// and second derivatives.
-template <int D>
-struct Cell {
-  unsigned g[D];
-  float s[D], s1[D], s2[D];
-};
-
-template <int D>
-__device__ __forceinline__ Cell<D> cell_of(const LevelAny& L, const float* x,
-                                           float off, bool smooth) {
-  Cell<D> k;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float p = __fmaf_rn(x[d], L.scale, off);
-    const float f = floorf(p);
-    const float t = __fsub_rn(p, f);
-    k.g[d] = (unsigned)(int)f;
-    if (smooth) {
-      k.s[d] = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.f, __fmul_rn(2.f, t)));
-      k.s1[d] = __fmul_rn(__fmul_rn(6.f, t), __fsub_rn(1.f, t));
-      k.s2[d] = __fsub_rn(6.f, __fmul_rn(12.f, t));
-    } else {
-      k.s[d] = t;
-      k.s1[d] = 1.f;
-      k.s2[d] = 0.f;
-    }
-  }
-  return k;
-}
-
-// corner c's row in the flat table
-template <int D>
-__device__ __forceinline__ size_t corner_row(const LevelAny& L,
-                                             const Cell<D>& k, int c) {
-  unsigned h = 0;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const unsigned v = k.g[d] + ((c >> d) & 1);
-    if (L.use_hash)
-      h ^= v * PRIMES[d];
-    else
-      h += v * L.stride[d];
-  }
-  return (size_t)L.offset + h % L.size;
-}
-
-// corner c's factors f_d and ∂f_d/∂t_d
-template <int D>
-__device__ __forceinline__ void factors(const Cell<D>& k, int c,
-                                        float (&f)[D], float (&df)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool up = (c >> d) & 1;
-    f[d] = up ? k.s[d] : __fsub_rn(1.f, k.s[d]);
-    df[d] = up ? k.s1[d] : -k.s1[d];
-  }
 }
 
 __device__ __forceinline__ bool in_unit_box(const float* x, int d) {
@@ -624,19 +575,142 @@ __device__ __forceinline__ void red_pair(float* __restrict__ grads,
   }
 }
 
-// What one BWD level step needs besides the point.
+// What one BWD or BWD2 level step needs besides the point.
 struct BwdLevel {
   const float* base;  // the level's first table row
   float* grads;       // its first d_table row (null: no table grads)
   float* shared;      // the block's shared-memory grads (shared level)
   int vec, C;
-  bool want_dx;
+  bool load_rows;     // the corners' table rows are read (BWD: dx; BWD2:
+                      // d_dy or d_x)
 };
 
-// One BWD level of one point: the table grads of its corners (runs summed
-// by shuffles, `red_pair` from each run's first lane, or shared-memory
-// atomics on a shared level) and gl[d] = S'_d (gf[1][d] − gf[0][d]), the
-// level's ∂/∂t_d of Σ_c w_c ⟨T_c, dy⟩. Every lane of the warp runs it (the
+// A warp's runs at one level: a lane and the following lanes of its warp
+// that are live and in the same cell share all 2^D rows. `head`: the run's
+// first lane (a lane that is not live is a run of its own), which sends its
+// sums; `end`: one past the run's last lane; `longest`: the warp's longest
+// run. Every lane of the warp calls it.
+struct Runs {
+  bool head;
+  int end;
+  unsigned longest;
+};
+
+template <int D>
+__device__ __forceinline__ Runs runs_of(const Axes<D>& a, bool live) {
+  const int lane = threadIdx.x & 31;
+  const int qlive = __shfl_up_sync(FULL, (int)live, 1);
+  bool head = lane == 0 || !live || !qlive;
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    head = (__shfl_up_sync(FULL, a.g[d], 1) != a.g[d]) || head;
+  const unsigned later = __ballot_sync(FULL, head) & (0xFFFFFFFEu << lane);
+  const int end = later ? __ffs(later) - 1 : 32;
+  return {head, end, __reduce_max_sync(FULL, (unsigned)(end - lane))};
+}
+
+// dy's features k0 … k0 + K − 1 of one (point, level), zero past C and for
+// a lane that is not live: one 8- or 16-B load where dy allows it.
+template <int CV, int K>
+__device__ __forceinline__ void load_dy(const float* __restrict__ dyl, int k0,
+                                        int C, int vec, bool live,
+                                        float (&g)[K]) {
+  if constexpr (CV == 2) {
+    float2 u = make_float2(0.f, 0.f);
+    if (live)
+      u = (vec & DY_8) ? __ldg(reinterpret_cast<const float2*>(dyl))
+                       : make_float2(__ldg(dyl), __ldg(dyl + 1));
+    g[0] = u.x;
+    g[1] = u.y;
+  } else if constexpr (CV == 0 || CV == 4) {
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) u = load_chunk(dyl, k0, C, (C & 3) == 0 && (vec & DY_16));
+    g[0] = u.x, g[1] = u.y, g[2] = u.z, g[3] = u.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      g[k] = live && k0 + k < C ? __ldg(dyl + k0 + k) : 0.f;
+  }
+}
+
+// An x-pair's table rows at level-relative rows ia, ib, features k0 … k0 +
+// K − 1: `load_pair` for C 1, 2; else 16-B chunks or a float each.
+template <int CV, int K>
+__device__ __forceinline__ void load_rows(const float* __restrict__ base,
+                                          unsigned ia, unsigned ib, int k0,
+                                          int C, int vec, float (&ta)[K],
+                                          float (&tb)[K]) {
+  if constexpr (CV == 1 || CV == 2) {
+    load_pair<CV>(base, ia, ib, vec, ta, tb);
+  } else {
+    const bool t4 = (C & 3) == 0 && (vec & TABLE_16);
+    const float4 u = load_chunk(base + (size_t)ia * C, k0, C, t4);
+    const float4 v = load_chunk(base + (size_t)ib * C, k0, C, t4);
+    ta[0] = u.x, ta[1] = u.y, ta[2] = u.z, ta[3] = u.w;
+    tb[0] = v.x, tb[1] = v.y, tb[2] = v.z, tb[3] = v.w;
+  }
+}
+
+// An x-pair's table grads va, vb (features k0 … k0 + K − 1) at
+// level-relative rows ia, ib: shared-memory atomics on a shared level, else
+// summed over the lane's run by segmented shuffles and sent by its first
+// lane (`red_pair` for C 1, 2; a 16-B reduction a row where C is a multiple
+// of 4 and d_table 16-B aligned; else a float each). Every lane of the warp
+// calls it; a lane that is not live sends nothing.
+template <int CV, int K>
+__device__ __forceinline__ void send_grads(const BwdLevel& B, const Runs& R,
+                                           bool live, unsigned ia,
+                                           unsigned ib, int k0, int C,
+                                           float (&va)[K], float (&vb)[K]) {
+  if (B.shared) {
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k0 + k >= C) break;
+        atomicAdd(B.shared + (size_t)ia * C + k0 + k, va[k]);
+        atomicAdd(B.shared + (size_t)ib * C + k0 + k, vb[k]);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (unsigned o = 1; o < R.longest; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float sa = __shfl_down_sync(FULL, va[k], o);
+      const float sb = __shfl_down_sync(FULL, vb[k], o);
+      if (lane + (int)o < R.end) {
+        va[k] += sa;
+        vb[k] += sb;
+      }
+    }
+  }
+  if (!(R.head && live)) return;
+  if constexpr (CV == 1 || CV == 2) {
+    red_pair<CV>(B.grads, ia, ib, B.vec, va, vb);
+  } else {
+    float* pa = B.grads + (size_t)ia * C + k0;
+    float* pb = B.grads + (size_t)ib * C + k0;
+    if ((C & 3) == 0 && (B.vec & GRADS_16)) {
+      atomicAdd(reinterpret_cast<float4*>(pa),
+                make_float4(va[0], va[1], va[2], va[3]));
+      atomicAdd(reinterpret_cast<float4*>(pb),
+                make_float4(vb[0], vb[1], vb[2], vb[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k0 + k >= C) break;
+        atomicAdd(pa + k, va[k]);
+        atomicAdd(pb + k, vb[k]);
+      }
+    }
+  }
+}
+
+// One BWD level of one point: the table grads of its corners
+// (`send_grads`) and gl[d] = S'_d (gf[1][d] − gf[0][d]), the level's
+// ∂/∂t_d of Σ_c w_c ⟨T_c, dy⟩. Every lane of the warp runs it (the
 // shuffles); a lane that is not live sends and loads nothing. K = CV
 // features of dy at a time (CV = 0: chunks of four from k0).
 template <int D, int CV, int ROWS>
@@ -649,45 +723,15 @@ __device__ __forceinline__ void bwd_level(const LevelAny& L,
   const int lane = threadIdx.x & 31;
   Axes<D> a;
   axes_of<D, ROWS>(L, xp, off, smooth, a);
-  // the runs: a lane and the following lanes of its warp that are live and
-  // in the same cell share all 2^D rows
-  bool head = true;
-  int end = lane + 1;
-  unsigned longest = 1;
-  if (B.grads && !B.shared) {
-    const int qlive = __shfl_up_sync(FULL, (int)live, 1);  // every lane
-    head = lane == 0 || !live || !qlive;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      head = (__shfl_up_sync(FULL, a.g[d], 1) != a.g[d]) || head;
-    const unsigned later = __ballot_sync(FULL, head) & (0xFFFFFFFEu << lane);
-    end = later ? __ffs(later) - 1 : 32;
-    longest = __reduce_max_sync(FULL, (unsigned)(end - lane));
-  }
+  Runs R{true, lane + 1, 1u};
+  if (B.grads && !B.shared) R = runs_of<D>(a, live);
   float gf[2][D];
 #pragma unroll
   for (int d = 0; d < D; ++d) gf[0][d] = gf[1][d] = 0.f;
   const int C = CV ? CV : B.C;
-  const bool vec4 = (C & 3) == 0 && (B.vec & GRADS_16);
   for (int k0 = 0; k0 < C; k0 += K) {
     float g[K];
-    if constexpr (CV == 2) {
-      float2 u = make_float2(0.f, 0.f);
-      if (live)
-        u = (B.vec & DY_8) ? __ldg(reinterpret_cast<const float2*>(dyl))
-                           : make_float2(__ldg(dyl), __ldg(dyl + 1));
-      g[0] = u.x;
-      g[1] = u.y;
-    } else if constexpr (CV == 0 || CV == 4) {
-      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live)
-        u = load_chunk(dyl, k0, C, (C & 3) == 0 && (B.vec & DY_16));
-      g[0] = u.x, g[1] = u.y, g[2] = u.z, g[3] = u.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        g[k] = live && k0 + k < C ? __ldg(dyl + k0 + k) : 0.f;
-    }
+    load_dy<CV, K>(dyl, k0, C, B.vec, live, g);
     auto leaf = [&](float wa, float wb, unsigned ra, unsigned rb) {
       const unsigned ia = index_of(L, ra), ib = index_of(L, rb);
       if (B.grads) {
@@ -697,63 +741,12 @@ __device__ __forceinline__ void bwd_level(const LevelAny& L,
           va[k] = wa * g[k];
           vb[k] = wb * g[k];
         }
-        if (B.shared) {
-          if (live) {
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              if (k0 + k >= C) break;
-              atomicAdd(B.shared + (size_t)ia * C + k0 + k, va[k]);
-              atomicAdd(B.shared + (size_t)ib * C + k0 + k, vb[k]);
-            }
-          }
-        } else {
-#pragma unroll 1
-          for (unsigned o = 1; o < longest; o <<= 1) {
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              const float sa = __shfl_down_sync(FULL, va[k], o);
-              const float sb = __shfl_down_sync(FULL, vb[k], o);
-              if (lane + (int)o < end) {
-                va[k] += sa;
-                vb[k] += sb;
-              }
-            }
-          }
-          if (head && live) {
-            if constexpr (CV == 1 || CV == 2) {
-              red_pair<CV>(B.grads, ia, ib, B.vec, va, vb);
-            } else {
-              float* pa = B.grads + (size_t)ia * C + k0;
-              float* pb = B.grads + (size_t)ib * C + k0;
-              if (vec4) {
-                atomicAdd(reinterpret_cast<float4*>(pa),
-                          make_float4(va[0], va[1], va[2], va[3]));
-                atomicAdd(reinterpret_cast<float4*>(pb),
-                          make_float4(vb[0], vb[1], vb[2], vb[3]));
-              } else {
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                  if (k0 + k >= C) break;
-                  atomicAdd(pa + k, va[k]);
-                  atomicAdd(pb + k, vb[k]);
-                }
-              }
-            }
-          }
-        }
+        send_grads<CV, K>(B, R, live, ia, ib, k0, C, va, vb);
       }
       float2 dot = make_float2(0.f, 0.f);
-      if (B.want_dx && live) {
+      if (B.load_rows && live) {
         float ta[K], tb[K];
-        if constexpr (CV == 1 || CV == 2) {
-          load_pair<CV>(B.base, ia, ib, B.vec, ta, tb);
-        } else {
-          const bool t4 = (C & 3) == 0 && (B.vec & TABLE_16);
-          const float4 u = load_chunk(B.base + (size_t)ia * C, k0, C, t4);
-          const float4 v = load_chunk(B.base + (size_t)ib * C, k0, C, t4);
-          ta[0] = u.x, ta[1] = u.y, ta[2] = u.z, ta[3] = u.w;
-          tb[0] = v.x, tb[1] = v.y, tb[2] = v.z, tb[3] = v.w;
-        }
+        load_rows<CV, K>(B.base, ia, ib, k0, C, B.vec, ta, tb);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           dot.x = fmaf(ta[k], g[k], dot.x);
@@ -822,104 +815,333 @@ __global__ void __launch_bounds__(BWD_TILE)
   }
 }
 
-// BWD2: one thread a point, its levels in order. With a_e = g_e ∂f_e/∂t_e,
-// Q = Σ_e a_e Π_{k≠e} f_k (u = s·Q) and, per axis d, ∂Q/∂f_d =
-// Σ_{e≠d} a_e Π_{k≠d,e} f_k, by prefix and suffix pairs (P, R) over the
-// axes: P' = P·f_k, R' = R·f_k + a_k·P.
-template <int D>
-__global__ void __launch_bounds__(BLOCK)
-    bwd2_any_kernel(const float* __restrict__ x,
-                    const float* __restrict__ table,
-                    const LevelAny* __restrict__ levels, int n_levels, int C,
-                    long long n, float off, int smooth,
-                    const float* __restrict__ dy,
-                    const float* __restrict__ g, float* __restrict__ d_dy,
-                    float* __restrict__ d_table, float* __restrict__ d_x) {
-  const long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= n) return;
-  float xp[D], gp[D], ex[D];
+// BWD2's walk: the same two trees over the axes, each node also carrying
+// its tangent v = Σ_d g_d ∂w/∂t_d. Along axis d with branch b a child takes
+// w·f_b(d) and v·f_b(d) + w·τ_b(d), with τ_1(d) = g_d·S'_d and τ_0(d) =
+// −τ_1(d) (`tau`: τ_1); the weights are ENCODE's products, in axis order.
+// A leaf takes (v_a, v_b, r_a, r_b) of corners c and c + 1 (u_c = s·v_c).
+// `bwd` also runs the reverse of both trees for Σ_c v_c·dot_c: a leaf
+// returns the adjoints of its two v, the dots ⟨T_c, dy⟩ (a v's adjoint at a
+// leaf; a w's is 0 there); a node returns the adjoints of its own (w, v),
+// both halves, and adds to gf[d] and ga[d] the sums over its two children
+// of ∂/∂f_b(d) and ∂/∂τ_b(d), branch 1 less branch 0: per child w·adj_w' +
+// v·adj_v' and w·adj_v'.
+struct Adj2 {
+  float wa, wb, va, vb;
+};
+
+template <int D, int d, int ROWS>
+struct Walk2 {
+  template <class Leaf>
+  static __device__ __forceinline__ void fwd(const Axes<D>& a,
+                                             const float (&tau)[D], float wa,
+                                             float wb, float va, float vb,
+                                             unsigned ra, unsigned rb,
+                                             Leaf& leaf) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    xp[d] = __ldg(x + D * p + d);
-    gp[d] = __ldg(g + D * p + d);
-    ex[d] = 0.f;
-  }
-  const bool live = in_unit_box(xp, D);
-  const long long lc = (long long)n_levels * C;
-  for (int l = 0; l < n_levels; ++l) {
-    float* ddy = d_dy ? d_dy + p * lc + (long long)l * C : nullptr;
-    if (!live) {
-      if (ddy)
-        for (int k = 0; k < C; ++k) ddy[k] = 0.f;
-      continue;
+    for (int b = 0; b < 2; ++b) {
+      const float f = a.f[b][d], t = b ? tau[d] : -tau[d];
+      Walk2<D, d + 1, ROWS>::fwd(
+          a, tau, __fmul_rn(wa, f), __fmul_rn(wb, f), fmaf(wa, t, va * f),
+          fmaf(wb, t, vb * f), combine<ROWS>(ra, a.t[b][d], a.hash),
+          combine<ROWS>(rb, a.t[b][d], a.hash), leaf);
     }
-    const LevelAny L = levels[l];
-    const float s = L.scale;
-    const Cell<D> cell = cell_of<D>(L, xp, off, smooth);
-    const float* dyl = dy + p * lc + (long long)l * C;
-    if (ddy)
-      for (int k = 0; k < C; ++k) ddy[k] = 0.f;
-    float el[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) el[d] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < (1 << D); ++c) {
-      float f[D], df[D], a[D];
-      factors<D>(cell, c, f, df);
-#pragma unroll
-      for (int d = 0; d < D; ++d) a[d] = gp[d] * df[d];
-      float pp[D + 1], pr[D + 1], sp[D + 1], sr[D + 1];
-      pp[0] = 1.f;
-      pr[0] = 0.f;
-      sp[D] = 1.f;
-      sr[D] = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        pp[d + 1] = pp[d] * f[d];
-        pr[d + 1] = fmaf(a[d], pp[d], pr[d] * f[d]);
-      }
-#pragma unroll
-      for (int d = D - 1; d >= 0; --d) {
-        sp[d] = f[d] * sp[d + 1];
-        sr[d] = fmaf(a[d], sp[d + 1], sr[d + 1] * f[d]);
-      }
-      const float u = s * pr[D];
-      const size_t row = corner_row<D>(L, cell, c) * C;
-      float dot = 0.f;
-      for (int k = 0; k < C; ++k) {
-        const float dyk = __ldg(dyl + k);
-        if (d_table) atomicAdd(d_table + row + k, u * dyk);
-        if (ddy || d_x) {
-          const float v = __ldg(table + row + k);
-          if (ddy) ddy[k] = fmaf(u, v, ddy[k]);
-          dot = fmaf(v, dyk, dot);
-        }
-      }
-      if (d_x) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          // Σ_{e≠d} g_e ∂²w/∂t_d∂t_e, then the diagonal g_d ±S''_d Π f
-          const float rex = fmaf(pr[d], sp[d + 1], pp[d] * sr[d + 1]);
-          float h = df[d] * rex;
-          if (smooth) {
-            const float dd = ((c >> d) & 1) ? cell.s2[d] : -cell.s2[d];
-            h = fmaf(gp[d] * dd, pp[d] * sp[d + 1], h);
-          }
-          el[d] = fmaf(h, dot, el[d]);
-        }
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) ex[d] += (el[d] * s) * s;
   }
-  if (d_x) {
+  template <class Leaf>
+  static __device__ __forceinline__ Adj2 bwd(const Axes<D>& a,
+                                             const float (&tau)[D], float wa,
+                                             float wb, float va, float vb,
+                                             unsigned ra, unsigned rb,
+                                             float (&gf)[D], float (&ga)[D],
+                                             Leaf& leaf) {
+    Adj2 c[2];
 #pragma unroll
-    for (int d = 0; d < D; ++d) d_x[D * p + d] = ex[d];
+    for (int b = 0; b < 2; ++b) {
+      const float f = a.f[b][d], t = b ? tau[d] : -tau[d];
+      c[b] = Walk2<D, d + 1, ROWS>::bwd(
+          a, tau, __fmul_rn(wa, f), __fmul_rn(wb, f), fmaf(wa, t, va * f),
+          fmaf(wb, t, vb * f), combine<ROWS>(ra, a.t[b][d], a.hash),
+          combine<ROWS>(rb, a.t[b][d], a.hash), gf, ga, leaf);
+    }
+    const float f0 = a.f[0][d], f1 = a.f[1][d];
+    const float dva = c[1].va - c[0].va, dvb = c[1].vb - c[0].vb;
+    ga[d] = fmaf(wa, dva, fmaf(wb, dvb, ga[d]));
+    Adj2 r;
+    r.va = fmaf(f0, c[0].va, f1 * c[1].va);
+    r.vb = fmaf(f0, c[0].vb, f1 * c[1].vb);
+    if constexpr (d + 1 == D) {  // the children are leaves: adj_w' = 0
+      gf[d] = fmaf(va, dva, fmaf(vb, dvb, gf[d]));
+      r.wa = tau[d] * dva;
+      r.wb = tau[d] * dvb;
+    } else {
+      const float dwa = c[1].wa - c[0].wa, dwb = c[1].wb - c[0].wb;
+      gf[d] = fmaf(wa, dwa, fmaf(va, dva, fmaf(wb, dwb, fmaf(vb, dvb,
+                                                              gf[d]))));
+      r.wa = fmaf(tau[d], dva, fmaf(f0, c[0].wa, f1 * c[1].wa));
+      r.wb = fmaf(tau[d], dvb, fmaf(f0, c[0].wb, f1 * c[1].wb));
+    }
+    return r;
+  }
+};
+
+template <int D, int ROWS>
+struct Walk2<D, D, ROWS> {
+  template <class Leaf>
+  static __device__ __forceinline__ void fwd(const Axes<D>&,
+                                             const float (&)[D], float, float,
+                                             float va, float vb, unsigned ra,
+                                             unsigned rb, Leaf& leaf) {
+    leaf(va, vb, ra, rb);
+  }
+  template <class Leaf>
+  static __device__ __forceinline__ Adj2 bwd(const Axes<D>&,
+                                             const float (&)[D], float, float,
+                                             float va, float vb, unsigned ra,
+                                             unsigned rb, float (&)[D],
+                                             float (&)[D], Leaf& leaf) {
+    const float2 dot = leaf(va, vb, ra, rb);
+    return {0.f, 0.f, dot.x, dot.y};
+  }
+};
+
+// BWD2's loop over the top axes, as `walk_fwd`: a path's prefix (w, v of
+// both halves after each top axis) recomputed in axis order, the last
+// WALK_AXES axes unrolled below it. With DX the path's chain is reversed
+// too: at top axis d the adjoints (of w, v) below it add w·adj_w + v·adj_v
+// to gf[d] and w·adj_v to ga[d] (signed by the path's branch), then pass up
+// as adj_w·f + adj_v·τ and adj_v·f; at axis 0 the root's (w, v) = (1, 0).
+
+template <int D, int ROWS, bool DX, class Leaf>
+__device__ __forceinline__ void walk2(const Axes<D>& a, const float (&tau)[D],
+                                      float (&gf)[D], float (&ga)[D],
+                                      Leaf& leaf) {
+  constexpr int T = top_axes<D>();
+#pragma unroll 1
+  for (unsigned j = 0; j < (1u << T); ++j) {
+    float wa[T + 1], wb[T + 1], va[T + 1], vb[T + 1], ft[T + 1], tt[T + 1];
+    wa[0] = a.f[0][0];
+    wb[0] = a.f[1][0];
+    va[0] = -tau[0];
+    vb[0] = tau[0];
+    unsigned ra = a.t[0][0], rb = a.t[1][0];
+#pragma unroll
+    for (int d = 1; d <= T; ++d) {
+      const bool b = (j >> (d - 1)) & 1u;
+      ft[d] = b ? a.f[1][d] : a.f[0][d];
+      tt[d] = b ? tau[d] : -tau[d];
+      wa[d] = __fmul_rn(wa[d - 1], ft[d]);
+      wb[d] = __fmul_rn(wb[d - 1], ft[d]);
+      va[d] = fmaf(wa[d - 1], tt[d], va[d - 1] * ft[d]);
+      vb[d] = fmaf(wb[d - 1], tt[d], vb[d - 1] * ft[d]);
+      const unsigned t = b ? a.t[1][d] : a.t[0][d];
+      ra = combine<ROWS>(ra, t, a.hash);
+      rb = combine<ROWS>(rb, t, a.hash);
+    }
+    if constexpr (!DX) {
+      Walk2<D, T + 1, ROWS>::fwd(a, tau, wa[T], wb[T], va[T], vb[T], ra, rb,
+                                 leaf);
+    } else {
+      Adj2 A = Walk2<D, T + 1, ROWS>::bwd(a, tau, wa[T], wb[T], va[T],
+                                          vb[T], ra, rb, gf, ga, leaf);
+#pragma unroll
+      for (int d = T; d >= 1; --d) {
+        const bool b = (j >> (d - 1)) & 1u;
+        const float vf = fmaf(A.wa, wa[d - 1], fmaf(A.va, va[d - 1],
+                              fmaf(A.wb, wb[d - 1], A.vb * vb[d - 1])));
+        const float vt = fmaf(A.va, wa[d - 1], A.vb * wb[d - 1]);
+        gf[d] += b ? vf : -vf;
+        ga[d] += b ? vt : -vt;
+        A.wa = fmaf(A.va, tt[d], A.wa * ft[d]);
+        A.wb = fmaf(A.vb, tt[d], A.wb * ft[d]);
+        A.va *= ft[d];
+        A.vb *= ft[d];
+      }
+      gf[0] += A.wb - A.wa;
+      ga[0] += A.vb - A.va;
+    }
   }
 }
 
-unsigned blocks(long long threads) {
-  return (unsigned)((threads + BLOCK - 1) / BLOCK);
+// A BWD2 leaf (a functor, so that it is inlined like the walk): corners
+// c and c + 1 with tangents va, vb at rows ra, rb. It sends their table
+// grads v·s·dy (`send_grads`), adds v·T_c to acc (d_dy / s) and returns
+// the dots ⟨T_c, dy⟩ (with DX).
+template <int CV, bool DX>
+struct Bwd2Leaf {
+  static constexpr int K = CV ? CV : 4;
+  const LevelAny& L;
+  const BwdLevel& B;
+  const Runs& R;
+  bool live;
+  int k0, C;
+  const float (&g)[K];   // dy's features k0 …
+  const float (&sg)[K];  // s·dy
+  float (&acc)[K];
+  __device__ __forceinline__ float2 operator()(float va, float vb,
+                                               unsigned ra,
+                                               unsigned rb) const {
+    const unsigned ia = index_of(L, ra), ib = index_of(L, rb);
+    if (B.grads) {
+      float ua[K], ub[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        ua[k] = va * sg[k];
+        ub[k] = vb * sg[k];
+      }
+      send_grads<CV, K>(B, R, live, ia, ib, k0, C, ua, ub);
+    }
+    float2 dot = make_float2(0.f, 0.f);
+    if (B.load_rows && live) {
+      float ta[K], tb[K];
+      load_rows<CV, K>(B.base, ia, ib, k0, C, B.vec, ta, tb);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc[k] = fmaf(vb, tb[k], fmaf(va, ta[k], acc[k]));
+        if (DX) {
+          dot.x = fmaf(ta[k], g[k], dot.x);
+          dot.y = fmaf(tb[k], g[k], dot.y);
+        }
+      }
+    }
+    return dot;
+  }
+};
+
+// One BWD2 level of one point, u_c = s·v_c: the table grads u_c·dy_l of
+// its corners (`send_grads`, BWD's runs and reductions), d_dy_l = Σ_c u_c
+// T_c summed in registers and written once to `ddy` (shared memory or
+// d_dy; null: not asked for), and with DX el[d] = S'_d·gf[d] + g_d·S''_d·
+// ga[d], the level's ∂/∂t_d of Σ_c v_c ⟨T_c, dy⟩ (d_x_d takes s² of it).
+// Every lane of the warp runs it; a lane that is not live sends and loads
+// nothing and writes zeros.
+template <int D, int CV, bool DX, int ROWS>
+__device__ __forceinline__ void bwd2_level(
+    const LevelAny& L, const BwdLevel& B, const float* xp, const float* gp,
+    float off, bool smooth, bool live, const float* __restrict__ dyl,
+    float* ddy, float (&el)[D]) {
+  constexpr int K = CV ? CV : 4;
+  const int lane = threadIdx.x & 31;
+  Axes<D> a;
+  axes_of<D, ROWS>(L, xp, off, smooth, a);
+  float tau[D], gf[D], ga[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    tau[d] = gp[d] * a.s1[d];
+    gf[d] = ga[d] = 0.f;
+  }
+  Runs R{true, lane + 1, 1u};
+  if (B.grads && !B.shared) R = runs_of<D>(a, live);
+  const float s = L.scale;
+  const int C = CV ? CV : B.C;
+  for (int k0 = 0; k0 < C; k0 += K) {
+    float g[K], sg[K], acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+    load_dy<CV, K>(dyl, k0, C, B.vec, live, g);
+#pragma unroll
+    for (int k = 0; k < K; ++k) sg[k] = s * g[k];
+    Bwd2Leaf<CV, DX> leaf{L, B, R, live, k0, C, g, sg, acc};
+    walk2<D, ROWS, DX>(a, tau, gf, ga, leaf);
+    if (ddy) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k0 + k < C) ddy[k0 + k] = acc[k] * s;
+    }
+  }
+  if constexpr (DX) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      // S''_d = 6 − 12 t_d for smoothstep, 0 for linear weights
+      float h = a.s1[d] * gf[d];
+      if (smooth) {
+        const float p = __fmaf_rn(xp[d], L.scale, off);
+        const float t = __fsub_rn(p, floorf(p));
+        h = fmaf(gp[d] * __fsub_rn(6.f, __fmul_rn(12.f, t)), ga[d], h);
+      }
+      el[d] = live ? h : 0.f;
+    }
+  }
+}
+
+// BWD2: BWD's block and lanes (BWD_TILE consecutive points, a thread a
+// point walking the levels in order), d_x summed in registers in level
+// order. d_dy: where `stride` > 0, each point's L·C floats are staged in
+// shared memory (`stride` = L·C + 1 floats a point: the lanes' rows on
+// distinct banks) and the block's rows, one contiguous run of d_dy, are
+// stored whole at the end; else each (point, level) is stored directly.
+// Every element of d_dy is written, zeros included. The launch bounds name
+// one block an SM, so that ptxas takes the registers it needs: left to its
+// own occupancy target it spilled a few words in four instances (D 5, 6).
+template <int D, int CV, bool DX>
+__global__ void __launch_bounds__(BWD_TILE, 1)
+    bwd2_any_kernel(const float* __restrict__ x,
+                    const float* __restrict__ table,
+                    const LevelAny* __restrict__ levels, int n_levels, int C,
+                    long long n, float off, int smooth, int vec, int stride,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ g, float* __restrict__ d_dy,
+                    float* __restrict__ d_table, float* __restrict__ d_x) {
+  __shared__ float shared[SHARED_FLOATS];
+  extern __shared__ float stage[];
+  const long long p0 = (long long)blockIdx.x * BWD_TILE;
+  const long long p = p0 + threadIdx.x;
+  const bool inb = p < n;
+  float xp[D], gp[D], ex[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    xp[d] = inb ? __ldg(x + D * p + d) : 0.f;
+    gp[d] = inb ? __ldg(g + D * p + d) : 0.f;
+    ex[d] = 0.f;
+  }
+  const bool live = inb && in_unit_box(xp, D);
+  const long long lc = (long long)n_levels * C;
+  for (int l = 0; l < n_levels; ++l) {
+    const LevelAny L = load_level_any(levels, l);
+    const bool sh = d_table && (L.flags & FLAG_SHARED);
+    const int cells = (int)L.size * C;
+    if (sh) {
+      for (int i = threadIdx.x; i < cells; i += BWD_TILE) shared[i] = 0.f;
+      __syncthreads();
+    }
+    const BwdLevel B{table + (size_t)L.offset * C,
+                     d_table ? d_table + (size_t)L.offset * C : nullptr,
+                     sh ? shared : nullptr, vec, C, d_dy || DX};
+    const float* dyl = dy + (inb ? p : 0) * lc + (long long)l * C;
+    float* ddy = !d_dy ? nullptr
+                 : stride ? stage + threadIdx.x * stride + l * C
+                 : inb    ? d_dy + p * lc + (long long)l * C
+                          : nullptr;
+    float el[D];
+    bwd2_level<D, CV, DX, EITHER>(L, B, xp, gp, off, smooth, live, dyl, ddy,
+                                  el);
+    if (sh) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < cells; i += BWD_TILE) {
+        const float v = shared[i];
+        if (v != 0.f) atomicAdd(B.grads + i, v);
+      }
+      __syncthreads();
+    }
+    if constexpr (DX) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) ex[d] += (el[d] * L.scale) * L.scale;
+    }
+  }
+  if (DX && inb) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) d_x[D * p + d] = ex[d];
+  }
+  if (d_dy && stride) {
+    // the block's rows: a warp a point, its lanes on consecutive floats
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int pts = (int)min((long long)BWD_TILE, n - p0);
+    for (int q = warp; q < pts; q += BWD_TILE / 32) {
+      float* out = d_dy + (p0 + q) * lc;
+      const float* row = stage + q * stride;
+      for (int i = lane; i < (int)lc; i += 32) out[i] = row[i];
+    }
+  }
 }
 
 struct Args {
@@ -990,13 +1212,38 @@ int bwd(const Args& a, const float* dy, float* d_table, float* dx,
   }
 }
 
+template <int D, int CV, bool DX>
+int bwd2_cv(const Args& a, const float* dy, const float* g, float* d_dy,
+            float* d_table, float* d_x, cudaStream_t s) {
+  const long long grid = (a.n + BWD_TILE - 1) / BWD_TILE;
+  if (grid > 0x7fffffffLL) return -6;
+  // d_dy staged where a block's rows fit STAGE_FLOATS
+  const long long lc = (long long)a.n_levels * a.C;
+  const int stride =
+      d_dy && BWD_TILE * (lc + 1) <= STAGE_FLOATS ? (int)lc + 1 : 0;
+  bwd2_any_kernel<D, CV, DX>
+      <<<(unsigned)grid, BWD_TILE, stride * BWD_TILE * sizeof(float), s>>>(
+          a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth,
+          vec_flags(a.table, dy, d_table), stride, dy, g, d_dy, d_table, d_x);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int CV>
+int bwd2_cv(const Args& a, const float* dy, const float* g, float* d_dy,
+            float* d_table, float* d_x, cudaStream_t s) {
+  return d_x ? bwd2_cv<D, CV, true>(a, dy, g, d_dy, d_table, d_x, s)
+             : bwd2_cv<D, CV, false>(a, dy, g, d_dy, d_table, d_x, s);
+}
+
 template <int D>
 int bwd2(const Args& a, const float* dy, const float* g, float* d_dy,
          float* d_table, float* d_x, cudaStream_t s) {
-  bwd2_any_kernel<D><<<blocks(a.n), BLOCK, 0, s>>>(
-      a.x, a.table, a.levels, a.n_levels, a.C, a.n, a.off, a.smooth, dy, g,
-      d_dy, d_table, d_x);
-  return (int)cudaGetLastError();
+  switch (a.C) {
+    case 1: return bwd2_cv<D, 1>(a, dy, g, d_dy, d_table, d_x, s);
+    case 2: return bwd2_cv<D, 2>(a, dy, g, d_dy, d_table, d_x, s);
+    case 4: return bwd2_cv<D, 4>(a, dy, g, d_dy, d_table, d_x, s);
+    default: return bwd2_cv<D, 0>(a, dy, g, d_dy, d_table, d_x, s);
+  }
 }
 
 // the instance for D (1..MAX_D), checked by the entries

@@ -545,11 +545,13 @@ def _vector_reductions(c: int) -> int:
 
 
 def any_reduction_plan(spec: HashGridSpec, x01: torch.Tensor,
-                       dy: torch.Tensor):
-    """The table-grad reductions that the general BWD (csrc/hashgrid_any.cu)
-    sends, in plain PyTorch, for a d_table aligned for vector reductions
-    (the wrapper allocates it). Per level, corner c of each point in [0,
-    1]^D adds w_c·dy_l (`any_corners`):
+                       dy: torch.Tensor, g: Optional[torch.Tensor] = None):
+    """The table-grad reductions that the general BWD and BWD2
+    (csrc/hashgrid_any.cu) send, in plain PyTorch, for a d_table aligned
+    for vector reductions (the wrappers allocate it). Per level, corner c of
+    each point in [0, 1]^D adds its value times dy_l: BWD's weight w_c
+    (`any_corners`), or with the cotangent g (N, D) of BWD's dx01 BWD2's
+    u_c = s_l ∇_t w_c · g (`pair_values`' values):
     - on a shared level (`shared_level`) a block's ANY_BWD_TILE points sum
       their values per table element in shared memory, flushed as one
       scalar reduction a nonzero element;
@@ -571,6 +573,10 @@ def any_reduction_plan(spec: HashGridSpec, x01: torch.Tensor,
     elems, vals, by_level = [], [], []
     for li, lv in enumerate(spec.levels()):
         rows, w = any_corners(spec, lv, x01)
+        if g is not None:
+            _, f, df, _ = _level_corners(spec, lv, x01)
+            w = float(np.float32(lv.scale)) * (_weight_grads(f, df)
+                                               * g[None]).sum(-1)
         v = w[..., None] * dy[None, :, c * li:c * li + c]  # (2^D, N, C)
         pairs = int(live.sum()) * rows.shape[0]
         if shared_level(spec, lv):

@@ -41,16 +41,21 @@ With `--bwd_spread N`, the real kernels alone, N runs of each on every
 layout: the spread (min, median, max) of the table grads' error against
 float64, scaled, beside each layout's bar (`table_bar`).
 
-With `--any [variant ...]`, the general ENCODE and BWD of
+With `--any [variant ...]`, the general ENCODE, BWD and BWD2 of
 `csrc/hashgrid_any.cu` instead, beside copies with one level a block
 and each warp storing its own features (`no_stage`: no shared-memory
 staging of whole 32-B sectors), the grid ordered point tile outer and
 level group inner (`point_major`: the blocks in flight gather from every
-level), and each corner's row loaded alone (`no_pairs`: no 16-B load of
-an x-pair); on chip_smoke.py phase 23's five specs (uniform points,
-ENCODE on 2,097,152, BWD on 131,072 with both outputs): every build's
-ENCODE bit for bit with the real one, its BWD within 2e-3 of each
-output's scale (atomics); 10 calls a round, best of 3 rounds in turns.
+level), each corner's row loaded alone (`no_pairs`: no 16-B load of an
+x-pair), BWD2's d_dy stored by each lane a (point, level) (`no_stage2`:
+no shared-memory staging of a block's rows) and BWD2 with ptxas' own
+register target (`bwd2_occupancy`: launch bounds without a block count;
+it spills a few words in four instances);
+on chip_smoke.py phase 23's five specs (uniform points, ENCODE on
+2,097,152, BWD on 131,072 with both outputs, BWD2 with all three and
+with (d_table, d_dy)): every build's ENCODE bit for bit with the real
+one, its BWD and BWD2 within 2e-3 of each output's scale (atomics); 10
+calls a round, best of 3 rounds in turns.
 
 Inputs (`cases`, also chip_smoke.py phase 13's): the hash-grid model at
 full width (16 levels × 2, 2¹⁹ rows a level, bound 6; seeded weights with
@@ -512,7 +517,8 @@ def bwd_spread(reps: int) -> dict:
     return out
 
 
-ANY_ENTRIES = ("mnerf_hash_any_encode", "mnerf_hash_any_bwd")
+ANY_ENTRIES = ("mnerf_hash_any_encode", "mnerf_hash_any_bwd",
+               "mnerf_hash_any_bwd2")
 _ANY_GROUPS = ("  int G = 1;\n"
                "  while (2 * G <= gmax && 2 * G <= a.n_levels) G *= 2;\n")
 _ANY_ORDER = ("  const unsigned group = blockIdx.x / tiles;\n"
@@ -521,6 +527,11 @@ _ANY_PAIRS = ("  const bool pair = (a ^ b) == 1u;\n"
               "  const bool hi = a & 1u;\n"
               "  if constexpr (CV == 1) {\n"
               "    if ((a ^ b) - 1u < 3u && (vec & TABLE_16)) {\n")
+_ANY_STAGE2 = ("  const int stride =\n"
+               "      d_dy && BWD_TILE * (lc + 1) <= STAGE_FLOATS ? (int)lc + 1"
+               " : 0;\n")
+_ANY_BOUNDS2 = ("__global__ void __launch_bounds__(BWD_TILE, 1)\n"
+                "    bwd2_any_kernel(")
 ANY_PATCHES = {
     "no_stage": [(_ANY_GROUPS, "  int G = 1;\n  (void)gmax;\n")],
     "point_major": [(_ANY_ORDER,
@@ -530,31 +541,41 @@ ANY_PATCHES = {
                      "\n")],
     "no_pairs": [(_ANY_PAIRS, _ANY_PAIRS.replace(
         "(a ^ b) == 1u;", "false;").replace(
-        "if ((a ^ b) - 1u < 3u && (vec & TABLE_16))", "if (false)"))]}
+        "if ((a ^ b) - 1u < 3u && (vec & TABLE_16))", "if (false)"))],
+    "no_stage2": [(_ANY_STAGE2, "  const int stride = 0;\n  (void)lc;\n")],
+    "bwd2_occupancy": [(_ANY_BOUNDS2, _ANY_BOUNDS2.replace(
+        "(BWD_TILE, 1)", "(BWD_TILE)"))]}
 
 
 def _any_build(name: str) -> dict:
-    """A variant of the general ENCODE and BWD built into
-    build/kernels/diag/: entry -> ctypes function, typed as the
-    wrapper's."""
+    """A variant of the general ENCODE, BWD and BWD2 built into
+    build/kernels/diag/ (the functions ptxas reports spilling printed):
+    entry -> ctypes function, typed as the wrapper's."""
     import ctypes
 
     from ..ops import hashgrid
 
     src = (_build.CSRC / "hashgrid_any.cu").read_text()
     tag = "hash_any_" + name
-    fn, _ = exp_cp_diag.build(tag, {tag: ANY_PATCHES[name]}, ANY_ENTRIES[0],
-                              hashgrid._any_library, source=src)
+    fn, ptxas = exp_cp_diag.build(tag, {tag: ANY_PATCHES[name]},
+                                  ANY_ENTRIES[0], hashgrid._any_library,
+                                  source=src)
+    spills = [ln for ln in ptxas if "spill" in ln and not re.search(
+        r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+    print(f"{name}: ptxas reports {len(spills)} function(s) that spill"
+          + "".join(f"\n  {ln}" for ln in spills))
     lib = ctypes.CDLL(str(_build.BUILD_DIR / "diag" / f"{tag}.so"))
-    fn2 = getattr(lib, ANY_ENTRIES[1])
-    fn2.argtypes = hashgrid._any_library.entries[ANY_ENTRIES[1]]
-    fn2.restype = ctypes.c_int
-    return {ANY_ENTRIES[0]: fn, ANY_ENTRIES[1]: fn2}
+    out = {ANY_ENTRIES[0]: fn}
+    for entry in ANY_ENTRIES[1:]:
+        out[entry] = getattr(lib, entry)
+        out[entry].argtypes = hashgrid._any_library.entries[entry]
+        out[entry].restype = ctypes.c_int
+    return out
 
 
 def any_main(rounds: int, names=None) -> dict:
-    """The general ENCODE and BWD beside their variants on phase 23's five
-    specs: each build held to the real one, then timed in turns."""
+    """The general ENCODE, BWD and BWD2 beside their variants on phase 23's
+    five specs: each build held to the real one, then timed in turns."""
     from ..ops import hashgrid as hg
     from .exp_launch_ab import HASH_ANY_SPECS, hash_any_points, hash_any_spec
 
@@ -580,27 +601,35 @@ def any_main(rounds: int, names=None) -> dict:
                                       spec) * 1e4).cuda()
             x = hash_any_points(spec, 2_097_152, "uniform", 30 + si)
             xb = x[:131_072].contiguous()
-            dy = torch.randn((xb.shape[0], spec.output_dim),
-                             generator=torch.Generator(device="cuda")
-                             .manual_seed(50 + si), device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(50 + si)
+            dy = torch.randn((xb.shape[0], spec.output_dim), generator=gen,
+                             device="cuda")
+            g = torch.randn(xb.shape, generator=gen, device="cuda")
             enc = hg.encode_forward(table, x, spec)
-            bwd = hg.encode_backward(table, xb, dy, spec)
+            grads = {
+                "BWD": lambda xb=xb, dy=dy, table=table, spec=spec:
+                    hg.encode_backward(table, xb, dy, spec),
+                "BWD2": lambda xb=xb, dy=dy, g=g, table=table, spec=spec:
+                    hg.encode_backward2(table, xb, dy, g, spec),
+                "BWD2 (d_table, d_dy)":
+                    lambda xb=xb, dy=dy, g=g, table=table, spec=spec:
+                    hg.encode_backward2(table, xb, dy, g, spec,
+                                        need_dx=False)[:2]}
+            want = {k: fn() for k, fn in grads.items()}
             for name in fns:
                 got = swapped(name, lambda: hg.encode_forward(table, x, spec))
                 assert torch.equal(got, enc), (name, spec_name)
                 del got
-                for a, b in zip(swapped(name, lambda: hg.encode_backward(
-                        table, xb, dy, spec)), bwd):
-                    err = _scaled(a, b)
-                    assert err <= 2e-3, (name, spec_name, err)
-                    worst[name] = max(worst[name], err)
-            del enc, bwd
+                for k, fn in grads.items():
+                    for a, b in zip(swapped(name, fn), want[k]):
+                        err = _scaled(a, b)
+                        assert err <= 2e-3, (name, spec_name, k, err)
+                        worst[name] = max(worst[name], err)
+            del enc, want
             calls[f"{spec_name}: ENCODE"] = (
                 lambda x=x, table=table, spec=spec:
                 hg.encode_forward(table, x, spec))
-            calls[f"{spec_name}: BWD"] = (
-                lambda xb=xb, dy=dy, table=table, spec=spec:
-                hg.encode_backward(table, xb, dy, spec))
+            calls.update((f"{spec_name}: {k}", fn) for k, fn in grads.items())
         res = {name: {} for name in fns}
         for rnd in range(rounds):
             order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
@@ -609,13 +638,13 @@ def any_main(rounds: int, names=None) -> dict:
                     ms = swapped(name, lambda c=call: _ms(c, 10))
                     res[name][case] = min(res[name].get(case, 1e9), ms)
     print(f"device: {torch.cuda.get_device_name(0)}; general ENCODE / BWD "
-          f"ms per call, best of {rounds} rounds in turns; ENCODE bit for "
-          "bit with the real build, BWD's largest difference from it "
-          "(scaled to each output's largest entry)")
+          f"/ BWD2 ms per call, best of {rounds} rounds in turns; ENCODE bit "
+          "for bit with the real build, BWD's and BWD2's largest difference "
+          "from it (scaled to each output's largest entry)")
     for name in fns:
         print(f"{name:12s} " + ", ".join(
             f"{case} {ms:.4f}" for case, ms in res[name].items())
-            + f" (BWD differs by {worst[name]:.2e})")
+            + f" (BWD, BWD2 differ by {worst[name]:.2e})")
     return {"ms": res, "max_diff": worst}
 
 
@@ -634,8 +663,8 @@ def main(argv=None) -> dict:
                     help="N runs of BWD and BWD2 on each layout: the "
                          "table grads' error spread")
     ap.add_argument("--any", nargs="*", choices=list(ANY_PATCHES),
-                    help="the general ENCODE's and BWD's variants (all "
-                         "without names) instead of the fused kernel's")
+                    help="the general ENCODE's, BWD's and BWD2's variants "
+                         "(all without names) instead of the fused kernel's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on a card")

@@ -63,7 +63,8 @@ same (row, value) pairs into a zeroed table (20 calls a round, best of 5);
 each tree's outputs are held to the plain versions first (the table grads
 against float64, the rest against fp32, within phase 16's 1e-5 of scale).
 With `--groups hash_any`: the general ENCODE, BWD (both outputs) and BWD2
-(all outputs) of `csrc/hashgrid_any.cu` on chip_smoke.py phase 23's five
+(all outputs, and d_table with d_dy alone, the training path's call:
+`any_bwd2td_*`) of `csrc/hashgrid_any.cu` on chip_smoke.py phase 23's five
 specs (`HASH_ANY_SPECS`, ×1e4 tables), on uniform points (~2 % outside)
 and ray-ordered ones (`hash_any_points`): ENCODE on 2,097,152 points
 (16384 segments × 128), BWD and BWD2 on 131,072 (1024 × 128); 10 calls a
@@ -560,7 +561,10 @@ def _hash_any_groups(other: dict) -> dict:
                      m.encode_backward(table, xb, dy, spec)),
                     ("bwd2", lambda m, xb=xb, dy=dy, g=g, spec=spec,
                      table=table: m.encode_backward2(table, xb, dy, g,
-                                                     spec))):
+                                                     spec)),
+                    ("bwd2td", lambda m, xb=xb, dy=dy, g=g, spec=spec,
+                     table=table: m.encode_backward2(
+                         table, xb, dy, g, spec, need_dx=False)[:2])):
                 scale = [float(v.abs().max()) for v in fn(hashgrid)]
 
                 def flat(res, scale=scale):

@@ -1,5 +1,5 @@
-"""The general hash-grid kernels' arithmetic (csrc/hashgrid_any.cu ENCODE and
-BWD), emulated in plain PyTorch on the CPU:
+"""The general hash-grid kernels' arithmetic (csrc/hashgrid_any.cu ENCODE,
+BWD and BWD2), emulated in plain PyTorch on the CPU:
 
   * the corners built by trees over the axes (`ops/hashgrid.py
     any_corners`): rows by xor or add of per-axis terms and the level's
@@ -11,8 +11,12 @@ BWD), emulated in plain PyTorch on the CPU:
     outside (x = 1 with align_corners on an integer scale among them);
   * BWD's reverse walk of the two trees (`Walk::bwd`: a node's adjoint and
     the per-axis sums gf) in float64 against the plain version's dx;
-  * BWD's reduction plan (`any_reduction_plan`: runs, x-pair merges,
-    shared-memory levels) against `index_add_` of every pair.
+  * BWD2's walk (`walk2`, `Walk2`: the trees carrying the tangent along g,
+    the reverse of both for d_x, the top axes' chain) in float64 against
+    the plain version's d_table, d_dy and d_x (JAX's grad-of-grad:
+    tests/test_torch_port_spec_range.py);
+  * BWD's and BWD2's reduction plan (`any_reduction_plan`: runs, x-pair
+    merges, shared-memory levels) against `index_add_` of every pair.
 
 The kernels themselves run on a card (tests/test_torch_port_spec_range.py
 `-m gpu`, chip_smoke.py phase 23)."""
@@ -264,6 +268,174 @@ def test_reduction_plan_sums_every_pair(name, layout):
         assert sent < pairs
     assert [b["shared"] for b in by_level] == [
         thg.shared_level(spec, lv) for lv in spec.levels()]
+
+
+@pytest.mark.parametrize("layout", ["uniform", "ray-ordered"])
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_bwd2_reduction_plan_sums_every_pair(name, layout):
+    """`index_add_` of BWD2's plan (the values u_c = s ∇w_c·g) equals the
+    plain BWD2's table grads within 1e-6 of scale; runs merge on
+    ray-ordered points."""
+    spec = thg.HashGridSpec(**SMALL[name])
+    d = spec.input_dim
+    x = (_edge_points(d, 300, seed=17) if layout == "uniform"
+         else _segments(d, 4, 80, seed=17))
+    rng = np.random.default_rng(18)
+    dy = torch.from_numpy(rng.standard_normal(
+        (x.shape[0], spec.output_dim)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    table = torch.zeros((spec.table_rows, spec.level_dim))
+    el, val, by_level = thg.any_reduction_plan(spec, x, dy, g)
+    got = torch.zeros(table.numel()).index_add_(0, el, val)
+    want, _, _ = thg.encode_backward2_reference(table, x, dy, g, spec,
+                                                need_ddy=False,
+                                                need_dx=False)
+    want = want.reshape(-1)
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert float((got - want).abs().max()) <= 1e-6 * scale, name
+    if layout == "ray-ordered":
+        assert sum(b["reductions"] for b in by_level) < sum(
+            b["pairs"] for b in by_level)
+
+
+# the unrolled axes below the walks' loop over the top axes
+# (csrc/hashgrid_any.cu WALK_AXES)
+WALK_AXES = 3
+# the SMALL specs and smoothstep with mixed terms: 3-d (no top axes) and
+# 5-d with align_corners (one top axis)
+BWD2_WALK = dict(SMALL, d3_smooth_c2=dict(
+    input_dim=3, level_dim=2, num_levels=3, base_resolution=4,
+    log2_hashmap_size=9, interpolation="smoothstep"), d5_smooth_align_c2=dict(
+    input_dim=5, level_dim=2, num_levels=2, base_resolution=3,
+    log2_hashmap_size=10, interpolation="smoothstep", align_corners=True))
+
+
+def walk_bwd2(spec, table, x, dy, g):
+    """BWD2 by the kernel's walk (`walk2`, `Walk2`), in float64: per level
+    τ_d = g_d S'_d; the two trees over the axes (bit 0 clear and set) carry
+    (w, v), a child along axis d with branch b taking w·f_b and v·f_b +
+    w·τ_b (τ_1 = τ, τ_0 = −τ); the top axes (above the last WALK_AXES) a
+    loop over their paths, each path's prefix kept per axis. A leaf adds
+    u_c·dy_l (u_c = s·v_c) to d_table and u_c·T_c to d_dy, and returns its
+    dots ⟨T_c, dy_l⟩ as the adjoints of its v (of its w: 0). A node adds
+    to gf[d] w·(adj_w1 − adj_w0) + v·(adj_v1 − adj_v0) and to ga[d]
+    w·(adj_v1 − adj_v0) and passes up (f_0 adj_w0 + f_1 adj_w1 + τ (adj_v1
+    − adj_v0), f_0 adj_v0 + f_1 adj_v1); a path's chain likewise, axis by
+    axis, with the root's (w, v) = (1, 0) at axis 0. d_x_d = Σ_l s² (S'_d
+    gf[d] + g_d S''_d ga[d]). Returns (d_table, d_dy, d_x), zero outside
+    the box."""
+    d_in, c = spec.input_dim, spec.level_dim
+    smooth = spec.interpolation == "smoothstep"
+    live = thg._in_cube(x)
+    top = max(d_in - 1 - WALK_AXES, 0)
+    gd = torch.where(live[:, None], g.double(), 0.0)
+    d_table = torch.zeros(table.shape, dtype=torch.float64)
+    d_dy = torch.zeros(dy.shape, dtype=torch.float64)
+    d_x = torch.zeros(x.shape, dtype=torch.float64)
+    for li, lv in enumerate(spec.levels()):
+        rows, _ = thg.any_corners(spec, lv, x)
+        rows = torch.where(live[None], rows, lv.offset)
+        _, t = thg._grid_pos(x, lv.scale, 0.0 if spec.align_corners else 0.5)
+        t = t.double()
+        if smooth:
+            s, s1, s2 = (t * t) * (3 - 2 * t), 6 * t * (1 - t), 6 - 12 * t
+        else:
+            s, s1, s2 = t, torch.ones_like(t), torch.zeros_like(t)
+        f, tau = (1 - s, s), gd * s1
+        scale = float(np.float32(lv.scale))
+        dyl = dy.double()[:, c * li:c * li + c]
+        rows_t = table.double()[rows]  # (2^D, N, C)
+        dot = (rows_t * dyl[None]).sum(-1)
+        zero = torch.zeros_like(t[:, 0])
+        gf, ga = [zero] * d_in, [zero] * d_in
+        acc = torch.zeros_like(dyl)
+
+        def leaf(v, corner):
+            nonlocal acc
+            u = scale * v
+            d_table.index_add_(0, rows[corner], u[:, None] * dyl)
+            acc = acc + u[:, None] * rows_t[corner]
+            return zero, dot[corner]
+
+        def node(depth, w, v, corner):
+            """(w, v) of both halves → the adjoints of each."""
+            if depth == d_in:
+                (wa, aa), (wb, ab) = leaf(v[0], corner), leaf(v[1], corner + 1)
+                return (wa, wb), (aa, ab)
+            kids = []
+            for b in (0, 1):
+                fb = f[b][:, depth]
+                tb = tau[:, depth] if b else -tau[:, depth]
+                kids.append(node(depth + 1, [wh * fb for wh in w],
+                                 [vh * fb + wh * tb for wh, vh in zip(w, v)],
+                                 corner + (b << depth)))
+            (aw0, av0), (aw1, av1) = kids
+            for h in (0, 1):
+                gf[depth] = gf[depth] + w[h] * (aw1[h] - aw0[h]) + v[h] * (
+                    av1[h] - av0[h])
+                ga[depth] = ga[depth] + w[h] * (av1[h] - av0[h])
+            f0, f1, tt = f[0][:, depth], f[1][:, depth], tau[:, depth]
+            return ([f0 * aw0[h] + f1 * aw1[h] + tt * (av1[h] - av0[h])
+                     for h in (0, 1)],
+                    [f0 * av0[h] + f1 * av1[h] for h in (0, 1)])
+
+        for j in range(2 ** top):
+            w = [[f[0][:, 0], f[1][:, 0]]]
+            v = [[-tau[:, 0], tau[:, 0]]]
+            bits, corner = [None], 0
+            for d in range(1, top + 1):
+                b = (j >> (d - 1)) & 1
+                fb, tb = f[b][:, d], tau[:, d] if b else -tau[:, d]
+                w.append([wh * fb for wh in w[-1]])
+                v.append([vh * fb + wh * tb for wh, vh in zip(w[-2], v[-1])])
+                bits.append(b)
+                corner += b << d
+            aw, av = node(top + 1, w[top], v[top], corner)
+            for d in range(top, 0, -1):
+                sign = 1.0 if bits[d] else -1.0
+                fb = f[bits[d]][:, d]
+                tb = sign * tau[:, d]
+                for h in (0, 1):
+                    gf[d] = gf[d] + sign * (aw[h] * w[d - 1][h]
+                                            + av[h] * v[d - 1][h])
+                    ga[d] = ga[d] + sign * av[h] * w[d - 1][h]
+                aw = [aw[h] * fb + av[h] * tb for h in (0, 1)]
+                av = [av[h] * fb for h in (0, 1)]
+            gf[0] = gf[0] + aw[1] - aw[0]
+            ga[0] = ga[0] + av[1] - av[0]
+        d_dy[:, c * li:c * li + c] = acc
+        for d in range(d_in):
+            d_x[:, d] += scale * scale * (s1[:, d] * gf[d]
+                                          + gd[:, d] * s2[:, d] * ga[d])
+    zero_out = torch.zeros((), dtype=torch.float64)
+    return (d_table, torch.where(live[:, None], d_dy, zero_out),
+            torch.where(live[:, None], d_x, zero_out))
+
+
+@pytest.mark.parametrize("name", sorted(BWD2_WALK))
+def test_bwd2_walk_matches_plain(name):
+    """BWD2's walk (float64) against the plain version's d_table, d_dy and
+    d_x (fp32 corner products, pairwise sums): within 1e-6 of each one's
+    scale."""
+    spec = thg.HashGridSpec(**BWD2_WALK[name])
+    rng = np.random.default_rng(19)
+    x = _edge_points(spec.input_dim, 120, seed=19)
+    table = torch.from_numpy(rng.uniform(-1, 1, (spec.table_rows,
+                                                 spec.level_dim))
+                             .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal(
+        (x.shape[0], spec.output_dim)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    got = walk_bwd2(spec, table, x, dy, g)
+    want = thg.encode_backward2_reference(table.double(), x.double(),
+                                          dy.double(), g.double(), spec)
+    for what, a, b in zip(("d_table", "d_dy", "d_x"), got, want):
+        scale = float(b.abs().max())
+        assert scale > 0.1, (name, what)
+        assert float((a - b).abs().max()) <= 1e-6 * scale, (name, what)
+    out = ~thg._in_cube(x)
+    assert out.any() and bool((got[2][out] == 0).all())
 
 
 def test_reduction_plan_merges_x_pairs_and_shares_coarse_levels():

@@ -13,8 +13,9 @@
     plain ENCODE, BWD and BWD2 against JAX's `hashgrid_encode`, its
     `jax.grad` and the grad of a gradient, through the mode functions and
     through the `hashgrid_encode` autograd graph; smoothstep's diagonal
-    Hessian term alone (1-d); and the general kernels' prefix/suffix
-    arithmetic for BWD2 emulated in PyTorch.
+    Hessian term alone (1-d); and the general kernel's BWD2 walk (the
+    trees with the tangent along g, their reverse) emulated in float64
+    (`test_torch_port_hash_any_plan.walk_bwd2`) against JAX.
 
 On a card, the CUDA kernels against their plain versions (marked `gpu`)."""
 
@@ -40,6 +41,7 @@ from mirror_nerf_tpu_torch.ops.fused_mlp_t import mlp_rays_composite_reference
 from mirror_nerf_tpu_torch.ops import hashgrid as thg
 from mirror_nerf_tpu_torch.render.renderer import RenderSettings, render_rays
 from mirror_nerf_tpu_torch.train.checkpoints import params_from_numpy
+from test_torch_port_hash_any_plan import walk_bwd2
 
 # the rows path against the fp32 JAX field modules: summation order over
 # up to 6 layers of width 384, scaled by the magnitude above 1
@@ -440,55 +442,20 @@ def test_smoothstep_diagonal_term_alone():
     assert float(q_x.abs().max()) == 0.0
 
 
-def _emulate_bwd2(spec, table, x, dy, g):
-    """csrc/hashgrid_any.cu's BWD2 arithmetic in float64, corner by corner:
-    a_d = g_d ∂f_d/∂t_d, prefix and suffix pairs P' = P·f, R' = R·f + a·P;
-    u = s·R_D, d_x_d += s²·dot·(∂f_d·(R_pre P_suf + P_pre R_suf) + g_d
-    ∂²f_d·P_pre P_suf). Returns (u per level (2^D, N), d_x)."""
-    dims = spec.input_dim
-    c = spec.level_dim
-    inb = thg._in_cube(x)
-    d_x = torch.zeros(x.shape, dtype=torch.float64)
-    us = []
-    for li, lv in enumerate(spec.levels()):
-        s = float(np.float32(lv.scale))
-        rows, f, df, ddf = (a.double() if a.is_floating_point() else a
-                            for a in thg._level_corners(spec, lv, x))
-        v = table.double()[rows]
-        dot = (v * dy.double()[None, :, c * li:c * li + c]).sum(-1)
-        a = g.double()[None] * df
-        n_c = f.shape[0]
-        one = torch.ones(f.shape[:2], dtype=torch.float64)
-        pp, pr, sp, sr = [one], [0 * one], [one] * (dims + 1), \
-            [0 * one] * (dims + 1)
-        for d in range(dims):
-            pp.append(pp[d] * f[..., d])
-            pr.append(pr[d] * f[..., d] + a[..., d] * pp[d])
-        for d in range(dims - 1, -1, -1):
-            sp[d] = f[..., d] * sp[d + 1]
-            sr[d] = sr[d + 1] * f[..., d] + a[..., d] * sp[d + 1]
-        us.append(s * pr[dims])
-        for d in range(dims):
-            h = df[..., d] * (pr[d] * sp[d + 1] + pp[d] * sr[d + 1])
-            h = h + g.double()[None, :, d] * ddf[..., d] * pp[d] * sp[d + 1]
-            d_x[:, d] += s * s * (h * dot).sum(0)
-        assert len(us[-1]) == n_c
-    return us, torch.where(inb[:, None], d_x, torch.zeros((),
-                                                          dtype=d_x.dtype))
-
-
-@pytest.mark.parametrize("spec", ["d1_c4_smooth", "d3_smooth", "d7_c1",
-                                  "d2_smooth_align_c1"])
-def test_general_bwd2_arithmetic(spec):
-    """The general kernel's prefix/suffix form of BWD2's d_x (emulated in
-    float64) against the plain version's pairwise sums (its corner
-    products in fp32: 1e-6 of scale)."""
-    _, ts, table, x, dy, g = _hash_case(SPECS[spec], 100, seed=13)
-    tt, xt, dyt, gt_ = _t(table, x, dy, g)
-    _, want = _emulate_bwd2(ts, tt, xt, dyt, gt_)
-    _, _, got = thg.encode_backward2_reference(
-        tt.double(), xt.double(), dyt.double(), gt_.double(), ts)
-    _rel(want, got, 1e-6, "prefix/suffix d_x")
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_bwd2_walk_matches_jax(spec):
+    """The general kernel's BWD2 walk (the trees carrying the tangent along
+    g and their reverse, emulated in float64: `walk_bwd2`) against JAX's
+    grad of ⟨dx, g⟩ with respect to the table, dy and x, at 1e-4 of each
+    one's scale; zero outside the box."""
+    (ts, table, x, dy, g), (_, _, _, (gt, gx, gdy)) = _jax_case(spec)
+    q_table, q_dy, q_x = walk_bwd2(ts, *_t(table, x, dy, g))
+    _rel(q_table, gt, GRAD_REL, "walk d_table")
+    _rel(q_dy, gdy, GRAD_REL, "walk d_dy")
+    _rel(q_x, gx, GRAD_REL, "walk d_x")
+    out = ~thg._in_cube(torch.from_numpy(x))
+    assert out.any() and bool((q_x[out] == 0).all())
+    assert bool((q_dy[out] == 0).all())
 
 
 def test_spec_outside_the_range_refuses():
@@ -565,3 +532,39 @@ def test_cuda_general_hash_unaligned_table(spec):
         _rel(got.cpu(), want.cpu(), 1e-3, "bwd")
     assert (thg.launches_general_encode,
             thg.launches_general_bwd) == tuple(k + 1 for k in n0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", ["uniform", "ray-ordered"])
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_cuda_general_hash_bwd2_outputs(spec, points):
+    """The general BWD2 asked for each set of outputs its callers ask for
+    ((d_table, d_dy) as the training path, d_x alone, d_dy alone, d_table
+    alone), on a 16-B aligned table and on one 4 B off: each output within
+    1e-3 of the plain version's scale, d_dy and d_x zero outside the box,
+    one launch a call."""
+    _needs_card()
+    _, ts, *arrays = _hash_case(SPECS[spec], 3001, seed=21)
+    if points == "ray-ordered":
+        arrays[1] = _ray_ordered(arrays[1], 128, seed=22)
+    tt, xt, dyt, gt_ = (a.cuda() for a in _t(*arrays))
+    buf = torch.empty(tt.numel() + 4, device="cuda")
+    odd = buf[1:1 + tt.numel()].view(tt.shape)
+    odd.copy_(tt)
+    out = ~thg._in_cube(xt)
+    assert out.any() or points == "ray-ordered"
+    for table in (tt, odd):
+        for need in ((True, True, False), (False, False, True),
+                     (False, True, False), (True, False, False)):
+            n0 = thg.launches_general_bwd2
+            got = thg.encode_backward2(table, xt, dyt, gt_, ts, *need)
+            assert thg.launches_general_bwd2 == n0 + 1
+            want = thg.encode_backward2_reference(tt, xt, dyt, gt_, ts,
+                                                  *need)
+            for a, b, asked in zip(got, want, need):
+                assert (a is None) == (not asked)
+                if a is not None:
+                    _rel(a.cpu(), b.cpu(), 1e-3, f"bwd2 {need}")
+            for a in got[1:]:
+                if a is not None:
+                    assert bool((a[out] == 0).all()), need
