@@ -1,0 +1,18 @@
+"""The flagship's composite kernel (csrc/fused_mlp_t.cu) against its roof,
+in %: the field work the traced views need over the kernel's summed device
+time."""
+
+from benchmark import roof
+from benchmark.trace import kernel_seconds
+
+KERNELS = ("mlp_field_kernel",)
+
+
+def read(obs):
+    if obs.get("kind") != "views" or not obs.get("trace"):
+        return None
+    secs = kernel_seconds(obs["trace"], KERNELS)
+    if secs <= 0:
+        return None
+    flop, nbytes = obs["traced_work"]
+    return roof.share_percent(flop, nbytes, secs)
